@@ -6,23 +6,40 @@ Run from the repository root:
 
 Phases, each of which makes the script exit non-zero when it fails:
 
-1. build: compile every kernel under ``moc_tpu_torch/ops/csrc`` with nvcc;
-2. kernel parity: K1 (exact top-k membership) bit-equal to its plain PyTorch
-   version on the card, row and column entries, on random, tie-heavy, ±0.0
-   and NEG_INF-padded keys with k above the valid count, N in
+1. build: compile every kernel under ``moc_tpu_torch/ops/csrc`` with nvcc,
+   one process per source, all started together;
+2. K1 parity: exact top-k membership bit-equal to its plain PyTorch version
+   on the card, row and column entries, on random, tie-heavy, ±0.0 and
+   NEG_INF-padded keys with k above the valid count, N in
    {1000, 16384, 131072} and k in {1, 10, 400, N};
-3. serving: synthetic ``.pt`` bags at the reference operating point (D=512,
+3. K2 parity: the flash-attention forward against ``mha_reference`` on the
+   card (O and lse), f32 within 2e-5 and bf16 within 2e-2, over D 64/128,
+   L 785 (ragged) and 1024, causal and not, segment ids with rows that match
+   no key (non-causal) or packed sequences (causal), and the
+   ``flash_attention_padded`` ``padding_mask`` path;
+4. serving: synthetic ``.pt`` bags at the reference operating point (D=512,
    C=2, C_ext=6, topj=400, topk=10, batch 8, the 16384 bucket) drained
    through ``cli.serve.watch_once`` by a ``Server`` on ``cuda``: every slide
    gets a row with finite probabilities summing to 1, K1 launches once per
    batch on each entry, the pooled logits match the same server on the CPU
    (rtol 1e-4, atol 1e-5: cuBLAS and the CPU sum the 512-wide products in
    another order), and the GPU's selection and pooling masks are bit-equal to
-   the plain version fed the GPU's own logits;
-4. times: K1 per launch at both serving shapes against its plain version and
-   a library call (``torch.topk`` plus a scatter into a mask), with CUDA
-   events (median of 100 after warm-up), the batch-8 forward latency, and a
-   ``torch.profiler`` breakdown of that forward by kernel.
+   the plain version fed the GPU's own logits; then K1's times against its
+   plain version and ``torch.topk`` plus a scatter, the batch-8 forward
+   latency and a ``torch.profiler`` breakdown of it;
+5. extraction: a release-layout CONCH checkpoint fabricated at full width
+   from a seed, two raw-pixel ``.npz`` patch bags of 256 px patches (600 and
+   424 patches) through ``cli.extract_features.main --flash --batch_size 64
+   --out_format pt`` on ``cuda``: both bags of unit-norm 512-d rows, K2
+   launched 12 x 17 times, the dense path on the card and the CPU agreeing
+   within 1e-4; the same run with ``--bf16`` (K2 in bf16, 204 launches);
+6. end to end: the extracted bags served by ``watch_once`` (nsclc, seeded
+   SENet, synthetic D=512 weights) to finite probability rows, K1 launched;
+7. times: K2 at [64, 12, 785, 64] in f32 and bf16, first held against
+   ``mha_reference`` on the same tensors (O and lse, the tolerances of 3),
+   then per launch against its bound, its plain version and
+   ``scaled_dot_product_attention`` (timed only), the batch-64 ``encode_image`` forward in four tiers (f32/bf16,
+   dense/flash), and a ``torch.profiler`` breakdown of the f32 flash forward.
 
 The last lines are the card's name and power limit, one JSON object of
 kernel records, and ``{"ok": true, "device": {...}}``. No phase falls back
@@ -32,6 +49,7 @@ to the CPU: without a GPU, or without the port beside it, the script fails.
 from __future__ import annotations
 
 import csv
+import importlib.util
 import json
 import math
 import os
@@ -51,8 +69,17 @@ N_SLIDES = 16  # two batches
 MIN_PATCHES, MAX_PATCHES = 12000, 16384
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 ROWS_SOURCE = "moc_tpu_torch/ops/csrc/topk_threshold.cu"
 REPLACES = "moc_tpu/ops/topk_kernel.py:50"
+K2_SOURCE = "moc_tpu_torch/ops/csrc/flash_fwd.cu"
+K2_REPLACES = "moc_tpu/ops/flash_attention.py:68"
+K2_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # the JAX package's flash tolerances
+# extraction: CONCH ViT-B/16 at 448 px (785 tokens, 12 layers, 12 heads of 64)
+# over 256 px patches, CLAM's usual size, at the JAX CLI's batch 64
+PATCH_PX, EXTRACT_BATCH, SLIDE_PATCHES = 256, 64, (600, 424)
+TRUNK_LAYERS, TOKENS, HEADS, HEAD_DIM = 12, 785, 12, 64
+EXTRACT_BATCHES = sum(math.ceil(n / EXTRACT_BATCH) for n in SLIDE_PATCHES)  # 10 + 7
 
 
 def log(msg: str) -> None:
@@ -123,6 +150,79 @@ def phase_parity() -> dict:
     return err
 
 
+def _flash_inputs(b, h, length, d, dtype, segments, causal, gen):
+    q, k, v = (torch.randn((b, h, length, d), generator=gen, device="cuda").to(dtype)
+               for _ in range(3))
+    if not segments:
+        return q, k, v, None, None
+    if causal:  # packed sequences: every row sees at least itself
+        cuts = torch.sort(torch.randint(0, length, (b, 3), generator=gen, device="cuda")).values
+        seg = (torch.arange(length, device="cuda")[None, None] >= cuts[:, :, None]).sum(1)
+        return q, k, v, seg.int(), seg.int()
+    kv_seg = torch.randint(0, 3, (b, length), generator=gen, device="cuda", dtype=torch.int32)
+    q_seg = kv_seg.clone()
+    q_seg[0, :16] = 9  # no key is in segment 9: rows masked everywhere
+    return q, k, v, q_seg, kv_seg
+
+
+def phase_flash_parity() -> dict:
+    """K2 against its plain version on the card; returns, per dtype, the
+    largest |kernel - plain| over O and over lse."""
+    from moc_tpu_torch.ops.flash_attention import flash_attention_padded, mha_reference
+    from moc_tpu_torch.ops.flash_kernel import flash_fwd_cuda
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    err = {dt: {"o": 0.0, "lse": 0.0} for dt in K2_TOL}
+    cases = 0
+    with torch.inference_mode():
+        for dtype, tol in K2_TOL.items():
+            for d in (64, 128):
+                for length in (785, 1024):
+                    for causal in (False, True):
+                        for segments in (False, True):
+                            q, k, v, qs, ks = _flash_inputs(2, 3, length, d, dtype, segments,
+                                                            causal, gen)
+                            before = flash_fwd_cuda.launches
+                            o, lse = flash_fwd_cuda(q, k, v, qs, ks, causal=causal)
+                            torch.cuda.synchronize()
+                            check(flash_fwd_cuda.launches == before + 1, "K2 launch not counted")
+                            ro, rlse = mha_reference(q, k, v, q_segment_ids=qs,
+                                                     kv_segment_ids=ks, causal=causal)
+                            eo = (o.float() - ro.float()).abs().max().item()
+                            el = (lse - rlse).abs().max().item()
+                            err[dtype]["o"] = max(err[dtype]["o"], eo)
+                            err[dtype]["lse"] = max(err[dtype]["lse"], el)
+                            what = (f"{dtype} D={d} L={length} causal={causal} "
+                                    f"segments={segments}")
+                            check(o.dtype == dtype and lse.dtype == torch.float32,
+                                  f"K2 output types {o.dtype}, {lse.dtype}: {what}")
+                            check(torch.allclose(o.float(), ro.float(), rtol=tol, atol=tol),
+                                  f"K2 O differs from the plain version by {eo}: {what}")
+                            check(torch.allclose(lse, rlse, rtol=tol, atol=tol),
+                                  f"K2 lse differs from the plain version by {el}: {what}")
+                            cases += 1
+            # the padding_mask path of the wrapper the vision trunk calls
+            q, k, v, _, _ = _flash_inputs(2, 3, 785, 64, dtype, False, False, gen)
+            mask = torch.rand((2, 785), generator=gen, device="cuda") < 0.2
+            seg = (~mask).int()
+            before = flash_fwd_cuda.launches
+            o = flash_attention_padded(q, k, v, padding_mask=mask)
+            torch.cuda.synchronize()
+            check(flash_fwd_cuda.launches == before + 1, "flash_attention_padded did not launch K2")
+            ro, _ = mha_reference(q, k, v, q_segment_ids=seg, kv_segment_ids=seg)
+            eo = (o.float() - ro.float()).abs().max().item()
+            err[dtype]["o"] = max(err[dtype]["o"], eo)
+            check(torch.allclose(o.float(), ro.float(), rtol=tol, atol=tol),
+                  f"flash_attention_padded differs from the plain version by {eo} ({dtype})")
+            cases += 1
+    for dtype, e in err.items():
+        log(f"[parity] K2 {dtype}: max |O - plain| {e['o']:.3e}, max |lse - plain| "
+            f"{e['lse']:.3e} (tolerance {K2_TOL[dtype]})")
+    log(f"[parity] K2 matches its plain version on {cases} cases (f32/bf16, D 64/128, "
+        "L 785/1024, causal or not, segments with rows masked everywhere, padding_mask)")
+    return err
+
+
 def write_corpus(root: str) -> list[str]:
     """Synthetic ``.pt`` bags, oracle weight matrices and a seeded SENet."""
     from moc_tpu_torch.data.synthetic import SyntheticWSIConfig, sample_bag, zero_shot_weights
@@ -146,7 +246,7 @@ def write_corpus(root: str) -> list[str]:
     return ids
 
 
-def server_args(root: str, device: str):
+def server_args(root: str, device: str, watch_dir: str | None = None):
     from moc_tpu_torch.cli import serve
 
     return serve.get_args(["--dataset", "nsclc", "--model", os.path.join(root, "senet.pt"),
@@ -154,7 +254,7 @@ def server_args(root: str, device: str):
                            "--weights_ext_npz", os.path.join(root, "we.npz"),
                            "--topj", str(TOPJ), "--topk", str(TOPK),
                            "--batch_size", str(BATCH), "--device", device,
-                           "--watch_dir", os.path.join(root, "bags"), "--once"])
+                           "--watch_dir", watch_dir or os.path.join(root, "bags"), "--once"])
 
 
 def phase_serve(root: str, ids: list[str]) -> dict:
@@ -342,6 +442,196 @@ def phase_profile(forward, steps: int = 5) -> None:
             f"{e.key[:90]}")
 
 
+def write_patch_corpus(root: str) -> tuple[str, str, list[str]]:
+    """A full-width release-layout CONCH checkpoint from seed 0 and the two
+    raw-pixel ``.npz`` patch bags; returns (checkpoint, patch dir, bag paths)."""
+    from moc_tpu_torch.zeroshot.convert import random_conch_state_dict
+
+    t0 = time.perf_counter()
+    ckpt = os.path.join(root, "conch.bin")
+    sd = random_conch_state_dict(seed=0)
+    torch.save({"state_dict": {f"module.{k}": v for k, v in sd.items()}}, ckpt)
+    patch_dir = os.path.join(root, "patches")
+    os.makedirs(os.path.join(patch_dir, "h5_files"))
+    rng = np.random.default_rng(0)
+    paths = []
+    for i, n in enumerate(SLIDE_PATCHES):
+        paths.append(os.path.join(patch_dir, "h5_files", f"wsi_{i}.npz"))
+        np.savez(paths[-1], imgs=rng.integers(0, 256, (n, PATCH_PX, PATCH_PX, 3), np.uint8),
+                 coords=rng.integers(0, 100000, (n, 2)).astype(np.int32))
+    log(f"[extract] fabricated a {sum(v.numel() for v in sd.values()) / 1e6:.1f}M-parameter "
+        f"CONCH checkpoint and {len(paths)} patch bags in {time.perf_counter() - t0:.1f}s")
+    return ckpt, patch_dir, paths
+
+
+def run_extraction(ckpt: str, patch_dir: str, out_dir: str, bf16: bool) -> tuple[int, float]:
+    """``cli.extract_features.main`` with K2 on the card; returns (K2 launches
+    in the run, host wall seconds with reads, preprocessing and writes)."""
+    from moc_tpu_torch.cli import extract_features
+    from moc_tpu_torch.ops.flash_kernel import flash_fwd_cuda
+
+    argv = ["--patch_dir", patch_dir, "--out_dir", out_dir, "--checkpoint", ckpt,
+            "--backbone", "conch", "--flash", "--batch_size", str(EXTRACT_BATCH),
+            "--out_format", "pt", "--device", "cuda"] + (["--bf16"] if bf16 else [])
+    flash_fwd_cuda.launches = 0
+    t0 = time.perf_counter()
+    rc = extract_features.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = flash_fwd_cuda.launches
+    check(rc == 0, f"extract_features.main returned {rc}")
+    return launches, wall
+
+
+def phase_extract(ckpt: str, patch_dir: str, paths: list[str], out_dir: str) -> dict:
+    """The extraction path in f32 and bf16; the f32 bags against the dense
+    path on the card and against the CPU."""
+    from moc_tpu_torch.cli.extract_features import build_encoder
+    from moc_tpu_torch.data.bags import read_bag_pt
+    from moc_tpu_torch.data.patches import PatchBagReader
+
+    want_launches = TRUNK_LAYERS * EXTRACT_BATCHES
+    pil = importlib.util.find_spec("PIL") is not None
+    log(f"[extract] preprocessing resizes with {'PIL' if pil else 'the nearest-index fallback'}")
+    res = {}
+    for tier, bf16 in (("f32", False), ("bf16", True)):
+        out = out_dir if not bf16 else out_dir + "_bf16"
+        launches, wall = run_extraction(ckpt, patch_dir, out, bf16)
+        n_img = sum(SLIDE_PATCHES)
+        log(f"[extract] {tier} flash: {n_img} patches in {wall:.3f}s host wall "
+            f"({n_img / wall:.1f} images/s, checkpoint load and reads included); "
+            f"K2 launches {launches}")
+        check(launches == want_launches,
+              f"K2 launched {launches} times in the {tier} extraction, want {want_launches}")
+        feats = []
+        for i, n in enumerate(SLIDE_PATCHES):
+            f = read_bag_pt(os.path.join(out, "pt_files", f"wsi_{i}.pt")).features
+            check(f.shape == (n, 512), f"{tier} bag {i} has shape {f.shape}, want ({n}, 512)")
+            # bf16 embeddings are normalised in bf16 (8 bits of mantissa)
+            norm_err = np.abs(np.linalg.norm(f, axis=1) - 1).max()
+            check(bool(np.isfinite(f).all()) and norm_err < (1e-2 if bf16 else 1e-4),
+                  f"{tier} bag {i} is not finite and unit-norm (norm error {norm_err})")
+            feats.append(f)
+        res[tier] = {"launches": launches, "wall_s": wall, "images_per_s": n_img / wall,
+                     "feats": feats}
+    cos = min(float((a * b).sum(1).min()) for a, b in zip(res["f32"]["feats"],
+                                                            res["bf16"]["feats"]))
+    log(f"[extract] bf16 against f32 embeddings: least cosine {cos:.5f}")
+    check(cos > 0.98, f"bf16 embeddings drift from f32 (least cosine {cos})")
+
+    imgs = next(PatchBagReader(paths[0], image_size=448).batches(EXTRACT_BATCH))[0]
+    dense = build_encoder("conch", ckpt, 448, True, False, flash=False, device="cuda")(imgs)
+    e_dense = float(np.abs(dense - res["f32"]["feats"][0][:EXTRACT_BATCH]).max())
+    check(e_dense < 1e-4, f"flash and dense embeddings differ by {e_dense}")
+    cpu = build_encoder("conch", ckpt, 448, True, False, flash=True, device="cpu")(imgs[:2])
+    e_cpu = float(np.abs(cpu - res["f32"]["feats"][0][:2]).max())
+    check(e_cpu < 1e-4, f"GPU and CPU embeddings differ by {e_cpu}")
+    log(f"[extract] f32 flash embeddings against the dense path on the card ({EXTRACT_BATCH} "
+        f"images): max |diff| {e_dense:.3e}; against the CPU (2 images): {e_cpu:.3e} "
+        "(atol 1e-4)")
+    return res
+
+
+def phase_serve_extracted(root: str, out_dir: str) -> dict:
+    """The extracted bags drained through the serving daemon on the card."""
+    from moc_tpu_torch.cli import serve
+    from moc_tpu_torch.ops import topk_kernel
+
+    server = serve.Server(server_args(root, "cuda", watch_dir=out_dir))
+    out_csv = os.path.join(root, "served_extracted.csv")
+    rows_fn, cols_fn = (topk_kernel.topk_threshold_mask_cuda,
+                        topk_kernel.col_topk_threshold_mask_cuda)
+    rows_fn.launches = cols_fn.launches = 0
+    n = serve.watch_once(server, out_dir, out_csv, set())
+    torch.cuda.synchronize()
+    launches = {"rows": rows_fn.launches, "cols": cols_fn.launches}
+    check(n == len(SLIDE_PATCHES), f"watch_once scored {n} of the extracted slides")
+    check(launches["rows"] > 0 and launches["cols"] > 0, f"K1 launches {launches}")
+    with open(out_csv, newline="") as f:
+        lines = list(csv.DictReader(f))
+    check(sorted(r["slide_id"] for r in lines) == [f"wsi_{i}" for i in range(len(SLIDE_PATCHES))],
+          "an extracted slide is missing from the CSV")
+    probs = np.array([[float(r[f"prob_{c}"]) for c in range(N_CLASSES)] for r in lines])
+    check(bool(np.isfinite(probs).all()) and np.abs(probs.sum(1) - 1).max() < 1e-5,
+          "probabilities of the extracted slides are not finite or do not sum to 1")
+    log(f"[e2e] raw patches -> CONCH features -> MOC rows on the card: {n} slides, "
+        f"probabilities {probs.round(4).tolist()}, K1 launches {launches}")
+    return launches
+
+
+def phase_flash_times() -> dict:
+    """K2 at the extraction shape: its O and lse held against its plain
+    version on the same tensors, then its time per launch against its
+    bound, its plain version and one library call."""
+    import torch.nn.functional as F
+
+    from moc_tpu_torch.ops.flash_attention import mha_reference
+    from moc_tpu_torch.ops.flash_kernel import flash_fwd_cuda
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    shape = (EXTRACT_BATCH, HEADS, TOKENS, HEAD_DIM)
+    records = {}
+    with torch.inference_mode():
+        for dtype, name, peak in ((torch.float32, "f32", F32_OPS_PER_S),
+                                  (torch.bfloat16, "bf16", BF16_OPS_PER_S)):
+            q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                       for _ in range(3))
+            b, h, length, d = shape
+            o, lse = flash_fwd_cuda(q, k, v)
+            ro, rlse = mha_reference(q, k, v)
+            tol = K2_TOL[dtype]
+            err = {"o": (o.float() - ro.float()).abs().max().item(),
+                   "lse": (lse - rlse).abs().max().item()}
+            check(torch.allclose(o.float(), ro.float(), rtol=tol, atol=tol)
+                  and torch.allclose(lse, rlse, rtol=tol, atol=tol),
+                  f"K2 {name} at {list(shape)} differs from the plain version: {err}")
+            log(f"[parity] K2 {name} {list(shape)}: max |O - plain| {err['o']:.3e}, "
+                f"max |lse - plain| {err['lse']:.3e} (tolerance {tol})")
+            del o, lse, ro, rlse
+            # q, k, v read once and O written once, plus the f32 lse; two
+            # products of 2·L²·D operations per head
+            bytes_s = (4 * q.numel() * q.element_size() + b * h * length * 4) / HBM_BYTES_PER_S
+            ops_s = 4 * b * h * length * length * d / peak
+            rec = {"shape": list(shape), "max_abs_err": max(err.values()),
+                   "ms": _time_ms(lambda: flash_fwd_cuda(q, k, v)),
+                   "plain_ms": _time_ms(lambda: mha_reference(q, k, v), iters=20, warmup=3),
+                   "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+                   "bound_ms": max(bytes_s, ops_s) * 1e3,
+                   "bound_by": "bytes" if bytes_s >= ops_s else "operations"}
+            records[name] = rec
+            log(f"[times] K2 {name} {list(shape)}: kernel {rec['ms']:.4f} ms, plain "
+                f"{rec['plain_ms']:.4f} ms, scaled_dot_product_attention "
+                f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+                f"({rec['bound_by']}; {ops_s * peak / 1e9:.1f} GFLOP)")
+            del q, k, v
+    return records
+
+
+def phase_encode_tiers(ckpt: str) -> None:
+    """The batch-64 ``encode_image`` forward in four tiers, by CUDA events,
+    and a profile of the f32 flash forward."""
+    from moc_tpu_torch.zeroshot.convert import load_conch
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    images = torch.randn((EXTRACT_BATCH, 448, 448, 3), generator=gen, device="cuda")
+    for dtype, tier in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        for attn_impl in ("dense", "flash"):
+            model = load_conch(ckpt, attn_impl=attn_impl, device="cuda").to(dtype)
+            x = images.to(dtype)
+            with torch.inference_mode():
+                def forward():
+                    model.encode_image(x)
+
+                ms = _time_ms(forward, iters=10, warmup=2)
+                log(f"[times] encode_image batch {EXTRACT_BATCH} {tier} {attn_impl}: "
+                    f"{ms:.3f} ms by CUDA events (median of 10), "
+                    f"{EXTRACT_BATCH / ms * 1e3:.1f} images/s")
+                if tier == "f32" and attn_impl == "flash":
+                    phase_profile(forward, steps=3)
+            del model, x
+            torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py runs on a GPU only", file=sys.stderr)
@@ -350,15 +640,24 @@ def main() -> int:
 
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}")
+    t_start = time.perf_counter()
     phase_build()
     err = phase_parity()
+    k2_err = phase_flash_parity()
     with tempfile.TemporaryDirectory() as root:
         ids = write_corpus(root)
         state = phase_serve(root, ids)
         times = phase_times(state)
+        ckpt, patch_dir, paths = write_patch_corpus(root)
+        out_dir = os.path.join(root, "features")
+        extracted = phase_extract(ckpt, patch_dir, paths, out_dir)
+        phase_serve_extracted(root, out_dir)
+        k2_times = phase_flash_times()
+        phase_encode_tiers(ckpt)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip().splitlines()[0]
+    log(f"[done] chip_smoke.py wall {time.perf_counter() - t_start:.1f}s")
     log(smi)
     kernels = []
     for entry, name in (("rows", "topk_threshold_rows"), ("cols", "topk_threshold_cols")):
@@ -368,6 +667,14 @@ def main() -> int:
                         "max_abs_err": err[entry], "ms": t["ms"], "plain_ms": t["plain_ms"],
                         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                         "library_ms": t["library_ms"]})
+    for tier, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        t = k2_times[tier]
+        kernels.append({"name": f"flash_fwd_{tier}", "route": "cuda", "source": K2_SOURCE,
+                        "replaces": K2_REPLACES, "launches": extracted[tier]["launches"],
+                        "max_abs_err": max(*k2_err[dtype].values(), t["max_abs_err"]),
+                        "max_abs_err_main_shape": t["max_abs_err"], "ms": t["ms"],
+                        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                        "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

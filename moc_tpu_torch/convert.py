@@ -1,18 +1,22 @@
-"""Carry SENet weights across: flax params → torch module, and a flax-free
-``.npz`` file format for hosts without flax or msgpack.
+"""Carry weights across from the JAX package: flax params → torch modules
+(the SENet and the CONCH vision tower), and a flax-free ``.npz`` file format
+for SENet on hosts without flax or msgpack.
 
-flax ``Dense_i.kernel`` is ``[in, out]``; torch ``Linear.weight`` is
-``[out, in]``. The ``.npz`` keys are the torch state-dict keys.
+flax ``Dense.kernel`` is ``[in, out]``; torch ``Linear.weight`` is
+``[out, in]``. A flax ``Conv`` kernel is ``[kh, kw, in, out]``; torch's is
+``[out, in, kh, kw]``. The ``.npz`` keys are the torch state-dict keys.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Mapping
 
 import numpy as np
 import torch
 
 from moc_tpu_torch.models.senet import SENet
+from moc_tpu_torch.zeroshot.vision_tower import VisionConfig, VisionTower
 
 
 def senet_from_jax(params: Mapping) -> SENet:
@@ -49,5 +53,65 @@ def senet_from_state_dict(state: Mapping[str, torch.Tensor]) -> SENet:
     """``SENet`` sized from and holding ``state``."""
     hidden, in_dim = state["dense0.weight"].shape
     model = SENet(in_dim, hidden, state["dense1.weight"].shape[0])
+    model.load_state_dict(state)
+    return model
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+def _linear_from_jax(p: Mapping, name: str) -> dict[str, torch.Tensor]:
+    """flax Dense ``{kernel [in, out], bias}`` → torch Linear ``weight [out, in]``."""
+    return {f"{name}.weight": _t(p["kernel"]).T.contiguous(), f"{name}.bias": _t(p["bias"])}
+
+
+def _ln_from_jax(p: Mapping, name: str) -> dict[str, torch.Tensor]:
+    return {f"{name}.weight": _t(p["scale"]), f"{name}.bias": _t(p["bias"])}
+
+
+def _pooler_from_jax(p: Mapping, name: str) -> dict[str, torch.Tensor]:
+    out = {f"{name}.query": _t(p["query"]), **_ln_from_jax(p["ln_q"], f"{name}.ln_q"),
+           **_ln_from_jax(p["ln_k"], f"{name}.ln_k")}
+    for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+        out.update(_linear_from_jax(p["attn"][proj], f"{name}.attn.{proj}"))
+    return out
+
+
+def vision_tower_from_jax(params: Mapping, cfg: VisionConfig | None = None) -> VisionTower:
+    """``VisionTower`` holding the weights of a JAX ``VisionTower``. ``params``
+    is the nested dict of numpy arrays that ``jax.tree.map(np.asarray, ...)``
+    gives (with or without the top-level ``"params"`` key). Widths, depth,
+    patch and image size are read off the arrays; head counts and
+    ``attn_impl`` come from ``cfg`` (default: the CONCH configuration)."""
+    p = params.get("params", params)
+    trunk = p["trunk"]
+    kernel = np.shape(trunk["patch_embed"]["kernel"])  # [p, p, 3, D]
+    caption = np.shape(p["attn_pool_caption"]["query"])
+    grid = int(round((np.shape(trunk["pos_embed"])[1] - 1) ** 0.5))
+    cfg = dataclasses.replace(
+        cfg or VisionConfig(), image_size=grid * kernel[0], patch_size=kernel[0],
+        width=kernel[3], layers=len(trunk["blocks"]),
+        embed_dim_contrast=np.shape(p["attn_pool_contrast"]["query"])[1],
+        embed_dim_caption=caption[1], n_queries_caption=caption[0])
+    state = {"trunk.patch_embed.weight": _t(trunk["patch_embed"]["kernel"])
+             .permute(3, 2, 0, 1).contiguous(),
+             "trunk.patch_embed.bias": _t(trunk["patch_embed"]["bias"]),
+             "trunk.cls_token": _t(trunk["cls_token"]), "trunk.pos_embed": _t(trunk["pos_embed"]),
+             **_ln_from_jax(trunk["norm"], "trunk.norm"),
+             **_pooler_from_jax(p["attn_pool_contrast"], "attn_pool_contrast"),
+             **_pooler_from_jax(p["attn_pool_caption"], "attn_pool_caption"),
+             **_ln_from_jax(p["ln_contrast"], "ln_contrast"),
+             **_ln_from_jax(p["ln_caption"], "ln_caption"),
+             "proj_contrast": _t(p["proj_contrast"])}
+    for i in range(cfg.layers):
+        blk, name = trunk["blocks"][f"resblocks_{i}"], f"trunk.blocks.resblocks.{i}"
+        state.update({**_ln_from_jax(blk["ln_1"], f"{name}.ln_1"),
+                      **_ln_from_jax(blk["ln_2"], f"{name}.ln_2"),
+                      **_linear_from_jax(blk["attn"]["in_proj"], f"{name}.attn.in_proj"),
+                      **_linear_from_jax(blk["attn"]["out_proj"], f"{name}.attn.out_proj"),
+                      **_linear_from_jax(blk["mlp"]["c_fc"], f"{name}.mlp.c_fc"),
+                      **_linear_from_jax(blk["mlp"]["c_proj"], f"{name}.mlp.c_proj")})
+    model = VisionTower(cfg)
     model.load_state_dict(state)
     return model

@@ -35,6 +35,15 @@ class Bag:
         return int(self.features.shape[1])
 
 
+def _h5py(path: str):
+    try:
+        import h5py
+    except ImportError as e:
+        raise ImportError(f"h5py is required for .h5 bag files ({path}); "
+                          "use .pt bags on such hosts") from e
+    return h5py
+
+
 def _slide_id(path: str, slide_id: str | None) -> str:
     return slide_id if slide_id is not None else os.path.splitext(os.path.basename(path))[0]
 
@@ -52,13 +61,47 @@ def read_bag_pt(path: str, slide_id: str | None = None, label: int | None = None
 def read_bag_h5(path: str, slide_id: str | None = None, label: int | None = None) -> Bag:
     """Read an ``h5_files`` bag (``features`` + ``coords`` datasets). Needs
     ``h5py``, which hosts without it lack: there it raises ImportError."""
-    try:
-        import h5py
-    except ImportError as e:
-        raise ImportError(f"h5py is required for .h5 bag files ({path}); "
-                          "convert the bag to .pt on such hosts") from e
-    with h5py.File(path, "r") as f:
+    with _h5py(path).File(path, "r") as f:
         features = np.asarray(f["features"][:], dtype=np.float32)
         coords = np.asarray(f["coords"][:], dtype=np.int32) if "coords" in f else None
     return Bag(slide_id=_slide_id(path, slide_id), features=features, coords=coords,
                label=label, path=path)
+
+
+def write_bag_pt(path: str, features: np.ndarray) -> None:
+    """Write a ``pt_files`` bag: the torch-saved f32 ``features [N, D]``."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    torch.save(torch.from_numpy(np.ascontiguousarray(features, dtype=np.float32)), path)
+
+
+def write_bag_h5(path: str, features: np.ndarray, coords: np.ndarray | None = None) -> None:
+    """Write an ``h5_files`` bag (``features`` and optional ``coords``)."""
+    h5py = _h5py(path)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with h5py.File(path, "w") as f:
+        f.create_dataset("features", data=np.asarray(features, dtype=np.float32))
+        if coords is not None:
+            f.create_dataset("coords", data=np.asarray(coords, dtype=np.int32))
+
+
+def append_hdf5(path: str, asset_dict: dict, attr_dict: dict | None = None,
+                mode: str = "a") -> str:
+    """Streaming HDF5 writer (CLAM's ``save_hdf5``): the first write of a key
+    creates a chunked dataset with an unlimited first axis (and the key's
+    attrs); later writes resize it and append along axis 0."""
+    h5py = _h5py(path)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with h5py.File(path, mode) as f:
+        for key, val in asset_dict.items():
+            val = np.asarray(val)
+            if key not in f:
+                dset = f.create_dataset(key, shape=val.shape, maxshape=(None,) + val.shape[1:],
+                                        chunks=(1,) + val.shape[1:], dtype=val.dtype)
+                dset[:] = val
+                for attr_key, attr_val in (attr_dict or {}).get(key, {}).items():
+                    dset.attrs[attr_key] = attr_val
+            elif val.shape[0]:  # dset[-0:] would select everything
+                dset = f[key]
+                dset.resize(len(dset) + val.shape[0], axis=0)
+                dset[-val.shape[0]:] = val
+    return path

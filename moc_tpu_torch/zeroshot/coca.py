@@ -1,0 +1,47 @@
+"""The vision half of the CoCa model in the CONCH configuration (PyTorch port
+of ``moc_tpu/zeroshot/coca.py``).
+
+``encode_image`` returns the L2-normalised contrastive embedding. It runs
+the trunk and the contrast pooler only: the JAX package also runs the
+256-query caption pooler and drops its tokens, and skipping it leaves the
+embedding the same. The text tower waits for the zero-shot slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+from torch import nn
+
+from moc_tpu_torch.zeroshot.vision_tower import VisionConfig, VisionTower
+
+
+@dataclasses.dataclass(frozen=True)
+class CoCaConfig:
+    vision: VisionConfig = VisionConfig()
+
+
+CONCH_VITB16 = CoCaConfig()  # the conch_ViT-B-16.json configuration (vision half)
+
+
+def l2norm(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Clip-guarded L2 normalisation."""
+    return x / torch.linalg.vector_norm(x, dim=dim, keepdim=True).clamp(min=1e-12)
+
+
+class CoCa(nn.Module):
+    def __init__(self, cfg: CoCaConfig = CONCH_VITB16):
+        super().__init__()
+        self.cfg = cfg
+        self.visual = VisionTower(cfg.vision)
+        self.logit_scale = nn.Parameter(torch.tensor(math.log(1.0 / 0.07)))
+
+    def encode_image(self, images, normalize: bool = True, proj_contrast: bool = True):
+        """images ``[B, H, W, 3]`` → ``[B, 512]`` (``[B, 512]`` before the
+        projection with ``proj_contrast=False``)."""
+        pooled = self.visual.forward_no_head(images)
+        if proj_contrast:
+            pooled = self.visual.forward_project(pooled)
+        return l2norm(pooled) if normalize else pooled
