@@ -13,7 +13,7 @@ Phases, each of which makes the script exit non-zero when it fails:
    NEG_INF-padded keys with k above the valid count, N in
    {1000, 16384, 131072} and k in {1, 10, 400, N};
 3. K2 parity: the flash-attention forward against ``mha_reference`` on the
-   card (O and lse), f32 within 2e-5 and bf16 within 2e-2, over D 64/128,
+   card (O and lse), f32 within 2e-5 and bf16 within 2e-2, over D 32/64/128,
    L 785 (ragged) and 1024, causal and not, segment ids with rows that match
    no key (non-causal) or packed sequences (causal), and the
    ``flash_attention_padded`` ``padding_mask`` path;
@@ -39,7 +39,26 @@ Phases, each of which makes the script exit non-zero when it fails:
    ``mha_reference`` on the same tensors (O and lse, the tolerances of 3),
    then per launch against its bound, its plain version and
    ``scaled_dot_product_attention`` (timed only), the batch-64 ``encode_image`` forward in four tiers (f32/bf16,
-   dense/flash), and a ``torch.profiler`` breakdown of the f32 flash forward.
+   dense/flash), and a ``torch.profiler`` breakdown of the f32 flash forward;
+8. K3/K4 parity: the flash-attention backward (dq; dk and dv) against
+   ``flash_bwd_reference`` on the card over the grid of 3 (f32 within 5e-4,
+   bf16 within 2e-2 of the largest |grad|), on K2's own o and lse;
+9. pretraining: ``cli.pretrain.main --device cuda`` at the BEiT-3-base
+   width (12 layers of 768, FFN 3072, 12 heads of 64, sequence 512, batch
+   32, vocab 1024, 5 steps) in f32 and with ``--compute_dtype bfloat16``:
+   every loss finite, K2, K3 and K4 launched exactly 12 x 5 times each; then
+   a 2-layer run at the CLI's default width (256, 8 heads of 32) from one
+   state dict and one ``data_fn`` on the card and on the CPU: first-step
+   gradients within 1e-4 of each parameter's largest |grad| (the key
+   biases, whose gradient is rounding noise, aside), three steps' losses
+   within 1e-4 and parameters within 3 lr;
+10. times: K3 and K4 at [32, 12, 512, 64] in f32 and bf16, first held
+   against ``flash_bwd_reference`` on the same tensors, then per launch
+   against their bounds, the plain version and the backward of
+   ``scaled_dot_product_attention`` (timed only; K3 + K4 together); K2 at
+   that shape; the full-width pretrain step by CUDA events (median) and
+   tokens/s in f32 and bf16, and a ``torch.profiler`` breakdown of one f32
+   step.
 
 The last lines are the card's name and power limit, one JSON object of
 kernel records, and ``{"ok": true, "device": {...}}``. No phase falls back
@@ -75,6 +94,20 @@ REPLACES = "moc_tpu/ops/topk_kernel.py:50"
 K2_SOURCE = "moc_tpu_torch/ops/csrc/flash_fwd.cu"
 K2_REPLACES = "moc_tpu/ops/flash_attention.py:68"
 K2_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # the JAX package's flash tolerances
+BWD_SOURCE = "moc_tpu_torch/ops/csrc/flash_bwd.cu"
+K3_REPLACES = "moc_tpu/ops/flash_attention.py:188"
+K4_REPLACES = "moc_tpu/ops/flash_attention.py:238"
+# K3/K4: the JAX package's flash backward tolerance in f32; in bf16, a share
+# of the largest |grad| (P and dS are rounded to bf16 before the products)
+BWD_TOL = {torch.float32: 5e-4, torch.bfloat16: 2e-2}
+# pretraining: the JAX CLI's docstring configuration (BEiT-3-base width) on one card
+PRETRAIN_ARGV = ["--batch", "32", "--seq_len", "512", "--layers", "12", "--embed_dim", "768",
+                 "--ffn_dim", "3072", "--heads", "12", "--vocab", "1024", "--mask_prob", "0.15",
+                 "--lr", "1e-3", "--mesh", "data=1"]
+PRETRAIN_STEPS, PRETRAIN_LAYERS, PRETRAIN_SHAPE = 5, 12, (32, 12, 512, 64)
+# the 2-layer card-against-CPU run, at the CLI's default width (8 heads of 32)
+NARROW_ARGV = ["--batch", "4", "--seq_len", "128", "--layers", "2", "--embed_dim", "256",
+               "--ffn_dim", "1024", "--heads", "8", "--vocab", "1024"]
 # extraction: CONCH ViT-B/16 at 448 px (785 tokens, 12 layers, 12 heads of 64)
 # over 256 px patches, CLAM's usual size, at the JAX CLI's batch 64
 PATCH_PX, EXTRACT_BATCH, SLIDE_PATCHES = 256, 64, (600, 424)
@@ -176,7 +209,7 @@ def phase_flash_parity() -> dict:
     cases = 0
     with torch.inference_mode():
         for dtype, tol in K2_TOL.items():
-            for d in (64, 128):
+            for d in (32, 64, 128):
                 for length in (785, 1024):
                     for causal in (False, True):
                         for segments in (False, True):
@@ -218,7 +251,7 @@ def phase_flash_parity() -> dict:
     for dtype, e in err.items():
         log(f"[parity] K2 {dtype}: max |O - plain| {e['o']:.3e}, max |lse - plain| "
             f"{e['lse']:.3e} (tolerance {K2_TOL[dtype]})")
-    log(f"[parity] K2 matches its plain version on {cases} cases (f32/bf16, D 64/128, "
+    log(f"[parity] K2 matches its plain version on {cases} cases (f32/bf16, D 32/64/128, "
         "L 785/1024, causal or not, segments with rows masked everywhere, padding_mask)")
     return err
 
@@ -417,9 +450,10 @@ def phase_times(state: dict) -> dict:
     return records
 
 
-def phase_profile(forward, steps: int = 5) -> None:
-    """Device time of the batch forward by kernel, from ``torch.profiler``,
-    and the device's busy share of the host wall over the same steps."""
+def phase_profile(forward, steps: int = 5, what: str = "forward") -> None:
+    """Device time of ``forward`` (a batch forward, or a train step) by
+    kernel, from ``torch.profiler``, and the device's busy share of the host
+    wall over the same steps."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -433,9 +467,9 @@ def phase_profile(forward, steps: int = 5) -> None:
     if busy_us <= 0:
         log("[profile] the profiler recorded no device time")
         return
-    log(f"[profile] {steps} forwards: device busy {busy_us / steps:.1f} us/forward of "
+    log(f"[profile] {steps} x {what}: device busy {busy_us / steps:.1f} us/{what} of "
         f"{wall_us / steps:.1f} us host wall ({100 * busy_us / wall_us:.1f}% busy), "
-        f"{sum(e.count for e in events) // steps} kernels/forward")
+        f"{sum(e.count for e in events) // steps} kernels/{what}")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
         log(f"[profile]   {e.self_device_time_total / steps:9.1f} us  "
             f"{100 * e.self_device_time_total / busy_us:5.1f}%  x{e.count // steps:<3d} "
@@ -632,6 +666,273 @@ def phase_encode_tiers(ckpt: str) -> None:
             torch.cuda.empty_cache()
 
 
+def _bwd_errors(got, want, dtype) -> float:
+    """Largest |kernel - plain| over dq, dk and dv; fails past ``BWD_TOL``."""
+    largest = max(w.float().abs().max().item() for w in want)
+    err = 0.0
+    for g, w in zip(got, want):
+        check(g.dtype == dtype and g.shape == w.shape, f"gradient {g.dtype} {tuple(g.shape)}")
+        e = (g.float() - w.float()).abs().max().item()
+        err = max(err, e)
+        if dtype == torch.float32:
+            ok = torch.allclose(g, w, rtol=BWD_TOL[dtype], atol=BWD_TOL[dtype])
+        else:
+            ok = e <= BWD_TOL[dtype] * largest
+        check(ok, f"K3/K4 differ from flash_bwd_reference by {e} (largest |grad| {largest})")
+    return err
+
+
+def _bwd_inputs(q, k, v, qs, ks, causal, gen):
+    """K2's o and lse for q, k, v, a random dO and delta = rowsum(dO * O)."""
+    from moc_tpu_torch.ops.flash_kernel import flash_fwd_cuda
+
+    o, lse = flash_fwd_cuda(q, k, v, qs, ks, causal=causal)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+    return o, lse, do, (o.float() * do.float()).sum(-1)
+
+
+def phase_flash_bwd_parity() -> dict:
+    """K3 and K4 against ``flash_bwd_reference`` on the card over the grid of
+    K2's parity phase; returns, per dtype, the largest |kernel - plain|."""
+    from moc_tpu_torch.ops.flash_attention import flash_bwd_reference
+    from moc_tpu_torch.ops.flash_kernel import flash_bwd_dkv_cuda, flash_bwd_dq_cuda
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    err = {dt: 0.0 for dt in BWD_TOL}
+    cases = 0
+    with torch.inference_mode():
+        for dtype in BWD_TOL:
+            for d in (32, 64, 128):
+                for length in (785, 1024):
+                    for causal in (False, True):
+                        for segments in (False, True):
+                            q, k, v, qs, ks = _flash_inputs(2, 3, length, d, dtype, segments,
+                                                            causal, gen)
+                            o, lse, do, delta = _bwd_inputs(q, k, v, qs, ks, causal, gen)
+                            before = (flash_bwd_dq_cuda.launches, flash_bwd_dkv_cuda.launches)
+                            dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, qs, ks,
+                                                   causal=causal)
+                            dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, qs, ks,
+                                                        causal=causal)
+                            torch.cuda.synchronize()
+                            check((flash_bwd_dq_cuda.launches, flash_bwd_dkv_cuda.launches)
+                                  == (before[0] + 1, before[1] + 1), "K3/K4 launch not counted")
+                            want = flash_bwd_reference(q, k, v, o, lse, do, qs, ks, causal)
+                            err[dtype] = max(err[dtype], _bwd_errors((dq, dk, dv), want, dtype))
+                            cases += 1
+    for dtype, e in err.items():
+        log(f"[parity] K3/K4 {dtype}: max |grad - plain| {e:.3e} (tolerance "
+            f"{BWD_TOL[dtype]}{'' if dtype == torch.float32 else ' of the largest |grad|'})")
+    log(f"[parity] K3 and K4 match flash_bwd_reference on {cases} cases (f32/bf16, "
+        "D 32/64/128, L 785/1024, causal or not, segments with rows masked everywhere)")
+    return err
+
+
+def _counters():
+    from moc_tpu_torch.ops.flash_kernel import (flash_bwd_dkv_cuda, flash_bwd_dq_cuda,
+                                                flash_fwd_cuda)
+
+    return {"K2": flash_fwd_cuda, "K3": flash_bwd_dq_cuda, "K4": flash_bwd_dkv_cuda}
+
+
+def run_pretrain_cli(tier: str) -> dict:
+    """``cli.pretrain.main`` at the full width on the card; returns the
+    per-step losses from its log, its K2/K3/K4 launches and host wall."""
+    import contextlib
+    import io
+
+    from moc_tpu_torch.cli import pretrain
+
+    argv = [*PRETRAIN_ARGV, "--steps", str(PRETRAIN_STEPS), "--log_every", "1",
+            "--device", "cuda"] + (["--compute_dtype", "bfloat16"] if tier == "bf16" else [])
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    err, out = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err), contextlib.redirect_stdout(out):
+        rc = pretrain.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    check(rc == 0, f"cli.pretrain.main returned {rc}")
+    losses = [float(line.split("loss=")[1].split()[0]) for line in err.getvalue().splitlines()
+              if line.startswith("step ")]
+    final = out.getvalue().strip().splitlines()[-1]
+    log(f"[pretrain] {tier}: {final}; losses {losses}; {wall:.2f}s host wall for "
+        f"{PRETRAIN_STEPS} steps (model set-up included); launches {launches}")
+    check(len(losses) == PRETRAIN_STEPS and all(math.isfinite(x) for x in losses),
+          f"{tier} pretraining losses {losses} are not {PRETRAIN_STEPS} finite values")
+    want = PRETRAIN_LAYERS * PRETRAIN_STEPS
+    check(launches == {"K2": want, "K3": want, "K4": want},
+          f"{tier} pretraining launched {launches}, want {want} of each")
+    return {"launches": launches, "losses": losses, "wall_s": wall}
+
+
+def _first_grads(cfg, state: dict, batch, device: str) -> dict:
+    """The gradients of the first step from ``state`` on ``device``, on the CPU."""
+    from moc_tpu_torch.train.pretrain import batch_to, make_pretrain_state, masked_token_loss
+
+    model, _ = make_pretrain_state(cfg, device=device, state_dict=state)
+    total, _, _ = masked_token_loss(cfg, model, *batch_to(torch.device(device), *batch))
+    total.backward()
+    return {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+
+
+def phase_pretrain_narrow() -> dict:
+    """A 2-layer run at the CLI's default width (heads of 32) from one state
+    dict and one ``data_fn``, on the card and on the CPU: the first step's
+    gradients within 1e-4 of each parameter's largest |grad|, three steps'
+    losses within 1e-4 and parameters within 3·lr (Adam moves a weight whose
+    gradient is below the two devices' rounding noise by up to lr a step,
+    whatever that gradient's size, so only its bound holds there)."""
+    from moc_tpu_torch.cli import pretrain
+    from moc_tpu_torch.train.pretrain import MaskedTokenModel, run_pretrain
+
+    args = pretrain.get_args(NARROW_ARGV)
+    cfg = pretrain.build_config(args)
+    data_fn = pretrain.make_data_fn(args)
+    state = MaskedTokenModel(cfg).init_parameters(torch.Generator().manual_seed(0)).state_dict()
+    gg, gc = (_first_grads(cfg, state, data_fn(0), device) for device in ("cuda", "cpu"))
+    grad_err = 0.0
+    for name, g in gc.items():
+        if name.endswith("k_proj.bias"):  # 0 in exact arithmetic: rounding noise on both
+            continue
+        grad_err = max(grad_err, float((gg[name] - g).abs().max() / g.abs().max()))
+    check(grad_err <= 1e-4, f"narrow run gradients differ between card and CPU by {grad_err} "
+          "of the largest |grad|")
+    counters = _counters()
+    runs = {}
+    for device in ("cuda", "cpu"):
+        before = {name: fn.launches for name, fn in counters.items()}
+        model, _, losses = run_pretrain(cfg, data_fn, total_steps=3, device=device,
+                                        state_dict=state)
+        runs[device] = (losses, {k: v.detach().cpu() for k, v in model.state_dict().items()},
+                        {name: fn.launches - before[name] for name, fn in counters.items()})
+    (lg, pg, ng), (lc, pc, nc) = runs["cuda"], runs["cpu"]
+    check(ng == {"K2": 6, "K3": 6, "K4": 6} and nc == {"K2": 0, "K3": 0, "K4": 0},
+          f"narrow run launches: card {ng}, CPU {nc}")
+    loss_err = max(abs(a - b) for a, b in zip(lg, lc))
+    check(loss_err <= 1e-4, f"narrow run losses differ: card {lg}, CPU {lc}")
+    param_err = max(float((t - pc[name]).abs().max()) for name, t in pg.items())
+    check(param_err <= 3 * cfg.learning_rate,
+          f"narrow run parameters differ between card and CPU by {param_err}")
+    log(f"[pretrain] 2-layer run (width 256, 8 heads of 32, seq 128, batch 4) on the card "
+        f"against the CPU: first-step gradients within {grad_err:.3e} of each largest |grad| "
+        f"(tolerance 1e-4); 3 steps' losses {lg} vs {lc} (max |diff| {loss_err:.3e}, "
+        f"tolerance 1e-4), parameters max |diff| {param_err:.3e} (tolerance 3 lr = "
+        f"{3 * cfg.learning_rate}); card launches {ng}")
+    return {"grad_err": grad_err, "loss_err": loss_err, "param_err": param_err}
+
+
+def phase_flash_bwd_times() -> dict:
+    """K3 and K4 at the pretraining shape, held against the plain version on
+    the same tensors, then timed against their bounds, the plain version and
+    the backward of ``scaled_dot_product_attention``; K2 at that shape."""
+    import torch.nn.functional as F
+
+    from moc_tpu_torch.ops.flash_attention import flash_bwd_reference, mha_reference
+    from moc_tpu_torch.ops.flash_kernel import (flash_bwd_dkv_cuda, flash_bwd_dq_cuda,
+                                                flash_fwd_cuda)
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    b, h, length, d = PRETRAIN_SHAPE
+    n = b * h * length * length * d
+    records = {}
+    for dtype, name, peak in ((torch.float32, "f32", F32_OPS_PER_S),
+                              (torch.bfloat16, "bf16", BF16_OPS_PER_S)):
+        q, k, v = (torch.randn(PRETRAIN_SHAPE, generator=gen, device="cuda").to(dtype)
+                   for _ in range(3))
+        with torch.no_grad():  # not inference mode: dO feeds the library's backward below
+            o, lse, do, delta = _bwd_inputs(q, k, v, None, None, False, gen)
+            dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta)
+            dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta)
+            want = flash_bwd_reference(q, k, v, o, lse, do)
+            err = _bwd_errors((dq, dk, dv), want, dtype)
+            err_k3 = (dq.float() - want[0].float()).abs().max().item()
+            err_k4 = max((g.float() - w.float()).abs().max().item()
+                         for g, w in zip((dk, dv), want[1:]))
+            del dq, dk, dv, want
+            ro, rlse = mha_reference(q, k, v)
+            tol = K2_TOL[dtype]
+            k2_err = max((o.float() - ro.float()).abs().max().item(),
+                         (lse - rlse).abs().max().item())
+            check(torch.allclose(o.float(), ro.float(), rtol=tol, atol=tol)
+                  and torch.allclose(lse, rlse, rtol=tol, atol=tol),
+                  f"K2 {name} at {list(PRETRAIN_SHAPE)} differs from the plain version: {k2_err}")
+            del ro, rlse
+            log(f"[parity] K3/K4 {name} {list(PRETRAIN_SHAPE)}: max |dq - plain| {err_k3:.3e}, "
+                f"max |dk, dv - plain| {err_k4:.3e}; K2 max |O, lse - plain| {k2_err:.3e}")
+            el = q.element_size()
+            stats = b * h * length * 4  # one f32 [B, H, L] vector
+            plain_ms = _time_ms(lambda: flash_bwd_reference(q, k, v, o, lse, do), iters=20,
+                                warmup=3)
+            rec = {}
+            for kernel, fn, ops, tensors in (
+                    ("dq", lambda: flash_bwd_dq_cuda(q, k, v, do, lse, delta), 6 * n, 5),
+                    ("dkv", lambda: flash_bwd_dkv_cuda(q, k, v, do, lse, delta), 8 * n, 6)):
+                # q, k, v, dO read once, lse and delta read once, grads written once
+                bytes_s = (tensors * q.numel() * el + 2 * stats) / HBM_BYTES_PER_S
+                ops_s = ops / peak
+                rec[kernel] = {"ms": _time_ms(fn), "plain_ms": plain_ms,
+                               "bound_ms": max(bytes_s, ops_s) * 1e3,
+                               "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+                               "max_abs_err": err_k3 if kernel == "dq" else err_k4,
+                               "gflop": ops / 1e9}
+            k2_bytes = (4 * q.numel() * el + stats) / HBM_BYTES_PER_S
+            rec["k2_ms"] = _time_ms(lambda: flash_fwd_cuda(q, k, v))
+            rec["k2_bound_ms"] = max(k2_bytes, 4 * n / peak) * 1e3
+        # the library's backward, dq, dk and dv in one call (timed only)
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*leaves)
+        lib_ms = _time_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
+                          iters=50, warmup=5)
+        del out, leaves
+        for kernel in ("dq", "dkv"):
+            rec[kernel]["library_ms"] = lib_ms
+        records[name] = rec
+        log(f"[times] {name} {list(PRETRAIN_SHAPE)}: K3 {rec['dq']['ms']:.4f} ms "
+            f"(bound {rec['dq']['bound_ms']:.4f}, {rec['dq']['gflop']:.1f} GFLOP), "
+            f"K4 {rec['dkv']['ms']:.4f} ms (bound {rec['dkv']['bound_ms']:.4f}, "
+            f"{rec['dkv']['gflop']:.1f} GFLOP), plain backward {plain_ms:.4f} ms, "
+            f"scaled_dot_product_attention backward {lib_ms:.4f} ms (K3 + K4 together); "
+            f"K2 {rec['k2_ms']:.4f} ms (bound {rec['k2_bound_ms']:.4f})")
+        del q, k, v, o, lse, do, delta
+        torch.cuda.empty_cache()
+    return records
+
+
+def phase_pretrain_step_times() -> dict:
+    """The full-width pretrain step by CUDA events (median of 5 after 2
+    warm-ups) in f32 and bf16, tokens/s, peak memory, and a profile of one
+    f32 step."""
+    from moc_tpu_torch.cli import pretrain
+    from moc_tpu_torch.train.pretrain import batch_to, make_pretrain_state, make_train_step
+
+    records = {}
+    for tier in ("f32", "bf16"):
+        argv = PRETRAIN_ARGV + (["--compute_dtype", "bfloat16"] if tier == "bf16" else [])
+        args = pretrain.get_args(argv)
+        cfg = pretrain.build_config(args)
+        model, optimizer = make_pretrain_state(cfg, seed=0, device="cuda")
+        step = make_train_step(cfg, model, optimizer)
+        batch = batch_to(torch.device("cuda"), *pretrain.make_data_fn(args)(0))
+        torch.cuda.reset_peak_memory_stats()
+        ms = _time_ms(lambda: step(*batch), iters=5, warmup=2)
+        tokens = args.batch * args.seq_len
+        rec = {"step_ms": ms, "tokens_per_s": tokens / ms * 1e3,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        records[tier] = rec
+        log(f"[times] pretrain step {tier} (12 x 768, batch 32 x 512): {ms:.3f} ms by CUDA "
+            f"events (median of 5), {rec['tokens_per_s']:.0f} tokens/s, peak memory "
+            f"{rec['peak_gib']:.2f} GiB")
+        if tier == "f32":
+            phase_profile(lambda: step(*batch), steps=1, what="step")
+        del model, optimizer, step, batch
+        torch.cuda.empty_cache()
+    return records
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py runs on a GPU only", file=sys.stderr)
@@ -654,6 +955,11 @@ def main() -> int:
         phase_serve_extracted(root, out_dir)
         k2_times = phase_flash_times()
         phase_encode_tiers(ckpt)
+    bwd_err = phase_flash_bwd_parity()
+    pretrained = {tier: run_pretrain_cli(tier) for tier in ("f32", "bf16")}
+    phase_pretrain_narrow()
+    bwd_times = phase_flash_bwd_times()
+    phase_pretrain_step_times()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip().splitlines()[0]
@@ -674,7 +980,19 @@ def main() -> int:
                         "max_abs_err": max(*k2_err[dtype].values(), t["max_abs_err"]),
                         "max_abs_err_main_shape": t["max_abs_err"], "ms": t["ms"],
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                        "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+                        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                        "launches_pretrain": pretrained[tier]["launches"]["K2"],
+                        "ms_pretrain_shape": bwd_times[tier]["k2_ms"]})
+    for entry, kid, replaces in (("dq", "K3", K3_REPLACES), ("dkv", "K4", K4_REPLACES)):
+        for tier, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            t = bwd_times[tier][entry]
+            kernels.append({"name": f"flash_bwd_{entry}_{tier}", "route": "cuda",
+                            "source": BWD_SOURCE, "replaces": replaces,
+                            "launches": pretrained[tier]["launches"][kid],
+                            "max_abs_err": max(bwd_err[dtype], t["max_abs_err"]),
+                            "max_abs_err_main_shape": t["max_abs_err"], "ms": t["ms"],
+                            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,1 +1,2 @@
-"""moc_tpu_torch.cli — serving entry points (predictor and daemon)."""
+"""moc_tpu_torch.cli — entry points: serving (predictor and daemon), patch
+feature extraction and masked-token encoder pretraining."""

@@ -1,6 +1,7 @@
 """Carry weights across from the JAX package: flax params → torch modules
-(the SENet and the CONCH vision tower), and a flax-free ``.npz`` file format
-for SENet on hosts without flax or msgpack.
+(the SENet, the CONCH vision tower and the masked-token pretraining model),
+and a flax-free ``.npz`` file format for SENet on hosts without flax or
+msgpack.
 
 flax ``Dense.kernel`` is ``[in, out]``; torch ``Linear.weight`` is
 ``[out, in]``. A flax ``Conv`` kernel is ``[kh, kw, in, out]``; torch's is
@@ -10,6 +11,7 @@ flax ``Dense.kernel`` is ``[in, out]``; torch ``Linear.weight`` is
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Mapping
 
 import numpy as np
@@ -115,3 +117,29 @@ def vision_tower_from_jax(params: Mapping, cfg: VisionConfig | None = None) -> V
     model = VisionTower(cfg)
     model.load_state_dict(state)
     return model
+
+
+def masked_token_model_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The ``train.pretrain.MaskedTokenModel`` state dict holding a JAX
+    ``MaskedTokenModel``'s parameters (``params`` as ``jax.tree.map(np.asarray,
+    ...)`` gives them, with or without the top-level ``"params"`` key).
+
+    Names map one to one (``layers_3`` → ``layers.3``); a Dense ``kernel
+    [in, out]`` becomes ``weight [out, in]``, a LayerNorm ``scale`` and an
+    ``Embed.embedding`` become ``weight``; biases and ``pos`` keep theirs."""
+    state: dict[str, torch.Tensor] = {}
+
+    def walk(tree: Mapping, prefix: str) -> None:
+        for name, sub in tree.items():
+            path = prefix + re.sub(r"^layers_(\d+)$", r"layers.\1", name)
+            if isinstance(sub, Mapping):
+                walk(sub, path + ".")
+            elif name == "kernel":
+                state[prefix + "weight"] = _t(sub).T.contiguous()
+            elif name in ("scale", "embedding"):
+                state[prefix + "weight"] = _t(sub)
+            else:
+                state[path] = _t(sub)
+
+    walk(params.get("params", params), "")
+    return state

@@ -1,10 +1,12 @@
-"""moc_tpu_torch.nn — transformer primitives and the ViT trunk."""
+"""moc_tpu_torch.nn — transformer primitives, the ViT trunk and the
+torchscale-style encoder stack."""
 
+from moc_tpu_torch.nn.encoder import Encoder, EncoderConfig, EncoderLayer
 from moc_tpu_torch.nn.transformer import (AttentionalPooler, Attention, CrossAttention,
                                           LayerNorm, MlpBlock, ResidualAttentionBlock,
                                           Transformer, dot_product_attention, gelu_exact)
 from moc_tpu_torch.nn.vit import VisionTransformer, resample_pos_embed
 
-__all__ = ["Attention", "AttentionalPooler", "CrossAttention", "LayerNorm", "MlpBlock",
-           "ResidualAttentionBlock", "Transformer", "VisionTransformer",
-           "dot_product_attention", "gelu_exact", "resample_pos_embed"]
+__all__ = ["Attention", "AttentionalPooler", "CrossAttention", "Encoder", "EncoderConfig",
+           "EncoderLayer", "LayerNorm", "MlpBlock", "ResidualAttentionBlock", "Transformer",
+           "VisionTransformer", "dot_product_attention", "gelu_exact", "resample_pos_embed"]

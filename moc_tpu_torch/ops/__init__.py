@@ -1,12 +1,13 @@
 """moc_tpu_torch.ops — masked selection and pooling ops, flash attention,
-and kernels K1 and K2.
+and kernels K1 to K4.
 
 PyTorch counterpart of ``moc_tpu.ops``. Every selection and pooling op takes
 a padded bag plus a boolean validity mask, with the slide batch as a leading
 dimension. The exact top-k membership search runs in the hand-written CUDA
 kernel K1 (``ops.topk_kernel``) on the GPU and in its plain PyTorch version
-on the CPU; the flash-attention forward (``ops.flash_attention``) runs in K2
-(``ops.flash_kernel``) on the GPU and in ``mha_reference`` on the CPU.
+on the CPU. Flash attention (``ops.flash_attention``) runs its forward in K2
+and its backward in K3 and K4 (``ops.flash_kernel``) on the GPU, and in
+``mha_reference`` and ``flash_bwd_reference`` on the CPU.
 """
 
 from moc_tpu_torch.ops.masking import (

@@ -1,0 +1,352 @@
+// K3 and K4: the flash-attention backward, dq and (dk, dv).
+//
+// Replace the Pallas TPU kernels moc_tpu/ops/flash_attention.py:188
+// (_bwd_dq_kernel) and :238 (_bwd_dkv_kernel), both launched by _bwd (:297).
+// For q, do [BH, Lq, D], k, v [BH, Lkv, D] (row-major, f32 or bf16), the
+// forward's lse [BH, Lq] (f32) and delta = rowsum(do * o) [BH, Lq] (f32,
+// computed by the caller as _bwd does outside its kernels):
+//
+//   s  = (q . k) * sm_scale, set to MASK (-0.7 * f32max) where the forward
+//        masked it (top-left causal, or another segment);
+//   p  = exp(s - lse)                 (recomputed, never stored in memory);
+//   dp = do . v;  ds = p * (dp - delta) * sm_scale;
+//   K3: dq = ds . k                   (ds rounded to the input type first);
+//   K4: dv = p^T . do, dk = ds^T . q  (p and ds rounded to the input type).
+//
+// Keys at index >= Lkv and queries at index >= Lq (the ragged edges of the
+// last tiles) count for nothing. A row whose segment matches no key has
+// lse = MASK, so p = exp(0) = 1 for every key of the tiles that run: like
+// the TPU kernels, and unlike the dense vjp (1/L), which is the point of
+// matching them. The products are summed in f32; dq, dk and dv are stored in
+// the input type.
+//
+// Bound at the pretraining shape ([32 * 12, 512, 64]): K3 does three
+// products of 2 * L^2 * D per head (s, dp, ds . k), 38.7 GFLOP, and K4 four
+// (s, dp, p^T . do, ds^T . q), 51.5 GFLOP: 0.58 and 0.77 ms in f32 at the
+// H100's 67 TFLOP/s outside the tensor cores, against 0.08-0.09 ms for their
+// bytes at 3.35 TB/s, so both are compute-bound. In bf16 the tensor-core
+// bound (0.04 and 0.05 ms) and the bytes are about level; these kernels do
+// their products on the CUDA cores in f32 (no mma.sync / wgmma yet), so in
+// bf16 they cannot approach it.
+//
+// Design: the TPU's split, which needs no atomics. K3 runs one CTA of 256
+// threads per (b*h, 64-row query tile): Q and dO tiles stay in shared
+// memory while it loops over the 64-key tiles of K and V, forms the 64 x 64
+// s and dp tiles in registers (a 4 x 4 block a thread), writes ds to shared
+// memory and accumulates dq for its four rows in f32 registers. K4 runs one
+// CTA per (b*h, 64-key tile): K and V stay while it loops over the query
+// tiles, writes p and ds to shared memory and accumulates dk and dv for four
+// keys a thread. All tiles are staged as f32 (K4 at D = 128: 166 KB of
+// dynamic shared memory). Causal tiles above the diagonal are skipped as
+// should_run does on the TPU: K3 stops at its diagonal key tile, and K4
+// starts its query loop at the tile that holds its first key.
+
+#include "flash_common.cuh"
+
+namespace {
+
+using namespace flash;
+
+template <int D>
+constexpr size_t dq_smem_bytes() {  // Q, dO, K, V tiles and the ds tile
+  return sizeof(float) * (4 * Layout<D>::kTile + Layout<D>::kPTile);
+}
+
+template <int D>
+constexpr size_t dkv_smem_bytes() {  // K, V, Q, dO tiles and the p and ds tiles
+  return sizeof(float) * (4 * Layout<D>::kTile + 2 * Layout<D>::kPTile);
+}
+
+// p and ds of the thread's 4 x 4 block, from its s and dp blocks
+// (rows q0 + 4*ty + i, keys kv0 + tx + 16*j)
+__device__ __forceinline__ void probs_and_grads(float (&s)[4][4], float (&dp)[4][4],
+                                                const float* row_lse, const float* row_delta,
+                                                const int* row_seg, const int* key_seg, int q0,
+                                                int kv0, int lq, int lkv, int ty, int tx,
+                                                bool causal, bool segments, float sm_scale) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + 4 * ty + i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int key = kv0 + tx + 16 * j;
+      float x = s[i][j] * sm_scale;
+      if (masked(causal, segments, row, key, row_seg[i], key_seg[j])) x = kMaskValue;
+      const float p = (row < lq && key < lkv) ? expf(x - row_lse[i]) : 0.f;
+      s[i][j] = p;
+      dp[i][j] = p * (dp[i][j] - row_delta[i]) * sm_scale;
+    }
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                    const T* __restrict__ dout, const float* __restrict__ lse,
+                    const float* __restrict__ delta, T* __restrict__ dq,
+                    const int* __restrict__ q_seg, const int* __restrict__ kv_seg, int heads,
+                    int lq, int lkv, int n_qtiles, int causal, float sm_scale) {
+  constexpr int kP = Layout<D>::kPStride;
+  constexpr int kPer = ColMap<D>::kPer;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;
+  float* dos = qs + Layout<D>::kTile;
+  float* ks = dos + Layout<D>::kTile;
+  float* vs = ks + Layout<D>::kTile;
+  float* dss = vs + Layout<D>::kTile;
+
+  const int bh = blockIdx.x / n_qtiles;
+  const int q0 = (blockIdx.x % n_qtiles) * kBlock;
+  const int b = bh / heads;
+  const int ty = threadIdx.x >> 4;
+  const int tx = threadIdx.x & 15;
+  const bool segments = q_seg != nullptr;
+  const size_t q_off = static_cast<size_t>(bh) * lq;
+  const T* kb = k + static_cast<size_t>(bh) * lkv * D;
+  const T* vb = v + static_cast<size_t>(bh) * lkv * D;
+
+  load_tile<T, D>(q + q_off * D, qs, q0, lq);
+  load_tile<T, D>(dout + q_off * D, dos, q0, lq);
+
+  int row_seg[4];
+  float row_lse[4], row_delta[4], acc[4][kPer];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = q0 + 4 * ty + i;
+    row_seg[i] = (segments && r < lq) ? q_seg[static_cast<size_t>(b) * lq + r] : 0;
+    row_lse[i] = r < lq ? lse[q_off + r] : 0.f;
+    row_delta[i] = r < lq ? delta[q_off + r] : 0.f;
+#pragma unroll
+    for (int c = 0; c < kPer; ++c) acc[i][c] = 0.f;
+  }
+
+  const int kv_end = causal ? min(lkv, q0 + kBlock) : lkv;
+  for (int kv0 = 0; kv0 < kv_end; kv0 += kBlock) {
+    __syncthreads();  // the previous tile's readers are done with ks, vs, dss
+    load_tile<T, D>(kb, ks, kv0, lkv);
+    load_tile<T, D>(vb, vs, kv0, lkv);
+    __syncthreads();
+
+    float s[4][4] = {}, dp[4][4] = {};
+    tile_dot<D>(qs, ks, s, ty, tx);
+    tile_dot<D>(dos, vs, dp, ty, tx);
+    int key_seg[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int key = kv0 + tx + 16 * j;
+      key_seg[j] = (segments && key < lkv) ? kv_seg[static_cast<size_t>(b) * lkv + key] : 0;
+    }
+    probs_and_grads(s, dp, row_lse, row_delta, row_seg, key_seg, q0, kv0, lq, lkv, ty, tx,
+                    causal, segments, sm_scale);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) dss[(4 * ty + i) * kP + tx + 16 * j] = round_like<T>(dp[i][j]);
+    }
+    __syncthreads();
+
+    tile_accumulate<D>(dss, ks, acc, ty, tx);
+  }
+
+  const float one[4] = {1.f, 1.f, 1.f, 1.f};
+  store_rows<T, D>(dq + q_off * D, acc, one, q0, lq, ty, tx);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                     const T* __restrict__ dout, const float* __restrict__ lse,
+                     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+                     const int* __restrict__ q_seg, const int* __restrict__ kv_seg, int heads,
+                     int lq, int lkv, int n_ktiles, int causal, float sm_scale) {
+  using Cols = ColMap<D>;
+  constexpr int kS = Layout<D>::kStride;
+  constexpr int kP = Layout<D>::kPStride;
+  constexpr int kPer = Cols::kPer;
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;
+  float* vs = ks + Layout<D>::kTile;
+  float* qs = vs + Layout<D>::kTile;
+  float* dos = qs + Layout<D>::kTile;
+  float* ps = dos + Layout<D>::kTile;  // [query][key]
+  float* dss = ps + Layout<D>::kPTile;  // [query][key]
+
+  const int bh = blockIdx.x / n_ktiles;
+  const int kv0 = (blockIdx.x % n_ktiles) * kBlock;
+  const int b = bh / heads;
+  const int ty = threadIdx.x >> 4;
+  const int tx = threadIdx.x & 15;
+  const bool segments = q_seg != nullptr;
+  const size_t q_off = static_cast<size_t>(bh) * lq;
+  const size_t kv_off = static_cast<size_t>(bh) * lkv;
+
+  load_tile<T, D>(k + kv_off * D, ks, kv0, lkv);
+  load_tile<T, D>(v + kv_off * D, vs, kv0, lkv);
+
+  int key_seg[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int key = kv0 + tx + 16 * j;
+    key_seg[j] = (segments && key < lkv) ? kv_seg[static_cast<size_t>(b) * lkv + key] : 0;
+  }
+  // dk and dv of keys kv0 + 4*ty + i, the columns of ColMap
+  float dk_acc[4][kPer], dv_acc[4][kPer];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int c = 0; c < kPer; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
+  }
+
+  // query tiles wholly above the diagonal see none of these keys: the first
+  // tile to run is the one that holds query kv0
+  for (int q0 = causal ? kv0 : 0; q0 < lq; q0 += kBlock) {
+    __syncthreads();  // the previous tile's readers are done with qs, dos, ps, dss
+    load_tile<T, D>(q + q_off * D, qs, q0, lq);
+    load_tile<T, D>(dout + q_off * D, dos, q0, lq);
+    __syncthreads();
+
+    int row_seg[4];
+    float row_lse[4], row_delta[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = q0 + 4 * ty + i;
+      row_seg[i] = (segments && r < lq) ? q_seg[static_cast<size_t>(b) * lq + r] : 0;
+      row_lse[i] = r < lq ? lse[q_off + r] : 0.f;
+      row_delta[i] = r < lq ? delta[q_off + r] : 0.f;
+    }
+    float s[4][4] = {}, dp[4][4] = {};
+    tile_dot<D>(qs, ks, s, ty, tx);
+    tile_dot<D>(dos, vs, dp, ty, tx);
+    probs_and_grads(s, dp, row_lse, row_delta, row_seg, key_seg, q0, kv0, lq, lkv, ty, tx,
+                    causal, segments, sm_scale);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        ps[(4 * ty + i) * kP + tx + 16 * j] = round_like<T>(s[i][j]);
+        dss[(4 * ty + i) * kP + tx + 16 * j] = round_like<T>(dp[i][j]);
+      }
+    }
+    __syncthreads();
+
+    // dv[key] += sum_q p[q][key] * do[q]; dk[key] += sum_q ds[q][key] * q[q]
+#pragma unroll 4
+    for (int qq = 0; qq < kBlock; ++qq) {
+      const float4 pk = *reinterpret_cast<const float4*>(ps + qq * kP + 4 * ty);
+      const float4 dsk = *reinterpret_cast<const float4*>(dss + qq * kP + 4 * ty);
+      const float pw[4] = {pk.x, pk.y, pk.z, pk.w};
+      const float dw[4] = {dsk.x, dsk.y, dsk.z, dsk.w};
+#pragma unroll
+      for (int c = 0; c < Cols::kGroups; ++c) {
+        float dov[Cols::kG], qv[Cols::kG];
+        lds<Cols::kG>(dos + qq * kS + Cols::col(tx, c), dov);
+        lds<Cols::kG>(qs + qq * kS + Cols::col(tx, c), qv);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int e = 0; e < Cols::kG; ++e) {
+            dv_acc[i][c * Cols::kG + e] = fmaf(pw[i], dov[e], dv_acc[i][c * Cols::kG + e]);
+            dk_acc[i][c * Cols::kG + e] = fmaf(dw[i], qv[e], dk_acc[i][c * Cols::kG + e]);
+          }
+        }
+      }
+    }
+  }
+
+  const float one[4] = {1.f, 1.f, 1.f, 1.f};
+  store_rows<T, D>(dk + kv_off * D, dk_acc, one, kv0, lkv, ty, tx);
+  store_rows<T, D>(dv + kv_off * D, dv_acc, one, kv0, lkv, ty, tx);
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+struct Args {
+  const void *q, *k, *v, *dout;
+  const float *lse, *delta;
+  const int *q_seg, *kv_seg;
+  int bh, heads, lq, lkv, causal;
+  float sm_scale;
+  cudaStream_t stream;
+};
+
+template <typename T, int D>
+int launch_dq(const Args& a, void* dq) {
+  constexpr size_t smem = dq_smem_bytes<D>();
+  cudaError_t err = allow_smem(flash_bwd_dq_kernel<T, D>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_qtiles = (a.lq + kBlock - 1) / kBlock;
+  flash_bwd_dq_kernel<T, D><<<a.bh * n_qtiles, kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.dout), a.lse, a.delta, static_cast<T*>(dq), a.q_seg, a.kv_seg,
+      a.heads, a.lq, a.lkv, n_qtiles, a.causal, a.sm_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D>
+int launch_dkv(const Args& a, void* dk, void* dv) {
+  constexpr size_t smem = dkv_smem_bytes<D>();
+  cudaError_t err = allow_smem(flash_bwd_dkv_kernel<T, D>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_ktiles = (a.lkv + kBlock - 1) / kBlock;
+  flash_bwd_dkv_kernel<T, D><<<a.bh * n_ktiles, kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.dout), a.lse, a.delta, static_cast<T*>(dk), static_cast<T*>(dv),
+      a.q_seg, a.kv_seg, a.heads, a.lq, a.lkv, n_ktiles, a.causal, a.sm_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch_dq(const Args& a, int d, void* dq) {
+  switch (d) {
+    case 32: return launch_dq<T, 32>(a, dq);
+    case 64: return launch_dq<T, 64>(a, dq);
+    case 128: return launch_dq<T, 128>(a, dq);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <typename T>
+int dispatch_dkv(const Args& a, int d, void* dk, void* dv) {
+  switch (d) {
+    case 32: return launch_dkv<T, 32>(a, dk, dv);
+    case 64: return launch_dkv<T, 64>(a, dk, dv);
+    case 128: return launch_dkv<T, 128>(a, dk, dv);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+
+// Both entry points take q, do [bh, lq, d] and k, v [bh, lkv, d] (contiguous,
+// 16-byte aligned, f32 when is_bf16 == 0 else bf16), lse and delta [bh, lq]
+// f32, and q_seg [bh/heads, lq] and kv_seg [bh/heads, lkv] int32, both null
+// or both set; d is 32, 64 or 128. They write dq [bh, lq, d] (K3), or dk and
+// dv [bh, lkv, d] (K4), in the input type, launch on `stream` without
+// synchronising and return the cudaGetLastError() code of the launch (0 on
+// success).
+extern "C" int moc_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
+                                const float* lse, const float* delta, void* dq,
+                                const int* q_seg, const int* kv_seg, int bh, int heads, int lq,
+                                int lkv, int d, int is_bf16, int causal, float sm_scale,
+                                cudaStream_t stream) {
+  if (bh <= 0 || lq <= 0) return 0;
+  const Args a{q, k, v, dout, lse, delta, q_seg, kv_seg, bh, heads, lq, lkv, causal, sm_scale,
+               stream};
+  return is_bf16 ? dispatch_dq<__nv_bfloat16>(a, d, dq) : dispatch_dq<float>(a, d, dq);
+}
+
+extern "C" int moc_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
+                                 const float* lse, const float* delta, void* dk, void* dv,
+                                 const int* q_seg, const int* kv_seg, int bh, int heads, int lq,
+                                 int lkv, int d, int is_bf16, int causal, float sm_scale,
+                                 cudaStream_t stream) {
+  if (bh <= 0 || lkv <= 0) return 0;
+  const Args a{q, k, v, dout, lse, delta, q_seg, kv_seg, bh, heads, lq, lkv, causal, sm_scale,
+               stream};
+  return is_bf16 ? dispatch_dkv<__nv_bfloat16>(a, d, dk, dv)
+                 : dispatch_dkv<float>(a, d, dk, dv);
+}

@@ -2,9 +2,9 @@
 
 Each ``ops/csrc/<name>.cu`` compiles on its own into a shared library with a
 plain C interface, at first use, into ``moc_tpu_torch/build/``. The library
-name carries a hash of the source and the flags, so an edited source never
-loads a stale build. Nothing here runs at import time: the CPU tests import
-every module on hosts without ``nvcc`` or a GPU.
+name carries a hash of the source, the shared headers and the flags, so an
+edited source never loads a stale build. Nothing here runs at import time:
+the CPU tests import every module on hosts without ``nvcc`` or a GPU.
 """
 
 from __future__ import annotations
@@ -44,9 +44,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The build of ``csrc/<name>.cu``, named by a hash of the source, the
+    shared headers (``csrc/*.cuh``) and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for f in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC_DIR, f), "rb") as fh:
+            digest.update(fh.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 

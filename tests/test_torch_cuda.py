@@ -1,6 +1,8 @@
-"""Kernels K1 and K2 on the GPU against their plain PyTorch versions (K1 bit
-for bit, K2 within the JAX package's flash tolerances), K2's wrapper
-contract, and the extraction CLI on the GPU against the CPU.
+"""Kernels K1-K4 on the GPU against their plain PyTorch versions (K1 bit
+for bit, K2-K4 within the JAX package's flash tolerances), the wrappers'
+contracts, the flash-attention gradients against autograd of the dense
+reference, and the extraction and pretraining CLIs on the GPU against the
+CPU.
 
 Needs an NVIDIA GPU and nvcc: every test here carries the ``cuda`` marker and
 skips without a card. This file imports no JAX, so the card's host runs it
@@ -15,10 +17,15 @@ import torch
 
 from moc_tpu_torch.ops import (NEG_INF, masked_col_topk_mask, threshold_topk_mask,
                                topk_threshold_mask, topk_kernel)
-from moc_tpu_torch.ops.flash_attention import flash_attention_padded, mha_reference
-from moc_tpu_torch.ops.flash_kernel import flash_fwd_cuda
+from moc_tpu_torch.ops.flash_attention import (flash_attention, flash_attention_padded,
+                                               flash_attention_with_lse, flash_bwd_reference,
+                                               mha_reference)
+from moc_tpu_torch.ops.flash_kernel import flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_fwd_cuda
 
 K2_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# K3/K4: the JAX package's flash backward tolerance in f32; in bf16, a share
+# of the largest gradient (dS and P are rounded to bf16 before the products)
+BWD_TOL = {torch.float32: 5e-4, torch.bfloat16: 2e-2}
 
 pytestmark = pytest.mark.cuda
 
@@ -72,7 +79,7 @@ def _k2_inputs(gen, length, d, dtype, segments, causal):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [32, 64, 128])
 @pytest.mark.parametrize("length", [785, 1024])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("segments", [False, True])
@@ -150,6 +157,150 @@ def test_k2_wrapper_refuses(gen):
     assert flash_fwd_cuda.launches == before
 
 
+def _bwd_case(gen, lq, lkv, d, dtype, segments, causal, b=2, h=3):
+    """Inputs of K3/K4: q, k, v, the forward's o and lse from K2, a random do."""
+    q = torch.randn((b, h, lq, d), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((b, h, lkv, d), generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    qs = ks = None
+    if segments and causal:  # packed sequences: every row sees at least itself
+        qs = ks = (torch.arange(lq, device="cuda") >= lq // 3).int()[None].repeat(b, 1)
+    elif segments:
+        ks = torch.randint(0, 3, (b, lkv), generator=gen, device="cuda", dtype=torch.int32)
+        qs = torch.randint(0, 3, (b, lq), generator=gen, device="cuda", dtype=torch.int32)
+        qs[0, :16] = 9  # rows that match no key
+    with torch.no_grad():
+        o, lse = flash_fwd_cuda(q, k, v, qs, ks, causal=causal)
+    do = torch.randn((b, h, lq, d), generator=gen, device="cuda").to(dtype)
+    return q, k, v, o, lse, do, qs, ks
+
+
+def _assert_bwd_close(got, want, dtype):
+    # bf16: within 2e-2 of the largest |grad| of the three (dq alone is
+    # rounding noise when every row has one key: dP - delta is 0 there)
+    largest = max(w.float().abs().max().item() for w in want)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, w, rtol=BWD_TOL[dtype], atol=BWD_TOL[dtype],
+                                       msg=name)
+        else:
+            err = (g.float() - w.float()).abs().max().item()
+            assert err <= BWD_TOL[dtype] * largest, (name, err)
+
+
+def _k3_k4(q, k, v, o, lse, do, qs, ks, causal):
+    delta = (o.float() * do.float()).sum(-1)
+    before = (flash_bwd_dq_cuda.launches, flash_bwd_dkv_cuda.launches)
+    dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, qs, ks, causal=causal)
+    dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, qs, ks, causal=causal)
+    torch.cuda.synchronize()
+    assert (flash_bwd_dq_cuda.launches, flash_bwd_dkv_cuda.launches) == (before[0] + 1,
+                                                                       before[1] + 1)
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("length", [1, 63, 512, 785, 1024])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("segments", [False, True])
+def test_k3_k4_match_plain(gen, dtype, d, length, causal, segments):
+    q, k, v, o, lse, do, qs, ks = _bwd_case(gen, length, length, d, dtype, segments, causal)
+    got = _k3_k4(q, k, v, o, lse, do, qs, ks, causal)
+    want = flash_bwd_reference(q, k, v, o, lse, do, qs, ks, causal)
+    _assert_bwd_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("lq,lkv", [(1, 300), (100, 37), (65, 1000), (300, 64)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_k3_k4_unequal_lengths(gen, lq, lkv, causal):
+    """Lq != Lkv, partial tiles on both sides, top-left causal alignment
+    (keys past every query get zero gradients)."""
+    q, k, v, o, lse, do, qs, ks = _bwd_case(gen, lq, lkv, 128, torch.float32, False, causal)
+    got = _k3_k4(q, k, v, o, lse, do, None, None, causal)
+    _assert_bwd_close(got, flash_bwd_reference(q, k, v, o, lse, do, None, None, causal),
+                      torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_k4_match_plain_at_pretrain_shape(gen, dtype):
+    """[32, 12, 512, 64]: the shape the BEiT-3-base encoder gives K3 and K4
+    at batch 32 and sequence 512."""
+    q, k, v, o, lse, do, _, _ = _bwd_case(gen, 512, 512, 64, dtype, False, False, b=32, h=12)
+    got = _k3_k4(q, k, v, o, lse, do, None, None, False)
+    _assert_bwd_close(got, flash_bwd_reference(q, k, v, o, lse, do), dtype)
+
+
+def _grads(fn, q, k, v, do, dlse=None):
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    out = fn(*leaves)
+    if isinstance(out, tuple):
+        out, lse = out
+        loss = (out * do).sum() + (0 if dlse is None else (lse * dlse).sum())
+    else:
+        loss = (out * do).sum()
+    return torch.autograd.grad(loss, leaves)
+
+
+@pytest.mark.parametrize("entry,causal", [(e, c) for e in ("flash_attention", "with_lse_sg",
+                                                            "with_lse") for c in (False, True)]
+                         + [("padded", False)])  # flash_attention_padded is non-causal
+def test_gradients_match_autograd_of_reference(gen, causal, entry):
+    """The autograd Functions against autograd of ``mha_reference`` on the
+    card, on rows that match a key: the cotangent of rows that match none is
+    zero, so the TPU kernels' P = 1 on those rows (L times the dense vjp)
+    does not enter."""
+    length, d = 300, 64
+    q, k, v, _, _, do, qs, ks = _bwd_case(gen, length, length, d, torch.float32,
+                                          not causal, causal)
+    if entry == "padded":
+        mask = torch.rand((2, length), generator=gen, device="cuda") < 0.2
+        qs = ks = (~mask).int()
+    dlse = None
+    if qs is not None:
+        matched = (qs[:, :, None] == ks[:, None, :]).any(-1)  # [B, Lq]
+        do = do * matched[:, None, :, None]
+    kw = dict(q_segment_ids=qs, kv_segment_ids=ks, causal=causal)
+    fns = {"flash_attention": lambda q, k, v: flash_attention(q, k, v, **kw),
+           "with_lse_sg": lambda q, k, v: flash_attention_with_lse(q, k, v, lse_grad=False,
+                                                                   **kw),
+           "with_lse": lambda q, k, v: flash_attention_with_lse(q, k, v, **kw),
+           "padded": lambda q, k, v: flash_attention_padded(q, k, v, padding_mask=mask)}
+    if entry == "with_lse":
+        dlse = torch.randn((2, 3, length), generator=gen, device="cuda")
+        if qs is not None:
+            dlse = dlse * matched[:, None, :]
+    before = (flash_bwd_dq_cuda.launches, flash_bwd_dkv_cuda.launches)
+    got = _grads(fns[entry], q, k, v, do, dlse)
+    torch.cuda.synchronize()
+    launched = 0 if entry == "with_lse" else 1  # lse_grad=True runs the dense vjp, as JAX
+    assert (flash_bwd_dq_cuda.launches, flash_bwd_dkv_cuda.launches) == (before[0] + launched,
+                                                                       before[1] + launched)
+    want = _grads(lambda q, k, v: mha_reference(q, k, v, **kw), q, k, v, do, dlse)
+    _assert_bwd_close(got, want, torch.float32)
+
+
+def test_k3_k4_wrappers_refuse(gen):
+    q, k, v, o, lse, do, _, _ = _bwd_case(gen, 128, 128, 64, torch.float32, False, False)
+    delta = (o * do).sum(-1)
+    before = (flash_bwd_dq_cuda.launches, flash_bwd_dkv_cuda.launches)
+    for fn in (flash_bwd_dq_cuda, flash_bwd_dkv_cuda):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            fn(q.cpu(), k.cpu(), v.cpu(), do.cpu(), lse.cpu(), delta.cpu())
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(q, k, v, do.transpose(2, 3).contiguous().transpose(2, 3), lse, delta)
+        with pytest.raises(ValueError, match="lse"):
+            fn(q, k, v, do, lse.double(), delta)
+        with pytest.raises(ValueError, match="delta"):
+            fn(q, k, v, do, lse, delta[:, :, :64])
+        with pytest.raises(ValueError, match="one dtype"):
+            fn(q, k, v, do.bfloat16(), lse, delta)
+        with pytest.raises(ValueError, match="both or neither"):
+            fn(q, k, v, do, lse, delta, torch.zeros((2, 128), device="cuda"))
+    assert (flash_bwd_dq_cuda.launches, flash_bwd_dkv_cuda.launches) == before
+
+
 def test_extraction_gpu_matches_cpu(gen, tmp_path):
     """Five 256 px patches through the extraction CLI at full CONCH width
     (flash trunk, batch 4 with a padded tail) on the GPU and on the CPU."""
@@ -174,3 +325,44 @@ def test_extraction_gpu_matches_cpu(gen, tmp_path):
     assert feats["cuda"].shape == (5, 512)
     np.testing.assert_allclose(np.linalg.norm(feats["cuda"], axis=1), 1.0, atol=1e-4)
     np.testing.assert_allclose(feats["cuda"], feats["cpu"], atol=1e-4)
+
+
+def test_pretrain_gpu_matches_cpu(gen):
+    """Masked-token pretraining (2 layers, width 256, 8 heads of 32) from one
+    state dict and one ``data_fn`` on the GPU and on the CPU. The first
+    step's gradients agree within 1e-4 of each parameter's largest |grad|
+    (the key biases' gradient is 0 but for rounding); over three steps the
+    losses agree within 1e-4 and the parameters within 3·lr, since Adam
+    moves a weight whose gradient is below the devices' rounding noise by up
+    to lr a step. The card's step launches K2, K3 and K4 once per layer each."""
+    from moc_tpu_torch.cli import pretrain
+    from moc_tpu_torch.train.pretrain import (MaskedTokenModel, batch_to, make_pretrain_state,
+                                              masked_token_loss, run_pretrain)
+
+    args = pretrain.get_args(["--batch", "4", "--seq_len", "128", "--layers", "2",
+                              "--embed_dim", "256", "--ffn_dim", "1024", "--heads", "8"])
+    cfg = pretrain.build_config(args)
+    data_fn = pretrain.make_data_fn(args)
+    state = MaskedTokenModel(cfg).init_parameters(torch.Generator().manual_seed(0)).state_dict()
+    grads = {}
+    for device in ("cuda", "cpu"):
+        model, _ = make_pretrain_state(cfg, device=device, state_dict=state)
+        total, _, _ = masked_token_loss(cfg, model, *batch_to(torch.device(device), *data_fn(0)))
+        total.backward()
+        grads[device] = {n: p.grad.cpu() for n, p in model.named_parameters()}
+    for name, g in grads["cpu"].items():
+        if not name.endswith("k_proj.bias"):
+            assert float((grads["cuda"][name] - g).abs().max()) <= 1e-4 * float(g.abs().max())
+    runs = {}
+    for device in ("cuda", "cpu"):
+        before = [fn.launches for fn in (flash_fwd_cuda, flash_bwd_dq_cuda, flash_bwd_dkv_cuda)]
+        model, _, losses = run_pretrain(cfg, data_fn, total_steps=3, device=device,
+                                        state_dict=state)
+        launched = [fn.launches - b for fn, b in zip(
+            (flash_fwd_cuda, flash_bwd_dq_cuda, flash_bwd_dkv_cuda), before)]
+        assert launched == ([6, 6, 6] if device == "cuda" else [0, 0, 0])
+        runs[device] = losses, {k: v.cpu() for k, v in model.state_dict().items()}
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=0, atol=1e-4)
+    for name, t in runs["cuda"][1].items():
+        torch.testing.assert_close(t, runs["cpu"][1][name], rtol=0,
+                                   atol=3 * cfg.learning_rate, msg=name)

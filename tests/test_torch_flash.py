@@ -152,8 +152,8 @@ def test_contracts():
         tfa.flash_attention(q, k, v, q_segment_ids=seg)
     with pytest.raises(ValueError, match="self-attention"):
         tfa.flash_attention_padded(q, k[:, :, :32], v[:, :, :32])
-    # on the CPU the entry points take the plain version, which autograd can
-    # differentiate; the kernel's wrapper refuses CPU tensors outright
+    # on the CPU the entry points take the plain versions, forward and
+    # backward; the kernel's wrapper refuses CPU tensors outright
     q.requires_grad_(True)
     tfa.flash_attention(q, k, v).sum().backward()
     assert q.grad is not None and torch.isfinite(q.grad).all()

@@ -1,0 +1,210 @@
+"""The flash-attention backward: kernels K3/K4's plain PyTorch version
+``flash_bwd_reference`` and the port's three autograd Functions against the
+JAX package on the CPU. JAX runs its Pallas kernels (``_bwd``, and the
+custom VJPs through ``jax.grad``) in interpret mode, as its own tests do:
+causal and not, segment ids (with rows that match no key), packed causal
+segments, ``flash_attention_padded`` with a padding mask, f32 and bf16.
+
+Tolerance: the JAX package's own flash backward tolerance, rtol = atol =
+5e-4, in f32; in bf16, 2e-2 of the largest gradient. The kernels themselves
+run only on a GPU (``tests/test_torch_cuda.py`` and ``chip_smoke.py``).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from moc_tpu.ops import flash_attention as jfa
+from moc_tpu_torch.ops import flash_attention as tfa
+from moc_tpu_torch.ops.flash_kernel import flash_bwd_dkv_cuda, flash_bwd_dq_cuda
+
+TOL = 5e-4
+
+
+def _arrays(seed, b=2, h=2, lq=128, lkv=None, d=64):
+    rng = np.random.default_rng(seed)
+    lkv = lkv or lq
+    return [rng.normal(size=s).astype(np.float32)
+            for s in ((b, h, lq, d), (b, h, lkv, d), (b, h, lkv, d), (b, h, lq, d))]
+
+
+def _segments(seed, b, lq, lkv, unmatched=0):
+    rng = np.random.default_rng(seed)
+    q_seg = rng.integers(0, 3, size=(b, lq)).astype(np.int32)
+    kv_seg = rng.integers(0, 3, size=(b, lkv)).astype(np.int32)
+    q_seg[:, :unmatched] = 7  # no key is in segment 7
+    return q_seg, kv_seg
+
+
+def _packed(b, length):
+    cuts = [length // 5, length // 2, length - 10]
+    return np.repeat(np.arange(4, dtype=np.int32),
+                     np.diff([0, *cuts, length]))[None].repeat(b, 0)
+
+
+def _close(got, want, tol=TOL):
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.float().numpy() if isinstance(g, torch.Tensor) else g,
+                                   np.asarray(w, np.float32), rtol=tol, atol=tol)
+
+
+def _jax_grads(fn, q, k, v, do, dlse=None):
+    def loss(q, k, v):
+        out = fn(q, k, v)
+        if isinstance(out, tuple):
+            out, lse = out
+            extra = 0.0 if dlse is None else jnp.sum(lse * jnp.asarray(dlse))
+            return jnp.sum(out.astype(jnp.float32) * jnp.asarray(do)) + extra
+        return jnp.sum(out.astype(jnp.float32) * jnp.asarray(do))
+    return jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(t) for t in (q, k, v)))
+
+
+def _torch_grads(fn, q, k, v, do, dlse=None):
+    leaves = [torch.from_numpy(t).requires_grad_(True) for t in (q, k, v)]
+    out = fn(*leaves)
+    if isinstance(out, tuple):
+        out, lse = out
+        extra = 0.0 if dlse is None else (lse * torch.from_numpy(dlse)).sum()
+        total = (out.float() * torch.from_numpy(do)).sum() + extra
+    else:
+        total = (out.float() * torch.from_numpy(do)).sum()
+    return torch.autograd.grad(total, leaves)
+
+
+def _seg_kw(q_seg, kv_seg, causal, as_torch):
+    conv = torch.from_numpy if as_torch else jnp.asarray
+    if q_seg is None:
+        return {"causal": causal}
+    return {"q_segment_ids": conv(q_seg), "kv_segment_ids": conv(kv_seg), "causal": causal}
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("causal,segments", [(False, False), (True, False), (False, True),
+                                             (True, True)])
+def test_plain_backward_matches_jax_kernels(d, causal, segments):
+    """``flash_bwd_reference`` against JAX's Pallas backward ``_bwd`` on the
+    same q, k, v, o, lse and dO (JAX's forward's o and lse)."""
+    q, k, v, do = _arrays(d + 10 * causal + segments, lq=256, d=d)
+    q_seg = kv_seg = None
+    if segments:
+        q_seg, kv_seg = (_packed(2, 256),) * 2 if causal else _segments(d, 2, 256, 256, 8)
+    jx = [jnp.asarray(t) for t in (q, k, v, do)]
+    js = None if q_seg is None else (jnp.asarray(q_seg), jnp.asarray(kv_seg))
+    scale = d ** -0.5
+    o, lse = jfa._fwd(*jx[:3], *(js or (None, None)), scale, causal, 256, 256)
+    want = jfa._bwd(*jx[:3], *(js or (None, None)), o, lse, jx[3], scale, causal, 256, 256)
+    ts = (None, None) if q_seg is None else (torch.from_numpy(q_seg), torch.from_numpy(kv_seg))
+    got = tfa.flash_bwd_reference(
+        *(torch.from_numpy(t) for t in (q, k, v)), torch.from_numpy(np.array(o)),
+        torch.from_numpy(np.array(lse)), torch.from_numpy(do), *ts, causal, scale)
+    _close(got, want)
+
+
+def test_plain_backward_matches_jax_kernels_bf16():
+    q, k, v, do = _arrays(3, lq=256)
+    jx = [jnp.asarray(t, jnp.bfloat16) for t in (q, k, v, do)]
+    o, lse = jfa._fwd(*jx[:3], None, None, 0.125, False, 256, 256)
+    want = jfa._bwd(*jx[:3], None, None, o, lse, jx[3], 0.125, False, 256, 256)
+    tt = [torch.from_numpy(np.array(t.astype(jnp.float32))).bfloat16() for t in (*jx, o)]
+    got = tfa.flash_bwd_reference(tt[0], tt[1], tt[2], tt[4],
+                                  torch.from_numpy(np.array(lse)), tt[3], sm_scale=0.125)
+    largest = max(float(jnp.abs(w.astype(jnp.float32)).max()) for w in want)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        err = np.abs(g.float().numpy() - np.asarray(w.astype(jnp.float32))).max()
+        assert err <= 2e-2 * largest, err
+
+
+@pytest.mark.parametrize("length", [128, 256])
+def test_rows_that_match_no_key_match_the_jax_kernels(length):
+    """A row whose segment matches no key: lse is the mask value, so the
+    kernels recompute P = 1 for every key (L times the dense vjp). The port
+    matches JAX's Pallas backward, through ``jax.grad``, on every row."""
+    q, k, v, do = _arrays(20, lq=length)
+    q_seg, kv_seg = _segments(21, 2, length, length, unmatched=8)
+    want = _jax_grads(lambda q, k, v: jfa.flash_attention(
+        q, k, v, **_seg_kw(q_seg, kv_seg, False, False)), q, k, v, do)
+    got = _torch_grads(lambda q, k, v: tfa.flash_attention(
+        q, k, v, **_seg_kw(q_seg, kv_seg, False, True)), q, k, v, do)
+    _close(got, want)
+    # the dense vjp differs on those rows: 1/L against 1 for P
+    dense = _torch_grads(lambda q, k, v: tfa.mha_reference(
+        q, k, v, **_seg_kw(q_seg, kv_seg, False, True))[0], q, k, v, do)
+    assert not np.allclose(got[2].numpy(), dense[2].numpy(), rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("segments", [False, True])
+@pytest.mark.parametrize("length", [128, 256])
+def test_flash_attention_grads_match_jax(causal, segments, length):
+    q, k, v, do = _arrays(30 + length + causal, lq=length)
+    q_seg = kv_seg = None
+    if segments:
+        q_seg, kv_seg = (_packed(2, length),) * 2 if causal else _segments(31, 2, length, length)
+    want = _jax_grads(lambda q, k, v: jfa.flash_attention(
+        q, k, v, **_seg_kw(q_seg, kv_seg, causal, False)), q, k, v, do)
+    got = _torch_grads(lambda q, k, v: tfa.flash_attention(
+        q, k, v, **_seg_kw(q_seg, kv_seg, causal, True)), q, k, v, do)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("lse_grad", [True, False])
+@pytest.mark.parametrize("causal", [False, True])
+def test_with_lse_grads_match_jax(lse_grad, causal):
+    """``flash_attention_with_lse``: with ``lse_grad=True`` the lse carries a
+    gradient (JAX's dense vjp of ``mha_reference``, no kernel); with False
+    it is stop-gradient and the backward is the kernels'."""
+    q, k, v, do = _arrays(40 + causal, lq=128)
+    q_seg, kv_seg = _segments(41, 2, 128, 128) if not causal else (None, None)
+    dlse = np.random.default_rng(42).normal(size=(2, 2, 128)).astype(np.float32)
+    want = _jax_grads(lambda q, k, v: jfa.flash_attention_with_lse(
+        q, k, v, lse_grad=lse_grad, **_seg_kw(q_seg, kv_seg, causal, False)), q, k, v, do, dlse)
+    got = _torch_grads(lambda q, k, v: tfa.flash_attention_with_lse(
+        q, k, v, lse_grad=lse_grad, **_seg_kw(q_seg, kv_seg, causal, True)), q, k, v, do, dlse)
+    _close(got, want)
+
+
+def test_with_lse_stop_gradient():
+    q, k, v, _ = _arrays(50, lq=64)
+    leaves = [torch.from_numpy(t).requires_grad_(True) for t in (q, k, v)]
+    out, lse = tfa.flash_attention_with_lse(*leaves, lse_grad=False)
+    assert out.requires_grad and not lse.requires_grad
+    out, lse = tfa.flash_attention_with_lse(*leaves)
+    assert out.requires_grad and lse.requires_grad
+
+
+@pytest.mark.parametrize("length", [200, 256])
+def test_padded_grads_match_jax_on_real_rows(length):
+    """``flash_attention_padded`` with a padding mask: JAX pads to a lane
+    multiple with a pad segment, the port masks by bounds. The gradients of
+    the real queries and keys agree (the cotangent of masked queries is 0)."""
+    q, k, v, do = _arrays(60 + length, lq=length)
+    mask = np.zeros((2, length), bool)
+    mask[0, length - 37:] = True
+    mask[1, ::5] = True
+    do = do * ~mask[:, None, :, None]
+    want = _jax_grads(lambda q, k, v: jfa.flash_attention_padded(
+        q, k, v, padding_mask=jnp.asarray(mask)), q, k, v, do)
+    got = _torch_grads(lambda q, k, v: tfa.flash_attention_padded(
+        q, k, v, padding_mask=torch.from_numpy(mask)), q, k, v, do)
+    for b in range(2):
+        real = ~mask[b]
+        _close([g[b][:, real] for g in got], [np.asarray(w)[b][:, real] for w in want])
+
+
+def test_cpu_backward_launches_no_kernel():
+    """On the CPU the Functions take the plain backward; the kernels'
+    wrappers refuse CPU tensors outright."""
+    q, k, v, do = (torch.from_numpy(t) for t in _arrays(70, lq=64))
+    before = (flash_bwd_dq_cuda.launches, flash_bwd_dkv_cuda.launches)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    (tfa.flash_attention(*leaves) * do).sum().backward()
+    assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in leaves)
+    o, lse = tfa.mha_reference(q, k, v)
+    delta = (o * do).sum(-1)
+    for fn in (flash_bwd_dq_cuda, flash_bwd_dkv_cuda):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            fn(q, k, v, do, lse, delta)
+    assert (flash_bwd_dq_cuda.launches, flash_bwd_dkv_cuda.launches) == before
