@@ -18,30 +18,46 @@
 // lse = MASK, so p = exp(0) = 1 for every key of the tiles that run: like
 // the TPU kernels, and unlike the dense vjp (1/L), which is the point of
 // matching them. The products are summed in f32; dq, dk and dv are stored in
-// the input type.
+// the input type. K3 (both types) and K4 in f32 sum on the CUDA cores in the
+// plain version's order; K4 in bf16 sums on the tensor cores in another
+// order, so it agrees with the plain version within the tolerance (2e-2 of
+// the largest |grad|), not bit for bit. The bf16 products are exact, as on
+// the MXU under preferred_element_type=f32.
 //
 // Bound at the pretraining shape ([32 * 12, 512, 64]): K3 does three
 // products of 2 * L^2 * D per head (s, dp, ds . k), 38.7 GFLOP, and K4 four
 // (s, dp, p^T . do, ds^T . q), 51.5 GFLOP: 0.58 and 0.77 ms in f32 at the
 // H100's 67 TFLOP/s outside the tensor cores, against 0.08-0.09 ms for their
 // bytes at 3.35 TB/s, so both are compute-bound. In bf16 the tensor-core
-// bound (0.04 and 0.05 ms) and the bytes are about level; these kernels do
-// their products on the CUDA cores in f32 (no mma.sync / wgmma yet), so in
-// bf16 they cannot approach it.
+// bound is 0.0391 and 0.0521 ms, about level with the bytes.
 //
 // Design: the TPU's split, which needs no atomics. K3 runs one CTA of 256
 // threads per (b*h, 64-row query tile): Q and dO tiles stay in shared
 // memory while it loops over the 64-key tiles of K and V, forms the 64 x 64
 // s and dp tiles in registers (a 4 x 4 block a thread), writes ds to shared
 // memory and accumulates dq for its four rows in f32 registers. K4 runs one
-// CTA per (b*h, 64-key tile): K and V stay while it loops over the query
-// tiles, writes p and ds to shared memory and accumulates dk and dv for four
-// keys a thread. All tiles are staged as f32 (K4 at D = 128: 166 KB of
-// dynamic shared memory). Causal tiles above the diagonal are skipped as
-// should_run does on the TPU: K3 stops at its diagonal key tile, and K4
-// starts its query loop at the tile that holds its first key.
+// CTA per (b*h, 64-key tile) and loops over the query tiles. Causal tiles
+// above the diagonal are skipped as should_run does on the TPU: K3 stops at
+// its diagonal key tile, and K4 starts its query loop at the tile that holds
+// its first key.
+//
+// K4 has two kernels. In f32 (flash_bwd_dkv_kernel) 256 threads stage every
+// tile as f32 (166 KB of dynamic shared memory at D = 128), write p and ds to
+// shared memory and accumulate dk and dv for four keys a thread. In bf16
+// (flash_bwd_dkv_mma_kernel) four warps own 16 keys each and use the tensor
+// cores by mma.sync: the K and V tiles stay in shared memory for the whole
+// loop, the Q and dO tiles (with the tile's lse, delta and segment ids)
+// stream through a two-stage cp.async ring, and the products are taken with
+// keys as the rows, s^T = K.Q^T and dp^T = V.dO^T, so that p^T and ds^T land
+// in accumulator fragments whose rows are the warp's keys. Rounded to bf16
+// and repacked in registers they are the A operands of dv += p^T . dO and
+// dk += ds^T . Q, with dO and Q read by ldmatrix.trans: p and ds never touch
+// shared memory. At D = 128 a q tile is taken in four passes of 16 queries
+// so that the f32 accumulators fit in registers without spilling. Left for wgmma: the
+// same as K2's (flash_fwd.cu), and a tile of 64 keys per CTA, which reads Q
+// and dO from device memory once per 64 keys.
 
-#include "flash_common.cuh"
+#include "flash_mma.cuh"
 
 namespace {
 
@@ -152,11 +168,12 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   store_rows<T, D>(dq + q_off * D, acc, one, q0, lq, ty, tx);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const T* __restrict__ dout, const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     float* __restrict__ dk, float* __restrict__ dv,
                      const int* __restrict__ q_seg, const int* __restrict__ kv_seg, int heads,
                      int lq, int lkv, int n_ktiles, int causal, float sm_scale) {
   using Cols = ColMap<D>;
@@ -180,8 +197,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   const size_t q_off = static_cast<size_t>(bh) * lq;
   const size_t kv_off = static_cast<size_t>(bh) * lkv;
 
-  load_tile<T, D>(k + kv_off * D, ks, kv0, lkv);
-  load_tile<T, D>(v + kv_off * D, vs, kv0, lkv);
+  load_tile<float, D>(k + kv_off * D, ks, kv0, lkv);
+  load_tile<float, D>(v + kv_off * D, vs, kv0, lkv);
 
   int key_seg[4];
 #pragma unroll
@@ -201,8 +218,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   // tile to run is the one that holds query kv0
   for (int q0 = causal ? kv0 : 0; q0 < lq; q0 += kBlock) {
     __syncthreads();  // the previous tile's readers are done with qs, dos, ps, dss
-    load_tile<T, D>(q + q_off * D, qs, q0, lq);
-    load_tile<T, D>(dout + q_off * D, dos, q0, lq);
+    load_tile<float, D>(q + q_off * D, qs, q0, lq);
+    load_tile<float, D>(dout + q_off * D, dos, q0, lq);
     __syncthreads();
 
     int row_seg[4];
@@ -223,8 +240,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     for (int i = 0; i < 4; ++i) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        ps[(4 * ty + i) * kP + tx + 16 * j] = round_like<T>(s[i][j]);
-        dss[(4 * ty + i) * kP + tx + 16 * j] = round_like<T>(dp[i][j]);
+        ps[(4 * ty + i) * kP + tx + 16 * j] = s[i][j];
+        dss[(4 * ty + i) * kP + tx + 16 * j] = dp[i][j];
       }
     }
     __syncthreads();
@@ -254,14 +271,177 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   }
 
   const float one[4] = {1.f, 1.f, 1.f, 1.f};
-  store_rows<T, D>(dk + kv_off * D, dk_acc, one, kv0, lkv, ty, tx);
-  store_rows<T, D>(dv + kv_off * D, dv_acc, one, kv0, lkv, ty, tx);
+  store_rows<float, D>(dk + kv_off * D, dk_acc, one, kv0, lkv, ty, tx);
+  store_rows<float, D>(dv + kv_off * D, dv_acc, one, kv0, lkv, ty, tx);
 }
 
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
+template <int D>
+constexpr size_t dkv_mma_smem_bytes() {
+  // K and V; two stages of Q and dO; two of lse, delta and the q segment ids
+  return 6 * Tile<D>::kBytes + 2 * kBlock * (2 * sizeof(float) + sizeof(int));
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         bf16* __restrict__ dk, bf16* __restrict__ dv,
+                         const int* __restrict__ q_seg, const int* __restrict__ kv_seg, int heads,
+                         int lq, int lkv, int n_ktiles, int causal, float sm_scale) {
+  constexpr int kSteps = D / 16;                 // k-steps of s^T = K.Q^T and dp^T = V.dO^T
+  constexpr int kDTiles = D / 8;                 // n-tiles of dk and dv
+  constexpr int kQChunk = D == 128 ? 16 : 64;    // queries per pass (register budget)
+  constexpr int kQTiles = kQChunk / 8;           // n-tiles of s^T and dp^T in a pass
+  constexpr int kTileElems = Tile<D>::kElems;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* vs = ks + kTileElems;
+  bf16* qs = vs + kTileElems;        // [2][64, D]
+  bf16* dos = qs + 2 * kTileElems;   // [2][64, D]
+  float* lse_s = reinterpret_cast<float*>(dos + 2 * kTileElems);  // [2][64]
+  float* delta_s = lse_s + 2 * kBlock;                            // [2][64]
+  int* q_segs = reinterpret_cast<int*>(delta_s + 2 * kBlock);     // [2][64]
+
+  const int bh = blockIdx.x / n_ktiles;
+  const int kv0 = (blockIdx.x % n_ktiles) * kBlock;
+  const int b = bh / heads;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int t4 = lane & 3;
+  const bool segments = q_seg != nullptr;
+  const size_t q_off = static_cast<size_t>(bh) * lq;
+  const size_t kv_off = static_cast<size_t>(bh) * lkv;
+  const int* q_seg_b = segments ? q_seg + static_cast<size_t>(b) * lq : nullptr;
+
+  // this lane's two keys: rows g and g + 8 of the warp's 16
+  const int wrow = 16 * warp;
+  const int key0 = kv0 + wrow + (lane >> 2);
+  const int key1 = key0 + 8;
+  int kseg0 = 0, kseg1 = 0;
+  if (segments) {
+    if (key0 < lkv) kseg0 = kv_seg[static_cast<size_t>(b) * lkv + key0];
+    if (key1 < lkv) kseg1 = kv_seg[static_cast<size_t>(b) * lkv + key1];
+  }
+
+  // query tiles wholly above the diagonal see none of these keys: the first
+  // tile to run is the one that holds query kv0
+  const int q_begin = causal ? kv0 : 0;
+  const int n_tiles = q_begin < lq ? (lq - q_begin + kBlock - 1) / kBlock : 0;
+  auto load_q = [&](int t) {
+    const int stage = t & 1;
+    const int q0 = q_begin + t * kBlock;
+    load_tile_async<D>(qs + stage * kTileElems, q + q_off * D, q0, lq, tid);
+    load_tile_async<D>(dos + stage * kTileElems, dout + q_off * D, q0, lq, tid);
+    load_vec_async(lse_s + stage * kBlock, lse + q_off, q0, lq, tid);
+    load_vec_async(delta_s + stage * kBlock, delta + q_off, q0, lq, tid - kBlock);
+    if (segments) load_vec_async(q_segs + stage * kBlock, q_seg_b, q0, lq, tid);
+  };
+  load_tile_async<D>(ks, k + kv_off * D, kv0, lkv, tid);
+  load_tile_async<D>(vs, v + kv_off * D, kv0, lkv, tid);
+  if (n_tiles > 0) load_q(0);
+  cp_async_commit();
+
+  float dk_acc[kDTiles][4], dv_acc[kDTiles][4];
+#pragma unroll
+  for (int n = 0; n < kDTiles; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+  }
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int q0 = q_begin + t * kBlock;
+    const int stage = t & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // tile t has landed, and every warp is done with tile t - 1
+    if (t + 1 < n_tiles) load_q(t + 1);  // into the stage tile t - 1 used
+    cp_async_commit();
+    const bf16* qt = qs + stage * kTileElems;
+    const bf16* dot = dos + stage * kTileElems;
+    const float* lse_t = lse_s + stage * kBlock;
+    const float* delta_t = delta_s + stage * kBlock;
+    const int* seg_t = q_segs + stage * kBlock;
+
+#pragma unroll
+    for (int qc = 0; qc < kBlock; qc += kQChunk) {
+      // s^T and dp^T for the warp's 16 keys and queries qc .. qc + kQChunk
+      float st[kQTiles][4], dpt[kQTiles][4];
+#pragma unroll
+      for (int j = 0; j < kQTiles; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+      }
+#pragma unroll
+      for (int kstep = 0; kstep < kSteps; ++kstep) {
+        uint32_t kf[4], vf[4];
+        ldsm_x4(kf, a_addr<D>(ks, wrow, kstep, lane));
+        ldsm_x4(vf, a_addr<D>(vs, wrow, kstep, lane));
+#pragma unroll
+        for (int jj = 0; jj < kQTiles / 2; ++jj) {
+          uint32_t qf[4], df[4];
+          ldsm_x4(qf, b_addr<D>(qt, qc + 16 * jj, kstep, lane));
+          mma_bf16(st[2 * jj], kf, qf[0], qf[1]);
+          mma_bf16(st[2 * jj + 1], kf, qf[2], qf[3]);
+          ldsm_x4(df, b_addr<D>(dot, qc + 16 * jj, kstep, lane));
+          mma_bf16(dpt[2 * jj], vf, df[0], df[1]);
+          mma_bf16(dpt[2 * jj + 1], vf, df[2], df[3]);
+        }
+      }
+
+      // p^T and ds^T in place; the lane holds queries qc + 8j + 2 * t4 + (e & 1)
+#pragma unroll
+      for (int j = 0; j < kQTiles; ++j) {
+        const int col = qc + 8 * j + 2 * t4;
+        const float2 row_lse = *reinterpret_cast<const float2*>(lse_t + col);
+        const float2 row_delta = *reinterpret_cast<const float2*>(delta_t + col);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int query = q0 + col + (e & 1);
+          const int key = e < 2 ? key0 : key1;
+          float x = st[j][e] * sm_scale;
+          if (masked(causal, segments, query, key, segments ? seg_t[col + (e & 1)] : 0,
+                     e < 2 ? kseg0 : kseg1)) {
+            x = kMaskValue;
+          }
+          // a difference, not a fused x * log2e - lse * log2e: MASK * log2e overflows
+          const float p = (query < lq && key < lkv)
+                              ? exp2f((x - ((e & 1) ? row_lse.y : row_lse.x)) * kLog2e)
+                              : 0.f;
+          st[j][e] = p;
+          dpt[j][e] = p * (dpt[j][e] - ((e & 1) ? row_delta.y : row_delta.x)) * sm_scale;
+        }
+      }
+
+      // dv += bf16(p^T) . dO and dk += bf16(ds^T) . Q, queries as the k dimension
+#pragma unroll
+      for (int kk = 0; kk < kQChunk / 16; ++kk) {
+        uint32_t pa[4], da[4];
+        acc_to_a(pa, st[2 * kk], st[2 * kk + 1]);
+        acc_to_a(da, dpt[2 * kk], dpt[2 * kk + 1]);
+#pragma unroll
+        for (int dd = 0; dd < kDTiles / 2; ++dd) {
+          uint32_t df[4], qf[4];
+          ldsm_x4_trans(df, bt_addr<D>(dot, qc + 16 * kk, dd, lane));
+          mma_bf16(dv_acc[2 * dd], pa, df[0], df[1]);
+          mma_bf16(dv_acc[2 * dd + 1], pa, df[2], df[3]);
+          ldsm_x4_trans(qf, bt_addr<D>(qt, qc + 16 * kk, dd, lane));
+          mma_bf16(dk_acc[2 * dd], da, qf[0], qf[1]);
+          mma_bf16(dk_acc[2 * dd + 1], da, qf[2], qf[3]);
+        }
+      }
+    }
+  }
+
+  // every copy has landed and no warp reads K or V again: each warp stages
+  // its dk and dv rows in its own 16 rows of the K and V tiles
+  cp_async_wait<0>();
+  __syncthreads();
+  stage_rows<D>(ks, dk_acc, 1.f, 1.f, wrow, lane);
+  stage_rows<D>(vs, dv_acc, 1.f, 1.f, wrow, lane);
+  __syncwarp();
+  store_rows_16<D>(dk + kv_off * D, ks, wrow, kv0, lkv, lane);
+  store_rows_16<D>(dv + kv_off * D, vs, wrow, kv0, lkv, lane);
 }
 
 struct Args {
@@ -286,16 +466,28 @@ int launch_dq(const Args& a, void* dq) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
-int launch_dkv(const Args& a, void* dk, void* dv) {
-  constexpr size_t smem = dkv_smem_bytes<D>();
-  cudaError_t err = allow_smem(flash_bwd_dkv_kernel<T, D>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+template <int D>
+int launch_dkv(const Args& a, int is_bf16, void* dk, void* dv) {
   const int n_ktiles = (a.lkv + kBlock - 1) / kBlock;
-  flash_bwd_dkv_kernel<T, D><<<a.bh * n_ktiles, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), a.lse, a.delta, static_cast<T*>(dk), static_cast<T*>(dv),
-      a.q_seg, a.kv_seg, a.heads, a.lq, a.lkv, n_ktiles, a.causal, a.sm_scale);
+  if (is_bf16) {
+    constexpr size_t smem = dkv_mma_smem_bytes<D>();
+    cudaError_t err = allow_smem(flash_bwd_dkv_mma_kernel<D>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    flash_bwd_dkv_mma_kernel<D><<<a.bh * n_ktiles, kMmaThreads, smem, a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse, a.delta,
+        static_cast<bf16*>(dk), static_cast<bf16*>(dv), a.q_seg, a.kv_seg, a.heads, a.lq, a.lkv,
+        n_ktiles, a.causal, a.sm_scale);
+  } else {
+    constexpr size_t smem = dkv_smem_bytes<D>();
+    cudaError_t err = allow_smem(flash_bwd_dkv_kernel<D>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    flash_bwd_dkv_kernel<D><<<a.bh * n_ktiles, kThreads, smem, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse, a.delta,
+        static_cast<float*>(dk), static_cast<float*>(dv), a.q_seg, a.kv_seg, a.heads, a.lq,
+        a.lkv, n_ktiles, a.causal, a.sm_scale);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -309,12 +501,11 @@ int dispatch_dq(const Args& a, int d, void* dq) {
   }
 }
 
-template <typename T>
-int dispatch_dkv(const Args& a, int d, void* dk, void* dv) {
+int dispatch_dkv(const Args& a, int d, int is_bf16, void* dk, void* dv) {
   switch (d) {
-    case 32: return launch_dkv<T, 32>(a, dk, dv);
-    case 64: return launch_dkv<T, 64>(a, dk, dv);
-    case 128: return launch_dkv<T, 128>(a, dk, dv);
+    case 32: return launch_dkv<32>(a, is_bf16, dk, dv);
+    case 64: return launch_dkv<64>(a, is_bf16, dk, dv);
+    case 128: return launch_dkv<128>(a, is_bf16, dk, dv);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -326,8 +517,9 @@ int dispatch_dkv(const Args& a, int d, void* dk, void* dv) {
 // f32, and q_seg [bh/heads, lq] and kv_seg [bh/heads, lkv] int32, both null
 // or both set; d is 32, 64 or 128. They write dq [bh, lq, d] (K3), or dk and
 // dv [bh, lkv, d] (K4), in the input type, launch on `stream` without
-// synchronising and return the cudaGetLastError() code of the launch (0 on
-// success).
+// synchronising and return the cudaGetLastError() code of the launch, or of
+// a refused shared-memory opt-in (0 on success). K4 in bf16 runs on the
+// tensor cores, everything else on the CUDA cores.
 extern "C" int moc_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                 const float* lse, const float* delta, void* dq,
                                 const int* q_seg, const int* kv_seg, int bh, int heads, int lq,
@@ -347,6 +539,5 @@ extern "C" int moc_flash_bwd_dkv(const void* q, const void* k, const void* v, co
   if (bh <= 0 || lkv <= 0) return 0;
   const Args a{q, k, v, dout, lse, delta, q_seg, kv_seg, bh, heads, lq, lkv, causal, sm_scale,
                stream};
-  return is_bf16 ? dispatch_dkv<__nv_bfloat16>(a, d, dk, dv)
-                 : dispatch_dkv<float>(a, d, dk, dv);
+  return dispatch_dkv(a, d, is_bf16, dk, dv);
 }

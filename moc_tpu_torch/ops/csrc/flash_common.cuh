@@ -1,9 +1,11 @@
 // Pieces shared by the flash-attention kernels K2 (flash_fwd.cu) and K3/K4
-// (flash_bwd.cu): tiles of 64 rows staged in shared memory as f32, the
-// mask value, bf16 rounding, and the map from a thread to the output
-// columns it owns.
+// (flash_bwd.cu): the tile size, the mask value and the mask test, which
+// every kernel uses, and for the kernels on the CUDA cores (K2 and K4 in
+// f32, K3 in both types) tiles of 64 rows staged in shared memory as f32,
+// bf16 rounding, and the map from a thread to the output columns it owns.
+// The bf16 tensor-core kernels take their pieces from flash_mma.cuh.
 //
-// Every kernel runs 256 threads as a 16 x 16 grid: ty = tid >> 4 owns rows
+// Every CUDA-core kernel runs 256 threads as a 16 x 16 grid: ty = tid >> 4 owns rows
 // 4*ty .. 4*ty+3 of a 64-row tile, tx = tid & 15 owns keys tx + 16*j of a
 // 64-key tile in the score products, and the columns ColMap<D>::col(tx, c)
 // of a D-wide accumulator.
@@ -222,6 +224,13 @@ __device__ __forceinline__ void tile_accumulate(const float* __restrict__ w,
 __device__ __forceinline__ bool masked(bool causal, bool segments, int row, int key, int row_seg,
                                        int key_seg) {
   return (causal && key > row) || (segments && key_seg != row_seg);
+}
+
+// opt a kernel in to `bytes` of dynamic shared memory (above 48 KB needs it)
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
 }
 
 }  // namespace flash

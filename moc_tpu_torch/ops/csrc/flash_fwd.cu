@@ -15,26 +15,50 @@
 //       (Lkv == 0) gives o = 0 and lse = -inf.
 //
 // In bf16 the products are exact in f32 and summed in f32, and P is rounded
-// to bf16 before the P.V product, as p.astype(v.dtype) does on the TPU.
+// to bf16 before the P.V product, as p.astype(v.dtype) does on the TPU under
+// preferred_element_type=f32. The tensor cores sum in another order than the
+// plain version, so bf16 results agree with it within the tolerance (2e-2),
+// not bit for bit; f32 takes the CUDA-core kernel and its sums are unchanged.
 //
-// Bound at the extraction shape ([64 * 12, 785, 64]): 4 * 768 * 785^2 * 64 =
-// 121 GFLOP. In f32 that is 1.81 ms at the H100's 67 TFLOP/s outside the
-// tensor cores, against 0.18 ms for its bytes (q, k, v and o, 154 MB each, at
-// 3.35 TB/s): compute-bound. In bf16 it is 0.12 ms at 989 TFLOP/s: compute-
-// bound too. This kernel does its products on the CUDA cores in f32 (no
-// mma.sync / wgmma yet), so in bf16 it cannot approach that bound.
+// Bound: operations, 4 * BH * Lq * Lkv * D. At the extraction shape
+// ([64 * 12, 785, 64]) that is 121.2 GFLOP: 1.81 ms in f32 at the H100's
+// 67 TFLOP/s outside the tensor cores (its bytes, q, k, v and o at 154 MB
+// each, take 0.18 ms at 3.35 TB/s), and 0.1225 ms in bf16 at 989 TFLOP/s.
+// At the pretraining shape ([32 * 12, 512, 64]) bf16 is bound by its bytes,
+// 0.0303 ms.
 //
-// Design: one CTA of 256 threads per (b*h, 64-row query tile), looping over
-// 64-key tiles of K and V staged in shared memory as f32 (rows padded by four
-// floats so float4 reads stay free of bank conflicts). A thread owns a 4x4
-// block of the score tile (rows 4*ty.., keys tx + 16*j) and the same four
-// rows of the output accumulator (the columns of ColMap), so the running max
-// m, sum l and the rescale factor stay in its registers; the row max and sum
-// are reduced over the 16 threads of a half-warp with shuffles. Causal key
-// tiles wholly above the diagonal are skipped. Any Lq and Lkv work: the
-// ragged edge is masked by bounds, not by padding. D is 32, 64 or 128.
+// Two kernels behind one entry point:
+//
+// - f32 (flash_fwd_kernel): the CUDA cores. One CTA of 256 threads per
+//   (b*h, 64-row query tile), looping over 64-key tiles of K and V staged in
+//   shared memory as f32 (rows padded by four floats so float4 reads stay
+//   free of bank conflicts). A thread owns a 4x4 block of the score tile and
+//   the same four rows of the output accumulator; the row max and sum are
+//   reduced over a half-warp with shuffles. TF32 would break the JAX
+//   package's 2e-5 f32 tolerance, so f32 stays off the tensor cores.
+//
+// - bf16 (flash_fwd_mma_kernel): the tensor cores by mma.sync. One CTA of
+//   four warps per (b*h, 64-row query tile); a warp owns 16 query rows. The
+//   Q tile is loaded once and its A fragments stay in registers. 64-key K
+//   and V tiles stream through a two-stage cp.async ring in bf16 (swizzled,
+//   zero-filled past Lkv), so the copy of tile t + 1 overlaps the products
+//   of tile t. S = Q.K^T lands in f32 fragments that are scaled and masked
+//   in place; the online softmax reduces each row's max over the quad of
+//   lanes that shares it (two shuffles) and keeps each lane's partial sum
+//   until the end; P = exp(S - m), rounded to bf16, is repacked from the
+//   accumulator fragments into the A operand of P.V without touching shared
+//   memory, with V read by ldmatrix.trans. The f32 O accumulator is
+//   rescaled per tile; the epilogue scales by 1/l, stages O through the
+//   warp's own rows of the Q tile and writes it in 16-byte stores.
+//
+// Both skip causal key tiles wholly above the diagonal and take any Lq and
+// Lkv (the ragged edge is masked by bounds, not by padding); D is 32, 64 or
+// 128. Left for wgmma: the products at most ~60% of the tensor-core rate
+// that mma.sync reaches on Hopper, operands re-read from shared memory by
+// every warp (ldmatrix, not wgmma's shared-memory descriptors), and the
+// copies issued by the same warps that compute (no TMA producer warp).
 
-#include "flash_common.cuh"
+#include "flash_mma.cuh"
 
 namespace {
 
@@ -45,10 +69,10 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (3 * Layout<D>::kTile + Layout<D>::kPTile);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, float* __restrict__ lse,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
                  const int* __restrict__ q_seg, const int* __restrict__ kv_seg,
                  int heads, int lq, int lkv, int n_qtiles, int causal, float sm_scale) {
   constexpr int kP = Layout<D>::kPStride;
@@ -66,11 +90,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int ty = tid >> 4;
   const int tx = tid & 15;
   const bool segments = q_seg != nullptr;
-  const T* qb = q + static_cast<size_t>(bh) * lq * D;
-  const T* kb = k + static_cast<size_t>(bh) * lkv * D;
-  const T* vb = v + static_cast<size_t>(bh) * lkv * D;
+  const float* qb = q + static_cast<size_t>(bh) * lq * D;
+  const float* kb = k + static_cast<size_t>(bh) * lkv * D;
+  const float* vb = v + static_cast<size_t>(bh) * lkv * D;
 
-  load_tile<T, D>(qb, qs, q0, lq);
+  load_tile<float, D>(qb, qs, q0, lq);
 
   int row_seg[4];
   float m[4], l[4], acc[4][kPer];
@@ -88,8 +112,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int kv_end = causal ? min(lkv, q0 + kBlock) : lkv;
   for (int kv0 = 0; kv0 < kv_end; kv0 += kBlock) {
     __syncthreads();  // the previous tile's readers are done with ks, vs, ps
-    load_tile<T, D>(kb, ks, kv0, lkv);
-    load_tile<T, D>(vb, vs, kv0, lkv);
+    load_tile<float, D>(kb, ks, kv0, lkv);
+    load_tile<float, D>(vb, vs, kv0, lkv);
     __syncthreads();
 
     float s[4][4] = {};
@@ -126,7 +150,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       for (int j = 0; j < 4; ++j) {
         const float p = expf(s[i][j] - mn);
         rs += p;
-        ps[(4 * ty + i) * kP + tx + 16 * j] = round_like<T>(p);
+        ps[(4 * ty + i) * kP + tx + 16 * j] = p;
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1) rs += __shfl_xor_sync(kFull, rs, off);
@@ -143,7 +167,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   float inv[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) inv[i] = l[i] == 0.f ? 1.f : 1.f / l[i];
-  store_rows<T, D>(o + static_cast<size_t>(bh) * lq * D, acc, inv, q0, lq, ty, tx);
+  store_rows<float, D>(o + static_cast<size_t>(bh) * lq * D, acc, inv, q0, lq, ty, tx);
   if (tx == 0) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -156,39 +180,219 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           const int* q_seg, const int* kv_seg, int bh, int heads, int lq, int lkv,
-           int causal, float sm_scale, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_qtiles = (lq + kBlock - 1) / kBlock;
-  flash_fwd_kernel<T, D><<<bh * n_qtiles, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, q_seg, kv_seg, heads, lq, lkv, n_qtiles, causal, sm_scale);
-  return static_cast<int>(cudaGetLastError());
+template <int D>
+constexpr size_t mma_smem_bytes() {  // Q, two stages of K and V, two of the key segment ids
+  return 5 * Tile<D>::kBytes + 2 * kBlock * sizeof(int);
 }
 
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, const int* q_seg,
-             const int* kv_seg, int bh, int heads, int lq, int lkv, int d, int causal,
-             float sm_scale, cudaStream_t stream) {
-  switch (d) {
-    case 32:
-      return launch<T, 32>(q, k, v, o, lse, q_seg, kv_seg, bh, heads, lq, lkv, causal, sm_scale,
-                           stream);
-    case 64:
-      return launch<T, 64>(q, k, v, o, lse, q_seg, kv_seg, bh, heads, lq, lkv, causal, sm_scale,
-                           stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, lse, q_seg, kv_seg, bh, heads, lq, lkv, causal,
-                            sm_scale, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+                     const int* __restrict__ q_seg, const int* __restrict__ kv_seg, int heads,
+                     int lq, int lkv, int n_qtiles, int causal, float sm_scale) {
+  constexpr int kSteps = D / 16;      // k-steps of S = Q.K^T
+  constexpr int kKeyTiles = kBlock / 8;  // n-tiles of S
+  constexpr int kDTiles = D / 8;      // n-tiles of O
+  constexpr int kTileElems = Tile<D>::kElems;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* ks = qs + kTileElems;      // [2][64, D]
+  bf16* vs = ks + 2 * kTileElems;  // [2][64, D]
+  int* kv_segs = reinterpret_cast<int*>(vs + 2 * kTileElems);  // [2][64]
+
+  const int bh = blockIdx.x / n_qtiles;
+  const int q0 = (blockIdx.x % n_qtiles) * kBlock;
+  const int b = bh / heads;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int t4 = lane & 3;
+  const bool segments = q_seg != nullptr;
+  const bf16* kb = k + static_cast<size_t>(bh) * lkv * D;
+  const bf16* vb = v + static_cast<size_t>(bh) * lkv * D;
+  const int* kv_seg_b = segments ? kv_seg + static_cast<size_t>(b) * lkv : nullptr;
+
+  // this lane's two query rows: g and g + 8 of the warp's 16
+  const int wrow = 16 * warp;
+  const int row0 = q0 + wrow + (lane >> 2);
+  const int row1 = row0 + 8;
+  int seg0 = 0, seg1 = 0;
+  if (segments) {
+    if (row0 < lq) seg0 = q_seg[static_cast<size_t>(b) * lq + row0];
+    if (row1 < lq) seg1 = q_seg[static_cast<size_t>(b) * lq + row1];
   }
+
+  // key tiles wholly above the diagonal contribute nothing: skip them
+  const int kv_end = causal ? min(lkv, q0 + kBlock) : lkv;
+  const int n_tiles = (kv_end + kBlock - 1) / kBlock;
+  auto load_kv = [&](int t) {
+    const int stage = t & 1;
+    load_tile_async<D>(ks + stage * kTileElems, kb, t * kBlock, lkv, tid);
+    load_tile_async<D>(vs + stage * kTileElems, vb, t * kBlock, lkv, tid);
+    if (segments) load_vec_async(kv_segs + stage * kBlock, kv_seg_b, t * kBlock, lkv, tid);
+  };
+  load_tile_async<D>(qs, q + static_cast<size_t>(bh) * lq * D, q0, lq, tid);
+  if (n_tiles > 0) load_kv(0);
+  cp_async_commit();
+
+  uint32_t qf[kSteps][4];
+  float acc[kDTiles][4];
+#pragma unroll
+  for (int n = 0; n < kDTiles; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // l: this lane's partial sums
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int kv0 = t * kBlock;
+    const int stage = t & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // tile t has landed, and every warp is done with tile t - 1
+    if (t + 1 < n_tiles) load_kv(t + 1);  // into the stage tile t - 1 used
+    cp_async_commit();
+    if (t == 0) {
+#pragma unroll
+      for (int kstep = 0; kstep < kSteps; ++kstep) {
+        ldsm_x4(qf[kstep], a_addr<D>(qs, wrow, kstep, lane));
+      }
+    }
+    const bf16* kt = ks + stage * kTileElems;
+    const bf16* vt = vs + stage * kTileElems;
+
+    float s[kKeyTiles][4];
+#pragma unroll
+    for (int j = 0; j < kKeyTiles; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kstep = 0; kstep < kSteps; ++kstep) {
+#pragma unroll
+      for (int jj = 0; jj < kKeyTiles / 2; ++jj) {
+        uint32_t kf[4];
+        ldsm_x4(kf, b_addr<D>(kt, 16 * jj, kstep, lane));
+        mma_bf16(s[2 * jj], qf[kstep], kf[0], kf[1]);
+        mma_bf16(s[2 * jj + 1], qf[kstep], kf[2], kf[3]);
+      }
+    }
+
+    // scale and mask in place; the lane holds keys kv0 + 8j + 2 * t4 + (e & 1)
+    const bool edge = kv0 + kBlock > lkv;
+    if (edge || causal || segments) {
+      const int* segs = kv_segs + stage * kBlock;
+#pragma unroll
+      for (int j = 0; j < kKeyTiles; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + 2 * t4 + (e & 1);
+          const int key = kv0 + col;
+          float x = s[j][e] * sm_scale;
+          if (key >= lkv) {
+            x = -INFINITY;
+          } else if (masked(causal, segments, e < 2 ? row0 : row1, key, e < 2 ? seg0 : seg1,
+                            segments ? segs[col] : 0)) {
+            x = kMaskValue;
+          }
+          s[j][e] = x;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kKeyTiles; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] *= sm_scale;
+      }
+    }
+
+    // online softmax; every tile holds a key below Lkv, so the tile max is finite
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < kKeyTiles; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, off));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    // differences, not a fused x * log2e - m * log2e: MASK * log2e overflows
+    const float alpha0 = exp2f((m0 - mn0) * kLog2e), alpha1 = exp2f((m1 - mn1) * kLog2e);
+    m0 = mn0;
+    m1 = mn1;
+    float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < kKeyTiles; ++j) {
+      s[j][0] = exp2f((s[j][0] - mn0) * kLog2e);
+      s[j][1] = exp2f((s[j][1] - mn0) * kLog2e);
+      s[j][2] = exp2f((s[j][2] - mn1) * kLog2e);
+      s[j][3] = exp2f((s[j][3] - mn1) * kLog2e);
+      rs0 += s[j][0] + s[j][1];
+      rs1 += s[j][2] + s[j][3];
+    }
+    l0 = alpha0 * l0 + rs0;
+    l1 = alpha1 * l1 + rs1;
+#pragma unroll
+    for (int n = 0; n < kDTiles; ++n) {
+      acc[n][0] *= alpha0;
+      acc[n][1] *= alpha0;
+      acc[n][2] *= alpha1;
+      acc[n][3] *= alpha1;
+    }
+
+    // O += bf16(P) . V, P straight from the score fragments
+#pragma unroll
+    for (int kk = 0; kk < kBlock / 16; ++kk) {
+      uint32_t pa[4];
+      acc_to_a(pa, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int dd = 0; dd < kDTiles / 2; ++dd) {
+        uint32_t vf[4];
+        ldsm_x4_trans(vf, bt_addr<D>(vt, 16 * kk, dd, lane));
+        mma_bf16(acc[2 * dd], pa, vf[0], vf[1]);
+        mma_bf16(acc[2 * dd + 1], pa, vf[2], vf[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(kFull, l0, off);
+    l1 += __shfl_xor_sync(kFull, l1, off);
+  }
+  // the Q tile has landed (also when no key tile ran) and no warp reads it
+  // again: each warp stages its O rows in its own 16 rows of it
+  cp_async_wait<0>();
+  __syncthreads();
+  stage_rows<D>(qs, acc, l0 == 0.f ? 1.f : 1.f / l0, l1 == 0.f ? 1.f : 1.f / l1, wrow, lane);
+  __syncwarp();
+  store_rows_16<D>(o + static_cast<size_t>(bh) * lq * D, qs, wrow, q0, lq, lane);
+  if (t4 == 0) {
+    float* lse_b = lse + static_cast<size_t>(bh) * lq;
+    if (row0 < lq) lse_b[row0] = l0 == 0.f ? -INFINITY : m0 + logf(fmaxf(l0, 1e-37f));
+    if (row1 < lq) lse_b[row1] = l1 == 0.f ? -INFINITY : m1 + logf(fmaxf(l1, 1e-37f));
+  }
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, const int* q_seg,
+           const int* kv_seg, int bh, int heads, int lq, int lkv, int is_bf16, int causal,
+           float sm_scale, cudaStream_t stream) {
+  const int n_qtiles = (lq + kBlock - 1) / kBlock;
+  if (is_bf16) {
+    constexpr size_t smem = mma_smem_bytes<D>();
+    cudaError_t err = allow_smem(flash_fwd_mma_kernel<D>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    flash_fwd_mma_kernel<D><<<bh * n_qtiles, kMmaThreads, smem, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<bf16*>(o), lse, q_seg, kv_seg, heads, lq, lkv, n_qtiles, causal, sm_scale);
+  } else {
+    constexpr size_t smem = smem_bytes<D>();
+    cudaError_t err = allow_smem(flash_fwd_kernel<D>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    flash_fwd_kernel<D><<<bh * n_qtiles, kThreads, smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(o), lse, q_seg, kv_seg, heads, lq,
+        lkv, n_qtiles, causal, sm_scale);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -196,15 +400,25 @@ int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, c
 // q [bh, lq, d], k and v [bh, lkv, d], o [bh, lq, d] (all contiguous, 16-byte
 // aligned, f32 when is_bf16 == 0 else bf16); lse [bh, lq] f32; q_seg [bh/heads,
 // lq] and kv_seg [bh/heads, lkv] int32, both null or both set. d is 32, 64 or
-// 128. Launches on `stream` without synchronising and returns the
-// cudaGetLastError() code of the launch (0 on success).
+// 128. f32 runs on the CUDA cores, bf16 on the tensor cores. Launches on
+// `stream` without synchronising and returns the cudaGetLastError() code of
+// the launch, or of a refused shared-memory opt-in (0 on success).
 extern "C" int moc_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
                              const int* q_seg, const int* kv_seg, int bh, int heads, int lq,
                              int lkv, int d, int is_bf16, int causal, float sm_scale,
                              cudaStream_t stream) {
   if (bh <= 0 || lq <= 0) return 0;
-  return is_bf16 ? dispatch<__nv_bfloat16>(q, k, v, o, lse, q_seg, kv_seg, bh, heads, lq, lkv, d,
-                                           causal, sm_scale, stream)
-                 : dispatch<float>(q, k, v, o, lse, q_seg, kv_seg, bh, heads, lq, lkv, d, causal,
-                                   sm_scale, stream);
+  switch (d) {
+    case 32:
+      return launch<32>(q, k, v, o, lse, q_seg, kv_seg, bh, heads, lq, lkv, is_bf16, causal,
+                        sm_scale, stream);
+    case 64:
+      return launch<64>(q, k, v, o, lse, q_seg, kv_seg, bh, heads, lq, lkv, is_bf16, causal,
+                        sm_scale, stream);
+    case 128:
+      return launch<128>(q, k, v, o, lse, q_seg, kv_seg, bh, heads, lq, lkv, is_bf16, causal,
+                         sm_scale, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -1,9 +1,9 @@
 """Kernel K2's plain PyTorch version and the port's flash-attention entry
 points against the JAX package's, on the CPU: causal and non-causal,
 segment ids with rows that match no key, ``padding_mask``, lengths 200, 785
-and 1024, f32 and bf16. JAX runs its Pallas kernel in interpret mode for the
-lane-aligned lengths and its dense reference for the others, as its own
-tests do. The kernel itself runs only on a GPU (``tests/test_torch_cuda.py``
+and 1024, f32 and bf16 (bf16 also over D 32, 64 and 128). JAX runs its
+Pallas kernel in interpret mode for the lane-aligned lengths and its dense
+reference for the others, as its own tests do. The kernel itself runs only on a GPU (``tests/test_torch_cuda.py``
 and ``chip_smoke.py``); here its wrapper must refuse CPU tensors."""
 
 import jax.numpy as jnp
@@ -121,12 +121,37 @@ def test_padded_matches_jax_on_real_rows(length, with_mask):
         _close(got[b][:, real[b]], np.asarray(want)[b][:, real[b]])
 
 
+def _bf16_segments(length, causal):
+    """Segment ids ``[1, L]``: packed sequences when causal (every row sees
+    itself), else random ids with rows 0..7 in a segment no key has."""
+    if causal:
+        return np.repeat(np.arange(3, dtype=np.int32), [length // 4, length // 2,
+                                                        length - 3 * (length // 4)])[None]
+    q_seg = np.random.default_rng(11).integers(0, 3, size=(1, length)).astype(np.int32)
+    kv_seg = q_seg.copy()
+    q_seg[:, :8] = 7
+    return q_seg, kv_seg
+
+
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("length", [200, 1024])
-def test_bf16_matches_jax(length, causal):
-    (jq, jk, jv), (q, k, v) = _inputs(6, lq=length, dtype="bfloat16")
-    want, want_lse = jfa.flash_attention_with_lse(jq, jk, jv, causal=causal)
-    got, got_lse = tfa.flash_attention_with_lse(q, k, v, causal=causal)
+@pytest.mark.parametrize("length", [200, 785, 1024])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("segments", [False, True])
+def test_bf16_matches_jax(length, causal, d, segments):
+    """K2's plain version in bf16 against JAX over the grid the card holds
+    the kernel to: D 32/64/128, the ragged 785 (JAX's dense reference), and
+    segments with rows that match no key (non-causal) or packed sequences
+    (causal)."""
+    (jq, jk, jv), (q, k, v) = _inputs(6, lq=length, d=d, dtype="bfloat16")
+    jseg, tseg = {}, {}
+    if segments:
+        seg = _bf16_segments(length, causal)
+        q_seg, kv_seg = (seg, seg) if causal else seg
+        jseg = dict(q_segment_ids=jnp.asarray(q_seg), kv_segment_ids=jnp.asarray(kv_seg))
+        tseg = dict(q_segment_ids=torch.from_numpy(q_seg),
+                    kv_segment_ids=torch.from_numpy(kv_seg))
+    want, want_lse = jfa.flash_attention_with_lse(jq, jk, jv, causal=causal, **jseg)
+    got, got_lse = tfa.flash_attention_with_lse(q, k, v, causal=causal, **tseg)
     assert got.dtype == torch.bfloat16 and got_lse.dtype == torch.float32
     _close(got, want, "bfloat16")
     _close(got_lse, want_lse, "bfloat16")
