@@ -7,8 +7,10 @@ Run from the repository root:
 Phases, each of which makes the script exit non-zero when it fails:
 
 1. build: compile every kernel under ``moc_tpu_torch/ops/csrc`` with nvcc,
-   one process per source, all started together, and print each kernel's
-   registers and spills from ``-Xptxas -v``;
+   one process per source, all started together, print each kernel's
+   registers and spills from ``-Xptxas -v`` (a spill fails the run), and
+   check that every bf16 tensor-core kernel (K2, K3, K4) was built at D 32,
+   64 and 128;
 2. K1 parity: exact top-k membership bit-equal to its plain PyTorch version
    on the card, row and column entries, on random, tie-heavy, ±0.0 and
    NEG_INF-padded keys with k above the valid count, N in
@@ -76,6 +78,7 @@ import importlib.util
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -99,12 +102,15 @@ K2_SOURCE = "moc_tpu_torch/ops/csrc/flash_fwd.cu"
 K2_REPLACES = "moc_tpu/ops/flash_attention.py:68"
 K2_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # the JAX package's flash tolerances
 BWD_SOURCE = "moc_tpu_torch/ops/csrc/flash_bwd.cu"
+# the bf16 tensor-core kernels of each source, each built at D = 32, 64 and 128
+MMA_KERNELS = {"flash_fwd": ("flash_fwd_mma_kernel",),
+               "flash_bwd": ("flash_bwd_dq_mma_kernel", "flash_bwd_dkv_mma_kernel")}
 K3_REPLACES = "moc_tpu/ops/flash_attention.py:188"
 K4_REPLACES = "moc_tpu/ops/flash_attention.py:238"
 # K3/K4: the JAX package's flash backward tolerance in f32; in bf16, a share
 # of the largest |grad| (P and dS are rounded to bf16 before the products)
 BWD_TOL = {torch.float32: 5e-4, torch.bfloat16: 2e-2}
-# bf16 K2 and K4, beside the limits above: mean |kernel - plain| at most 1% of
+# bf16 K2, K3 and K4, beside the limits above: mean |kernel - plain| at most 1% of
 # mean |plain|. Rounding P in another order moves it by ~2^-9 of |plain|; a
 # wrong mask or a dropped key tile moves it by several percent, which a limit
 # on the largest element alone may not see.
@@ -142,9 +148,25 @@ def _mean_rel(got: torch.Tensor, want: torch.Tensor, dtype, what: str) -> float:
     return rel
 
 
+def _kernel_name(mangled: str) -> str:
+    """``name<D>`` of a mangled kernel entry: the last of its length-prefixed
+    source names and its integer template arguments (the mangled name itself
+    when it has none)."""
+    pos, name = (3 if mangled.startswith("_ZN") else 2), None
+    while m := re.match(r"\d+", mangled[pos:]):
+        start = pos + m.end()
+        pos = start + int(m.group())
+        name = mangled[start:pos]
+    if name is None:
+        return mangled
+    args = re.match(r"I((?:Li\d+E)+)E", mangled[pos:])
+    return name + (f"<{', '.join(re.findall(r'Li(\d+)E', args.group(1)))}>" if args else "")
+
+
 def phase_build() -> dict:
     """Build every kernel; log each entry function's registers and spills
-    from ``-Xptxas -v`` and fail on a spill store or load."""
+    from ``-Xptxas -v``, fail on a spill store or load, and fail unless
+    every tensor-core kernel was built at D = 32, 64 and 128."""
     from moc_tpu_torch.ops import cuda_build
 
     t0 = time.perf_counter()
@@ -155,14 +177,22 @@ def phase_build() -> dict:
         if rec["log"] == "cached":
             log(f"[build] {name}: an earlier build, spills not checked")
             continue
+        entry, spills, seen = None, "", set()
         for line in rec["log"].splitlines():
-            line = line.strip()
-            if "Compiling entry function" in line or "registers" in line:
-                log(f"[build] {name}: {line}")
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                entry = _kernel_name(m.group(1))
             elif "spill" in line:
-                log(f"[build] {name}: {line}")
+                spills = line.strip()
                 check(", 0 bytes spill stores, 0 bytes spill loads" in line,
-                      f"{name} spills registers: {line}")
+                      f"{name}: {entry} spills registers: {spills}")
+            elif entry and (m := re.search(r"Used (\d+) registers", line)):
+                log(f"[build] {name}: {entry}: {m.group(1)} registers; {spills}")
+                seen.add(entry)
+                entry = None
+        for kernel in MMA_KERNELS.get(name, ()):
+            for d in (32, 64, 128):
+                check(f"{kernel}<{d}>" in seen, f"{name}: {kernel}<{d}> is missing from the build")
     return built
 
 
@@ -496,14 +526,20 @@ def phase_profile(forward, steps: int = 5, what: str = "forward") -> None:
             forward()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    device = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # a user annotation on the device (Adam's "Optimizer.step#Adam.step")
+    # spans kernels that are counted on their own: counting it too would
+    # count their time twice
+    events = [e for e in device if not getattr(e, "is_user_annotation", False)]
     busy_us = sum(e.self_device_time_total for e in events)
+    annotated_us = sum(e.self_device_time_total for e in device) - busy_us
     if busy_us <= 0:
         log("[profile] the profiler recorded no device time")
         return
     log(f"[profile] {steps} x {what}: device busy {busy_us / steps:.1f} us/{what} of "
         f"{wall_us / steps:.1f} us host wall ({100 * busy_us / wall_us:.1f}% busy), "
-        f"{sum(e.count for e in events) // steps} kernels/{what}")
+        f"{sum(e.count for e in events) // steps} kernels/{what} (user annotations over "
+        f"them, not counted: {annotated_us / steps:.1f} us/{what})")
     ranked = sorted(events, key=lambda e: -e.self_device_time_total)
     # the top ten, and the port's own kernels wherever they rank
     for rank, e in enumerate(ranked):
@@ -722,7 +758,7 @@ def _bwd_errors(got, want, dtype) -> dict:
             ok = e <= BWD_TOL[dtype] * largest
         check(ok, f"K3/K4 differ from flash_bwd_reference by {e} (largest |grad| {largest})")
         rels.append(_mean_rel(g, w, dtype, "K3/K4 against flash_bwd_reference"))
-    return {"dq": errs[0], "dkv": max(errs[1:]), "mean_rel": max(rels)}
+    return {"dq": errs[0], "dkv": max(errs[1:]), "mean_rel": max(rels), "mean_rel_dq": rels[0]}
 
 
 def _bwd_inputs(q, k, v, qs, ks, causal, gen):
@@ -741,7 +777,7 @@ def phase_flash_bwd_parity() -> dict:
     from moc_tpu_torch.ops.flash_kernel import flash_bwd_dkv_cuda, flash_bwd_dq_cuda
 
     gen = torch.Generator(device="cuda").manual_seed(4)
-    err = {dt: {"dq": 0.0, "dkv": 0.0, "mean_rel": 0.0} for dt in BWD_TOL}
+    err = {dt: {"dq": 0.0, "dkv": 0.0, "mean_rel": 0.0, "mean_rel_dq": 0.0} for dt in BWD_TOL}
     cases = 0
     with torch.inference_mode():
         for dtype in BWD_TOL:
@@ -768,7 +804,8 @@ def phase_flash_bwd_parity() -> dict:
         log(f"[parity] K3/K4 {dtype}: max |dq - plain| {e['dq']:.3e}, max |dk, dv - plain| "
             f"{e['dkv']:.3e} (tolerance {BWD_TOL[dtype]}"
             f"{'' if dtype == torch.float32 else ' of the largest |grad|'}); mean "
-            f"|grad - plain| / mean |plain| at most {e['mean_rel']:.3e}")
+            f"|grad - plain| / mean |plain| at most {e['mean_rel']:.3e} (dq alone "
+            f"{e['mean_rel_dq']:.3e})")
     log(f"[parity] K3 and K4 match flash_bwd_reference on {cases} cases (f32/bf16, "
         "D 32/64/128, L 785/1024, causal or not, segments with rows masked everywhere)")
     return err
@@ -906,8 +943,9 @@ def phase_flash_bwd_times() -> dict:
                   f"K2 {name} at {list(PRETRAIN_SHAPE)} differs from the plain version: {k2_err}")
             _mean_rel(o, ro, dtype, f"K2 {name} at {list(PRETRAIN_SHAPE)}")
             del ro, rlse
-            log(f"[parity] K3/K4 {name} {list(PRETRAIN_SHAPE)}: max |dq - plain| {err_k3:.3e}, "
-                f"max |dk, dv - plain| {err_k4:.3e}; K2 max |O, lse - plain| {k2_err:.3e}")
+            log(f"[parity] K3/K4 {name} {list(PRETRAIN_SHAPE)}: max |dq - plain| {err_k3:.3e} "
+                f"(mean {err['mean_rel_dq']:.3e} of mean |plain|), max |dk, dv - plain| "
+                f"{err_k4:.3e}; K2 max |O, lse - plain| {k2_err:.3e}")
             el = q.element_size()
             stats = b * h * length * 4  # one f32 [B, H, L] vector
             plain_ms = _time_ms(lambda: flash_bwd_reference(q, k, v, o, lse, do), iters=20,

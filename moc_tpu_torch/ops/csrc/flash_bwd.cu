@@ -18,11 +18,11 @@
 // lse = MASK, so p = exp(0) = 1 for every key of the tiles that run: like
 // the TPU kernels, and unlike the dense vjp (1/L), which is the point of
 // matching them. The products are summed in f32; dq, dk and dv are stored in
-// the input type. K3 (both types) and K4 in f32 sum on the CUDA cores in the
-// plain version's order; K4 in bf16 sums on the tensor cores in another
-// order, so it agrees with the plain version within the tolerance (2e-2 of
-// the largest |grad|), not bit for bit. The bf16 products are exact, as on
-// the MXU under preferred_element_type=f32.
+// the input type. In f32 both kernels sum on the CUDA cores in the plain
+// version's order and are bit-equal to it. In bf16 both sum on the tensor
+// cores in another order, so they agree with the plain version within the
+// tolerance (2e-2 of the largest |grad|), not bit for bit. The bf16 products
+// are exact, as on the MXU under preferred_element_type=f32.
 //
 // Bound at the pretraining shape ([32 * 12, 512, 64]): K3 does three
 // products of 2 * L^2 * D per head (s, dp, ds . k), 38.7 GFLOP, and K4 four
@@ -31,31 +31,42 @@
 // bytes at 3.35 TB/s, so both are compute-bound. In bf16 the tensor-core
 // bound is 0.0391 and 0.0521 ms, about level with the bytes.
 //
-// Design: the TPU's split, which needs no atomics. K3 runs one CTA of 256
-// threads per (b*h, 64-row query tile): Q and dO tiles stay in shared
-// memory while it loops over the 64-key tiles of K and V, forms the 64 x 64
-// s and dp tiles in registers (a 4 x 4 block a thread), writes ds to shared
-// memory and accumulates dq for its four rows in f32 registers. K4 runs one
+// Design: the TPU's split, which needs no atomics. K3 runs one CTA per (b*h,
+// 64-row query tile) and loops over the 64-key tiles of K and V; K4 runs one
 // CTA per (b*h, 64-key tile) and loops over the query tiles. Causal tiles
 // above the diagonal are skipped as should_run does on the TPU: K3 stops at
 // its diagonal key tile, and K4 starts its query loop at the tile that holds
 // its first key.
 //
-// K4 has two kernels. In f32 (flash_bwd_dkv_kernel) 256 threads stage every
-// tile as f32 (166 KB of dynamic shared memory at D = 128), write p and ds to
-// shared memory and accumulate dk and dv for four keys a thread. In bf16
-// (flash_bwd_dkv_mma_kernel) four warps own 16 keys each and use the tensor
-// cores by mma.sync: the K and V tiles stay in shared memory for the whole
-// loop, the Q and dO tiles (with the tile's lse, delta and segment ids)
-// stream through a two-stage cp.async ring, and the products are taken with
-// keys as the rows, s^T = K.Q^T and dp^T = V.dO^T, so that p^T and ds^T land
-// in accumulator fragments whose rows are the warp's keys. Rounded to bf16
-// and repacked in registers they are the A operands of dv += p^T . dO and
-// dk += ds^T . Q, with dO and Q read by ldmatrix.trans: p and ds never touch
-// shared memory. At D = 128 a q tile is taken in four passes of 16 queries
-// so that the f32 accumulators fit in registers without spilling. Left for wgmma: the
-// same as K2's (flash_fwd.cu), and a tile of 64 keys per CTA, which reads Q
-// and dO from device memory once per 64 keys.
+// f32 (flash_bwd_dq_kernel, flash_bwd_dkv_kernel): 256 threads on the CUDA
+// cores stage every tile as f32 in shared memory (166 KB at D = 128 for K4),
+// form the 64 x 64 s and dp tiles in registers (a 4 x 4 block a thread),
+// write ds (and, for K4, p) to shared memory and accumulate four rows of dq,
+// or four keys of dk and dv, a thread in f32 registers.
+//
+// bf16 (flash_bwd_dq_mma_kernel, flash_bwd_dkv_mma_kernel): four warps of 16
+// rows each on the tensor cores by mma.sync, with flash_mma.cuh's pieces; p
+// and ds never touch shared memory.
+// - K3 is K2's bf16 forward with K4's gradient arithmetic. The Q and dO
+//   tiles are loaded once; the K and V tiles (with the key segment ids)
+//   stream through a two-stage cp.async ring. S = Q.K^T and dP = dO.V^T land
+//   in accumulator fragments whose rows are the warp's queries, with Q and dO
+//   read by ldmatrix as the A operands and K and V as B. p and ds are made in
+//   place; ds, rounded to bf16 and repacked in registers, is the A operand of
+//   dq += ds . K, with K read by ldmatrix.trans. Q and dO are read from
+//   shared memory at every k-step rather than held in registers, and at
+//   D = 128 a key tile is taken in two passes of 32 keys, so that the f32
+//   accumulators fit in registers without spilling.
+// - K4 holds the K and V tiles in shared memory for the whole loop, and the
+//   Q and dO tiles (with the tile's lse, delta and segment ids) stream
+//   through the ring. Its products are taken with keys as the rows, s^T =
+//   K.Q^T and dp^T = V.dO^T, so that p^T and ds^T land in accumulator
+//   fragments whose rows are the warp's keys: rounded and repacked, they are
+//   the A operands of dv += p^T . dO and dk += ds^T . Q, with dO and Q read by
+//   ldmatrix.trans. At D = 128 a q tile is taken in four passes of 16
+//   queries, for the same register budget.
+// Left for wgmma: the same as K2's (flash_fwd.cu); K3 reads K and V, and K4
+// reads Q and dO, from device memory once per 64 rows of its own tile.
 
 #include "flash_mma.cuh"
 
@@ -95,13 +106,14 @@ __device__ __forceinline__ void probs_and_grads(float (&s)[4][4], float (&dp)[4]
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
-                    const int* __restrict__ q_seg, const int* __restrict__ kv_seg, int heads,
-                    int lq, int lkv, int n_qtiles, int causal, float sm_scale) {
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    float* __restrict__ dq, const int* __restrict__ q_seg,
+                    const int* __restrict__ kv_seg, int heads, int lq, int lkv, int n_qtiles,
+                    int causal, float sm_scale) {
   constexpr int kP = Layout<D>::kPStride;
   constexpr int kPer = ColMap<D>::kPer;
   extern __shared__ __align__(16) float smem[];
@@ -118,11 +130,11 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const int tx = threadIdx.x & 15;
   const bool segments = q_seg != nullptr;
   const size_t q_off = static_cast<size_t>(bh) * lq;
-  const T* kb = k + static_cast<size_t>(bh) * lkv * D;
-  const T* vb = v + static_cast<size_t>(bh) * lkv * D;
+  const float* kb = k + static_cast<size_t>(bh) * lkv * D;
+  const float* vb = v + static_cast<size_t>(bh) * lkv * D;
 
-  load_tile<T, D>(q + q_off * D, qs, q0, lq);
-  load_tile<T, D>(dout + q_off * D, dos, q0, lq);
+  load_tile<D>(q + q_off * D, qs, q0, lq);
+  load_tile<D>(dout + q_off * D, dos, q0, lq);
 
   int row_seg[4];
   float row_lse[4], row_delta[4], acc[4][kPer];
@@ -139,8 +151,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const int kv_end = causal ? min(lkv, q0 + kBlock) : lkv;
   for (int kv0 = 0; kv0 < kv_end; kv0 += kBlock) {
     __syncthreads();  // the previous tile's readers are done with ks, vs, dss
-    load_tile<T, D>(kb, ks, kv0, lkv);
-    load_tile<T, D>(vb, vs, kv0, lkv);
+    load_tile<D>(kb, ks, kv0, lkv);
+    load_tile<D>(vb, vs, kv0, lkv);
     __syncthreads();
 
     float s[4][4] = {}, dp[4][4] = {};
@@ -157,7 +169,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) dss[(4 * ty + i) * kP + tx + 16 * j] = round_like<T>(dp[i][j]);
+      for (int j = 0; j < 4; ++j) dss[(4 * ty + i) * kP + tx + 16 * j] = dp[i][j];
     }
     __syncthreads();
 
@@ -165,7 +177,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   }
 
   const float one[4] = {1.f, 1.f, 1.f, 1.f};
-  store_rows<T, D>(dq + q_off * D, acc, one, q0, lq, ty, tx);
+  store_rows<D>(dq + q_off * D, acc, one, q0, lq, ty, tx);
 }
 
 template <int D>
@@ -197,8 +209,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const size_t q_off = static_cast<size_t>(bh) * lq;
   const size_t kv_off = static_cast<size_t>(bh) * lkv;
 
-  load_tile<float, D>(k + kv_off * D, ks, kv0, lkv);
-  load_tile<float, D>(v + kv_off * D, vs, kv0, lkv);
+  load_tile<D>(k + kv_off * D, ks, kv0, lkv);
+  load_tile<D>(v + kv_off * D, vs, kv0, lkv);
 
   int key_seg[4];
 #pragma unroll
@@ -218,8 +230,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // tile to run is the one that holds query kv0
   for (int q0 = causal ? kv0 : 0; q0 < lq; q0 += kBlock) {
     __syncthreads();  // the previous tile's readers are done with qs, dos, ps, dss
-    load_tile<float, D>(q + q_off * D, qs, q0, lq);
-    load_tile<float, D>(dout + q_off * D, dos, q0, lq);
+    load_tile<D>(q + q_off * D, qs, q0, lq);
+    load_tile<D>(dout + q_off * D, dos, q0, lq);
     __syncthreads();
 
     int row_seg[4];
@@ -271,8 +283,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   const float one[4] = {1.f, 1.f, 1.f, 1.f};
-  store_rows<float, D>(dk + kv_off * D, dk_acc, one, kv0, lkv, ty, tx);
-  store_rows<float, D>(dv + kv_off * D, dv_acc, one, kv0, lkv, ty, tx);
+  store_rows<D>(dk + kv_off * D, dk_acc, one, kv0, lkv, ty, tx);
+  store_rows<D>(dv + kv_off * D, dv_acc, one, kv0, lkv, ty, tx);
 }
 
 template <int D>
@@ -444,6 +456,165 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_rows_16<D>(dv + kv_off * D, vs, wrow, kv0, lkv, lane);
 }
 
+template <int D>
+constexpr size_t dq_mma_smem_bytes() {
+  // Q and dO; two stages of K and V; two of the key segment ids
+  return 6 * Tile<D>::kBytes + 2 * kBlock * sizeof(int);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        bf16* __restrict__ dq, const int* __restrict__ q_seg,
+                        const int* __restrict__ kv_seg, int heads, int lq, int lkv, int n_qtiles,
+                        int causal, float sm_scale) {
+  constexpr int kSteps = D / 16;                 // k-steps of S = Q.K^T and dP = dO.V^T
+  constexpr int kDTiles = D / 8;                 // n-tiles of dq
+  constexpr int kKeyChunk = D == 128 ? 32 : 64;  // keys per pass (register budget)
+  constexpr int kKeyTiles = kKeyChunk / 8;       // n-tiles of S and dP in a pass
+  constexpr int kTileElems = Tile<D>::kElems;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* dos = qs + kTileElems;
+  bf16* ks = dos + kTileElems;     // [2][64, D]
+  bf16* vs = ks + 2 * kTileElems;  // [2][64, D]
+  int* kv_segs = reinterpret_cast<int*>(vs + 2 * kTileElems);  // [2][64]
+
+  const int bh = blockIdx.x / n_qtiles;
+  const int q0 = (blockIdx.x % n_qtiles) * kBlock;
+  const int b = bh / heads;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int t4 = lane & 3;
+  const bool segments = q_seg != nullptr;
+  const size_t q_off = static_cast<size_t>(bh) * lq;
+  const bf16* kb = k + static_cast<size_t>(bh) * lkv * D;
+  const bf16* vb = v + static_cast<size_t>(bh) * lkv * D;
+  const int* kv_seg_b = segments ? kv_seg + static_cast<size_t>(b) * lkv : nullptr;
+
+  // this lane's two query rows, g and g + 8 of the warp's 16, with their
+  // lse, delta and segment ids
+  const int wrow = 16 * warp;
+  const int row0 = q0 + wrow + (lane >> 2);
+  const int row1 = row0 + 8;
+  float lse0 = 0.f, lse1 = 0.f, delta0 = 0.f, delta1 = 0.f;
+  int seg0 = 0, seg1 = 0;
+  if (row0 < lq) {
+    lse0 = lse[q_off + row0];
+    delta0 = delta[q_off + row0];
+    if (segments) seg0 = q_seg[static_cast<size_t>(b) * lq + row0];
+  }
+  if (row1 < lq) {
+    lse1 = lse[q_off + row1];
+    delta1 = delta[q_off + row1];
+    if (segments) seg1 = q_seg[static_cast<size_t>(b) * lq + row1];
+  }
+
+  // key tiles wholly above the diagonal contribute nothing: skip them
+  const int kv_end = causal ? min(lkv, q0 + kBlock) : lkv;
+  const int n_tiles = (kv_end + kBlock - 1) / kBlock;
+  auto load_kv = [&](int t) {
+    const int stage = t & 1;
+    load_tile_async<D>(ks + stage * kTileElems, kb, t * kBlock, lkv, tid);
+    load_tile_async<D>(vs + stage * kTileElems, vb, t * kBlock, lkv, tid);
+    if (segments) load_vec_async(kv_segs + stage * kBlock, kv_seg_b, t * kBlock, lkv, tid);
+  };
+  load_tile_async<D>(qs, q + q_off * D, q0, lq, tid);
+  load_tile_async<D>(dos, dout + q_off * D, q0, lq, tid);
+  if (n_tiles > 0) load_kv(0);
+  cp_async_commit();
+
+  float acc[kDTiles][4];
+#pragma unroll
+  for (int n = 0; n < kDTiles; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int kv0 = t * kBlock;
+    const int stage = t & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // tile t has landed, and every warp is done with tile t - 1
+    if (t + 1 < n_tiles) load_kv(t + 1);  // into the stage tile t - 1 used
+    cp_async_commit();
+    const bf16* kt = ks + stage * kTileElems;
+    const bf16* vt = vs + stage * kTileElems;
+    const int* segs = kv_segs + stage * kBlock;
+
+#pragma unroll
+    for (int kc = 0; kc < kBlock; kc += kKeyChunk) {
+      // S and dP for the warp's 16 queries and keys kc .. kc + kKeyChunk
+      float s[kKeyTiles][4], dp[kKeyTiles][4];
+#pragma unroll
+      for (int j = 0; j < kKeyTiles; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+      }
+#pragma unroll
+      for (int kstep = 0; kstep < kSteps; ++kstep) {
+        uint32_t qf[4], df[4];
+        ldsm_x4(qf, a_addr<D>(qs, wrow, kstep, lane));
+        ldsm_x4(df, a_addr<D>(dos, wrow, kstep, lane));
+#pragma unroll
+        for (int jj = 0; jj < kKeyTiles / 2; ++jj) {
+          uint32_t kf[4], vf[4];
+          ldsm_x4(kf, b_addr<D>(kt, kc + 16 * jj, kstep, lane));
+          mma_bf16(s[2 * jj], qf, kf[0], kf[1]);
+          mma_bf16(s[2 * jj + 1], qf, kf[2], kf[3]);
+          ldsm_x4(vf, b_addr<D>(vt, kc + 16 * jj, kstep, lane));
+          mma_bf16(dp[2 * jj], df, vf[0], vf[1]);
+          mma_bf16(dp[2 * jj + 1], df, vf[2], vf[3]);
+        }
+      }
+
+      // p and ds in place; the lane holds keys kv0 + kc + 8j + 2 * t4 + (e & 1)
+#pragma unroll
+      for (int j = 0; j < kKeyTiles; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = kc + 8 * j + 2 * t4 + (e & 1);
+          const int key = kv0 + col;
+          const int row = e < 2 ? row0 : row1;
+          float x = s[j][e] * sm_scale;
+          if (masked(causal, segments, row, key, e < 2 ? seg0 : seg1,
+                     segments ? segs[col] : 0)) {
+            x = kMaskValue;
+          }
+          // zero-filled K rows past Lkv give s = 0, not -inf: p is forced
+          // there. A difference, not a fused x * log2e - lse * log2e: MASK *
+          // log2e overflows
+          const float p =
+              (row < lq && key < lkv) ? exp2f((x - (e < 2 ? lse0 : lse1)) * kLog2e) : 0.f;
+          dp[j][e] = p * (dp[j][e] - (e < 2 ? delta0 : delta1)) * sm_scale;
+        }
+      }
+
+      // dq += bf16(ds) . K, keys as the k dimension
+#pragma unroll
+      for (int kk = 0; kk < kKeyChunk / 16; ++kk) {
+        uint32_t da[4];
+        acc_to_a(da, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+        for (int dd = 0; dd < kDTiles / 2; ++dd) {
+          uint32_t kf[4];
+          ldsm_x4_trans(kf, bt_addr<D>(kt, kc + 16 * kk, dd, lane));
+          mma_bf16(acc[2 * dd], da, kf[0], kf[1]);
+          mma_bf16(acc[2 * dd + 1], da, kf[2], kf[3]);
+        }
+      }
+    }
+  }
+
+  // the Q tile has landed (also when no key tile ran) and no warp reads it
+  // again: each warp stages its dq rows in its own 16 rows of it
+  cp_async_wait<0>();
+  __syncthreads();
+  stage_rows<D>(qs, acc, 1.f, 1.f, wrow, lane);
+  __syncwarp();
+  store_rows_16<D>(dq + q_off * D, qs, wrow, q0, lq, lane);
+}
+
 struct Args {
   const void *q, *k, *v, *dout;
   const float *lse, *delta;
@@ -453,16 +624,28 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int D>
-int launch_dq(const Args& a, void* dq) {
-  constexpr size_t smem = dq_smem_bytes<D>();
-  cudaError_t err = allow_smem(flash_bwd_dq_kernel<T, D>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+template <int D>
+int launch_dq(const Args& a, int is_bf16, void* dq) {
   const int n_qtiles = (a.lq + kBlock - 1) / kBlock;
-  flash_bwd_dq_kernel<T, D><<<a.bh * n_qtiles, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), a.lse, a.delta, static_cast<T*>(dq), a.q_seg, a.kv_seg,
-      a.heads, a.lq, a.lkv, n_qtiles, a.causal, a.sm_scale);
+  if (is_bf16) {
+    constexpr size_t smem = dq_mma_smem_bytes<D>();
+    cudaError_t err = allow_smem(flash_bwd_dq_mma_kernel<D>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    flash_bwd_dq_mma_kernel<D><<<a.bh * n_qtiles, kMmaThreads, smem, a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse, a.delta,
+        static_cast<bf16*>(dq), a.q_seg, a.kv_seg, a.heads, a.lq, a.lkv, n_qtiles, a.causal,
+        a.sm_scale);
+  } else {
+    constexpr size_t smem = dq_smem_bytes<D>();
+    cudaError_t err = allow_smem(flash_bwd_dq_kernel<D>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    flash_bwd_dq_kernel<D><<<a.bh * n_qtiles, kThreads, smem, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse, a.delta,
+        static_cast<float*>(dq), a.q_seg, a.kv_seg, a.heads, a.lq, a.lkv, n_qtiles, a.causal,
+        a.sm_scale);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -491,12 +674,11 @@ int launch_dkv(const Args& a, int is_bf16, void* dk, void* dv) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch_dq(const Args& a, int d, void* dq) {
+int dispatch_dq(const Args& a, int d, int is_bf16, void* dq) {
   switch (d) {
-    case 32: return launch_dq<T, 32>(a, dq);
-    case 64: return launch_dq<T, 64>(a, dq);
-    case 128: return launch_dq<T, 128>(a, dq);
+    case 32: return launch_dq<32>(a, is_bf16, dq);
+    case 64: return launch_dq<64>(a, is_bf16, dq);
+    case 128: return launch_dq<128>(a, is_bf16, dq);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -518,8 +700,8 @@ int dispatch_dkv(const Args& a, int d, int is_bf16, void* dk, void* dv) {
 // or both set; d is 32, 64 or 128. They write dq [bh, lq, d] (K3), or dk and
 // dv [bh, lkv, d] (K4), in the input type, launch on `stream` without
 // synchronising and return the cudaGetLastError() code of the launch, or of
-// a refused shared-memory opt-in (0 on success). K4 in bf16 runs on the
-// tensor cores, everything else on the CUDA cores.
+// a refused shared-memory opt-in (0 on success). bf16 runs on the tensor
+// cores, f32 on the CUDA cores.
 extern "C" int moc_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                 const float* lse, const float* delta, void* dq,
                                 const int* q_seg, const int* kv_seg, int bh, int heads, int lq,
@@ -528,7 +710,7 @@ extern "C" int moc_flash_bwd_dq(const void* q, const void* k, const void* v, con
   if (bh <= 0 || lq <= 0) return 0;
   const Args a{q, k, v, dout, lse, delta, q_seg, kv_seg, bh, heads, lq, lkv, causal, sm_scale,
                stream};
-  return is_bf16 ? dispatch_dq<__nv_bfloat16>(a, d, dq) : dispatch_dq<float>(a, d, dq);
+  return dispatch_dq(a, d, is_bf16, dq);
 }
 
 extern "C" int moc_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,

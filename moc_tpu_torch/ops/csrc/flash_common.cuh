@@ -1,9 +1,9 @@
 // Pieces shared by the flash-attention kernels K2 (flash_fwd.cu) and K3/K4
 // (flash_bwd.cu): the tile size, the mask value and the mask test, which
-// every kernel uses, and for the kernels on the CUDA cores (K2 and K4 in
-// f32, K3 in both types) tiles of 64 rows staged in shared memory as f32,
-// bf16 rounding, and the map from a thread to the output columns it owns.
-// The bf16 tensor-core kernels take their pieces from flash_mma.cuh.
+// every kernel uses, and for the f32 kernels on the CUDA cores tiles of 64
+// rows staged in shared memory as f32 and the map from a thread to the
+// output columns it owns. The bf16 tensor-core kernels take their pieces
+// from flash_mma.cuh.
 //
 // Every CUDA-core kernel runs 256 threads as a 16 x 16 grid: ty = tid >> 4 owns rows
 // 4*ty .. 4*ty+3 of a 64-row tile, tx = tid & 15 owns keys tx + 16*j of a
@@ -14,9 +14,7 @@
 
 #include <cmath>
 #include <cstdint>
-#include <type_traits>
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace flash {
@@ -64,97 +62,47 @@ __device__ __forceinline__ void lds(const float* p, float* out) {
   }
 }
 
-// 16 bytes of T (4 f32 or 8 bf16) to f32 in shared memory
-template <typename T>
-__device__ __forceinline__ void to_f32(const uint4& raw, float* out) {
-  if constexpr (std::is_same_v<T, float>) {
-    *reinterpret_cast<float4*>(out) = *reinterpret_cast<const float4*>(&raw);
-  } else {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-    float f[8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 x = __bfloat1622float2(h[i]);
-      f[2 * i] = x.x;
-      f[2 * i + 1] = x.y;
-    }
-    *reinterpret_cast<float4*>(out) = make_float4(f[0], f[1], f[2], f[3]);
-    *reinterpret_cast<float4*>(out + 4) = make_float4(f[4], f[5], f[6], f[7]);
-  }
-}
-
-// rows [r0, r0 + 64) of a row-major [len, D] slab into shared memory as f32;
+// rows [r0, r0 + 64) of a row-major [len, D] f32 slab into shared memory;
 // rows at or past `len` are zero
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(const T* __restrict__ src, float* __restrict__ dst,
+template <int D>
+__device__ __forceinline__ void load_tile(const float* __restrict__ src, float* __restrict__ dst,
                                           int r0, int len) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kPerRow = D / kVec;
+  constexpr int kPerRow = D / 4;
   for (int e = threadIdx.x; e < kBlock * kPerRow; e += kThreads) {
     const int row = e / kPerRow;
-    const int col = (e % kPerRow) * kVec;
-    float* out = dst + row * Layout<D>::kStride + col;
-    if (r0 + row < len) {
-      const uint4 raw =
-          *reinterpret_cast<const uint4*>(src + static_cast<size_t>(r0 + row) * D + col);
-      to_f32<T>(raw, out);
-    } else {
-#pragma unroll
-      for (int i = 0; i < kVec; i += 4) {
-        *reinterpret_cast<float4*>(out + i) = make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-    }
+    const int col = (e % kPerRow) * 4;
+    *reinterpret_cast<float4*>(dst + row * Layout<D>::kStride + col) =
+        r0 + row < len
+            ? *reinterpret_cast<const float4*>(src + static_cast<size_t>(r0 + row) * D + col)
+            : make_float4(0.f, 0.f, 0.f, 0.f);
   }
 }
 
-// x rounded to T and back: what x.astype(T) feeds a product on the TPU
-template <typename T>
-__device__ __forceinline__ float round_like(float x) {
-  if constexpr (std::is_same_v<T, float>) {
-    return x;
+// G neighbouring values (times `scale`) stored as f32
+template <int G>
+__device__ __forceinline__ void store_group(float* dst, const float* x, float scale) {
+  if constexpr (G == 4) {
+    *reinterpret_cast<float4*>(dst) =
+        make_float4(x[0] * scale, x[1] * scale, x[2] * scale, x[3] * scale);
   } else {
-    return __bfloat162float(__float2bfloat16_rn(x));
-  }
-}
-
-// G neighbouring values (times `scale`) stored as T
-template <typename T, int G>
-__device__ __forceinline__ void store_group(T* dst, const float* x, float scale) {
-  if constexpr (std::is_same_v<T, float>) {
-    if constexpr (G == 4) {
-      *reinterpret_cast<float4*>(dst) =
-          make_float4(x[0] * scale, x[1] * scale, x[2] * scale, x[3] * scale);
-    } else {
-      *reinterpret_cast<float2*>(dst) = make_float2(x[0] * scale, x[1] * scale);
-    }
-  } else {
-    __nv_bfloat162 lo = __floats2bfloat162_rn(x[0] * scale, x[1] * scale);
-    if constexpr (G == 4) {
-      __nv_bfloat162 hi = __floats2bfloat162_rn(x[2] * scale, x[3] * scale);
-      uint2 packed;
-      packed.x = *reinterpret_cast<uint32_t*>(&lo);
-      packed.y = *reinterpret_cast<uint32_t*>(&hi);
-      *reinterpret_cast<uint2*>(dst) = packed;
-    } else {
-      *reinterpret_cast<__nv_bfloat162*>(dst) = lo;
-    }
+    *reinterpret_cast<float2*>(dst) = make_float2(x[0] * scale, x[1] * scale);
   }
 }
 
 // a [rows, D] accumulator of a thread (rows 4*ty + i, columns of ColMap) stored
-// to a row-major [len, D] slab from row r0, rows at or past `len` dropped
-template <typename T, int D>
-__device__ __forceinline__ void store_rows(T* __restrict__ dst, const float (*acc)[D / 16],
+// to a row-major [len, D] f32 slab from row r0, rows at or past `len` dropped
+template <int D>
+__device__ __forceinline__ void store_rows(float* __restrict__ dst, const float (*acc)[D / 16],
                                            const float* scale, int r0, int len, int ty, int tx) {
   using Cols = ColMap<D>;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = r0 + 4 * ty + i;
     if (row >= len) continue;
-    T* out = dst + static_cast<size_t>(row) * D;
+    float* out = dst + static_cast<size_t>(row) * D;
 #pragma unroll
     for (int c = 0; c < Cols::kGroups; ++c) {
-      store_group<T, Cols::kG>(out + Cols::col(tx, c), &acc[i][c * Cols::kG], scale[i]);
+      store_group<Cols::kG>(out + Cols::col(tx, c), &acc[i][c * Cols::kG], scale[i]);
     }
   }
 }

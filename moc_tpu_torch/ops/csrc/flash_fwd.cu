@@ -94,7 +94,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + static_cast<size_t>(bh) * lkv * D;
   const float* vb = v + static_cast<size_t>(bh) * lkv * D;
 
-  load_tile<float, D>(qb, qs, q0, lq);
+  load_tile<D>(qb, qs, q0, lq);
 
   int row_seg[4];
   float m[4], l[4], acc[4][kPer];
@@ -112,8 +112,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int kv_end = causal ? min(lkv, q0 + kBlock) : lkv;
   for (int kv0 = 0; kv0 < kv_end; kv0 += kBlock) {
     __syncthreads();  // the previous tile's readers are done with ks, vs, ps
-    load_tile<float, D>(kb, ks, kv0, lkv);
-    load_tile<float, D>(vb, vs, kv0, lkv);
+    load_tile<D>(kb, ks, kv0, lkv);
+    load_tile<D>(vb, vs, kv0, lkv);
     __syncthreads();
 
     float s[4][4] = {};
@@ -167,7 +167,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float inv[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) inv[i] = l[i] == 0.f ? 1.f : 1.f / l[i];
-  store_rows<float, D>(o + static_cast<size_t>(bh) * lq * D, acc, inv, q0, lq, ty, tx);
+  store_rows<D>(o + static_cast<size_t>(bh) * lq * D, acc, inv, q0, lq, ty, tx);
   if (tx == 0) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {

@@ -1,5 +1,5 @@
 // Tensor-core pieces shared by the bf16 flash-attention kernels: K2's
-// forward (flash_fwd.cu) and K4's dk/dv (flash_bwd.cu).
+// forward (flash_fwd.cu), K3's dq and K4's dk/dv (flash_bwd.cu).
 //
 // - cp_async16 / cp_async4: global -> shared copies (cp.async), zero-filled
 //   for rows at or past the end of a slab (the ragged 785-token edge), with

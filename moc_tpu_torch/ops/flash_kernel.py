@@ -26,13 +26,13 @@ Design: one CTA per (b·h, 64-row tile): K2 and K3 own a query tile and loop
 over 64-key K/V tiles; K4 owns a key tile and loops over the query tiles, so
 no tile is reduced across CTAs and nothing needs atomics. Running sums are
 in f32 registers. In f32 every product runs on the CUDA cores in f32 (TF32
-would miss the JAX package's f32 tolerance); K3 does so in bf16 too. K2 and
-K4 in bf16 run on the tensor cores (``mma.sync`` on tiles streamed by
-``cp.async``, ``csrc/flash_mma.cuh``): exact bf16 products summed in f32, so
-they match the plain version within the bf16 tolerance rather than bit for
-bit. Any Lq and Lkv: the ragged edge is masked by bounds, so the vision
-trunk's 785 tokens need no padding to a lane multiple. Head dims 32, 64 and
-128. A bf16 CUDA tensor reaches the tensor-core kernels and nothing else.
+would miss the JAX package's f32 tolerance). In bf16 all three run on the
+tensor cores (``mma.sync`` on tiles streamed by ``cp.async``,
+``csrc/flash_mma.cuh``): exact bf16 products summed in f32, so they match the
+plain version within the bf16 tolerance rather than bit for bit. Any Lq and
+Lkv: the ragged edge is masked by bounds, so the vision trunk's 785 tokens
+need no padding to a lane multiple. Head dims 32, 64 and 128. A bf16 CUDA
+tensor reaches the tensor-core kernels and nothing else.
 
 The wrappers take CUDA tensors only and raise on anything else; callers
 send CPU tensors to the plain versions instead. ``flash_fwd_cuda`` alone is

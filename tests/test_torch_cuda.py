@@ -26,7 +26,7 @@ K2_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # K3/K4: the JAX package's flash backward tolerance in f32; in bf16, a share
 # of the largest gradient (dS and P are rounded to bf16 before the products)
 BWD_TOL = {torch.float32: 5e-4, torch.bfloat16: 2e-2}
-# bf16 K2 and K4, beside the limits above: the summed |kernel - plain| at most
+# bf16 K2, K3 and K4, beside the limits above: the summed |kernel - plain| at most
 # 1% of the summed |plain|, so that a wrong mask or a dropped tile, which may
 # stay under a limit on the largest element, fails
 BF16_MEAN_REL = 1e-2
@@ -199,9 +199,10 @@ def _bwd_case(gen, lq, lkv, d, dtype, segments, causal, b=2, h=3):
     return q, k, v, o, lse, do, qs, ks
 
 
-def _assert_bwd_close(got, want, dtype):
+def _assert_bwd_close(got, want, dtype, dq_mean=False):
     # bf16: within 2e-2 of the largest |grad| of the three (dq alone is
-    # rounding noise when every row has one key: dP - delta is 0 there)
+    # rounding noise when every row has one key: dP - delta is 0 there), and
+    # with dq_mean, where dq is not noise, dq alone to BF16_MEAN_REL
     largest = max(w.float().abs().max().item() for w in want)
     for g, w, name in zip(got, want, ("dq", "dk", "dv")):
         assert g.dtype == dtype and g.shape == w.shape, name
@@ -212,6 +213,8 @@ def _assert_bwd_close(got, want, dtype):
             err = (g.float() - w.float()).abs().max().item()
             assert err <= BWD_TOL[dtype] * largest, (name, err)
     _assert_mean_close(got, want, dtype)
+    if dq_mean:
+        _assert_mean_close(got[:1], want[:1], dtype)
 
 
 def _k3_k4(q, k, v, o, lse, do, qs, ks, causal):
@@ -234,7 +237,7 @@ def test_k3_k4_match_plain(gen, dtype, d, length, causal, segments):
     q, k, v, o, lse, do, qs, ks = _bwd_case(gen, length, length, d, dtype, segments, causal)
     got = _k3_k4(q, k, v, o, lse, do, qs, ks, causal)
     want = flash_bwd_reference(q, k, v, o, lse, do, qs, ks, causal)
-    _assert_bwd_close(got, want, dtype)
+    _assert_bwd_close(got, want, dtype, dq_mean=length > 1)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -256,7 +259,31 @@ def test_k3_k4_match_plain_at_pretrain_shape(gen, dtype):
     at batch 32 and sequence 512."""
     q, k, v, o, lse, do, _, _ = _bwd_case(gen, 512, 512, 64, dtype, False, False, b=32, h=12)
     got = _k3_k4(q, k, v, o, lse, do, None, None, False)
-    _assert_bwd_close(got, flash_bwd_reference(q, k, v, o, lse, do), dtype)
+    _assert_bwd_close(got, flash_bwd_reference(q, k, v, o, lse, do), dtype, dq_mean=True)
+
+
+def test_k3_bf16_packed_causal_d128(gen):
+    """K3 alone in bf16 at D = 128 and L 785 (a ragged last tile), causal
+    with packed sequences cut inside tiles, so that diagonal tiles mix the
+    causal and the segment mask; one launch per call."""
+    length, d = 785, 128
+    q, k, v, do = (torch.randn((2, 3, length, d), generator=gen, device="cuda").bfloat16()
+                   for _ in range(4))
+    cuts = torch.tensor([100, 261, 500, 700], device="cuda")
+    seg = (torch.arange(length, device="cuda")[:, None] >= cuts).sum(1).int()[None].repeat(2, 1)
+    with torch.no_grad():
+        o, lse = flash_fwd_cuda(q, k, v, seg, seg, causal=True)
+    delta = (o.float() * do.float()).sum(-1)
+    for _ in range(2):
+        before = flash_bwd_dq_cuda.launches
+        dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, seg, seg, causal=True)
+        torch.cuda.synchronize()
+        assert flash_bwd_dq_cuda.launches == before + 1
+    want = flash_bwd_reference(q, k, v, o, lse, do, seg, seg, True)[0]
+    assert dq.dtype == torch.bfloat16 and dq.shape == want.shape
+    err = (dq.float() - want.float()).abs().max().item()
+    assert err <= BWD_TOL[torch.bfloat16] * want.float().abs().max().item(), err
+    _assert_mean_close([dq], [want], torch.bfloat16)
 
 
 def _grads(fn, q, k, v, do, dlse=None):

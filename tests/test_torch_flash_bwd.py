@@ -6,7 +6,8 @@ causal and not, segment ids (with rows that match no key), packed causal
 segments, ``flash_attention_padded`` with a padding mask, f32 and bf16.
 
 Tolerance: the JAX package's own flash backward tolerance, rtol = atol =
-5e-4, in f32; in bf16, 2e-2 of the largest gradient. The kernels themselves
+5e-4, in f32; in bf16, 2e-2 of each gradient's largest |grad|, and for dq
+a mean error of at most 1% of its mean |grad|. The kernels themselves
 run only on a GPU (``tests/test_torch_cuda.py`` and ``chip_smoke.py``).
 """
 
@@ -102,19 +103,47 @@ def test_plain_backward_matches_jax_kernels(d, causal, segments):
     _close(got, want)
 
 
-def test_plain_backward_matches_jax_kernels_bf16():
-    q, k, v, do = _arrays(3, lq=256)
+# (D, mask, L): every head dim under each mask at L 256, and the pretraining
+# head dim at L 1024 (four key tiles of the JAX kernel's 256)
+BF16_CASES = ([(d, mask, 256) for d in (32, 64, 128)
+               for mask in ("none", "causal", "segments", "packed")]
+              + [(64, "none", 1024), (64, "causal", 1024)])
+
+
+@pytest.mark.parametrize("d,mask,length", BF16_CASES)
+def test_plain_backward_matches_jax_kernels_bf16(d, mask, length):
+    """bf16: ``flash_bwd_reference``, which K3 and K4 are held to on the
+    card, against JAX's Pallas ``_bwd`` on the same q, k, v, dO and JAX's o
+    and lse. Each gradient is within 2e-2 of its own largest |grad| (dS and P
+    are rounded to bf16 in another summation order), and dq's mean error is
+    at most 1% of its mean |grad|, which a wrong mask or a dropped key tile
+    would exceed. Segments: 8 rows that match no key; packed: causal packed
+    sequences."""
+    causal = mask in ("causal", "packed")
+    seed = 3 if (d, mask, length) == (64, "none", 256) else d + length + len(mask)
+    q, k, v, do = _arrays(seed, lq=length, d=d)
+    q_seg = kv_seg = None
+    if mask == "segments":
+        q_seg, kv_seg = _segments(d, 2, length, length, unmatched=8)
+    elif mask == "packed":
+        q_seg = kv_seg = _packed(2, length)
+    scale = d ** -0.5
     jx = [jnp.asarray(t, jnp.bfloat16) for t in (q, k, v, do)]
-    o, lse = jfa._fwd(*jx[:3], None, None, 0.125, False, 256, 256)
-    want = jfa._bwd(*jx[:3], None, None, o, lse, jx[3], 0.125, False, 256, 256)
+    js = (None, None) if q_seg is None else (jnp.asarray(q_seg), jnp.asarray(kv_seg))
+    o, lse = jfa._fwd(*jx[:3], *js, scale, causal, 256, 256)
+    want = jfa._bwd(*jx[:3], *js, o, lse, jx[3], scale, causal, 256, 256)
     tt = [torch.from_numpy(np.array(t.astype(jnp.float32))).bfloat16() for t in (*jx, o)]
-    got = tfa.flash_bwd_reference(tt[0], tt[1], tt[2], tt[4],
-                                  torch.from_numpy(np.array(lse)), tt[3], sm_scale=0.125)
-    largest = max(float(jnp.abs(w.astype(jnp.float32)).max()) for w in want)
-    for g, w in zip(got, want):
+    ts = (None, None) if q_seg is None else (torch.from_numpy(q_seg), torch.from_numpy(kv_seg))
+    got = tfa.flash_bwd_reference(tt[0], tt[1], tt[2], tt[4], torch.from_numpy(np.array(lse)),
+                                  tt[3], *ts, causal, scale)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
         assert g.dtype == torch.bfloat16
-        err = np.abs(g.float().numpy() - np.asarray(w.astype(jnp.float32))).max()
-        assert err <= 2e-2 * largest, err
+        g, w = g.float().numpy(), np.asarray(w.astype(jnp.float32))
+        err = np.abs(g - w).max()
+        assert err <= 2e-2 * np.abs(w).max(), (name, err)
+        if name == "dq":
+            rel = np.abs(g - w).mean() / np.abs(w).mean()
+            assert rel <= 1e-2, rel
 
 
 @pytest.mark.parametrize("length", [128, 256])
