@@ -12,9 +12,15 @@ Phases, each of which makes the script exit non-zero when it fails:
    check that every bf16 tensor-core kernel (K2, K3, K4) was built at D 32,
    64 and 128;
 2. K1 parity: exact top-k membership bit-equal to its plain PyTorch version
-   on the card, row and column entries, on random, tie-heavy, ±0.0 and
-   NEG_INF-padded keys with k above the valid count, N in
-   {1000, 16384, 131072} and k in {1, 10, 400, N};
+   on the card, with exactly k True per row, row and column entries: 96
+   base cases (random, tie-heavy, ±0.0 and NEG_INF-padded keys with k above
+   the valid count, N in {1000, 16384, 131072}, k in {1, 10, 400, N}), then
+   every cluster size and the streaming path the launcher picks: N in
+   {1000, 1500, 4096, 16384, 65536, 131072, 400000 (past what a cluster of
+   8 stages)}, R in {1, 2, 5, 40}, random keys at k = 10 and k = N, ties at
+   v_k spread over every CTA of a cluster with the fill short of them, ties
+   equal to the fill, all-equal rows; columns of a non-contiguous and a
+   contiguous [2, N, 6], one launch a call;
 3. K2 parity: the flash-attention forward against ``mha_reference`` on the
    card (O and lse), f32 within 2e-5 and bf16 within 2e-2 (and a mean
    |O - plain| at most 1% of the mean |O|), over D 32/64/128,
@@ -28,9 +34,12 @@ Phases, each of which makes the script exit non-zero when it fails:
    batch on each entry, the pooled logits match the same server on the CPU
    (rtol 1e-4, atol 1e-5: cuBLAS and the CPU sum the 512-wide products in
    another order), and the GPU's selection and pooling masks are bit-equal to
-   the plain version fed the GPU's own logits; then K1's times against its
-   plain version and ``torch.topk`` plus a scatter, the batch-8 forward
-   latency and a ``torch.profiler`` breakdown of it;
+   the plain version fed the GPU's own logits; then K1's times per call
+   (CUDA events around the wrapper) and kernel-only (``torch.profiler``)
+   against its bound, its plain version and ``torch.topk`` plus a scatter,
+   at the serving shapes, the training shapes [5, 4096] k=400 and [2, 4096]
+   k=10 and the largest bucket [40, 131072], the batch-8 forward latency and
+   a ``torch.profiler`` breakdown of it;
 5. extraction: a release-layout CONCH checkpoint fabricated at full width
    from a seed, two raw-pixel ``.npz`` patch bags of 256 px patches (600 and
    424 patches) through ``cli.extract_features.main --flash --batch_size 64
@@ -159,8 +168,8 @@ def _kernel_name(mangled: str) -> str:
         name = mangled[start:pos]
     if name is None:
         return mangled
-    args = re.match(r"I((?:Li\d+E)+)E", mangled[pos:])
-    return name + (f"<{', '.join(re.findall(r'Li(\d+)E', args.group(1)))}>" if args else "")
+    args = re.match(r"I((?:L[ib]\d+E)+)E", mangled[pos:])
+    return name + (f"<{', '.join(re.findall(r'L[ib](\d+)E', args.group(1)))}>" if args else "")
 
 
 def phase_build() -> dict:
@@ -187,9 +196,16 @@ def phase_build() -> dict:
                 check(", 0 bytes spill stores, 0 bytes spill loads" in line,
                       f"{name}: {entry} spills registers: {spills}")
             elif entry and (m := re.search(r"Used (\d+) registers", line)):
-                log(f"[build] {name}: {entry}: {m.group(1)} registers; {spills}")
+                smem = re.search(r"(\d+) bytes smem", line)
+                log(f"[build] {name}: {entry}: {m.group(1)} registers, "
+                    f"{smem.group(1) if smem else 0} bytes static shared memory; {spills}")
                 seen.add(entry)
                 entry = None
+        if name == "topk_threshold":
+            from moc_tpu_torch.ops.topk_kernel import MAX_STAGED_KEYS
+
+            log(f"[build] {name}: dynamic shared memory 4 B a staged key, at most "
+                f"{4 * MAX_STAGED_KEYS} B ({MAX_STAGED_KEYS} keys a CTA); each launch's in [times]")
         for kernel in MMA_KERNELS.get(name, ()):
             for d in (32, 64, 128):
                 check(f"{kernel}<{d}>" in seen, f"{name}: {kernel}<{d}> is missing from the build")
@@ -238,7 +254,77 @@ def phase_parity() -> dict:
     torch.cuda.synchronize()
     log(f"[parity] K1 bit-equal to its plain version on {cases} cases "
         f"(N in 1000/16384/131072, k in 1/10/400/N, random/ties/±0.0/padded)")
+    cases, plans = _parity_clusters(gen, err)
+    log(f"[parity] K1 bit-equal with exactly k per row on {cases} cluster cases (N in "
+        f"{'/'.join(map(str, K1_NS))}, R in {'/'.join(map(str, K1_ROWS))}, random k=10 and "
+        f"k=N, ties straddling the CTAs short of the fill, ties equal to the fill, all-equal; "
+        f"columns of a strided and a contiguous [2, N, 6]); (cluster, staged) run: "
+        f"{sorted(plans)}")
     return err
+
+
+# N past 8 x MAX_STAGED_KEYS (393216) takes the streaming path
+K1_NS = (1000, 1500, 4096, 16384, 65536, 131072, 400000)
+K1_ROWS = (1, 2, 5, 40)
+
+
+def _cluster_keys(kind: str, rows: int, n: int, k: int, gen: torch.Generator) -> torch.Tensor:
+    """Rows whose k-th value has ``k - k // 3`` members left to fill among
+    ties at 1.0 placed at random over the row: as many ties as the fill
+    ("exact": no ranking) or more ("straddle": ties in every CTA of the
+    cluster, ranked across them); all-equal rows; or normal keys."""
+    if kind == "normal":
+        return torch.randn((rows, n), generator=gen, device="cuda")
+    if kind == "equal":
+        return torch.full((rows, n), 0.5, device="cuda")
+    x = torch.randn((rows, n), generator=gen, device="cuda") - 10
+    above = k // 3
+    ties = k - above if kind == "exact" else min(n - above, 2 * (k - above) + 1)
+    pos = torch.argsort(torch.rand((rows, n), generator=gen, device="cuda"), dim=-1)
+    x.scatter_(-1, pos[:, :above], 5.0 + torch.rand((rows, above), generator=gen, device="cuda"))
+    x.scatter_(-1, pos[:, above:above + ties], 1.0)
+    return x
+
+
+def _parity_clusters(gen: torch.Generator, err: dict) -> tuple[int, set]:
+    """K1 over every cluster size the launcher picks, the streaming path,
+    the tie scan and its fast path, and the strided column entry."""
+    from moc_tpu_torch.ops import threshold_topk_mask, topk_kernel
+
+    def held(entry: str, fn, x: torch.Tensor, k: int, what: str) -> None:
+        axis = -1 if entry == "rows" else -2
+        before = fn.launches
+        got = fn(x, k)
+        want = threshold_topk_mask(x, k, axis=axis)
+        e = (got.int() - want.int()).abs().max().item()
+        err[entry] = max(err[entry], float(e))
+        check(e == 0 and got.is_contiguous() and bool((got.sum(axis) == k).all())
+              and fn.launches == before + 1,
+              f"K1 {entry} differ from the plain version: {what}")
+
+    cases, plans = 0, set()
+    for n in K1_NS:
+        k = min(400, n)
+        for r in K1_ROWS:
+            p = topk_kernel.plan(r, n, torch.cuda.get_device_properties(0).multi_processor_count)
+            plans.add((p.cluster, p.staged))
+            for kind, kk in (("normal", 10), ("normal", n), ("straddle", k), ("exact", k),
+                             ("equal", k), ("equal", n)):
+                held("rows", topk_kernel.topk_threshold_mask_cuda,
+                     _cluster_keys(kind, r, n, kk, gen), kk, f"N={n} R={r} k={kk} {kind} {p}")
+                cases += 1
+        for layout in ("strided", "contiguous"):
+            for kind, kk in (("normal", 10), ("straddle", k)):
+                # 12 columns of N as [2, N, 6], a transposed view or contiguous
+                cols = _cluster_keys(kind, 12, n, kk, gen).view(2, 6, n).transpose(1, 2)
+                held("cols", topk_kernel.col_topk_threshold_mask_cuda,
+                     cols if layout == "strided" else cols.contiguous(), kk,
+                     f"N={n} k={kk} {kind} {layout}")
+                cases += 1
+    torch.cuda.synchronize()
+    check({c for c, staged in plans if staged} == {1, 2, 4, 8} and (8, False) in plans,
+          f"the K1 parity grid missed a cluster size or the streaming path: {sorted(plans)}")
+    return cases, plans
 
 
 def _flash_inputs(b, h, length, d, dtype, segments, causal, gen):
@@ -448,6 +534,59 @@ def _library_mask(keys: torch.Tensor, k: int, dim: int) -> torch.Tensor:
     return torch.zeros(keys.shape, dtype=torch.bool, device=keys.device).scatter_(dim, idx, True)
 
 
+# K1 beyond the serving shapes: a B=1 training step's selection rows and
+# pooling columns ([1, N, C=2]), and the largest bucket's selection rows
+K1_SHAPES = (("rows", (5, 4096), TOPJ), ("cols", (1, 4096, N_CLASSES), TOPK),
+             ("rows", (40, 131072), TOPJ))
+
+
+def _kernel_us(fn, name: str, calls: int = 50) -> float:
+    """Device time per launch of the kernels named ``name`` over ``calls``
+    calls of ``fn``, from ``torch.profiler``; fails unless each call
+    launched one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and name in e.key]
+    count = sum(e.count for e in events)
+    check(count == calls, f"the profiler saw {count} launches of {name} in {calls} calls")
+    return sum(e.self_device_time_total for e in events) / count
+
+
+def _k1_record(entry: str, keys: torch.Tensor, k: int, kernel, plain, lib) -> dict:
+    """K1's times at one shape: per call by CUDA events around the wrapper
+    (the method of every earlier run), kernel-only by the profiler, against
+    its bound, its plain version and ``torch.topk`` plus a scatter."""
+    from moc_tpu_torch.ops import topk_kernel
+
+    n = keys.shape[-1] if entry == "rows" else keys.shape[-2]
+    r = keys.numel() // n
+    p = topk_kernel.plan(r, n, torch.cuda.get_device_properties(0).multi_processor_count)
+    # one read of the f32 keys and one write of the bool mask; one compare
+    # per key per pass (4 radix passes + 1 mask pass)
+    bytes_s = keys.numel() * (4 + 1) / HBM_BYTES_PER_S
+    ops_s = keys.numel() * 5 / F32_OPS_PER_S
+    rec = {"shape": list(keys.shape), "k": k, "ms": _time_ms(kernel),
+           "kernel_us": _kernel_us(kernel, "topk_cluster_kernel"),
+           "plain_ms": _time_ms(plain), "library_ms": _time_ms(lib),
+           "bound_ms": max(bytes_s, ops_s) * 1e3,
+           "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+           "cluster": p.cluster, "staged": p.staged,
+           "dynamic_smem_bytes": 4 * p.slice if p.staged else 0}
+    log(f"[times] K1 {entry} {list(keys.shape)} [{r} x {n}] k={k}: kernel {rec['ms']:.4f} ms "
+        f"per call, {rec['kernel_us']:.2f} us kernel-only (profiler), plain "
+        f"{rec['plain_ms']:.4f} ms, torch.topk+scatter {rec['library_ms']:.4f} ms, bound "
+        f"{rec['bound_ms']:.5f} ms ({rec['bound_by']}); cluster {p.cluster}, "
+        f"{'staged, ' + str(4 * p.slice) + ' B dynamic shared memory' if p.staged else 'streamed'}")
+    return rec
+
+
 def phase_times(state: dict) -> dict:
     from moc_tpu_torch.data.batching import pack_bags
     from moc_tpu_torch.moc.core import _dense_views_weights, fuse_views
@@ -472,19 +611,21 @@ def phase_times(state: dict) -> dict:
                  lambda: topk_kernel.col_topk_threshold_mask_cuda(pool_cols, TOPK),
                  lambda: threshold_topk_mask(pool_cols, TOPK, axis=-2),
                  lambda: _library_mask(pool_cols, TOPK, -2))):
-            r = keys.numel() // N_PAD
-            # one read of the f32 keys and one write of the bool mask; one
-            # compare per key per pass (4 radix passes + 1 mask pass)
-            bytes_s = keys.numel() * (4 + 1) / HBM_BYTES_PER_S
-            ops_s = keys.numel() * 5 / F32_OPS_PER_S
-            rec = {"shape": [r, N_PAD], "k": k, "ms": _time_ms(kernel),
-                   "plain_ms": _time_ms(plain), "library_ms": _time_ms(lib),
-                   "bound_ms": max(bytes_s, ops_s) * 1e3,
-                   "bound_by": "bytes" if bytes_s >= ops_s else "operations"}
-            records[entry] = rec
-            log(f"[times] K1 {entry} [{r}, {N_PAD}] k={k}: kernel {rec['ms']:.4f} ms, "
-                f"plain {rec['plain_ms']:.4f} ms, torch.topk+scatter {rec['library_ms']:.4f} ms, "
-                f"bound {rec['bound_ms']:.5f} ms ({rec['bound_by']})")
+            records[entry] = _k1_record(entry, keys, k, kernel, plain, lib)
+        records["rows"]["shapes"], records["cols"]["shapes"] = [], []
+        gen = torch.Generator(device="cuda").manual_seed(6)
+        for entry, shape, k in K1_SHAPES:
+            keys = torch.randn(shape, generator=gen, device="cuda")
+            if entry == "rows":
+                fns = (lambda: topk_kernel.topk_threshold_mask_cuda(keys, k),
+                       lambda: threshold_topk_mask(keys, k, axis=-1),
+                       lambda: _library_mask(keys, k, -1))
+            else:
+                fns = (lambda: topk_kernel.col_topk_threshold_mask_cuda(keys, k),
+                       lambda: threshold_topk_mask(keys, k, axis=-2),
+                       lambda: _library_mask(keys, k, -2))
+            check(torch.equal(fns[0](), fns[1]()), f"K1 {entry} {shape} differs from plain")
+            records[entry]["shapes"].append(_k1_record(entry, keys, k, *fns))
 
         def forward():
             server.batch_logits(batch)
@@ -543,7 +684,7 @@ def phase_profile(forward, steps: int = 5, what: str = "forward") -> None:
     ranked = sorted(events, key=lambda e: -e.self_device_time_total)
     # the top ten, and the port's own kernels wherever they rank
     for rank, e in enumerate(ranked):
-        if rank < 10 or "flash_" in e.key or "topk_threshold" in e.key:
+        if rank < 10 or "flash_" in e.key or "topk_cluster" in e.key:
             log(f"[profile]   {e.self_device_time_total / steps:9.1f} us  "
                 f"{100 * e.self_device_time_total / busy_us:5.1f}%  x{e.count // steps:<3d} "
                 f"#{rank + 1:<3d} {e.key[:90]}")
@@ -1056,9 +1197,10 @@ def main() -> int:
         t = times[entry]
         kernels.append({"name": name, "route": "cuda", "source": ROWS_SOURCE,
                         "replaces": REPLACES, "launches": state["launches"][entry],
-                        "max_abs_err": err[entry], "ms": t["ms"], "plain_ms": t["plain_ms"],
-                        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                        "library_ms": t["library_ms"]})
+                        "max_abs_err": err[entry], "ms": t["ms"], "kernel_us": t["kernel_us"],
+                        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                        "shape": t["shape"], "cluster": t["cluster"], "shapes": t["shapes"]})
     for tier, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         t = k2_times[tier]
         kernels.append({"name": f"flash_fwd_{tier}", "route": "cuda", "source": K2_SOURCE,

@@ -75,6 +75,81 @@ def test_k1_columns_bit_equal_to_plain(gen, n, k):
     assert torch.equal(got.cpu(), masked_col_topk_mask(scores.cpu(), valid.cpu(), k))
 
 
+def _tie_rows(gen, rows, n, k, kind):
+    """k // 3 keys above v_k = 1.0, the rest of the k members ties at it at
+    random places: as many ties as the fill ("exact": no ranking) or more
+    ("straddle": ties in every CTA of a cluster, ranked across them); or
+    all-equal rows ("equal")."""
+    if kind == "equal":
+        return torch.full((rows, n), 0.5, device="cuda")
+    x = torch.randn((rows, n), generator=gen, device="cuda") - 10
+    above = k // 3
+    ties = k - above if kind == "exact" else min(n - above, 2 * (k - above) + 1)
+    pos = torch.argsort(torch.rand((rows, n), generator=gen, device="cuda"), dim=-1)
+    x.scatter_(-1, pos[:, :above], 5.0)
+    x.scatter_(-1, pos[:, above:above + ties], 1.0)
+    return x
+
+
+# N = 400000 is past what a cluster of 8 stages: its slices stream
+@pytest.mark.parametrize("n", [1000, 1500, 4096, 16384, 65536, 131072, 400000])
+@pytest.mark.parametrize("rows", [1, 2, 5, 40])
+@pytest.mark.parametrize("kind", ["straddle", "exact", "equal"])
+def test_k1_cluster_rows_bit_equal_to_plain(gen, n, rows, kind):
+    """Every cluster size the launcher picks (1, 2, 4, 8) and the streaming
+    path, with ties ranked across the CTAs of a row or at the fill."""
+    k = min(400, n)
+    x = _tie_rows(gen, rows, n, k, kind)
+    before = topk_kernel.topk_threshold_mask_cuda.launches
+    got = topk_kernel.topk_threshold_mask_cuda(x, k)
+    torch.cuda.synchronize()
+    assert topk_kernel.topk_threshold_mask_cuda.launches == before + 1
+    assert torch.equal(got, threshold_topk_mask(x, k))
+    assert bool((got.sum(-1) == k).all())
+
+
+@pytest.mark.parametrize("rows,n", [(5, 4096), (40, 16384), (2, 131072)])
+def test_k1_ties_at_cta_boundaries(gen, rows, n):
+    """Ties at v_k on both sides of every slice boundary of the cluster, with
+    the fill ending inside a CTA after the first."""
+    p = topk_kernel.plan(rows, n, torch.cuda.get_device_properties(0).multi_processor_count)
+    assert p.cluster > 1
+    x = torch.randn((rows, n), generator=gen, device="cuda") - 10
+    edges = torch.arange(1, p.cluster, device="cuda") * p.slice
+    ties = (edges[:, None] + torch.arange(-3, 3, device="cuda")).flatten()
+    x[:, ties] = 1.0
+    x[:, :7] = 5.0  # above v_k
+    fill = len(ties) // 2 + 1  # ends inside the second CTA or a later one
+    k = 7 + fill
+    got = topk_kernel.topk_threshold_mask_cuda(x, k)
+    want = threshold_topk_mask(x, k)
+    assert torch.equal(got, want) and bool((got.sum(-1) == k).all())
+    assert bool(got[:, ties[fill - 1]].all()) and not bool(got[:, ties[fill]].any())
+
+
+@pytest.mark.parametrize("n", [777, 4096, 16384])
+@pytest.mark.parametrize("layout", ["strided", "contiguous", "sliced"])
+def test_k1_columns_in_place_at_six_classes(gen, n, layout):
+    """The column entry reads [B, N, C=6] by stride (a transposed view, a
+    contiguous tensor, every other row of a larger one) and writes a
+    contiguous mask; one launch a call."""
+    k = min(400, n // 2)
+    x = _tie_rows(gen, 12, 2 * n, k, "straddle")
+    if layout == "sliced":
+        scores = x.view(2, 6, 2 * n).transpose(1, 2)[:, ::2]
+    else:
+        scores = x[:, :n].reshape(2, 6, n).transpose(1, 2)
+        if layout == "contiguous":
+            scores = scores.contiguous()
+    before = topk_kernel.col_topk_threshold_mask_cuda.launches
+    got = topk_kernel.col_topk_threshold_mask_cuda(scores, k)
+    torch.cuda.synchronize()
+    assert topk_kernel.col_topk_threshold_mask_cuda.launches == before + 1
+    assert got.shape == (2, n, 6) and got.is_contiguous()
+    assert torch.equal(got, threshold_topk_mask(scores, k, axis=-2))
+    assert bool((got.sum(-2) == k).all())
+
+
 def _k2_inputs(gen, length, d, dtype, segments, causal):
     q, k, v = (torch.randn((2, 3, length, d), generator=gen, device="cuda").to(dtype)
                for _ in range(3))

@@ -18,6 +18,9 @@ from moc_tpu_torch.ops import selection as tsel
 from moc_tpu_torch.ops import topk_kernel
 
 KINDS = ("normal", "ties", "signed_zeros", "padded")
+# the tie cases the kernel's branches rely on: ties equal to the fill, ties
+# beyond it at the end of a row, all-equal rows
+TIE_KINDS = ("exact_fill", "tail_ties", "all_equal")
 
 
 def _keys(kind: str, rows: int, n: int, k: int, seed: int) -> np.ndarray:
@@ -28,6 +31,24 @@ def _keys(kind: str, rows: int, n: int, k: int, seed: int) -> np.ndarray:
         return rng.integers(-3, 3, size=(rows, n)).astype(np.float32)
     if kind == "signed_zeros":
         return rng.choice([-0.0, 0.0, 1.0, -1.0], size=(rows, n)).astype(np.float32)
+    if kind == "all_equal":
+        return np.full((rows, n), 0.5, np.float32)
+    if kind in ("exact_fill", "tail_ties"):
+        # k // 3 keys above v_k = 1.0; the rest of the k members are ties at
+        # it: as many ties as the fill, at random places (the kernel's fast
+        # path), or more than the fill, at the end of the row (ranked)
+        x = (rng.normal(size=(rows, n)) - 10).astype(np.float32)
+        above = k // 3
+        ties = k - above if kind == "exact_fill" else min(n - above, 2 * (k - above) + 1)
+        for row in x:
+            if kind == "exact_fill":
+                pos = rng.permutation(n)
+                row[pos[:above]] = 5 + rng.random(above)
+                row[pos[above:above + ties]] = 1.0
+            else:
+                row[rng.permutation(n - ties)[:above]] = 5 + rng.random(above)
+                row[n - ties:] = 1.0
+        return x
     # NEG_INF-padded rows holding fewer valid keys than k
     x = rng.normal(size=(rows, n)).astype(np.float32)
     x[:, max(1, k // 3):] = jmask.NEG_INF
@@ -43,22 +64,66 @@ def _lax_topk_set(x: np.ndarray, k: int) -> np.ndarray:
     return ref
 
 
-@pytest.mark.parametrize("kind", KINDS)
-@pytest.mark.parametrize("n,k", [(256, 40), (300, 17), (128, 128), (1000, 400),
-                                 (4096, 10), (129, 1)])
-def test_threshold_mask_matches_jax(kind, n, k):
-    x = _keys(kind, 4, n, k, seed=n * 7 + k)
+def _assert_rows_match_jax(x: np.ndarray, k: int) -> None:
     got = tmask.threshold_topk_mask(torch.from_numpy(x), k).numpy()
     assert (got.sum(-1) == k).all()
     np.testing.assert_array_equal(
         got, np.asarray(jmask.threshold_topk_mask(jnp.asarray(x), k, axis=-1)))
     np.testing.assert_array_equal(got, _lax_topk_set(x, k))
-    if n % 128 == 0:  # the Pallas kernel takes lane-aligned rows only
+    if x.shape[-1] % 128 == 0:  # the Pallas kernel takes lane-aligned rows only
         np.testing.assert_array_equal(
             got, np.asarray(topk_threshold_mask_tpu(jnp.asarray(x), k)))
+
+
+@pytest.mark.parametrize("kind", KINDS + TIE_KINDS)
+@pytest.mark.parametrize("n,k", [(256, 40), (300, 17), (128, 128), (1000, 400),
+                                 (4096, 10), (129, 1)])
+def test_threshold_mask_matches_jax(kind, n, k):
+    x = _keys(kind, 4, n, k, seed=n * 7 + k)
+    _assert_rows_match_jax(x, k)
     # selection's dispatch sends CPU tensors to the same plain version
-    np.testing.assert_array_equal(
-        tsel.topk_threshold_mask(torch.from_numpy(x), k).numpy(), got)
+    np.testing.assert_array_equal(tsel.topk_threshold_mask(torch.from_numpy(x), k).numpy(),
+                                  tmask.threshold_topk_mask(torch.from_numpy(x), k).numpy())
+
+
+@pytest.mark.parametrize("kind", KINDS + TIE_KINDS)
+@pytest.mark.parametrize("rows,k", [(5, 400), (2, 10)])
+def test_training_step_shapes_match_jax(kind, rows, k):
+    """A B=1 slide step at NSCLC: 2C+1 = 5 selection rows at topj=400 and
+    C = 2 pooling columns at topk=10, over the 4096 bucket."""
+    _assert_rows_match_jax(_keys(kind, rows, 4096, k, seed=rows * 31 + k), k)
+
+
+def test_column_mask_at_six_classes_matches_jax():
+    """The column entry's layout at C = 6 (NSCLC's extended classes): a
+    non-contiguous ``[B, N, C]`` view, each slide against JAX's
+    ``masked_col_topk_mask``, with ties straddling and at the fill."""
+    n, k = 1024, 400
+    x = np.concatenate([_keys("tail_ties", 3, n, k, seed=1), _keys("exact_fill", 3, n, k, seed=2),
+                        _keys("ties", 6, n, k, seed=3)])  # [12, N]: columns
+    scores = torch.from_numpy(x).view(2, 6, n).transpose(1, 2)  # [2, N, 6], strided
+    valid = torch.from_numpy(np.arange(n)[None] < np.array([[n], [700]]))
+    got = tmask.masked_col_topk_mask(scores, valid, k).numpy()
+    assert got.shape == (2, n, 6) and (got.sum(-2) == k).all()
+    for b in range(2):
+        want = jmask.masked_col_topk_mask(jnp.asarray(scores[b].numpy()),
+                                          jnp.asarray(valid[b].numpy()), k)
+        np.testing.assert_array_equal(got[b], np.asarray(want))
+
+
+@pytest.mark.parametrize("rows,n,cluster,staged", [
+    (40, 16384, 4, True), (16, 16384, 8, True), (5, 4096, 8, True), (2, 4096, 8, True),
+    (40, 512, 1, True), (1, 1000, 1, True), (40, 1500, 2, True), (40, 65536, 4, True),
+    (40, 131072, 8, True), (200, 32768, 2, True), (2, 393216, 8, True), (2, 400000, 8, False),
+    (0, 64, 1, True)])
+def test_cluster_plan(rows, n, cluster, staged):
+    """The launch plan of the CUDA kernel: rows × cluster fills the H100's
+    132 SMs where each CTA keeps at least 512 keys, slices of at most 16384
+    keys where 8 CTAs allow, and streaming past 8 × 49152 keys."""
+    p = topk_kernel.plan(rows, n)
+    assert (p.cluster, p.staged) == (cluster, staged)
+    assert p.slice % 4 == 0 and p.cluster * p.slice >= n > (p.cluster - 1) * p.slice
+    assert not p.staged or p.slice <= topk_kernel.MAX_STAGED_KEYS
 
 
 @pytest.mark.parametrize("kind", KINDS)
