@@ -73,7 +73,22 @@ Phases, each of which makes the script exit non-zero when it fails:
    ``scaled_dot_product_attention`` (timed only; K3 + K4 together); K2 and
    the library's forward at that shape; the full-width pretrain step by
    CUDA events (median) and tokens/s in f32 and bf16, and a
-   ``torch.profiler`` breakdown of one step in each.
+   ``torch.profiler`` breakdown of one step in each;
+11. MOC training: ``cli.main_moc.main`` on ``cuda`` at the JAX CLI's
+   full-width synthetic protocol (D=512, C=2, C_ext=6, topj=400, topk=10,
+   shot 8, fold 0, 16 slides a class, bags of 1500-4000 patches, 25 epochs
+   of 16 per-slide Adam steps, seed 0): every loss finite, the JAX
+   package's result keys, test AUC at best val at least 0.8, K1 launched
+   exactly 2 x 16 x 25 times by the training steps (counted around each
+   ``train_epoch``), the saved ``.npz`` served by ``cli.serve.watch_once``
+   matching ``eval_batch`` on the test bags within 1e-5; one epoch on the
+   card against the CPU from one SENet and one set of keep masks
+   (first-step gradients within 1e-5 of each largest |grad|, losses within
+   1e-5, parameters within Adam's bound of lr a step) and K1 on keys that
+   require grad; then the slide step by CUDA events on the gather and the
+   masked route, with a ``torch.profiler`` breakdown of each, the epoch and
+   episode walls and slide steps/s. K1 is also timed at the gather route's
+   pooling columns, [2, 2432] k=10, in phase 4.
 
 The last lines are the card's name and power limit, one JSON object of
 kernel records, and ``{"ok": true, "device": {...}}``. No phase falls back
@@ -83,6 +98,7 @@ to the CPU: without a GPU, or without the port beside it, the script fails.
 from __future__ import annotations
 
 import csv
+import dataclasses
 import importlib.util
 import json
 import math
@@ -137,6 +153,19 @@ NARROW_ARGV = ["--batch", "4", "--seq_len", "128", "--layers", "2", "--embed_dim
 PATCH_PX, EXTRACT_BATCH, SLIDE_PATCHES = 256, 64, (600, 424)
 TRUNK_LAYERS, TOKENS, HEADS, HEAD_DIM = 12, 785, 12, 64
 EXTRACT_BATCHES = sum(math.ceil(n / EXTRACT_BATCH) for n in SLIDE_PATCHES)  # 10 + 7
+# MOC training: the JAX CLI's synthetic protocol (moc_tpu/cli/main_moc.py:52-55,123-126):
+# D=512, SENet 512-64-4, C=2 with 4 background concepts, topj 400, topk 10, shot 8,
+# fold 0, 16 slides a class (val 2, test 4), bags of 1500-4000 patches (the 4096
+# bucket), 25 epochs of shot x C = 16 per-slide Adam steps, seed 0
+TRAIN_SHOT, TRAIN_EPOCHS, TRAIN_PATCHES = 8, 25, (1500, 4000)
+TRAIN_VISITS = TRAIN_SHOT * N_CLASSES
+TRAIN_ARGV = ["--dataset", "synthetic", "--shot", str(TRAIN_SHOT), "--fold", "0",
+              "--topj", str(TOPJ), "--topk", str(TOPK), "--num_epochs", str(TRAIN_EPOCHS),
+              "--synthetic_min_patches", str(TRAIN_PATCHES[0]),
+              "--synthetic_max_patches", str(TRAIN_PATCHES[1]), "--seed", "0"]
+# the keys of the JAX package's best_results_shot_{s}_fold_{f}.json
+RESULT_KEYS = ["zero_shot_train", "zero_shot_val", "zero_shot_test", "best_val",
+               "test_at_best_val", "test_acc_at_best_val", "best_epoch", "best_model_path"]
 
 
 def log(msg: str) -> None:
@@ -535,9 +564,10 @@ def _library_mask(keys: torch.Tensor, k: int, dim: int) -> torch.Tensor:
 
 
 # K1 beyond the serving shapes: a B=1 training step's selection rows and
-# pooling columns ([1, N, C=2]), and the largest bucket's selection rows
+# pooling columns ([1, N, C=2] on the masked route, [1, capacity, C=2] on
+# the gather route that training takes), and the largest bucket's rows
 K1_SHAPES = (("rows", (5, 4096), TOPJ), ("cols", (1, 4096, N_CLASSES), TOPK),
-             ("rows", (40, 131072), TOPJ))
+             ("cols", (1, 2432, N_CLASSES), TOPK), ("rows", (40, 131072), TOPJ))
 
 
 def _kernel_us(fn, name: str, calls: int = 50) -> float:
@@ -655,10 +685,11 @@ def phase_times(state: dict) -> dict:
     return records
 
 
-def phase_profile(forward, steps: int = 5, what: str = "forward") -> None:
+def phase_profile(forward, steps: int = 5, what: str = "forward", host_top: int = 0) -> None:
     """Device time of ``forward`` (a batch forward, or a train step) by
     kernel, from ``torch.profiler``, and the device's busy share of the host
-    wall over the same steps."""
+    wall over the same steps; with ``host_top``, also that many host-side
+    operations by their own host time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -688,6 +719,15 @@ def phase_profile(forward, steps: int = 5, what: str = "forward") -> None:
             log(f"[profile]   {e.self_device_time_total / steps:9.1f} us  "
                 f"{100 * e.self_device_time_total / busy_us:5.1f}%  x{e.count // steps:<3d} "
                 f"#{rank + 1:<3d} {e.key[:90]}")
+    if host_top:
+        host = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CPU]
+        host_us = sum(e.self_cpu_time_total for e in host)
+        log(f"[profile] host side: {host_us / steps:.1f} us/{what} of its own time in "
+            f"{sum(e.count for e in host) // steps} recorded operations "
+            f"({100 * host_us / wall_us:.1f}% of the host wall; the rest runs between them)")
+        for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:host_top]:
+            log(f"[profile]   host {e.self_cpu_time_total / steps:9.1f} us  "
+                f"x{e.count // steps:<4d} {e.key[:80]}")
 
 
 def write_patch_corpus(root: str) -> tuple[str, str, list[str]]:
@@ -1160,6 +1200,244 @@ def phase_pretrain_step_times() -> dict:
     return records
 
 
+def _k1_wrappers():
+    from moc_tpu_torch.ops import topk_kernel
+
+    return {"rows": topk_kernel.topk_threshold_mask_cuda,
+            "cols": topk_kernel.col_topk_threshold_mask_cuda}
+
+
+def phase_train(root: str) -> dict:
+    """``cli.main_moc.main`` on the card at the full-width synthetic protocol:
+    every loss finite, the JAX package's result keys, test AUC at best val
+    at least 0.8, K1 launched exactly twice a slide step (counted around each
+    ``train_epoch``), and the saved ``.npz`` served by ``cli.serve``
+    matching ``eval_batch`` on the test bags."""
+    import contextlib
+    import io
+
+    from moc_tpu_torch.cli import main_moc
+    from moc_tpu_torch.moc import episode
+
+    result_dir = os.path.join(root, "moc_train")
+    argv = [*TRAIN_ARGV, "--result_dir", result_dir, "--device", "cuda"]
+    t0 = time.perf_counter()
+    corpus = main_moc._synthetic_setup(main_moc.get_args(argv))
+    corpus_s = time.perf_counter() - t0
+    k1 = _k1_wrappers()
+    rec = {"losses": [], "steps": {"rows": 0, "cols": 0}, "train_s": [], "starts": []}
+    inner = episode.train_epoch
+
+    def recorded(*args, **kwargs):
+        rec["starts"].append(time.perf_counter())
+        before = {e: fn.launches for e, fn in k1.items()}
+        losses = inner(*args, **kwargs)
+        torch.cuda.synchronize()
+        rec["train_s"].append(time.perf_counter() - rec["starts"][-1])
+        for e, fn in k1.items():
+            rec["steps"][e] += fn.launches - before[e]
+        rec["losses"].append(losses.cpu().tolist())
+        return losses
+
+    episode.train_epoch = recorded  # run_episode looks it up at each call
+    for fn in k1.values():
+        fn.launches = 0
+    out = io.StringIO()
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = main_moc.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        episode.train_epoch = inner
+    launches = {e: fn.launches for e, fn in k1.items()}
+    check(rc == 0, f"main_moc.main returned {rc}")
+    lines = out.getvalue().strip().splitlines()
+    with open(os.path.join(result_dir, f"best_results_shot_{TRAIN_SHOT}_fold_0.json")) as f:
+        result = json.load(f)
+    losses = [x for epoch in rec["losses"] for x in epoch]
+    check(list(result) == RESULT_KEYS, f"result keys {list(result)}")
+    check(len(losses) == TRAIN_EPOCHS * TRAIN_VISITS and all(math.isfinite(x) for x in losses),
+          f"{len(losses)} training losses, not all finite")
+    check(result["test_at_best_val"] >= 0.8,
+          f"test AUC at best val {result['test_at_best_val']} is below 0.8")
+    want = TRAIN_EPOCHS * TRAIN_VISITS
+    check(rec["steps"] == {"rows": want, "cols": want},
+          f"the training steps launched K1 {rec['steps']}, want {want} on each entry")
+    epoch_s = [b - a for a, b in zip(rec["starts"], rec["starts"][1:])]
+    train_s = statistics.median(rec["train_s"])
+    res = {"wall_s": wall, "corpus_s": corpus_s, "epoch_train_s": train_s,
+           "epoch_with_eval_s": statistics.median(epoch_s),
+           "steps_per_s": TRAIN_VISITS / train_s, "launches": launches,
+           "launches_steps": rec["steps"], "result": result,
+           "loss_first": rec["losses"][0], "loss_last": rec["losses"][-1]}
+    best = next(line for line in lines if line.startswith("Best Val"))
+    log(f"[train] main_moc {' '.join(TRAIN_ARGV)} on cuda: {best}")
+    log(f"[train] episode wall {wall:.3f}s (corpus of 32 bags written before it in "
+        f"{corpus_s:.2f}s); epoch: {train_s * 1e3:.1f} ms of training ({TRAIN_VISITS} steps, "
+        f"{res['steps_per_s']:.1f} slide steps/s), {res['epoch_with_eval_s'] * 1e3:.1f} ms "
+        f"with its evaluation (medians of {TRAIN_EPOCHS} and {len(epoch_s)}); K1 launches: "
+        f"training steps {rec['steps']}, whole run {launches}")
+    log(f"[train] losses, epoch 0: {[round(x, 4) for x in rec['losses'][0]]}; epoch "
+        f"{TRAIN_EPOCHS - 1}: {[round(x, 4) for x in rec['losses'][-1]]}; best epoch "
+        f"{result['best_epoch']}, best val {result['best_val']}, test AUC at best val "
+        f"{result['test_at_best_val']}, zero-shot test {result['zero_shot_test']}")
+    res["served_err"] = _serve_trained(root, corpus, result["best_model_path"])
+    return res
+
+
+def _serve_trained(root: str, corpus: dict, model: str) -> float:
+    """The trained ``.npz`` through ``cli.serve.watch_once`` on the card;
+    each test slide's served probabilities against ``eval_batch`` with the
+    same file on the same bags. Returns the largest difference."""
+    from moc_tpu_torch.cli import serve
+    from moc_tpu_torch.cli.predict import load_senet
+    from moc_tpu_torch.data import BagLoader, SlideTable, pack_bags, read_split_csv
+    from moc_tpu_torch.metrics import softmax_probs
+    from moc_tpu_torch.moc import MOCConfig, eval_batch
+
+    np.savez(os.path.join(root, "train_w.npz"), weights=corpus["weights"])
+    np.savez(os.path.join(root, "train_we.npz"), weights=corpus["weights_ext"])
+    args = serve.get_args(["--dataset", "nsclc", "--model", model,
+                           "--weights_npz", os.path.join(root, "train_w.npz"),
+                           "--weights_ext_npz", os.path.join(root, "train_we.npz"),
+                           "--topj", str(TOPJ), "--topk", str(TOPK), "--device", "cuda",
+                           "--watch_dir", corpus["data_dir"], "--once"])
+    out_csv = os.path.join(root, "served_trained.csv")
+    n = serve.watch_once(serve.Server(args), corpus["data_dir"], out_csv, set())
+    check(n == 2 * 16, f"watch_once scored {n} of the 32 training-corpus slides")
+    with open(out_csv, newline="") as f:
+        served = {r["slide_id"]: [float(r[f"prob_{c}"]) for c in range(N_CLASSES)]
+                  for r in csv.DictReader(f)}
+    table = SlideTable.from_csv(corpus["csv_path"], corpus["label_dict"])
+    split = read_split_csv(corpus["split_paths"][(TRAIN_SHOT, 0)])
+    bags = BagLoader(table, corpus["data_dir"]).read_all(split.test)
+    cfg = MOCConfig(n_classes=N_CLASSES, n_ext_classes=N_EXT, topj=TOPJ, topk=TOPK)
+    w, w_ext = (torch.from_numpy(x).cuda() for x in (corpus["weights"], corpus["weights_ext"]))
+    probs = softmax_probs(eval_batch(load_senet(model), pack_bags(bags, device="cuda"), w,
+                                     w_ext, cfg)).cpu().numpy()
+    err = max(float(np.abs(np.array(served[b.slide_id]) - p).max()) for b, p in zip(bags, probs))
+    check(err <= 1e-5, f"served probabilities differ from eval_batch's by {err}")
+    log(f"[train] the saved .npz served by watch_once (32 slides) against eval_batch on the "
+        f"{len(bags)} test bags: max |diff| of the probabilities {err:.3e} (tolerance 1e-5)")
+    return err
+
+
+def _train_setup(root: str, device: str):
+    """The training corpus's shot-8 fold-0 episode on ``device``, its weights
+    and the full-width ``MOCConfig``."""
+    from moc_tpu_torch.cli import main_moc
+    from moc_tpu_torch.data import BagLoader, EpisodeBags, SlideTable, read_split_csv
+    from moc_tpu_torch.moc import MOCConfig
+
+    corpus = main_moc._synthetic_setup(main_moc.get_args(
+        [*TRAIN_ARGV, "--result_dir", os.path.join(root, "moc_train")]))
+    table = SlideTable.from_csv(corpus["csv_path"], corpus["label_dict"])
+    split = read_split_csv(corpus["split_paths"][(TRAIN_SHOT, 0)])
+    ep = EpisodeBags.load(BagLoader(table, corpus["data_dir"]), split.train, split.val,
+                          split.test, repeat_num=TRAIN_VISITS, device=device)
+    w, w_ext = (torch.from_numpy(x).to(device) for x in (corpus["weights"],
+                                                          corpus["weights_ext"]))
+    return ep, w, w_ext, MOCConfig(n_classes=N_CLASSES, n_ext_classes=N_EXT, topj=TOPJ,
+                                   topk=TOPK)
+
+
+def phase_train_parity(root: str) -> dict:
+    """One epoch on the card and on the CPU from one initial SENet and one
+    set of keep masks: first-step gradients within 1e-5 of each parameter's
+    largest |grad|, the 16 losses within 1e-5, parameters within Adam's bound
+    (lr a step); K1 twice a step on the card, never on the CPU. Also K1's
+    wrappers on keys that require grad, in both entries."""
+    import torch.nn.functional as F
+
+    from moc_tpu_torch.moc import init_senet, make_optimizer, moc_slide_logits, train_epoch
+    from moc_tpu_torch.moc.episode import draw_keep_masks
+    from moc_tpu_torch.ops import threshold_topk_mask
+
+    k1 = _k1_wrappers()
+    # keys that require grad, as the masked route hands them over: no copy, no error
+    keys = torch.randn((5, 4096), device="cuda", requires_grad=True) * 1.0
+    check(torch.equal(k1["rows"](keys, TOPJ), threshold_topk_mask(keys.detach(), TOPJ, axis=-1)),
+          "K1 rows on keys that require grad differ from the plain version")
+    cols = (torch.randn((1, N_CLASSES, 2432), device="cuda", requires_grad=True) * 1.0
+            ).transpose(1, 2)
+    check(torch.equal(k1["cols"](cols, TOPK), threshold_topk_mask(cols.detach(), TOPK, axis=-2)),
+          "K1 columns on a strided view that requires grad differ from the plain version")
+
+    runs = {}
+    for device in ("cuda", "cpu"):
+        ep, w, w_ext, cfg = _train_setup(root, device)
+        if device == "cuda":  # the same masks for both, drawn once on the CPU
+            order = ep.train_epoch_order()
+            keep = draw_keep_masks(torch.Generator().manual_seed(7), cfg, len(order),
+                                   ep.train.padded_len)
+        senet = init_senet(0, cfg, device)
+        i = int(order[0])
+        logits = moc_slide_logits(senet, ep.train.features[i:i + 1], ep.train.mask[i:i + 1],
+                                  w, w_ext, cfg, keep[:1].to(device))
+        F.cross_entropy(logits, ep.train.labels[i:i + 1].long()).backward()
+        grads = {n: p.grad.detach().cpu() for n, p in senet.named_parameters()}
+        senet = init_senet(0, cfg, device)
+        before = {e: fn.launches for e, fn in k1.items()}
+        losses = train_epoch(senet, make_optimizer(senet.parameters(), cfg), ep.train, order,
+                             keep.to(device), w, w_ext, cfg).cpu()
+        launched = {e: fn.launches - before[e] for e, fn in k1.items()}
+        runs[device] = (grads, losses, {k: v.detach().cpu() for k, v in
+                                        senet.state_dict().items()}, launched)
+    (gg, lg, pg, ng), (gc, lc, pc, nc) = runs["cuda"], runs["cpu"]
+    check(ng == {"rows": TRAIN_VISITS, "cols": TRAIN_VISITS} and nc == {"rows": 0, "cols": 0},
+          f"one epoch's K1 launches: card {ng}, CPU {nc}")
+    grad_err = max(float((gg[n] - g).abs().max() / g.abs().max()) for n, g in gc.items())
+    smallest = min(float(g.abs().max()) for g in gc.values())
+    check(grad_err <= 1e-5, f"first-step gradients differ by {grad_err} of the largest |grad|")
+    loss_err = float((lg - lc).abs().max())
+    check(loss_err <= 1e-5, f"one epoch's losses differ: card {lg.tolist()}, CPU {lc.tolist()}")
+    param_err = max(float((t - pc[n]).abs().max()) for n, t in pg.items())
+    bound = TRAIN_VISITS * cfg.learning_rate
+    check(param_err <= bound, f"parameters differ by {param_err}, past Adam's bound {bound}")
+    log(f"[train] one epoch on the card against the CPU ({TRAIN_VISITS} steps, same SENet and "
+        f"masks): first-step gradients within {grad_err:.3e} of each largest |grad| (smallest "
+        f"largest |grad| {smallest:.3e}; tolerance 1e-5), losses max |diff| {loss_err:.3e} "
+        f"(tolerance 1e-5), parameters max |diff| {param_err:.3e} (Adam's bound {bound}); "
+        f"K1 launches card {ng}, CPU {nc}; K1 on keys that require grad bit-equal in both "
+        "entries")
+    return {"grad_err": grad_err, "loss_err": loss_err, "param_err": param_err}
+
+
+def phase_train_times(root: str) -> dict:
+    """The slide step (forward, backward, Adam) by CUDA events on the gather
+    route that training takes and on the masked route, and a profile of
+    each."""
+    import torch.nn.functional as F
+
+    from moc_tpu_torch.moc import init_senet, make_optimizer, moc_slide_logits
+    from moc_tpu_torch.moc.episode import draw_keep_masks
+
+    ep, w, w_ext, cfg = _train_setup(root, "cuda")
+    keep = draw_keep_masks(torch.Generator(device="cuda").manual_seed(8), cfg, 1,
+                           ep.train.padded_len)
+    feats, mask, label = ep.train.features[:1], ep.train.mask[:1], ep.train.labels[:1].long()
+    records = {}
+    for impl in ("gather", "masked"):
+        cfg_i = dataclasses.replace(cfg, exact_impl=impl)
+        senet = init_senet(0, cfg_i, "cuda")
+        opt = make_optimizer(senet.parameters(), cfg_i)
+
+        def step():
+            loss = F.cross_entropy(moc_slide_logits(senet, feats, mask, w, w_ext, cfg_i, keep),
+                                   label)
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            opt.step()
+
+        records[impl] = _time_ms(step, iters=50, warmup=5)
+        log(f"[times] slide step, {impl} route ([1, {ep.train.padded_len}, {DIM}], topj "
+            f"{TOPJ}): {records[impl]:.3f} ms by CUDA events (median of 50)")
+        phase_profile(step, steps=5, what="step", host_top=12)
+    return records
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py runs on a GPU only", file=sys.stderr)
@@ -1187,6 +1465,10 @@ def main() -> int:
     phase_pretrain_narrow()
     bwd_times = phase_flash_bwd_times()
     phase_pretrain_step_times()
+    with tempfile.TemporaryDirectory() as root:
+        trained = phase_train(root)
+        phase_train_parity(root)
+        train_times = phase_train_times(root)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip().splitlines()[0]
@@ -1200,7 +1482,9 @@ def main() -> int:
                         "max_abs_err": err[entry], "ms": t["ms"], "kernel_us": t["kernel_us"],
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-                        "shape": t["shape"], "cluster": t["cluster"], "shapes": t["shapes"]})
+                        "shape": t["shape"], "cluster": t["cluster"], "shapes": t["shapes"],
+                        "launches_train": trained["launches_steps"][entry],
+                        "launches_main_moc": trained["launches"][entry]})
     for tier, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         t = k2_times[tier]
         kernels.append({"name": f"flash_fwd_{tier}", "route": "cuda", "source": K2_SOURCE,
@@ -1223,6 +1507,11 @@ def main() -> int:
                             "max_abs_err_main_shape": t["max_abs_err"], "ms": t["ms"],
                             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    log("[train] summary " + json.dumps({
+        "step_ms": train_times, "episode_wall_s": trained["wall_s"],
+        "epoch_train_s": trained["epoch_train_s"],
+        "epoch_with_eval_s": trained["epoch_with_eval_s"],
+        "steps_per_s": trained["steps_per_s"], "result": trained["result"]}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

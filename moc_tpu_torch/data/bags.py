@@ -68,6 +68,26 @@ def read_bag_h5(path: str, slide_id: str | None = None, label: int | None = None
                label=label, path=path)
 
 
+def read_bag(data_dir: str, slide_id: str, *, use_h5: bool = False,
+             label: int | None = None) -> Bag:
+    """Read ``<data_dir>/pt_files/<slide_id>.pt``, or with ``use_h5`` the
+    coordinate-bearing ``<data_dir>/h5_files/<slide_id>.h5`` (needs h5py)."""
+    if use_h5:
+        return read_bag_h5(os.path.join(data_dir, "h5_files", f"{slide_id}.h5"), slide_id, label)
+    return read_bag_pt(os.path.join(data_dir, "pt_files", f"{slide_id}.pt"), slide_id, label)
+
+
+def bag_patch_count(data_dir: str, slide_id: str, *, use_h5: bool = False) -> int | None:
+    """A bag's patch count from its h5 header alone (no feature bytes read);
+    None for a ``pt_files`` bag, which has no cheap header, or when the h5
+    file is absent."""
+    path = os.path.join(data_dir, "h5_files", f"{slide_id}.h5")
+    if not (use_h5 and os.path.exists(path)):
+        return None
+    with _h5py(path).File(path, "r") as f:
+        return int(f["features"].shape[0])
+
+
 def write_bag_pt(path: str, features: np.ndarray) -> None:
     """Write a ``pt_files`` bag: the torch-saved f32 ``features [N, D]``."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)

@@ -47,6 +47,14 @@ class BagBatch:
     def __len__(self) -> int:
         return self.batch_size
 
+    def to(self, device: torch.device) -> "BagBatch":
+        """The batch on ``device`` (itself when it is already there); from
+        pinned host memory the copies are asynchronous."""
+        if self.features.device == device:
+            return self
+        return BagBatch(*(t.to(device, non_blocking=True) for t in
+                          (self.features, self.mask, self.labels, self.n_patches)))
+
     def real_rows(self) -> np.ndarray:
         """Host bool ``[B]``: True on real slides, False on filler rows
         (label ``-1``)."""

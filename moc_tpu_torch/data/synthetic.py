@@ -1,17 +1,23 @@
-"""Deterministic synthetic WSI bags and oracle weights (PyTorch-free numpy
-copy of the generators in ``moc_tpu/data/synthetic.py``).
+"""Deterministic synthetic WSI corpora, bags and oracle weights (numpy copy
+of the generators in ``moc_tpu/data/synthetic.py``).
 
 Each class has a unit "concept" direction; tumor patches of a class-c slide
 lean toward concept c, background patches toward shared normal-tissue
 concepts. The numpy ``default_rng`` calls are the JAX package's own, so both
-packages make identical bags and weights from one seed.
+packages make identical bags, weights and splits from one seed.
 """
 
 from __future__ import annotations
 
+import csv
 import dataclasses
+import os
 
 import numpy as np
+
+from moc_tpu_torch.data.bags import write_bag_pt
+from moc_tpu_torch.data.splits import generate_fewshot_splits, write_split_csv
+from moc_tpu_torch.data.table import SlideTable
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,3 +68,51 @@ def sample_bag(cfg: SyntheticWSIConfig, label: int, rng: np.random.Generator):
     grid = np.stack(np.unravel_index(np.arange(n), (side, side)), axis=1)
     coords = (grid * 256).astype(np.int32)
     return feats, coords
+
+
+def corpus_split_path(root: str, shot: int, fold: int) -> str:
+    return os.path.join(root, "splits", f"{shot}shots", f"splits_{fold}.csv")
+
+
+def make_synthetic_corpus(root: str, cfg: SyntheticWSIConfig = SyntheticWSIConfig(), *,
+                          shots: tuple[int, ...] = (1, 2), n_folds: int = 2,
+                          val_per_class: int = 2, test_per_class: int = 4) -> dict:
+    """Write a corpus under ``root`` and return its paths and oracle weights:
+
+      root/dataset.csv                          case_id, slide_id, label
+      root/features/pt_files/<slide>.pt         f32 features [N, D]
+      root/splits/<shot>shots/splits_<fold>.csv column-style splits
+
+    The bags are the arrays the JAX package writes to its ``h5_files``."""
+    rng = np.random.default_rng(cfg.seed)
+    data_dir = os.path.join(root, "features")
+    rows = []
+    for c in range(cfg.n_classes):
+        for i in range(cfg.slides_per_class):
+            slide_id = f"slide_c{c}_{i:03d}"
+            feats, _ = sample_bag(cfg, c, rng)
+            write_bag_pt(os.path.join(data_dir, "pt_files", f"{slide_id}.pt"), feats)
+            rows.append((f"case_c{c}_{i:03d}", slide_id, str(c)))
+    csv_path = os.path.join(root, "dataset.csv")
+    with open(csv_path, "w", newline="") as f:
+        out = csv.writer(f, lineterminator="\n")
+        out.writerow(["case_id", "slide_id", "label"])
+        out.writerows(rows)
+
+    label_dict = {str(c): c for c in range(cfg.n_classes)}
+    table = SlideTable.from_csv(csv_path, label_dict)
+    split_paths: dict[tuple[int, int], str] = {}
+    for shot in shots:
+        splits = generate_fewshot_splits(table, shot=shot, n_splits=n_folds,
+                                         val_num=[val_per_class] * cfg.n_classes,
+                                         test_num=[test_per_class] * cfg.n_classes,
+                                         seed=cfg.seed + shot)
+        for fold, split in enumerate(splits):
+            path = corpus_split_path(root, shot, fold)
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            write_split_csv(path, split)
+            split_paths[(shot, fold)] = path
+
+    w, w_ext = zero_shot_weights(cfg)
+    return {"csv_path": csv_path, "data_dir": data_dir, "label_dict": label_dict,
+            "split_paths": split_paths, "weights": w, "weights_ext": w_ext, "config": cfg}

@@ -1,10 +1,14 @@
-"""MOC slide processing for serving: dense classifier views, SENet fusion and
-pooling gated by the exact selection union (PyTorch port of the masked path
-of ``moc_tpu/moc/core.py``).
+"""MOC slide processing: dense classifier views, SENet fusion and pooling
+gated by the exact selection union (PyTorch port of ``moc_tpu/moc/core.py``).
 
 The batch is written out: ``feats [B, N, D]`` in, slide logits ``[B, C]``
 out. All ``B·(2C+1)`` selection rows go through one launch of kernel K1 and
-all ``B·C`` pooling columns through another.
+all ``B·C`` pooling columns through another. Two formulations give the same
+values: the masked one computes every view for every row and gates pooling
+by the union mask (inference), the gather one packs the union into
+``capacity`` rows first (``slide_process``; training, whose backward then
+touches only those rows). Training passes the visit's patch-keep mask
+``keep [B, N]`` explicitly, where the JAX package draws it from an rng.
 """
 
 from __future__ import annotations
@@ -14,28 +18,86 @@ import dataclasses
 import torch
 
 from moc_tpu_torch.models.senet import SENet
-from moc_tpu_torch.ops import topj_pooling, union_selection_threshold
+from moc_tpu_torch.ops import select_and_gather, topj_pooling, union_selection_threshold
 from moc_tpu_torch.ops.masking import softmax
+from moc_tpu_torch.ops.selection import selection_capacity
 
 # The four classifier slots, in the SENet output order of the fusion.
 CLASSIFIER_NAMES = ("topk", "delta_softmax", "delta_diff", "bottomk")
 
 
+def selection_capacity_for(topj: int, n_classes: int, n_padded: int) -> int:
+    """Static capacity of the selection union: ``selection_capacity``
+    rounded up to a multiple of 128, never beyond the bag."""
+    cap = selection_capacity(topj, n_classes, n=n_padded)
+    return min(max(128, -(-cap // 128) * 128), n_padded) if cap < n_padded else n_padded
+
+
 @dataclasses.dataclass(frozen=True)
 class MOCConfig:
-    """Static serving hyper-parameters (reference defaults: topj=400,
-    topk=10, CONCH temperature)."""
+    """Static episode hyper-parameters, the JAX package's defaults (the
+    reference CLI's topj=400, topk=10; Adam lr 1e-3, weight decay 1e-4;
+    25 epochs; half of each bag's patches dropped per training visit).
+
+    The tiers that are not ported raise here: ``dense``, ``score_dtype``
+    bfloat16 (ROADMAP queue 1 item 6), ``select_method`` sort and any
+    ``zs_pooling`` but topj (item 5); ``approx_topk`` needs the TPU."""
 
     n_classes: int
     n_ext_classes: int
     topj: int = 400
     topk: int = 10
     discard: tuple[str, ...] = ()
+    drop_prob: float = 0.5
+    learning_rate: float = 1e-3
+    weight_decay: float = 1e-4
+    num_epochs: int = 25
     temperature: float = 56.3477
     feature_dim: int = 512
+    approx_topk: bool = False
+    select_method: str = "threshold"
+    dense: bool = False
+    score_dtype: str = "float32"
+    zs_pooling: str = "topj"
+    # "masked", "gather", or "auto": masked for inference, gather in training
+    exact_impl: str = "auto"
+
+    def __post_init__(self):
+        if self.dense or self.score_dtype != "float32":
+            raise NotImplementedError("the dense and bfloat16-score tiers are not ported "
+                                      "yet (ROADMAP queue 1 item 6)")
+        if self.select_method != "threshold" or self.zs_pooling != "topj":
+            raise NotImplementedError("only the threshold selection and topj zero-shot "
+                                      "pooling are ported (ROADMAP queue 1 item 5)")
+        if self.approx_topk:
+            raise ValueError("approx_topk is the TPU's approximate top-k; the port has none")
+        if self.exact_impl not in ("auto", "masked", "gather"):
+            raise ValueError(f"unknown exact_impl {self.exact_impl!r}")
 
     def include_flags(self) -> tuple[bool, bool, bool, bool]:
         return tuple(name not in self.discard for name in CLASSIFIER_NAMES)
+
+
+@dataclasses.dataclass(frozen=True)
+class SlideViews:
+    """The packed selection of each slide and its four classifier views:
+    ``feats [B, S, D]`` (invalid slots zeroed), ``valid [B, S]``, ``idx
+    [B, S]`` (ascending, 0 past ``count``), ``count [B]`` and ``views
+    [B, 4, S, C]``."""
+
+    feats: torch.Tensor
+    valid: torch.Tensor
+    idx: torch.Tensor
+    count: torch.Tensor
+    views: torch.Tensor
+
+
+def _full_f32() -> None:
+    # full f32 for the scoring matmul: TF32 keeps ~3 decimal digits, and a
+    # change of a few ulp already flips near-tied selections at the topj
+    # boundary, so the selected set would stop matching the reference
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
 
 def views_from_logits(logits: torch.Tensor, logits_ext: torch.Tensor,
@@ -54,27 +116,49 @@ def views_from_logits(logits: torch.Tensor, logits_ext: torch.Tensor,
     ], dim=-3)
 
 
-def _dense_views_weights(senet: SENet, feats: torch.Tensor, w: torch.Tensor,
+def slide_process(feats: torch.Tensor, valid: torch.Tensor, w: torch.Tensor,
+                  w_ext: torch.Tensor, cfg: MOCConfig,
+                  keep: torch.Tensor | None = None) -> SlideViews:
+    """Select each slide's informative patches, pack them into
+    ``selection_capacity_for`` slots and build their four views. ``keep
+    [B, N]`` thins ``valid`` (the training visit's patch mask)."""
+    if keep is not None:
+        valid = valid & keep
+    _full_f32()
+    c = cfg.n_classes
+    n, d = feats.shape[-2:]
+    logits_all = feats @ torch.cat([w, w_ext], dim=1)  # one pass over the bag
+    capacity = selection_capacity_for(cfg.topj, c, n)
+    idx, sel_valid, count = select_and_gather(logits_all[..., :c], logits_all[..., c:], valid,
+                                              cfg.topj, c, capacity, cfg.discard)
+    sel_feats = torch.gather(feats, -2, idx[..., None].expand(*idx.shape, d))
+    sel_feats = torch.where(sel_valid[..., None], sel_feats, 0.0)
+    sel_all = torch.gather(logits_all, -2, idx[..., None].expand(*idx.shape, logits_all.shape[-1]))
+    sel_all = torch.where(sel_valid[..., None], sel_all, 0.0)
+    views = views_from_logits(sel_all[..., :c], sel_all[..., c:], c)
+    return SlideViews(feats=sel_feats, valid=sel_valid, idx=idx, count=count, views=views)
+
+
+def _dense_views_weights(senet: SENet | None, feats: torch.Tensor, w: torch.Tensor,
                          w_ext: torch.Tensor, cfg: MOCConfig):
     """Every classifier view and the SENet weights for ALL rows from ONE f32
     matmul over ``[w | w_ext | SENet dense0]``: the ``[B, N, D]`` features,
-    the largest read of the forward, are streamed once.
+    the largest read of the forward, are streamed once. Without a SENet
+    (fixed fusion) the weights are None.
 
-    Returns ``(views [B, 4, N, C], weights [B, N, 4], logits [B, N, C],
-    logits_ext [B, N, C_ext])``."""
-    # full f32 for the scoring matmul: TF32 keeps ~3 decimal digits, and a
-    # change of a few ulp already flips near-tied selections at the topj
-    # boundary, so the selected set would stop matching the reference
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    Returns ``(views [B, 4, N, C], weights [B, N, 4] | None, logits
+    [B, N, C], logits_ext [B, N, C_ext])``."""
+    _full_f32()
     c, ce = cfg.n_classes, w_ext.shape[1]
-    w_cat = torch.cat([w, w_ext, senet.dense0.weight.t()], dim=1)
-    out_all = feats @ w_cat  # [B, N, C + C_ext + H]
+    cols = [w, w_ext] + ([senet.dense0.weight.t()] if senet is not None else [])
+    out_all = feats @ torch.cat(cols, dim=1)  # [B, N, C + C_ext (+ H)]
     logits = out_all[..., :c]
     logits_ext = out_all[..., c:c + ce]
     views = views_from_logits(logits, logits_ext, c)
-    hidden = torch.relu(out_all[..., c + ce:] + senet.dense0.bias)
-    weights = torch.sigmoid(senet.dense1(hidden))  # [B, N, 4]
+    weights = None
+    if senet is not None:
+        hidden = torch.relu(out_all[..., c + ce:] + senet.dense0.bias)
+        weights = torch.sigmoid(senet.dense1(hidden))  # [B, N, 4]
     return views, weights, logits, logits_ext
 
 
@@ -82,20 +166,66 @@ def fuse_views(weights: torch.Tensor, views: torch.Tensor,
                include: tuple[bool, ...]) -> torch.Tensor:
     """Weighted sum of classifier views: ``weights [..., S, 4]`` (the SENet
     outputs), ``views [..., 4, S, C]`` → ``[..., S, C]``. Discarded
-    classifiers contribute nothing."""
-    keep = torch.tensor(include, dtype=weights.dtype, device=weights.device)
-    return torch.einsum("...sk,...ksc->...sc", weights * keep, views)
+    classifiers contribute nothing. No host data is copied to the device
+    (a copy from pageable memory would wait for the stream)."""
+    if not all(include):
+        keep = torch.ones(len(include), dtype=weights.dtype, device=weights.device)
+        for k, inc in enumerate(include):
+            if not inc:
+                keep[k] = 0.0
+        weights = weights * keep
+    return torch.einsum("...sk,...ksc->...sc", weights, views)
+
+
+def fuse_views_fixed(views: torch.Tensor, mode: str) -> torch.Tensor:
+    """Fusion without the SENet, for the ablation study: ``avg`` (0.25 times
+    the sum), ``sum`` or ``max`` over the four views ``[..., 4, S, C]``."""
+    if mode == "avg":
+        return 0.25 * views.sum(-3)
+    if mode == "sum":
+        return views.sum(-3)
+    if mode == "max":
+        return views.amax(-3)
+    raise ValueError(f"unknown ablation mode {mode!r}")
 
 
 def moc_slide_logits_masked(senet: SENet, feats: torch.Tensor, valid: torch.Tensor,
-                            w: torch.Tensor, w_ext: torch.Tensor,
-                            cfg: MOCConfig) -> torch.Tensor:
+                            w: torch.Tensor, w_ext: torch.Tensor, cfg: MOCConfig,
+                            keep: torch.Tensor | None = None) -> torch.Tensor:
     """Exact MOC forward without gather/compaction: every view and the SENet
     weighting are row-local, so the selection union only decides pooling
     eligibility. ``feats [B, N, D]``, ``valid [B, N]`` → pooled ``[B, C]``."""
-    views, weights, logits, logits_ext = _dense_views_weights(
-        senet, feats, w, w_ext, cfg)
+    if keep is not None:
+        valid = valid & keep
+    views, weights, logits, logits_ext = _dense_views_weights(senet, feats, w, w_ext, cfg)
     union = union_selection_threshold(logits, logits_ext, valid, cfg.topj,
                                       cfg.n_classes, cfg.discard)
     fused = fuse_views(weights, views, cfg.include_flags())
     return topj_pooling(fused, union, cfg.topk)
+
+
+def moc_slide_logits(senet: SENet, feats: torch.Tensor, valid: torch.Tensor, w: torch.Tensor,
+                     w_ext: torch.Tensor, cfg: MOCConfig,
+                     keep: torch.Tensor | None = None) -> torch.Tensor:
+    """Full MOC forward: pooled slide logits ``[B, C]``. The masked
+    formulation under ``exact_impl="masked"``, or ``"auto"`` without a keep
+    mask (inference); the gather formulation otherwise (``"auto"`` in
+    training, as the JAX package routes it). Both give the same values."""
+    if cfg.exact_impl == "masked" or (cfg.exact_impl == "auto" and keep is None):
+        return moc_slide_logits_masked(senet, feats, valid, w, w_ext, cfg, keep)
+    sel = slide_process(feats, valid, w, w_ext, cfg, keep)
+    fused = fuse_views(senet(sel.feats), sel.views, cfg.include_flags())
+    return topj_pooling(fused, sel.valid, cfg.topk)
+
+
+def ablation_slide_logits(feats: torch.Tensor, valid: torch.Tensor, w: torch.Tensor,
+                          w_ext: torch.Tensor, cfg: MOCConfig, mode: str) -> torch.Tensor:
+    """Slide logits ``[B, C]`` of the fixed ``mode`` fusion (no SENet), on
+    the masked formulation unless ``exact_impl="gather"``."""
+    if cfg.exact_impl != "gather":
+        views, _, logits, logits_ext = _dense_views_weights(None, feats, w, w_ext, cfg)
+        union = union_selection_threshold(logits, logits_ext, valid, cfg.topj,
+                                          cfg.n_classes, cfg.discard)
+        return topj_pooling(fuse_views_fixed(views, mode), union, cfg.topk)
+    sel = slide_process(feats, valid, w, w_ext, cfg)
+    return topj_pooling(fuse_views_fixed(sel.views, mode), sel.valid, cfg.topk)

@@ -21,6 +21,8 @@ from moc_tpu_torch.ops.masking import (
 )
 from moc_tpu_torch.ops.pooling import topj_pooling
 from moc_tpu_torch.ops.selection import (
+    gather_selected,
+    select_and_gather,
     selection_capacity,
     topk_threshold_mask,
     union_selection_threshold,
@@ -35,6 +37,8 @@ __all__ = [
     "threshold_topk_mask",
     "topk_mean",
     "topj_pooling",
+    "gather_selected",
+    "select_and_gather",
     "selection_capacity",
     "topk_threshold_mask",
     "union_selection_threshold",

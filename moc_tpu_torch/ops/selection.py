@@ -106,3 +106,31 @@ def selection_capacity(topj: int, n_classes: int, n: int | None = None) -> int:
     if n is not None:
         cap = min(cap, n)
     return cap
+
+
+def gather_selected(selected: torch.Tensor, capacity: int):
+    """Pack a boolean selection ``selected [..., N]`` into fixed-size buffers:
+    ``(idx [..., cap], sel_valid [..., cap], count [...])`` with ``idx`` the
+    selected rows in ascending order, 0 past ``count``; ``cap = min(capacity,
+    N)``. No host synchronisation: a cumsum ranks the selected rows, and a
+    scatter puts each at its rank (the rest, and any beyond ``cap``, land in
+    a dropped slot)."""
+    n = selected.shape[-1]
+    cap = min(capacity, n)
+    c = torch.cumsum(selected.to(torch.int64), dim=-1)
+    count = c[..., -1]
+    dest = torch.where(selected & (c <= cap), c - 1, cap)
+    pos = torch.arange(n, device=selected.device).expand(selected.shape)
+    idx = torch.zeros(selected.shape[:-1] + (cap + 1,), dtype=torch.int64,
+                      device=selected.device).scatter_(-1, dest, pos)[..., :cap]
+    sel_valid = torch.arange(cap, device=selected.device) < count[..., None]
+    return idx, sel_valid, count
+
+
+def select_and_gather(logits: torch.Tensor, logits_ext: torch.Tensor, valid: torch.Tensor,
+                      topj: int, n_classes: int, capacity: int,
+                      discard: tuple[str, ...] = ()):
+    """The threshold union (``union_selection_threshold``) packed by
+    ``gather_selected``: ``(idx, sel_valid, count)`` of each slide."""
+    mask = union_selection_threshold(logits, logits_ext, valid, topj, n_classes, discard)
+    return gather_selected(mask, capacity)

@@ -495,3 +495,95 @@ def test_pretrain_gpu_matches_cpu(gen):
     for name, t in runs["cuda"][1].items():
         torch.testing.assert_close(t, runs["cpu"][1][name], rtol=0,
                                    atol=3 * cfg.learning_rate, msg=name)
+
+
+def _training_batch(device):
+    """Four synthetic slides of 1500-4000 patches at D=512 (two a class),
+    the oracle weights, and the full-width ``MOCConfig`` (topj 400, topk 10)."""
+    from moc_tpu_torch.data.bags import Bag
+    from moc_tpu_torch.data.batching import pack_bags
+    from moc_tpu_torch.data.synthetic import SyntheticWSIConfig, sample_bag, zero_shot_weights
+    from moc_tpu_torch.moc import MOCConfig
+
+    syn = SyntheticWSIConfig(min_patches=1500, max_patches=4000, seed=3)
+    rng = np.random.default_rng(3)
+    bags = [Bag(slide_id=str(i), features=sample_bag(syn, i % 2, rng)[0], label=i % 2)
+            for i in range(4)]
+    w, w_ext = (torch.from_numpy(x).to(device) for x in zero_shot_weights(syn))
+    return pack_bags(bags, device=device), w, w_ext, MOCConfig(n_classes=2, n_ext_classes=6)
+
+
+def test_moc_training_epoch_gpu_matches_cpu(gen):
+    """One epoch of per-slide Adam steps (8 visits of 4 slides in the 4096
+    bucket, gather route) on the card and on the CPU, from one SENet and one
+    set of keep masks: K1 launched twice a step on the card (selection rows
+    and pooling columns), never on the CPU; first-step gradients within 1e-5
+    of each parameter's largest |grad|, losses within 1e-5, parameters
+    within Adam's bound of lr a step."""
+    import torch.nn.functional as F
+
+    from moc_tpu_torch.moc import init_senet, make_optimizer, moc_slide_logits, train_epoch
+
+    order = [0, 1, 2, 3, 0, 1, 2, 3]
+    runs = {}
+    for device in ("cuda", "cpu"):
+        batch, w, w_ext, cfg = _training_batch(device)
+        keep = (torch.rand((len(order), batch.padded_len),
+                           generator=torch.Generator().manual_seed(5)) < 0.5).to(device)
+        senet = init_senet(0, cfg, device)
+        logits = moc_slide_logits(senet, batch.features[:1], batch.mask[:1], w, w_ext, cfg,
+                                  keep[:1])
+        F.cross_entropy(logits, batch.labels[:1].long()).backward()
+        grads = {n: p.grad.cpu() for n, p in senet.named_parameters()}
+        senet = init_senet(0, cfg, device)
+        before = (topk_kernel.topk_threshold_mask_cuda.launches,
+                  topk_kernel.col_topk_threshold_mask_cuda.launches)
+        losses = train_epoch(senet, make_optimizer(senet.parameters(), cfg), batch, order, keep,
+                             w, w_ext, cfg).cpu()
+        launched = (topk_kernel.topk_threshold_mask_cuda.launches - before[0],
+                    topk_kernel.col_topk_threshold_mask_cuda.launches - before[1])
+        assert launched == ((len(order), len(order)) if device == "cuda" else (0, 0))
+        runs[device] = grads, losses, {k: v.cpu() for k, v in senet.state_dict().items()}
+    (gg, lg, pg), (gc, lc, pc) = runs["cuda"], runs["cpu"]
+    for name, g in gc.items():
+        assert float((gg[name] - g).abs().max()) <= 1e-5 * float(g.abs().max()), name
+    np.testing.assert_allclose(lg.numpy(), lc.numpy(), rtol=0, atol=1e-5)
+    for name, t in pg.items():
+        torch.testing.assert_close(t, pc[name], rtol=0, atol=len(order) * cfg.learning_rate,
+                                   msg=name)
+
+
+def test_moc_masked_route_gradients_through_k1_on_the_card(gen):
+    """The masked route scores the SENet's first layer in the same matmul as
+    the selection keys, so K1 takes keys that require grad (both entries, no
+    copy); its pooling gate passes the gradient through ``where``. Its pooled
+    logits and SENet gradients equal the gather route's within 1e-5."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from moc_tpu_torch.moc import init_senet, moc_slide_logits
+
+    batch, w, w_ext, cfg = _training_batch("cuda")
+    keep = torch.rand((1, batch.padded_len), generator=gen, device="cuda") < 0.5
+    out = {}
+    for impl in ("masked", "gather"):
+        senet = init_senet(0, cfg, "cuda")
+        before = (topk_kernel.topk_threshold_mask_cuda.launches,
+                  topk_kernel.col_topk_threshold_mask_cuda.launches)
+        logits = moc_slide_logits(senet, batch.features[1:2], batch.mask[1:2], w, w_ext,
+                                  dataclasses.replace(cfg, exact_impl=impl), keep)
+        assert (topk_kernel.topk_threshold_mask_cuda.launches - before[0],
+                topk_kernel.col_topk_threshold_mask_cuda.launches - before[1]) == (1, 1)
+        F.cross_entropy(logits, batch.labels[1:2].long()).backward()
+        out[impl] = logits.detach(), {n: p.grad for n, p in senet.named_parameters()}
+    torch.testing.assert_close(out["masked"][0], out["gather"][0], rtol=1e-5, atol=1e-5)
+    for name, g in out["gather"][1].items():
+        assert float((out["masked"][1][name] - g).abs().max()) <= 1e-5 * float(g.abs().max())
+    keys = torch.randn((5, 4096), generator=gen, device="cuda").requires_grad_(True) * 1.0
+    assert torch.equal(topk_threshold_mask(keys, 400), threshold_topk_mask(keys.detach(), 400))
+    cols = torch.randn((1, 2, 2432), generator=gen, device="cuda").requires_grad_(True)
+    cols = (cols * 1.0).transpose(1, 2)
+    assert torch.equal(masked_col_topk_mask(cols, torch.ones((1, 2432), dtype=torch.bool,
+                                                             device="cuda"), 10),
+                       threshold_topk_mask(cols.detach(), 10, axis=-2))
