@@ -88,7 +88,20 @@ Phases, each of which makes the script exit non-zero when it fails:
    require grad; then the slide step by CUDA events on the gather and the
    masked route, with a ``torch.profiler`` breakdown of each, the epoch and
    episode walls and slide steps/s. K1 is also timed at the gather route's
-   pooling columns, [2, 2432] k=10, in phase 4.
+   pooling columns, [2, 2432] k=10, in phase 4;
+12. the fused sweep: ``cli.sweep.main --mode fused`` on ``cuda`` over all five
+   folds of shot 8 at the protocol of 11, on its corpus: five
+   ``best_results_*.json`` with the JAX package's keys, five
+   ``zs_results_*.json`` and ``.npz`` files and ``summary_8.csv``; test AUC
+   at best val at least 0.8 in every fold, every step's losses finite, K1
+   launched exactly 2 x 16 x 25 times by the batched steps (counted around
+   each ``sweep_step``), fold 0 equal to ``main_moc``'s fold 0 (the same best
+   epoch, AUCs and accuracy within 1e-5); the sweep's wall and episodes/hour
+   beside five ``main_moc`` episodes; the batched step (E = 5) by CUDA events
+   with a profile, the eval packs and the trajectory's logits; and K1 at the
+   sweep's shapes: selection rows [25, 4096] k=400, pooling columns
+   [5, 2432, 2] and the trajectory's [1500, 2432, 2] k=10, and the eval
+   packs' rows [300, 4096] k=400.
 
 The last lines are the card's name and power limit, one JSON object of
 kernel records, and ``{"ok": true, "device": {...}}``. No phase falls back
@@ -162,6 +175,13 @@ TRAIN_VISITS = TRAIN_SHOT * N_CLASSES
 TRAIN_ARGV = ["--dataset", "synthetic", "--shot", str(TRAIN_SHOT), "--fold", "0",
               "--topj", str(TOPJ), "--topk", str(TOPK), "--num_epochs", str(TRAIN_EPOCHS),
               "--synthetic_min_patches", str(TRAIN_PATCHES[0]),
+              "--synthetic_max_patches", str(TRAIN_PATCHES[1]), "--seed", "0"]
+# the fused sweep: every fold of shot 8 at the training protocol, through the JAX
+# package's sweep entry point (moc_tpu/cli/sweep.py:13-14), on the training corpus
+SWEEP_FOLDS = (0, 1, 2, 3, 4)
+SWEEP_ARGV = ["--dataset", "synthetic", "--shots", str(TRAIN_SHOT),
+              "--folds", *map(str, SWEEP_FOLDS), "--topj", str(TOPJ), "--topk", str(TOPK),
+              "--num_epochs", str(TRAIN_EPOCHS), "--synthetic_min_patches", str(TRAIN_PATCHES[0]),
               "--synthetic_max_patches", str(TRAIN_PATCHES[1]), "--seed", "0"]
 # the keys of the JAX package's best_results_shot_{s}_fold_{f}.json
 RESULT_KEYS = ["zero_shot_train", "zero_shot_val", "zero_shot_test", "best_val",
@@ -570,28 +590,67 @@ K1_SHAPES = (("rows", (5, 4096), TOPJ), ("cols", (1, 4096, N_CLASSES), TOPK),
              ("cols", (1, 2432, N_CLASSES), TOPK), ("rows", (40, 131072), TOPJ))
 
 
-def _kernel_us(fn, name: str, calls: int = 50) -> float:
-    """Device time per launch of the kernels named ``name`` over ``calls``
-    calls of ``fn``, from ``torch.profiler``; fails unless each call
-    launched one."""
+# a spin of 1e8 SM cycles (~50 ms on an H100) holds the stream while the
+# host queues the calls that ``_gated_us`` times; queuing 50 K1 calls takes
+# a few milliseconds
+GATE_CYCLES = 100_000_000
+
+
+def _gated_us(fn, calls: int) -> float | None:
+    """Device time per call of ``calls`` calls of ``fn`` queued behind a spin
+    kernel, by CUDA events around them: the kernels run back to back, free
+    of the host's cost of launching them. None where the spin ended before
+    the host had queued them all."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(GATE_CYCLES)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    held = not start.query()
+    end.synchronize()
+    return start.elapsed_time(end) * 1e3 / calls if held else None
+
+
+def _kernel_us(fn, name: str, wrapper, calls: int = 50) -> dict:
+    """Device time per launch of the kernels named ``name``, two ways over
+    ``calls`` calls of ``fn`` each: ``kernel_us`` from ``torch.profiler``,
+    the mean over the launch records it delivers (``kernel_records``), and
+    ``device_us`` by ``_gated_us``. Late in a long run on an H100 the
+    profiler has delivered 44 of 50 records, and once none: where it
+    delivers fewer than half, ``kernel_us`` is None (not measured). Fails
+    unless ``wrapper`` counted one launch a call."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    before = wrapper.launches
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+    check(wrapper.launches - before == calls,
+          f"{calls} calls launched {name} {wrapper.launches - before} times")
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA and name in e.key]
     count = sum(e.count for e in events)
-    check(count == calls, f"the profiler saw {count} launches of {name} in {calls} calls")
-    return sum(e.self_device_time_total for e in events) / count
+    check(count <= calls, f"the profiler delivered {count} records of {name} for {calls} launches")
+    if count < calls:
+        log(f"[times] the profiler delivered {count} of {calls} launch records of {name}; "
+            + ("the mean is over those" if 2 * count >= calls else "kernel_us not measured"))
+    device_us = _gated_us(fn, calls)
+    if device_us is None:
+        log(f"[times] the host had not queued {calls} calls of {name} before the spin ended; "
+            "device_us not measured")
+    return {"kernel_us": sum(e.self_device_time_total for e in events) / count
+            if 2 * count >= calls else None, "kernel_records": count, "device_us": device_us}
 
 
 def _k1_record(entry: str, keys: torch.Tensor, k: int, kernel, plain, lib) -> dict:
     """K1's times at one shape: per call by CUDA events around the wrapper
-    (the method of every earlier run), kernel-only by the profiler, against
+    (the method of every earlier run), kernel-only by the profiler and
+    queued behind a spin (``_kernel_us``), against
     its bound, its plain version and ``torch.topk`` plus a scatter."""
     from moc_tpu_torch.ops import topk_kernel
 
@@ -603,18 +662,45 @@ def _k1_record(entry: str, keys: torch.Tensor, k: int, kernel, plain, lib) -> di
     bytes_s = keys.numel() * (4 + 1) / HBM_BYTES_PER_S
     ops_s = keys.numel() * 5 / F32_OPS_PER_S
     rec = {"shape": list(keys.shape), "k": k, "ms": _time_ms(kernel),
-           "kernel_us": _kernel_us(kernel, "topk_cluster_kernel"),
+           **_kernel_us(kernel, "topk_cluster_kernel", _k1_wrappers()[entry]),
            "plain_ms": _time_ms(plain), "library_ms": _time_ms(lib),
            "bound_ms": max(bytes_s, ops_s) * 1e3,
            "bound_by": "bytes" if bytes_s >= ops_s else "operations",
            "cluster": p.cluster, "staged": p.staged,
            "dynamic_smem_bytes": 4 * p.slice if p.staged else 0}
+    us = {key: "not measured" if rec[key] is None else f"{rec[key]:.2f} us"
+          for key in ("kernel_us", "device_us")}
     log(f"[times] K1 {entry} {list(keys.shape)} [{r} x {n}] k={k}: kernel {rec['ms']:.4f} ms "
-        f"per call, {rec['kernel_us']:.2f} us kernel-only (profiler), plain "
+        f"per call, {us['kernel_us']} kernel-only (profiler), {us['device_us']} a call queued "
+        f"behind a spin (CUDA events), plain "
         f"{rec['plain_ms']:.4f} ms, torch.topk+scatter {rec['library_ms']:.4f} ms, bound "
         f"{rec['bound_ms']:.5f} ms ({rec['bound_by']}); cluster {p.cluster}, "
         f"{'staged, ' + str(4 * p.slice) + ' B dynamic shared memory' if p.staged else 'streamed'}")
     return rec
+
+
+def _k1_at_shapes(shapes, seed: int) -> dict:
+    """K1's records (``_k1_record``) on random keys at each ``(entry, shape,
+    k)``, each first held bit for bit against its plain version."""
+    from moc_tpu_torch.ops import threshold_topk_mask, topk_kernel
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    records = {"rows": [], "cols": []}
+    with torch.inference_mode():
+        for entry, shape, k in shapes:
+            keys = torch.randn(shape, generator=gen, device="cuda")
+            if entry == "rows":
+                fns = (lambda: topk_kernel.topk_threshold_mask_cuda(keys, k),
+                       lambda: threshold_topk_mask(keys, k, axis=-1),
+                       lambda: _library_mask(keys, k, -1))
+            else:
+                fns = (lambda: topk_kernel.col_topk_threshold_mask_cuda(keys, k),
+                       lambda: threshold_topk_mask(keys, k, axis=-2),
+                       lambda: _library_mask(keys, k, -2))
+            check(torch.equal(fns[0](), fns[1]()), f"K1 {entry} {shape} differs from plain")
+            records[entry].append(_k1_record(entry, keys, k, *fns))
+            del keys
+    return records
 
 
 def phase_times(state: dict) -> dict:
@@ -642,20 +728,8 @@ def phase_times(state: dict) -> dict:
                  lambda: threshold_topk_mask(pool_cols, TOPK, axis=-2),
                  lambda: _library_mask(pool_cols, TOPK, -2))):
             records[entry] = _k1_record(entry, keys, k, kernel, plain, lib)
-        records["rows"]["shapes"], records["cols"]["shapes"] = [], []
-        gen = torch.Generator(device="cuda").manual_seed(6)
-        for entry, shape, k in K1_SHAPES:
-            keys = torch.randn(shape, generator=gen, device="cuda")
-            if entry == "rows":
-                fns = (lambda: topk_kernel.topk_threshold_mask_cuda(keys, k),
-                       lambda: threshold_topk_mask(keys, k, axis=-1),
-                       lambda: _library_mask(keys, k, -1))
-            else:
-                fns = (lambda: topk_kernel.col_topk_threshold_mask_cuda(keys, k),
-                       lambda: threshold_topk_mask(keys, k, axis=-2),
-                       lambda: _library_mask(keys, k, -2))
-            check(torch.equal(fns[0](), fns[1]()), f"K1 {entry} {shape} differs from plain")
-            records[entry]["shapes"].append(_k1_record(entry, keys, k, *fns))
+        shapes = _k1_at_shapes(K1_SHAPES, seed=6)
+        records["rows"]["shapes"], records["cols"]["shapes"] = shapes["rows"], shapes["cols"]
 
         def forward():
             server.batch_logits(batch)
@@ -1438,6 +1512,154 @@ def phase_train_times(root: str) -> dict:
     return records
 
 
+def phase_sweep(root: str, trained: dict) -> dict:
+    """``cli.sweep.main --mode fused`` on the card over all five folds of
+    shot 8 at the training protocol, on ``phase_train``'s corpus: the result
+    files with the JAX package's keys for every fold and ``summary_8.csv``,
+    test AUC at best val at least 0.8 everywhere, every step's losses
+    finite, K1 launched exactly twice a batched step (counted around each
+    ``sweep_step``), and fold 0 equal to ``main_moc``'s fold 0 (the same
+    best epoch, AUCs and accuracy within 1e-5)."""
+    import contextlib
+    import io
+
+    from moc_tpu_torch.cli import sweep as sweep_cli
+    from moc_tpu_torch.moc import sweep
+
+    result_dir = os.path.join(root, "moc_train")  # phase_train's corpus is under it
+    argv = [*SWEEP_ARGV, "--mode", "fused", "--device", "cuda", "--result_dir", result_dir]
+    k1 = _k1_wrappers()
+    steps = {"rows": 0, "cols": 0}
+    losses = []
+    inner = sweep.sweep_step
+
+    def recorded(*args, **kwargs):
+        before = {e: fn.launches for e, fn in k1.items()}
+        ce = inner(*args, **kwargs)
+        for e, fn in k1.items():
+            steps[e] += fn.launches - before[e]
+        losses.append(ce)  # read after the run: no wait for the device here
+        return ce
+
+    sweep.sweep_step = recorded  # make_sweep_fn looks it up at each visit
+    for fn in k1.values():
+        fn.launches = 0
+    out, err = io.StringIO(), io.StringIO()
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = sweep_cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        sweep.sweep_step = inner
+    launches = {e: fn.launches for e, fn in k1.items()}
+    check(rc == 0, f"cli.sweep.main returned {rc}")
+    shot_dir = os.path.join(result_dir, f"{TRAIN_SHOT}_shot")
+    results = {}
+    for fold in SWEEP_FOLDS:
+        name = f"shot_{TRAIN_SHOT}_fold_{fold}"
+        with open(os.path.join(shot_dir, f"best_results_{name}.json")) as f:
+            results[fold] = json.load(f)
+        check(list(results[fold]) == RESULT_KEYS, f"fold {fold} result keys {list(results[fold])}")
+        for path in (f"zs_results_{name}.json", f"best_model_{name}.npz"):
+            check(os.path.exists(os.path.join(shot_dir, path)), f"the sweep wrote no {path}")
+        check(results[fold]["test_at_best_val"] >= 0.8,
+              f"fold {fold}: test AUC at best val {results[fold]['test_at_best_val']} below 0.8")
+    with open(os.path.join(result_dir, f"summary_{TRAIN_SHOT}.csv"), newline="") as f:
+        summary = list(csv.reader(f))
+    check([r[0] for r in summary] == ["fold", *map(str, SWEEP_FOLDS), "mean"],
+          f"summary_{TRAIN_SHOT}.csv rows {[r[0] for r in summary]}")
+    step_losses = torch.stack(losses).cpu()  # [25·16, 5]
+    want = TRAIN_EPOCHS * TRAIN_VISITS
+    check(step_losses.shape == (want, len(SWEEP_FOLDS)) and bool(torch.isfinite(step_losses).all()),
+          f"{tuple(step_losses.shape)} step losses, not all finite")
+    check(steps == {"rows": want, "cols": want},
+          f"the batched steps launched K1 {steps}, want {want} on each entry")
+    ref, got = trained["result"], results[0]
+    diff = max(abs(got[k] - ref[k]) for k in ("best_val", "test_at_best_val",
+                                              "test_acc_at_best_val"))
+    check(got["best_epoch"] == ref["best_epoch"] and diff <= 1e-5,
+          f"sweep fold 0 {got} differs from main_moc fold 0 {ref}")
+    eval_launches = {e: launches[e] - steps[e] for e in launches}
+    episodes = len(SWEEP_FOLDS)
+    breakdown = next(line for line in err.getvalue().splitlines() if "fused breakdown" in line)
+    log(f"[sweep] cli.sweep {' '.join(SWEEP_ARGV)} --mode fused on cuda: {episodes} episodes in "
+        f"{wall:.3f}s host wall ({episodes / wall * 3600:.0f} episodes/hour; corpus reused), "
+        f"against {episodes} x main_moc's episode wall {trained['wall_s']:.3f}s = "
+        f"{episodes * trained['wall_s']:.3f}s ({3600 / trained['wall_s']:.0f} episodes/hour)")
+    log(f"[sweep] {breakdown.strip()}")
+    log(f"[sweep] K1 launches: batched steps {steps} ({want} steps of all {episodes} folds), "
+        f"evaluation and zero-shot floor {eval_launches}, whole run {launches}")
+    log(f"[sweep] per fold (best epoch, best val, test AUC, test acc): "
+        + "; ".join(f"{f}: {r['best_epoch']}, {r['best_val']}, {r['test_at_best_val']}, "
+                    f"{r['test_acc_at_best_val']}" for f, r in results.items())
+        + f"; fold 0 against main_moc's: max |diff| {diff:.3e} (tolerance 1e-5)")
+    log(f"[sweep] step losses, mean over folds: first {step_losses[0].mean():.4f}, last "
+        f"{step_losses[-1].mean():.4f}, all finite")
+    return {"wall_s": wall, "episodes_per_hour": episodes / wall * 3600, "launches": launches,
+            "launches_steps": steps, "launches_eval": eval_launches, "breakdown": breakdown,
+            "fold0_diff": diff}
+
+
+def phase_sweep_times(root: str) -> dict:
+    """The sweep's batched step (all five folds, E = 5) by CUDA events and a
+    profile of it; the evaluation's two parts, the eval packs and the
+    trajectory's logits; K1 at the sweep's shapes."""
+    from moc_tpu_torch.cli import main_moc
+    from moc_tpu_torch.convert import senet_stack_from_states
+    from moc_tpu_torch.data import BagLoader, SlideTable, read_split_csv
+    from moc_tpu_torch.moc import (MOCConfig, assemble_episode, init_senet, make_optimizer,
+                                   moc_logits_packed, pool_episode_splits, precompute_eval_pack,
+                                   sweep_step)
+    from moc_tpu_torch.moc.episode import draw_keep_masks
+    from moc_tpu_torch.moc.sweep import _eval_slides
+
+    corpus = main_moc._synthetic_setup(main_moc.get_args(
+        [*TRAIN_ARGV, "--result_dir", os.path.join(root, "moc_train")]))
+    table = SlideTable.from_csv(corpus["csv_path"], corpus["label_dict"])
+    splits = [read_split_csv(corpus["split_paths"][(TRAIN_SHOT, f)]) for f in SWEEP_FOLDS]
+    pooled = pool_episode_splits(BagLoader(table, corpus["data_dir"]), splits)
+    ep = assemble_episode(torch.from_numpy(pooled.pool_feats).cuda(),
+                          torch.from_numpy(pooled.pool_mask).cuda(), pooled.index)
+    w, w_ext = (torch.from_numpy(x).cuda() for x in (corpus["weights"], corpus["weights_ext"]))
+    cfg = MOCConfig(n_classes=N_CLASSES, n_ext_classes=N_EXT, topj=TOPJ, topk=TOPK)
+    e, _, n = ep.train_feats.shape[:3]
+    stack = senet_stack_from_states([init_senet(0, cfg).state_dict()] * e).cuda()
+    opt = make_optimizer(stack.parameters(), cfg)
+    keep = draw_keep_masks(torch.Generator(device="cuda").manual_seed(8), cfg, e, n)
+    labels = ep.train_labels.long()
+
+    def step():
+        sweep_step(stack, opt, ep.train_feats[:, 0], ep.train_mask[:, 0], labels[:, 0], keep, w,
+                   w_ext, cfg)
+
+    step_ms = _time_ms(step, iters=50, warmup=5)
+    log(f"[times] sweep step, all {e} folds ([{e}, {n}, {DIM}], topj {TOPJ}): {step_ms:.3f} ms by "
+        f"CUDA events (median of 50), {step_ms / e:.3f} ms a fold, "
+        f"{e * 1e3 / step_ms:.1f} slide steps/s")
+    phase_profile(step, steps=5, what="step", host_top=12)
+    feats, mask, mv = _eval_slides(ep)
+    with torch.inference_mode():
+        pack_ms = _time_ms(lambda: precompute_eval_pack(feats, mask, w, w_ext, cfg), iters=5,
+                           warmup=1)
+        pack = precompute_eval_pack(feats, mask, w, w_ext, cfg)
+        traj = {k: p.detach().expand(TRAIN_EPOCHS, *p.shape).contiguous()
+                for k, p in stack.named_parameters()}
+        traj_ms = _time_ms(lambda: moc_logits_packed(traj, pack, cfg), iters=5, warmup=1)
+    m, cap = feats.shape[1], pack.valid.shape[-1]
+    log(f"[times] sweep evaluation: eval packs of [{e}, {m}, {n}, {DIM}] ({mv} val + {m - mv} "
+        f"test slides a fold) {pack_ms:.3f} ms, the {TRAIN_EPOCHS}-epoch trajectory's logits "
+        f"over [{TRAIN_EPOCHS}, {e}, {m}, {cap}] {traj_ms:.3f} ms (CUDA events, median of 5)")
+    del feats, mask, pack, traj
+    shapes = (("rows", (e * (2 * N_CLASSES + 1), n), TOPJ), ("cols", (e, cap, N_CLASSES), TOPK),
+              ("cols", (TRAIN_EPOCHS * e * m, cap, N_CLASSES), TOPK),
+              ("rows", (e * m * (2 * N_CLASSES + 1), n), TOPJ))
+    k1 = _k1_at_shapes(shapes, seed=9)
+    torch.cuda.empty_cache()
+    return {"step_ms": step_ms, "pack_ms": pack_ms, "trajectory_ms": traj_ms, "k1": k1}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py runs on a GPU only", file=sys.stderr)
@@ -1469,7 +1691,9 @@ def main() -> int:
         trained = phase_train(root)
         phase_train_parity(root)
         train_times = phase_train_times(root)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+        swept = phase_sweep(root, trained)
+        sweep_times = phase_sweep_times(root)
+    smi =subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip().splitlines()[0]
     log(f"[done] chip_smoke.py wall {time.perf_counter() - t_start:.1f}s")
@@ -1480,11 +1704,15 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": ROWS_SOURCE,
                         "replaces": REPLACES, "launches": state["launches"][entry],
                         "max_abs_err": err[entry], "ms": t["ms"], "kernel_us": t["kernel_us"],
+                        "device_us": t["device_us"],
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                         "shape": t["shape"], "cluster": t["cluster"], "shapes": t["shapes"],
                         "launches_train": trained["launches_steps"][entry],
-                        "launches_main_moc": trained["launches"][entry]})
+                        "launches_main_moc": trained["launches"][entry],
+                        "launches_sweep": swept["launches_steps"][entry],
+                        "launches_sweep_eval": swept["launches_eval"][entry],
+                        "shapes_sweep": sweep_times["k1"][entry]})
     for tier, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         t = k2_times[tier]
         kernels.append({"name": f"flash_fwd_{tier}", "route": "cuda", "source": K2_SOURCE,
@@ -1512,6 +1740,11 @@ def main() -> int:
         "epoch_train_s": trained["epoch_train_s"],
         "epoch_with_eval_s": trained["epoch_with_eval_s"],
         "steps_per_s": trained["steps_per_s"], "result": trained["result"]}))
+    log("[sweep] summary " + json.dumps({
+        "wall_s": swept["wall_s"], "episodes_per_hour": swept["episodes_per_hour"],
+        "main_moc_episodes_per_hour": 3600 / trained["wall_s"],
+        "step_ms": sweep_times["step_ms"], "pack_ms": sweep_times["pack_ms"],
+        "trajectory_ms": sweep_times["trajectory_ms"], "fold0_diff": swept["fold0_diff"]}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

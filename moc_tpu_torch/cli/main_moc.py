@@ -116,13 +116,18 @@ def _synthetic_setup(args) -> dict:
             "weights": w, "weights_ext": w_ext}
 
 
-def main(argv=None) -> int:
-    args = get_args(argv)
+def refuse_jax_only(args) -> None:
+    """Exit on a flag that only the JAX package's command lines take."""
     for flag, given in (("--approx_topk", args.approx_topk), ("--platform", args.platform),
                         ("--xprof", args.xprof)):
         if given:
             raise SystemExit(f"{flag} belongs to the JAX package; this CLI runs PyTorch "
                              "(use --device, and torch.profiler for traces)")
+
+
+def main(argv=None) -> int:
+    args = get_args(argv)
+    refuse_jax_only(args)
 
     if args.summary:
         from moc_tpu_torch.moc.results import summarize

@@ -1,7 +1,7 @@
 """Carry weights across from the JAX package: flax params → torch modules
 (the SENet, the CONCH vision tower and the masked-token pretraining model),
 and a flax-free ``.npz`` file format for SENet on hosts without flax or
-msgpack.
+msgpack; SENet state dicts stacked into a ``SENetStack``.
 
 flax ``Dense.kernel`` is ``[in, out]``; torch ``Linear.weight`` is
 ``[out, in]``. A flax ``Conv`` kernel is ``[kh, kw, in, out]``; torch's is
@@ -17,7 +17,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from moc_tpu_torch.models.senet import SENet
+from moc_tpu_torch.models.senet import STACK_KEYS, SENet, SENetStack
 from moc_tpu_torch.zeroshot.vision_tower import VisionConfig, VisionTower
 
 
@@ -57,6 +57,16 @@ def senet_from_state_dict(state: Mapping[str, torch.Tensor]) -> SENet:
     model = SENet(in_dim, hidden, state["dense1.weight"].shape[0])
     model.load_state_dict(state)
     return model
+
+
+def senet_stack_from_states(states: list[Mapping[str, torch.Tensor]]) -> SENetStack:
+    """``SENetStack`` of the SENet state dicts ``states``, episode e holding
+    ``states[e]`` (``SENetStack.state_dict_of`` unstacks it)."""
+    hidden, in_dim = states[0]["dense0.weight"].shape
+    stack = SENetStack(len(states), in_dim, hidden, states[0]["dense1.weight"].shape[0])
+    stack.load_state_dict({name: torch.stack([torch.as_tensor(s[key]) for s in states])
+                           for name, key in STACK_KEYS.items()})
+    return stack
 
 
 def _t(x) -> torch.Tensor:

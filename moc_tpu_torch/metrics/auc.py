@@ -6,9 +6,10 @@ Two forms:
 * ``roc_auc_host``: numpy, float64, scikit-learn's ``roc_auc_score``
   semantics with the reference's arguments (binary: P(class 1); multiclass:
   ``ovo`` macro), for reporting. Hosts without scikit-learn run it.
-* ``auc_binary``, ``auc_ovo_macro``, ``auc_ovr_macro``: torch, on the
-  tensors' device, with a ``valid`` mask for padded score arrays; a class
-  that is absent is weighted out of the macro means.
+* ``auc_binary``, ``auc_ovo_macro``, ``auc_ovr_macro`` and
+  ``auc_from_probs``: torch, on the tensors' device, batched over leading
+  axes, with a ``valid`` mask for padded score arrays; a class that is
+  absent is weighted out of the macro means.
 
 U counts, for each positive, the negatives scored below it plus half of
 those tied with it; AUC = U / (#pos · #neg). That equals the area under
@@ -90,24 +91,26 @@ def roc_auc_host(probs, labels) -> float:
 
 def _rank_u(scores: torch.Tensor, pos: torch.Tensor, neg: torch.Tensor):
     """Tie-corrected U over the rows where ``pos`` or ``neg`` holds, and the
-    pair count, from one sort and cumsums (no ``[M, M]`` matrix): for each
+    pair count, along the last axis of ``scores [..., M]`` (the leading axes
+    are a batch), from one sort and cumsums (no ``[M, M]`` matrix): for each
     element, the index of the first and last element of its run of equal
     scores comes from a running max / min of the run boundaries."""
-    m = scores.shape[0]
-    order = torch.argsort(scores)
-    s = scores[order]
-    p = pos[order].to(scores.dtype)
-    ng = neg[order].to(scores.dtype)
-    cum_neg = torch.cumsum(ng, 0)
-    idx = torch.arange(m, device=scores.device)
-    one = torch.ones((1,), dtype=torch.bool, device=scores.device)
-    is_first = torch.cat([one, s[1:] != s[:-1]])
-    is_last = torch.cat([s[:-1] != s[1:], one])
-    gstart = torch.cummax(torch.where(is_first, idx, 0), 0).values
-    gend = torch.flip(torch.cummin(torch.flip(torch.where(is_last, idx, m), [0]), 0).values, [0])
-    neg_below = (cum_neg - ng)[gstart]
-    neg_tied = cum_neg[gend] - neg_below
-    return torch.sum(p * (neg_below + 0.5 * neg_tied)), torch.sum(p) * torch.sum(ng)
+    m = scores.shape[-1]
+    order = torch.argsort(scores, dim=-1)
+    s = torch.gather(scores, -1, order)
+    p = torch.gather(pos.expand(scores.shape), -1, order).to(scores.dtype)
+    ng = torch.gather(neg.expand(scores.shape), -1, order).to(scores.dtype)
+    cum_neg = torch.cumsum(ng, -1)
+    idx = torch.arange(m, device=scores.device).expand(scores.shape)
+    one = torch.ones(scores.shape[:-1] + (1,), dtype=torch.bool, device=scores.device)
+    is_first = torch.cat([one, s[..., 1:] != s[..., :-1]], -1)
+    is_last = torch.cat([s[..., :-1] != s[..., 1:], one], -1)
+    gstart = torch.cummax(torch.where(is_first, idx, 0), -1).values
+    gend = torch.flip(torch.cummin(torch.flip(torch.where(is_last, idx, m), [-1]), -1).values,
+                      [-1])
+    neg_below = torch.gather(cum_neg - ng, -1, gstart)
+    neg_tied = torch.gather(cum_neg, -1, gend) - neg_below
+    return torch.sum(p * (neg_below + 0.5 * neg_tied), -1), torch.sum(p, -1) * torch.sum(ng, -1)
 
 
 def _ones(labels: torch.Tensor) -> torch.Tensor:
@@ -116,8 +119,9 @@ def _ones(labels: torch.Tensor) -> torch.Tensor:
 
 def auc_binary(scores: torch.Tensor, labels: torch.Tensor,
                valid: torch.Tensor | None = None) -> torch.Tensor:
-    """Binary AUC of ``scores [M]`` (higher = class 1) against ``labels [M]``
-    over the valid rows; 0.5 when a class is absent."""
+    """Binary AUC of ``scores [..., M]`` (higher = class 1) against ``labels
+    [..., M]`` over the valid rows, one per leading index; 0.5 where a class
+    is absent."""
     valid = _ones(labels) if valid is None else valid
     u, n_pairs = _rank_u(scores, valid & (labels == 1), valid & (labels != 1))
     return torch.where(n_pairs > 0, u / torch.clamp(n_pairs, min=1.0), 0.5)
@@ -126,21 +130,34 @@ def auc_binary(scores: torch.Tensor, labels: torch.Tensor,
 def auc_ovo_macro(probs: torch.Tensor, labels: torch.Tensor,
                   valid: torch.Tensor | None = None,
                   n_classes: int | None = None) -> torch.Tensor:
-    """Multiclass ``ovo``-macro AUC: for each class pair (a, b), over the rows
-    labelled a or b, the mean of AUC(P(a), a) and AUC(P(b), b); the macro
-    mean over the pairs whose two classes are both present."""
+    """Multiclass ``ovo``-macro AUC of ``probs [..., M, C]``: for each class
+    pair (a, b), over the rows labelled a or b, the mean of AUC(P(a), a) and
+    AUC(P(b), b); the macro mean over the pairs whose two classes are both
+    present."""
     valid = _ones(labels) if valid is None else valid
-    c = n_classes if n_classes is not None else probs.shape[1]
-    total = weight = torch.zeros((), dtype=probs.dtype, device=probs.device)
+    c = n_classes if n_classes is not None else probs.shape[-1]
+    total = weight = torch.zeros(labels.shape[:-1], dtype=probs.dtype, device=probs.device)
     for a in range(c):
         for b in range(a + 1, c):
             in_pair = valid & ((labels == a) | (labels == b))
-            auc_a = auc_binary(probs[:, a], (labels == a).to(torch.int32), in_pair)
-            auc_b = auc_binary(probs[:, b], (labels == b).to(torch.int32), in_pair)
-            w = ((valid & (labels == a)).any() & (valid & (labels == b)).any()).to(probs.dtype)
+            auc_a = auc_binary(probs[..., a], (labels == a).to(torch.int32), in_pair)
+            auc_b = auc_binary(probs[..., b], (labels == b).to(torch.int32), in_pair)
+            w = ((valid & (labels == a)).any(-1) & (valid & (labels == b)).any(-1)).to(probs.dtype)
             total = total + w * 0.5 * (auc_a + auc_b)
             weight = weight + w
     return total / torch.clamp(weight, min=1.0)
+
+
+def auc_from_probs(probs: torch.Tensor, labels: torch.Tensor,
+                   valid: torch.Tensor | None = None) -> torch.Tensor:
+    """The device AUC of the reference's protocol: with two classes the AUC
+    of P(class 1), with more the ``ovo`` macro; batched over the leading
+    axes of ``probs [..., M, C]``. Where a class is absent it gives 0.5
+    (binary) or leaves the class's pairs out of the mean (0 when none is
+    left), where ``roc_auc_host`` gives nan or raises."""
+    if probs.shape[-1] == 2:
+        return auc_binary(probs[..., 1], labels, valid)
+    return auc_ovo_macro(probs, labels, valid)
 
 
 def auc_ovr_macro(probs: torch.Tensor, labels: torch.Tensor,
@@ -149,10 +166,10 @@ def auc_ovr_macro(probs: torch.Tensor, labels: torch.Tensor,
     """Multiclass ``ovr``-macro AUC (the baseline trainers' protocol): the mean
     over classes present among the valid rows of AUC(P(a), a vs the rest)."""
     valid = _ones(labels) if valid is None else valid
-    c = n_classes if n_classes is not None else probs.shape[1]
-    total = present = torch.zeros((), dtype=probs.dtype, device=probs.device)
+    c = n_classes if n_classes is not None else probs.shape[-1]
+    total = present = torch.zeros(labels.shape[:-1], dtype=probs.dtype, device=probs.device)
     for a in range(c):
-        u, n_pairs = _rank_u(probs[:, a], valid & (labels == a), valid & (labels != a))
+        u, n_pairs = _rank_u(probs[..., a], valid & (labels == a), valid & (labels != a))
         has = (n_pairs > 0).to(probs.dtype)
         total = total + has * u / torch.clamp(n_pairs, min=1.0)
         present = present + has

@@ -9,15 +9,19 @@ by the union mask (inference), the gather one packs the union into
 ``capacity`` rows first (``slide_process``; training, whose backward then
 touches only those rows). Training passes the visit's patch-keep mask
 ``keep [B, N]`` explicitly, where the JAX package draws it from an rng.
+An ``EvalPack`` holds an evaluation's selection and views, which do not
+depend on the SENet, so that they are computed once for many parameter sets
+(``moc_logits_packed``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Mapping
 
 import torch
 
-from moc_tpu_torch.models.senet import SENet
+from moc_tpu_torch.models.senet import SENet, SENetStack, senet_stack_apply
 from moc_tpu_torch.ops import select_and_gather, topj_pooling, union_selection_threshold
 from moc_tpu_torch.ops.masking import softmax
 from moc_tpu_torch.ops.selection import selection_capacity
@@ -229,3 +233,41 @@ def ablation_slide_logits(feats: torch.Tensor, valid: torch.Tensor, w: torch.Ten
         return topj_pooling(fuse_views_fixed(views, mode), union, cfg.topk)
     sel = slide_process(feats, valid, w, w_ext, cfg)
     return topj_pooling(fuse_views_fixed(sel.views, mode), sel.valid, cfg.topk)
+
+
+@dataclasses.dataclass(frozen=True)
+class EvalPack:
+    """The SENet-independent part of evaluating slides ``[..., N, D]``: the
+    packed selection ``feats [..., S, D]`` (invalid slots zeroed), ``valid
+    [..., S]`` and the four views ``views [..., 4, S, C]``. Without a keep
+    mask they depend only on the frozen zero-shot weights, so an episode
+    computes them once and every epoch's evaluation reuses them."""
+
+    feats: torch.Tensor
+    valid: torch.Tensor
+    views: torch.Tensor
+
+
+def precompute_eval_pack(feats: torch.Tensor, valid: torch.Tensor, w: torch.Tensor,
+                         w_ext: torch.Tensor, cfg: MOCConfig) -> EvalPack:
+    """Selection and views of slides ``feats [..., N, D]`` (any leading axes,
+    one K1 launch over all their selection rows), on the gather route."""
+    sel = slide_process(feats, valid, w, w_ext, cfg)
+    return EvalPack(feats=sel.feats, valid=sel.valid, views=sel.views)
+
+
+def moc_logits_packed(senet: SENet | SENetStack | Mapping[str, torch.Tensor], pack: EvalPack,
+                      cfg: MOCConfig) -> torch.Tensor:
+    """Pooled slide logits from an ``EvalPack``: the SENet weighting, the
+    fusion and the pooling (one K1 launch over every column). ``senet`` is
+    a ``SENet`` over a pack ``[..., S, D]``, a ``SENetStack`` over a pack
+    ``[E, ..., S, D]``, or stacked parameters ``{"w0", "b0", "w1", "b1"}``
+    with leading axes ``[*T, E]`` (a parameter trajectory) over the same
+    pack, which gives ``[*T, E, ..., C]`` without copying the pack."""
+    if isinstance(senet, Mapping):
+        weights = senet_stack_apply(senet["w0"], senet["b0"], senet["w1"], senet["b1"],
+                                    pack.feats)
+    else:
+        weights = senet(pack.feats)
+    fused = fuse_views(weights, pack.views, cfg.include_flags())
+    return topj_pooling(fused, pack.valid.expand(fused.shape[:-1]), cfg.topk)

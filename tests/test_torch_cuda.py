@@ -1,8 +1,8 @@
 """Kernels K1-K4 on the GPU against their plain PyTorch versions (K1 bit
 for bit, K2-K4 within the JAX package's flash tolerances), the wrappers'
 contracts, the flash-attention gradients against autograd of the dense
-reference, and the extraction and pretraining CLIs on the GPU against the
-CPU.
+reference, and the extraction and pretraining CLIs, a MOC training epoch and
+the fused episode sweep on the GPU against the CPU.
 
 Needs an NVIDIA GPU and nvcc: every test here carries the ``cuda`` marker and
 skips without a card. This file imports no JAX, so the card's host runs it
@@ -587,3 +587,82 @@ def test_moc_masked_route_gradients_through_k1_on_the_card(gen):
     assert torch.equal(masked_col_topk_mask(cols, torch.ones((1, 2432), dtype=torch.bool,
                                                              device="cuda"), 10),
                        threshold_topk_mask(cols.detach(), 10, axis=-2))
+
+
+def _small_sweep(device, root, fixed_masks=True):
+    """The fused sweep of both folds of shot 2 over a small, weak synthetic
+    corpus (D=64, bags of 60-480 patches, test AUC below 1; topj 24, 3
+    epochs, seeds 0 and 3) on
+    ``device``, every episode starting from ``init_senet(seed)`` and keeping
+    the patches of one set of masks drawn on the CPU (with ``fixed_masks``)
+    or of its own generator's on the device."""
+    from moc_tpu_torch.data import BagLoader, SlideTable, read_split_csv
+    from moc_tpu_torch.data.synthetic import SyntheticWSIConfig, make_synthetic_corpus
+    from moc_tpu_torch.moc import MOCConfig, init_senet, pool_episode_splits, run_sweep_pooled
+
+    corpus = make_synthetic_corpus(root, SyntheticWSIConfig(
+        slides_per_class=10, min_patches=60, max_patches=480, dim=64, seed=7, signal=0.2,
+        tumor_frac=0.1), shots=(2,))
+    table = SlideTable.from_csv(corpus["csv_path"], corpus["label_dict"])
+    splits = [read_split_csv(corpus["split_paths"][(2, f)]) for f in (0, 1)]
+    pooled = pool_episode_splits(BagLoader(table, corpus["data_dir"]), splits)
+    cfg = MOCConfig(n_classes=2, n_ext_classes=6, topj=24, feature_dim=64, num_epochs=3)
+    masks = torch.rand((2, 3, 4, pooled.pool_feats.shape[1]),
+                       generator=torch.Generator().manual_seed(0)) < 0.5
+    seeds = (0, 3)
+    return run_sweep_pooled(pooled, corpus["weights"], corpus["weights_ext"], cfg,
+                            repeat_num=4, seeds=seeds, with_zs=True, device=device,
+                            keep_fn=(lambda e, epoch, v, n: masks[e, epoch, :v, :n])
+                            if fixed_masks else None,
+                            init_states=[init_senet(s, cfg).state_dict() for s in seeds]), cfg
+
+
+def test_sweep_gpu_matches_cpu(gen, tmp_path):
+    """The small two-fold sweep on the card and on the CPU from one set of
+    SENets and keep masks: the same best epochs; best val AUC, test AUC and
+    accuracy, the zero-shot floor and every step's loss within 1e-5; best
+    parameters within Adam's bound (lr a step); K1 launched on the card (2
+    a batched step, 12 steps, and the evaluation's), never on the CPU."""
+    runs = {}
+    for device in ("cuda", "cpu"):
+        before = (topk_kernel.topk_threshold_mask_cuda.launches,
+                  topk_kernel.col_topk_threshold_mask_cuda.launches)
+        result, cfg = _small_sweep(device, str(tmp_path / device))
+        torch.cuda.synchronize()
+        launched = (topk_kernel.topk_threshold_mask_cuda.launches - before[0],
+                    topk_kernel.col_topk_threshold_mask_cuda.launches - before[1])
+        # rows: 12 steps + the eval pack; columns: 12 steps, 3 zero-shot splits, the trajectory
+        assert launched == ((13, 16) if device == "cuda" else (0, 0)), launched
+        runs[device] = result
+    got, want = runs["cuda"], runs["cpu"]
+    assert torch.equal(got.best_epoch.cpu(), want.best_epoch)
+    for name in ("best_val_auc", "test_auc_at_best", "test_acc_at_best", "zs", "losses"):
+        torch.testing.assert_close(getattr(got, name).cpu(), getattr(want, name), rtol=0,
+                                   atol=1e-5, msg=name)
+    for name, t in got.best_params.items():
+        torch.testing.assert_close(t.cpu(), want.best_params[name], rtol=0,
+                                   atol=12 * cfg.learning_rate, msg=name)
+
+
+def test_sweep_waits_for_nothing_from_its_first_step_to_its_evaluation(gen, tmp_path,
+                                                                       monkeypatch):
+    """From the first batched step to the end of the evaluation the sweep
+    makes no host synchronisation (no ``.item()``, ``nonzero`` or boolean
+    indexing): under ``set_sync_debug_mode("error")``, switched on by the
+    first step, any such call raises."""
+    from moc_tpu_torch.moc import sweep
+
+    inner, steps = sweep.sweep_step, []
+
+    def strict(*args, **kwargs):
+        torch.cuda.set_sync_debug_mode("error")
+        steps.append(1)
+        return inner(*args, **kwargs)
+
+    monkeypatch.setattr(sweep, "sweep_step", strict)
+    try:
+        result, _ = _small_sweep("cuda", str(tmp_path), fixed_masks=False)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert len(steps) == 12
+    assert bool(torch.isfinite(result.losses).all()) and result.best_epoch.shape == (2,)

@@ -35,11 +35,12 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the JAX stack, and what the card's host lacks (h5py is imported lazily, for
 # .h5 bags only)
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "moc_tpu", "sklearn", "pandas", "msgpack"}
-# the training slice's modules, which the fresh-process check must reach
+# the training and sweep slices' modules, which the fresh-process check must reach
 TRAINING_MODULES = ["moc_tpu_torch.cli.main_moc", "moc_tpu_torch.data.loader",
                     "moc_tpu_torch.data.splits", "moc_tpu_torch.data.table",
                     "moc_tpu_torch.metrics.auc", "moc_tpu_torch.moc.episode",
-                    "moc_tpu_torch.moc.results"]
+                    "moc_tpu_torch.moc.results", "moc_tpu_torch.cli.sweep",
+                    "moc_tpu_torch.moc.sweep", "moc_tpu_torch.utils.device_cache"]
 DIM = 64
 
 
