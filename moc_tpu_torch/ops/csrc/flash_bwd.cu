@@ -18,18 +18,26 @@
 // lse = MASK, so p = exp(0) = 1 for every key of the tiles that run: like
 // the TPU kernels, and unlike the dense vjp (1/L), which is the point of
 // matching them. The products are summed in f32; dq, dk and dv are stored in
-// the input type. In f32 both kernels sum on the CUDA cores in the plain
-// version's order and are bit-equal to it. In bf16 both sum on the tensor
-// cores in another order, so they agree with the plain version within the
-// tolerance (2e-2 of the largest |grad|), not bit for bit. The bf16 products
-// are exact, as on the MXU under preferred_element_type=f32.
+// the input type. Both tiers sum on the tensor cores in another order than
+// the plain version, so they agree with it within a tolerance, not bit for
+// bit. In bf16 the products are exact, as on the MXU under
+// preferred_element_type=f32 (2e-2 of the largest |grad|, from rounding p
+// and ds). In f32 every product is taken in three TF32 passes (flash_mma.cuh)
+// within a few units in 2^-22 of f32: within the JAX package's f32
+// tolerance (5e-4) and within 1e-5 of the largest |grad| of the plain
+// version (2e-6 on an H100 at the pretraining shape); one TF32 pass would
+// be about 5e-4 off.
 //
 // Bound at the pretraining shape ([32 * 12, 512, 64]): K3 does three
 // products of 2 * L^2 * D per head (s, dp, ds . k), 38.7 GFLOP, and K4 four
-// (s, dp, p^T . do, ds^T . q), 51.5 GFLOP: 0.58 and 0.77 ms in f32 at the
-// H100's 67 TFLOP/s outside the tensor cores, against 0.08-0.09 ms for their
-// bytes at 3.35 TB/s, so both are compute-bound. In bf16 the tensor-core
-// bound is 0.0391 and 0.0521 ms, about level with the bytes.
+// (s, dp, p^T . do, ds^T . q), 51.5 GFLOP. In f32 that is three TF32 passes
+// of each at the H100's 495 TFLOP/s, 0.2345 and 0.312 ms, against
+// 0.08-0.09 ms for their bytes at 3.35 TB/s, so both are compute-bound (on
+// the CUDA cores, 67 TFLOP/s, it would be 0.58 and 0.77 ms). On an H100,
+// mma.sync reaches 222-236 TFLOP/s of TF32 in this kernel's pattern of
+// three passes and an f32 add (scripts/mma_tf32_rate.py), so 0.49 and
+// 0.65 ms is the floor of this design. In bf16 the tensor-core bound is
+// 0.0391 and 0.0521 ms, about level with the bytes.
 //
 // Design: the TPU's split, which needs no atomics. K3 runs one CTA per (b*h,
 // 64-row query tile) and loops over the 64-key tiles of K and V; K4 runs one
@@ -38,15 +46,30 @@
 // its diagonal key tile, and K4 starts its query loop at the tile that holds
 // its first key.
 //
-// f32 (flash_bwd_dq_kernel, flash_bwd_dkv_kernel): 256 threads on the CUDA
-// cores stage every tile as f32 in shared memory (166 KB at D = 128 for K4),
-// form the 64 x 64 s and dp tiles in registers (a 4 x 4 block a thread),
-// write ds (and, for K4, p) to shared memory and accumulate four rows of dq,
-// or four keys of dk and dv, a thread in f32 registers.
+// Both tiers: four warps of 16 rows each on the tensor cores by mma.sync,
+// with flash_mma.cuh's pieces; p and ds never touch shared memory.
 //
-// bf16 (flash_bwd_dq_mma_kernel, flash_bwd_dkv_mma_kernel): four warps of 16
-// rows each on the tensor cores by mma.sync, with flash_mma.cuh's pieces; p
-// and ds never touch shared memory.
+// f32 (flash_bwd_dq_tf32_kernel, flash_bwd_dkv_tf32_kernel): the bf16
+// kernels' loop on f32 tiles (rows padded to D + 4 floats: 104 KB of shared
+// memory at D = 64, two CTAs an SM; 203 KB at D = 128), every product in
+// three m16n8k8 TF32 passes of operands split by cvt.rna. The untransposed
+// operands (Q, dO, K, V of S and dP) are read by ldmatrix; there is no
+// 32-bit ldmatrix.trans, so the operands that the bf16 kernels read
+// transposed (K of ds . K, dO and Q of K4's gradients) are read as scalar
+// pairs from the same padded tile, on 32 distinct banks. The accumulator
+// holds columns 2t and 2t + 1 where a TF32 A fragment wants t and t + 4:
+// each 8-wide k-step takes its k index in the order 0, 2, 4, 6, 1, 3, 5, 7
+// on both operands, so p and ds pass on as A fragments with no shuffle. The
+// tensor core rounds its sums toward zero, so two k-steps at a time go into
+// a fresh accumulator that an f32 add takes into the running sum. For the
+// register budget: K3 takes a key tile in passes of 64 keys at D = 64 (32
+// at D = 32, 16 at D = 128); K4 takes a query tile in passes of 32 queries
+// (16 at D = 128), makes p^T and dv before it forms dp^T, and at D = 128
+// sweeps the query tiles twice, once for dv and once for dk (recomputing
+// s^T), so that a warp holds one [16, 128] accumulator at a time. No
+// register spills at D = 32, 64 or 128.
+//
+// bf16 (flash_bwd_dq_mma_kernel, flash_bwd_dkv_mma_kernel):
 // - K3 is K2's bf16 forward with K4's gradient arithmetic. The Q and dO
 //   tiles are loaded once; the K and V tiles (with the key segment ids)
 //   stream through a two-stage cp.async ring. S = Q.K^T and dP = dO.V^T land
@@ -66,7 +89,11 @@
 //   ldmatrix.trans. At D = 128 a q tile is taken in four passes of 16
 //   queries, for the same register budget.
 // Left for wgmma: the same as K2's (flash_fwd.cu); K3 reads K and V, and K4
-// reads Q and dO, from device memory once per 64 rows of its own tile.
+// reads Q and dO, from device memory once per 64 rows of its own tile. The
+// f32 tier also splits its B operands once per warp rather than once per
+// tile, and spends an f32 add per accumulator element every two k-steps.
+
+#include <type_traits>
 
 #include "flash_mma.cuh"
 
@@ -74,218 +101,375 @@ namespace {
 
 using namespace flash;
 
-template <int D>
-constexpr size_t dq_smem_bytes() {  // Q, dO, K, V tiles and the ds tile
-  return sizeof(float) * (4 * Layout<D>::kTile + Layout<D>::kPTile);
+// --- f32: three TF32 passes on the tensor cores ---
+
+// acc[j] = (16 rows of a from row `arow`) . (rows b0 + 8j .. b0 + 8j + 7 of
+// bt)^T over D, for the NT n-tiles of a pass: S, dP (K3) or s^T, dp^T (K4).
+// Two k-steps a fresh accumulator; the A fragments of both steps are split
+// once and serve every n-tile.
+template <int D, int NT>
+__device__ __forceinline__ void tf32_scores(float (&acc)[NT][4], const float* a, int arow,
+                                            const float* bt, int b0, int lane) {
+  static_assert(NT % 2 == 0, "n-tiles in pairs");
+#pragma unroll
+  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+#pragma unroll 1
+  for (int ks = 0; ks < D / 8; ks += 2) {
+    uint32_t x[4], ah0[4], al0[4], ah1[4], al1[4];
+    ldsm_x4(x, a_addr_f32<D>(a, arow, ks, lane));
+    split_tf32(x, ah0, al0);
+    ldsm_x4(x, a_addr_f32<D>(a, arow, ks + 1, lane));
+    split_tf32(x, ah1, al1);
+#pragma unroll
+    for (int jj = 0; jj < NT / 2; ++jj) {
+      float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
+      uint32_t h[4], l[4];
+      ldsm_x4(x, b_addr_f32<D>(bt, b0 + 16 * jj, ks, lane));
+      split_tf32(x, h, l);
+      mma_3xtf32(t0, ah0, al0, h[0], h[1], l[0], l[1]);
+      mma_3xtf32(t1, ah0, al0, h[2], h[3], l[2], l[3]);
+      ldsm_x4(x, b_addr_f32<D>(bt, b0 + 16 * jj, ks + 1, lane));
+      split_tf32(x, h, l);
+      mma_3xtf32(t0, ah1, al1, h[0], h[1], l[0], l[1]);
+      mma_3xtf32(t1, ah1, al1, h[2], h[3], l[2], l[3]);
+      add_acc(acc[2 * jj], t0);
+      add_acc(acc[2 * jj + 1], t1);
+    }
+  }
 }
 
-template <int D>
-constexpr size_t dkv_smem_bytes() {  // K, V, Q, dO tiles and the p and ds tiles
-  return sizeof(float) * (4 * Layout<D>::kTile + 2 * Layout<D>::kPTile);
+// acc[n] += w . (rows r0 .. r0 + 8 NT - 1 of bt), w being NT accumulator
+// n-tiles (16 rows x 8 NT columns: ds for dq, p^T or ds^T for dv or dk)
+// taken as the A operand with the k index of acc_to_a_tf32; two k-steps a
+// fresh accumulator
+template <int D, int NT>
+__device__ __forceinline__ void tf32_grads(float (&acc)[D / 8][4], const float (&w)[NT][4],
+                                           const float* bt, int r0, int lane) {
+  static_assert(NT % 2 == 0, "k-steps in pairs");
+  constexpr int kS = Layout<D>::kStride;
+#pragma unroll
+  for (int kk = 0; kk < NT; kk += 2) {
+    uint32_t ah0[4], al0[4], ah1[4], al1[4];
+    acc_to_a_tf32(ah0, al0, w[kk]);
+    acc_to_a_tf32(ah1, al1, w[kk + 1]);
+    const float* b = bt + (r0 + 8 * kk + 2 * (lane & 3)) * kS + (lane >> 2);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      float t[4] = {0.f, 0.f, 0.f, 0.f};
+      uint32_t h0, h1, l0, l1;
+      tf32_b_pair<D>(b + 8 * n, h0, h1, l0, l1);
+      mma_3xtf32(t, ah0, al0, h0, h1, l0, l1);
+      tf32_b_pair<D>(b + 8 * kS + 8 * n, h0, h1, l0, l1);
+      mma_3xtf32(t, ah1, al1, h0, h1, l0, l1);
+      add_acc(acc[n], t);
+    }
+  }
 }
 
-// p and ds of the thread's 4 x 4 block, from its s and dp blocks
-// (rows q0 + 4*ty + i, keys kv0 + tx + 16*j)
-__device__ __forceinline__ void probs_and_grads(float (&s)[4][4], float (&dp)[4][4],
-                                                const float* row_lse, const float* row_delta,
-                                                const int* row_seg, const int* key_seg, int q0,
-                                                int kv0, int lq, int lkv, int ty, int tx,
-                                                bool causal, bool segments, float sm_scale) {
+// a warp's [16, D] f32 accumulator (rows r and r + 8 of n-tiles of 8
+// columns, r = row0 + g) into a row-major [len, D] f32 slab; rows at or
+// past `len` dropped
+template <int D>
+__device__ __forceinline__ void store_acc_f32(float* __restrict__ dst, const float (&acc)[D / 8][4],
+                                              int row0, int len, int lane) {
+  const int r = row0 + (lane >> 2);
+  const int col = 2 * (lane & 3);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * ty + i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int key = kv0 + tx + 16 * j;
-      float x = s[i][j] * sm_scale;
-      if (masked(causal, segments, row, key, row_seg[i], key_seg[j])) x = kMaskValue;
-      const float p = (row < lq && key < lkv) ? expf(x - row_lse[i]) : 0.f;
-      s[i][j] = p;
-      dp[i][j] = p * (dp[i][j] - row_delta[i]) * sm_scale;
+  for (int n = 0; n < D / 8; ++n) {
+    if (r < len) {
+      *reinterpret_cast<float2*>(dst + static_cast<size_t>(r) * D + 8 * n + col) =
+          make_float2(acc[n][0], acc[n][1]);
+    }
+    if (r + 8 < len) {
+      *reinterpret_cast<float2*>(dst + static_cast<size_t>(r + 8) * D + 8 * n + col) =
+          make_float2(acc[n][2], acc[n][3]);
     }
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    float* __restrict__ dq, const int* __restrict__ q_seg,
-                    const int* __restrict__ kv_seg, int heads, int lq, int lkv, int n_qtiles,
-                    int causal, float sm_scale) {
-  constexpr int kP = Layout<D>::kPStride;
-  constexpr int kPer = ColMap<D>::kPer;
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;
-  float* dos = qs + Layout<D>::kTile;
-  float* ks = dos + Layout<D>::kTile;
-  float* vs = ks + Layout<D>::kTile;
-  float* dss = vs + Layout<D>::kTile;
+constexpr size_t dq_tf32_smem_bytes() {
+  // Q and dO; two stages of K and V (f32 rows padded to D + 4); two of the key segment ids
+  return sizeof(float) * 6 * Layout<D>::kTile + 2 * kBlock * sizeof(int);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_bwd_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const float* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         float* __restrict__ dq, const int* __restrict__ q_seg,
+                         const int* __restrict__ kv_seg, int heads, int lq, int lkv, int n_qtiles,
+                         int causal, float sm_scale) {
+  // keys per pass: the register budget (at D = 32 ptxas holds the kernel to 168)
+  constexpr int kKeyChunk = D == 128 ? 16 : D == 64 ? 64 : 32;
+  constexpr int kKeyTiles = kKeyChunk / 8;       // n-tiles of S and dP in a pass
+  constexpr int kTile = Layout<D>::kTile;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* qs = reinterpret_cast<float*>(smem_raw);
+  float* dos = qs + kTile;
+  float* ks = dos + kTile;     // [2][64, kStride]
+  float* vs = ks + 2 * kTile;  // [2][64, kStride]
+  int* kv_segs = reinterpret_cast<int*>(vs + 2 * kTile);  // [2][64]
 
   const int bh = blockIdx.x / n_qtiles;
   const int q0 = (blockIdx.x % n_qtiles) * kBlock;
   const int b = bh / heads;
-  const int ty = threadIdx.x >> 4;
-  const int tx = threadIdx.x & 15;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int t4 = lane & 3;
   const bool segments = q_seg != nullptr;
   const size_t q_off = static_cast<size_t>(bh) * lq;
   const float* kb = k + static_cast<size_t>(bh) * lkv * D;
   const float* vb = v + static_cast<size_t>(bh) * lkv * D;
+  const int* kv_seg_b = segments ? kv_seg + static_cast<size_t>(b) * lkv : nullptr;
 
-  load_tile<D>(q + q_off * D, qs, q0, lq);
-  load_tile<D>(dout + q_off * D, dos, q0, lq);
-
-  int row_seg[4];
-  float row_lse[4], row_delta[4], acc[4][kPer];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + 4 * ty + i;
-    row_seg[i] = (segments && r < lq) ? q_seg[static_cast<size_t>(b) * lq + r] : 0;
-    row_lse[i] = r < lq ? lse[q_off + r] : 0.f;
-    row_delta[i] = r < lq ? delta[q_off + r] : 0.f;
-#pragma unroll
-    for (int c = 0; c < kPer; ++c) acc[i][c] = 0.f;
+  // this lane's two query rows, g and g + 8 of the warp's 16, with their
+  // lse, delta and segment ids
+  const int wrow = 16 * warp;
+  const int row0 = q0 + wrow + (lane >> 2);
+  const int row1 = row0 + 8;
+  float lse0 = 0.f, lse1 = 0.f, delta0 = 0.f, delta1 = 0.f;
+  int seg0 = 0, seg1 = 0;
+  if (row0 < lq) {
+    lse0 = lse[q_off + row0];
+    delta0 = delta[q_off + row0];
+    if (segments) seg0 = q_seg[static_cast<size_t>(b) * lq + row0];
+  }
+  if (row1 < lq) {
+    lse1 = lse[q_off + row1];
+    delta1 = delta[q_off + row1];
+    if (segments) seg1 = q_seg[static_cast<size_t>(b) * lq + row1];
   }
 
+  // key tiles wholly above the diagonal contribute nothing: skip them
   const int kv_end = causal ? min(lkv, q0 + kBlock) : lkv;
-  for (int kv0 = 0; kv0 < kv_end; kv0 += kBlock) {
-    __syncthreads();  // the previous tile's readers are done with ks, vs, dss
-    load_tile<D>(kb, ks, kv0, lkv);
-    load_tile<D>(vb, vs, kv0, lkv);
-    __syncthreads();
+  const int n_tiles = (kv_end + kBlock - 1) / kBlock;
+  auto load_kv = [&](int t) {
+    const int stage = t & 1;
+    load_tile_f32_async<D>(ks + stage * kTile, kb, t * kBlock, lkv, tid);
+    load_tile_f32_async<D>(vs + stage * kTile, vb, t * kBlock, lkv, tid);
+    if (segments) load_vec_async(kv_segs + stage * kBlock, kv_seg_b, t * kBlock, lkv, tid);
+  };
+  load_tile_f32_async<D>(qs, q + q_off * D, q0, lq, tid);
+  load_tile_f32_async<D>(dos, dout + q_off * D, q0, lq, tid);
+  if (n_tiles > 0) load_kv(0);
+  cp_async_commit();
 
-    float s[4][4] = {}, dp[4][4] = {};
-    tile_dot<D>(qs, ks, s, ty, tx);
-    tile_dot<D>(dos, vs, dp, ty, tx);
-    int key_seg[4];
+  float acc[D / 8][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int key = kv0 + tx + 16 * j;
-      key_seg[j] = (segments && key < lkv) ? kv_seg[static_cast<size_t>(b) * lkv + key] : 0;
-    }
-    probs_and_grads(s, dp, row_lse, row_delta, row_seg, key_seg, q0, kv0, lq, lkv, ty, tx,
-                    causal, segments, sm_scale);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) dss[(4 * ty + i) * kP + tx + 16 * j] = dp[i][j];
-    }
-    __syncthreads();
+  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 
-    tile_accumulate<D>(dss, ks, acc, ty, tx);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int kv0 = t * kBlock;
+    const int stage = t & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // tile t has landed, and every warp is done with tile t - 1
+    if (t + 1 < n_tiles) load_kv(t + 1);  // into the stage tile t - 1 used
+    cp_async_commit();
+    const float* kt = ks + stage * kTile;
+    const float* vt = vs + stage * kTile;
+    const int* segs = kv_segs + stage * kBlock;
+
+#pragma unroll
+    for (int kc = 0; kc < kBlock; kc += kKeyChunk) {
+      // S and dP for the warp's 16 queries and keys kc .. kc + kKeyChunk
+      float s[kKeyTiles][4], dp[kKeyTiles][4];
+      tf32_scores<D>(s, qs, wrow, kt, kc, lane);
+      tf32_scores<D>(dp, dos, wrow, vt, kc, lane);
+
+      // p and ds in place; the lane holds keys kv0 + kc + 8j + 2 * t4 + (e & 1)
+#pragma unroll
+      for (int j = 0; j < kKeyTiles; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = kc + 8 * j + 2 * t4 + (e & 1);
+          const int key = kv0 + col;
+          const int row = e < 2 ? row0 : row1;
+          float x = s[j][e] * sm_scale;
+          if (masked(causal, segments, row, key, e < 2 ? seg0 : seg1,
+                     segments ? segs[col] : 0)) {
+            x = kMaskValue;
+          }
+          // zero-filled K rows past Lkv give s = 0, not -inf: p is forced
+          // there. A difference, not a fused x * log2e - lse * log2e: MASK *
+          // log2e overflows
+          const float p =
+              (row < lq && key < lkv) ? exp2f((x - (e < 2 ? lse0 : lse1)) * kLog2e) : 0.f;
+          dp[j][e] = p * (dp[j][e] - (e < 2 ? delta0 : delta1)) * sm_scale;
+        }
+      }
+
+      // dq += ds . K, the 8 keys of a step as its k index in acc_to_a_tf32's order
+      tf32_grads<D>(acc, dp, kt, kc, lane);
+    }
   }
 
-  const float one[4] = {1.f, 1.f, 1.f, 1.f};
-  store_rows<D>(dq + q_off * D, acc, one, q0, lq, ty, tx);
+  cp_async_wait<0>();  // no copy is left in flight (also when no key tile ran)
+  store_acc_f32<D>(dq + q_off * D, acc, q0 + wrow, lq, lane);
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     float* __restrict__ dk, float* __restrict__ dv,
-                     const int* __restrict__ q_seg, const int* __restrict__ kv_seg, int heads,
-                     int lq, int lkv, int n_ktiles, int causal, float sm_scale) {
-  using Cols = ColMap<D>;
-  constexpr int kS = Layout<D>::kStride;
-  constexpr int kP = Layout<D>::kPStride;
-  constexpr int kPer = Cols::kPer;
-  extern __shared__ __align__(16) float smem[];
-  float* ks = smem;
-  float* vs = ks + Layout<D>::kTile;
-  float* qs = vs + Layout<D>::kTile;
-  float* dos = qs + Layout<D>::kTile;
-  float* ps = dos + Layout<D>::kTile;  // [query][key]
-  float* dss = ps + Layout<D>::kPTile;  // [query][key]
+constexpr size_t dkv_tf32_smem_bytes() {
+  // K and V; two stages of Q and dO (f32 rows padded to D + 4); two of lse,
+  // delta and the q segment ids
+  return sizeof(float) * 6 * Layout<D>::kTile + 2 * kBlock * (2 * sizeof(float) + sizeof(int));
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_bwd_dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, const float* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          float* __restrict__ dk, float* __restrict__ dv,
+                          const int* __restrict__ q_seg, const int* __restrict__ kv_seg,
+                          int heads, int lq, int lkv, int n_ktiles, int causal, float sm_scale) {
+  constexpr int kQChunk = D == 128 ? 16 : 32;  // queries per pass (register budget)
+  constexpr int kQTiles = kQChunk / 8;        // n-tiles of s^T and dp^T in a pass
+  constexpr int kTile = Layout<D>::kTile;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* ks = reinterpret_cast<float*>(smem_raw);
+  float* vs = ks + kTile;
+  float* qs = vs + kTile;        // [2][64, kStride]
+  float* dos = qs + 2 * kTile;   // [2][64, kStride]
+  float* lse_s = dos + 2 * kTile;                              // [2][64]
+  float* delta_s = lse_s + 2 * kBlock;                         // [2][64]
+  int* q_segs = reinterpret_cast<int*>(delta_s + 2 * kBlock);  // [2][64]
 
   const int bh = blockIdx.x / n_ktiles;
   const int kv0 = (blockIdx.x % n_ktiles) * kBlock;
   const int b = bh / heads;
-  const int ty = threadIdx.x >> 4;
-  const int tx = threadIdx.x & 15;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int t4 = lane & 3;
   const bool segments = q_seg != nullptr;
   const size_t q_off = static_cast<size_t>(bh) * lq;
   const size_t kv_off = static_cast<size_t>(bh) * lkv;
+  const int* q_seg_b = segments ? q_seg + static_cast<size_t>(b) * lq : nullptr;
 
-  load_tile<D>(k + kv_off * D, ks, kv0, lkv);
-  load_tile<D>(v + kv_off * D, vs, kv0, lkv);
-
-  int key_seg[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int key = kv0 + tx + 16 * j;
-    key_seg[j] = (segments && key < lkv) ? kv_seg[static_cast<size_t>(b) * lkv + key] : 0;
-  }
-  // dk and dv of keys kv0 + 4*ty + i, the columns of ColMap
-  float dk_acc[4][kPer], dv_acc[4][kPer];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int c = 0; c < kPer; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
+  // this lane's two keys: rows g and g + 8 of the warp's 16
+  const int wrow = 16 * warp;
+  const int key0 = kv0 + wrow + (lane >> 2);
+  const int key1 = key0 + 8;
+  int kseg0 = 0, kseg1 = 0;
+  if (segments) {
+    if (key0 < lkv) kseg0 = kv_seg[static_cast<size_t>(b) * lkv + key0];
+    if (key1 < lkv) kseg1 = kv_seg[static_cast<size_t>(b) * lkv + key1];
   }
 
   // query tiles wholly above the diagonal see none of these keys: the first
   // tile to run is the one that holds query kv0
-  for (int q0 = causal ? kv0 : 0; q0 < lq; q0 += kBlock) {
-    __syncthreads();  // the previous tile's readers are done with qs, dos, ps, dss
-    load_tile<D>(q + q_off * D, qs, q0, lq);
-    load_tile<D>(dout + q_off * D, dos, q0, lq);
-    __syncthreads();
+  const int q_begin = causal ? kv0 : 0;
+  const int n_tiles = q_begin < lq ? (lq - q_begin + kBlock - 1) / kBlock : 0;
+  auto load_q = [&](int t) {
+    const int stage = t & 1;
+    const int q0 = q_begin + t * kBlock;
+    load_tile_f32_async<D>(qs + stage * kTile, q + q_off * D, q0, lq, tid);
+    load_tile_f32_async<D>(dos + stage * kTile, dout + q_off * D, q0, lq, tid);
+    load_vec_async(lse_s + stage * kBlock, lse + q_off, q0, lq, tid);
+    load_vec_async(delta_s + stage * kBlock, delta + q_off, q0, lq, tid - kBlock);
+    if (segments) load_vec_async(q_segs + stage * kBlock, q_seg_b, q0, lq, tid);
+  };
 
-    int row_seg[4];
-    float row_lse[4], row_delta[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = q0 + 4 * ty + i;
-      row_seg[i] = (segments && r < lq) ? q_seg[static_cast<size_t>(b) * lq + r] : 0;
-      row_lse[i] = r < lq ? lse[q_off + r] : 0.f;
-      row_delta[i] = r < lq ? delta[q_off + r] : 0.f;
-    }
-    float s[4][4] = {}, dp[4][4] = {};
-    tile_dot<D>(qs, ks, s, ty, tx);
-    tile_dot<D>(dos, vs, dp, ty, tx);
-    probs_and_grads(s, dp, row_lse, row_delta, row_seg, key_seg, q0, kv0, lq, lkv, ty, tx,
-                    causal, segments, sm_scale);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        ps[(4 * ty + i) * kP + tx + 16 * j] = s[i][j];
-        dss[(4 * ty + i) * kP + tx + 16 * j] = dp[i][j];
-      }
-    }
-    __syncthreads();
+  // One sweep over the query tiles: dv += p^T . dO (kPart & 1) and dk +=
+  // ds^T . Q (kPart & 2). At D = 128 dv and dk take a sweep each, so that a
+  // warp holds one [16, 128] accumulator and not two; the second sweep
+  // recomputes s^T (a fifth product) and reads Q and dO again.
+  auto sweep = [&](auto part, float (&dv_acc)[D / 8][4], float (&dk_acc)[D / 8][4]) {
+    constexpr int kPart = decltype(part)::value;
+    if (n_tiles > 0) load_q(0);
+    cp_async_commit();
+    for (int t = 0; t < n_tiles; ++t) {
+      const int q0 = q_begin + t * kBlock;
+      const int stage = t & 1;
+      cp_async_wait<0>();
+      __syncthreads();  // tile t has landed, and every warp is done with tile t - 1
+      if (t + 1 < n_tiles) load_q(t + 1);  // into the stage tile t - 1 used
+      cp_async_commit();
+      const float* qt = qs + stage * kTile;
+      const float* dot = dos + stage * kTile;
+      const float* lse_t = lse_s + stage * kBlock;
+      const float* delta_t = delta_s + stage * kBlock;
+      const int* seg_t = q_segs + stage * kBlock;
 
-    // dv[key] += sum_q p[q][key] * do[q]; dk[key] += sum_q ds[q][key] * q[q]
-#pragma unroll 4
-    for (int qq = 0; qq < kBlock; ++qq) {
-      const float4 pk = *reinterpret_cast<const float4*>(ps + qq * kP + 4 * ty);
-      const float4 dsk = *reinterpret_cast<const float4*>(dss + qq * kP + 4 * ty);
-      const float pw[4] = {pk.x, pk.y, pk.z, pk.w};
-      const float dw[4] = {dsk.x, dsk.y, dsk.z, dsk.w};
 #pragma unroll
-      for (int c = 0; c < Cols::kGroups; ++c) {
-        float dov[Cols::kG], qv[Cols::kG];
-        lds<Cols::kG>(dos + qq * kS + Cols::col(tx, c), dov);
-        lds<Cols::kG>(qs + qq * kS + Cols::col(tx, c), qv);
+      for (int qc = 0; qc < kBlock; qc += kQChunk) {
+        // p^T for the warp's 16 keys and queries qc .. qc + kQChunk, then
+        // dv += p^T . dO; only then dp^T, ds^T and dk += ds^T . Q, so that
+        // dp^T is not live beside p^T during the first product. The lane
+        // holds queries qc + 8j + 2 * t4 + (e & 1); the queries of a step
+        // are its k index in acc_to_a_tf32's order.
+        float st[kQTiles][4];
+        tf32_scores<D>(st, ks, wrow, qt, qc, lane);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int j = 0; j < kQTiles; ++j) {
+          const int col = qc + 8 * j + 2 * t4;
+          const float2 row_lse = *reinterpret_cast<const float2*>(lse_t + col);
 #pragma unroll
-          for (int e = 0; e < Cols::kG; ++e) {
-            dv_acc[i][c * Cols::kG + e] = fmaf(pw[i], dov[e], dv_acc[i][c * Cols::kG + e]);
-            dk_acc[i][c * Cols::kG + e] = fmaf(dw[i], qv[e], dk_acc[i][c * Cols::kG + e]);
+          for (int e = 0; e < 4; ++e) {
+            const int query = q0 + col + (e & 1);
+            const int key = e < 2 ? key0 : key1;
+            float x = st[j][e] * sm_scale;
+            if (masked(causal, segments, query, key, segments ? seg_t[col + (e & 1)] : 0,
+                       e < 2 ? kseg0 : kseg1)) {
+              x = kMaskValue;
+            }
+            st[j][e] = (query < lq && key < lkv)
+                           ? exp2f((x - ((e & 1) ? row_lse.y : row_lse.x)) * kLog2e)
+                           : 0.f;
           }
+        }
+        if constexpr ((kPart & 1) != 0) tf32_grads<D>(dv_acc, st, dot, qc, lane);
+
+        if constexpr ((kPart & 2) != 0) {
+          float dpt[kQTiles][4];
+          tf32_scores<D>(dpt, vs, wrow, dot, qc, lane);
+#pragma unroll
+          for (int j = 0; j < kQTiles; ++j) {
+            const float2 row_delta =
+                *reinterpret_cast<const float2*>(delta_t + qc + 8 * j + 2 * t4);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              dpt[j][e] = st[j][e] * (dpt[j][e] - ((e & 1) ? row_delta.y : row_delta.x)) *
+                          sm_scale;
+            }
+          }
+          tf32_grads<D>(dk_acc, dpt, qt, qc, lane);
         }
       }
     }
-  }
+    cp_async_wait<0>();
+    __syncthreads();  // every warp is done with the ring before it is loaded again
+  };
 
-  const float one[4] = {1.f, 1.f, 1.f, 1.f};
-  store_rows<D>(dk + kv_off * D, dk_acc, one, kv0, lkv, ty, tx);
-  store_rows<D>(dv + kv_off * D, dv_acc, one, kv0, lkv, ty, tx);
+  load_tile_f32_async<D>(ks, k + kv_off * D, kv0, lkv, tid);  // committed with q tile 0
+  load_tile_f32_async<D>(vs, v + kv_off * D, kv0, lkv, tid);
+  if constexpr (D == 128) {
+    float acc[D / 8][4];
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+    sweep(std::integral_constant<int, 1>{}, acc, acc);
+    store_acc_f32<D>(dv + kv_off * D, acc, kv0 + wrow, lkv, lane);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+    sweep(std::integral_constant<int, 2>{}, acc, acc);
+    store_acc_f32<D>(dk + kv_off * D, acc, kv0 + wrow, lkv, lane);
+  } else {
+    float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+    }
+    sweep(std::integral_constant<int, 3>{}, dv_acc, dk_acc);
+    store_acc_f32<D>(dv + kv_off * D, dv_acc, kv0 + wrow, lkv, lane);
+    store_acc_f32<D>(dk + kv_off * D, dk_acc, kv0 + wrow, lkv, lane);
+  }
 }
+
+// --- bf16: one pass on the tensor cores ---
 
 template <int D>
 constexpr size_t dkv_mma_smem_bytes() {
@@ -637,10 +821,10 @@ int launch_dq(const Args& a, int is_bf16, void* dq) {
         static_cast<bf16*>(dq), a.q_seg, a.kv_seg, a.heads, a.lq, a.lkv, n_qtiles, a.causal,
         a.sm_scale);
   } else {
-    constexpr size_t smem = dq_smem_bytes<D>();
-    cudaError_t err = allow_smem(flash_bwd_dq_kernel<D>, smem);
+    constexpr size_t smem = dq_tf32_smem_bytes<D>();
+    cudaError_t err = allow_smem(flash_bwd_dq_tf32_kernel<D>, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    flash_bwd_dq_kernel<D><<<a.bh * n_qtiles, kThreads, smem, a.stream>>>(
+    flash_bwd_dq_tf32_kernel<D><<<a.bh * n_qtiles, kMmaThreads, smem, a.stream>>>(
         static_cast<const float*>(a.q), static_cast<const float*>(a.k),
         static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse, a.delta,
         static_cast<float*>(dq), a.q_seg, a.kv_seg, a.heads, a.lq, a.lkv, n_qtiles, a.causal,
@@ -662,10 +846,10 @@ int launch_dkv(const Args& a, int is_bf16, void* dk, void* dv) {
         static_cast<bf16*>(dk), static_cast<bf16*>(dv), a.q_seg, a.kv_seg, a.heads, a.lq, a.lkv,
         n_ktiles, a.causal, a.sm_scale);
   } else {
-    constexpr size_t smem = dkv_smem_bytes<D>();
-    cudaError_t err = allow_smem(flash_bwd_dkv_kernel<D>, smem);
+    constexpr size_t smem = dkv_tf32_smem_bytes<D>();
+    cudaError_t err = allow_smem(flash_bwd_dkv_tf32_kernel<D>, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    flash_bwd_dkv_kernel<D><<<a.bh * n_ktiles, kThreads, smem, a.stream>>>(
+    flash_bwd_dkv_tf32_kernel<D><<<a.bh * n_ktiles, kMmaThreads, smem, a.stream>>>(
         static_cast<const float*>(a.q), static_cast<const float*>(a.k),
         static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse, a.delta,
         static_cast<float*>(dk), static_cast<float*>(dv), a.q_seg, a.kv_seg, a.heads, a.lq,
@@ -700,8 +884,8 @@ int dispatch_dkv(const Args& a, int d, int is_bf16, void* dk, void* dv) {
 // or both set; d is 32, 64 or 128. They write dq [bh, lq, d] (K3), or dk and
 // dv [bh, lkv, d] (K4), in the input type, launch on `stream` without
 // synchronising and return the cudaGetLastError() code of the launch, or of
-// a refused shared-memory opt-in (0 on success). bf16 runs on the tensor
-// cores, f32 on the CUDA cores.
+// a refused shared-memory opt-in (0 on success). Both tiers run on the
+// tensor cores: bf16 in one pass, f32 in three TF32 passes.
 extern "C" int moc_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                 const float* lse, const float* delta, void* dq,
                                 const int* q_seg, const int* kv_seg, int bh, int heads, int lq,

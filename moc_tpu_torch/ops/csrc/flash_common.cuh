@@ -1,11 +1,13 @@
 // Pieces shared by the flash-attention kernels K2 (flash_fwd.cu) and K3/K4
 // (flash_bwd.cu): the tile size, the mask value and the mask test, which
-// every kernel uses, and for the f32 kernels on the CUDA cores tiles of 64
-// rows staged in shared memory as f32 and the map from a thread to the
-// output columns it owns. The bf16 tensor-core kernels take their pieces
-// from flash_mma.cuh.
+// every kernel uses; the f32 tile layout (Layout: 64 rows padded to D + 4
+// floats), which K2's f32 kernel and the f32 tier of K3/K4 (three TF32
+// passes on the tensor cores) both stage in shared memory; and, for K2's
+// f32 kernel, the last one on the CUDA cores, its tile loads, products and
+// stores and the map from a thread to the output columns it owns. The
+// tensor-core kernels take their other pieces from flash_mma.cuh.
 //
-// Every CUDA-core kernel runs 256 threads as a 16 x 16 grid: ty = tid >> 4 owns rows
+// K2's f32 kernel runs 256 threads as a 16 x 16 grid: ty = tid >> 4 owns rows
 // 4*ty .. 4*ty+3 of a 64-row tile, tx = tid & 15 owns keys tx + 16*j of a
 // 64-key tile in the score products, and the columns ColMap<D>::col(tx, c)
 // of a D-wide accumulator.
@@ -28,7 +30,9 @@ constexpr float kMaskValue = static_cast<float>(-0.7 * 3.4028234663852886e38);
 template <int D>
 struct Layout {
   static_assert(D == 32 || D == 64 || D == 128, "head dim 32, 64 or 128");
-  static constexpr int kStride = D + 4;       // floats per staged row (float4 reads free of bank conflicts)
+  // floats per staged row: float4 reads, ldmatrix phases and the TF32 tiers'
+  // scalar operand reads (rows 2t, 2t + 1 at column g) free of bank conflicts
+  static constexpr int kStride = D + 4;
   static constexpr int kPStride = kBlock + 4;  // floats per staged row of a 64 x 64 score tile
   static constexpr int kTile = kBlock * kStride;
   static constexpr int kPTile = kBlock * kPStride;

@@ -1,5 +1,6 @@
-// Tensor-core pieces shared by the bf16 flash-attention kernels: K2's
-// forward (flash_fwd.cu), K3's dq and K4's dk/dv (flash_bwd.cu).
+// Tensor-core pieces shared by the flash-attention kernels: K2's bf16
+// forward (flash_fwd.cu), K3's dq and K4's dk/dv in bf16 and in f32
+// (flash_bwd.cu).
 //
 // - cp_async16 / cp_async4: global -> shared copies (cp.async), zero-filled
 //   for rows at or past the end of a slab (the ragged 785-token edge), with
@@ -13,13 +14,24 @@
 // - mma_bf16: mma.sync m16n8k16, bf16 inputs, f32 accumulators;
 // - acc_to_a: two f32 accumulator fragments (16 x 16) rounded to bf16 as
 //   one A fragment, so P and dS pass from one product to the next in
-//   registers.
+//   registers;
+// - the f32 tier in three TF32 passes: a [64, D] f32 tile with rows padded
+//   to D + 4 floats (Layout<D>::kStride, loaded by load_tile_f32_async),
+//   ldmatrix of its untransposed operands, split_tf32 (x = hi + lo, both
+//   rounded by cvt.rna.tf32.f32), mma_3xtf32 (hi.hi + hi.lo + lo.hi on
+//   mma.sync m16n8k8, into a fresh accumulator that add_acc adds in f32),
+//   acc_to_a_tf32 (an accumulator n-tile as an A fragment, with the k index
+//   permuted so that no shuffle is needed) and tf32_b_pair (the B fragment
+//   that pairs with it, read as two scalars).
 //
 // A warp owns 16 rows of a product. In the fragments of mma.sync,
 // lane = 4 * g + t: an accumulator n-tile holds rows g and g + 8, columns
-// 2t and 2t + 1 (elements 0, 1 and 2, 3); an A fragment holds (row g, cols
-// 2t..2t+1), (g + 8, 2t..), (g, 2t + 8..), (g + 8, 2t + 8..); a B fragment
-// holds (k 2t..2t+1, col g) and (k 2t + 8.., col g).
+// 2t and 2t + 1 (elements 0, 1 and 2, 3); a bf16 A fragment (m16n8k16)
+// holds (row g, cols 2t..2t+1), (g + 8, 2t..), (g, 2t + 8..), (g + 8,
+// 2t + 8..); a bf16 B fragment holds (k 2t..2t+1, col g) and (k 2t + 8..,
+// col g). A TF32 A fragment (m16n8k8) holds (row g, k t), (g + 8, t),
+// (g, t + 4), (g + 8, t + 4); a TF32 B fragment (k t, col g), (k t + 4,
+// col g).
 
 #pragma once
 
@@ -200,6 +212,141 @@ __device__ __forceinline__ void store_rows_16(bf16* __restrict__ dst, const bf16
           *reinterpret_cast<const uint4*>(tile + Tile<D>::offset(row, chunk));
     }
   }
+}
+
+// ---- the f32 tier: three TF32 passes ----
+//
+// One TF32 pass keeps 10 bits of each mantissa, about three decimal digits,
+// which misses the JAX package's f32 backward tolerance. Each f32 operand x
+// is split into hi = tf32(x) and lo = tf32(x - hi), both rounded to nearest
+// with ties away from zero (cvt.rna); x - hi is exact in f32, so x = hi + lo
+// within 2^-22 |x|. hi.hi + hi.lo + lo.hi leaves out lo.lo (at most
+// 2^-22 |ab|): every product is within a few units in 2^-22 of its f32
+// value, and the sums over k-steps are f32 adds, rounded to nearest (see
+// mma_3xtf32). Nothing here reads or sets the process-global TF32 flags:
+// the split is this code's own.
+
+// rows [r0, r0 + 64) of a row-major [len, D] f32 slab into a [64, D] tile of
+// rows padded to Layout<D>::kStride floats, by cp.async from all
+// kMmaThreads threads; rows at or past `len` are zero. The padding of four
+// floats puts the eight 16-byte rows of an ldmatrix phase on eight distinct
+// bank groups, and the lanes of a scalar operand read (tf32_b_pair) on 32
+// distinct banks.
+template <int D>
+__device__ __forceinline__ void load_tile_f32_async(float* __restrict__ dst,
+                                                    const float* __restrict__ src, int r0,
+                                                    int len, int tid) {
+  constexpr int kChunks = D / 4;  // 16-byte chunks per row
+  static_assert(kBlock * kChunks % kMmaThreads == 0, "whole chunks per thread");
+#pragma unroll
+  for (int i = 0; i < kBlock * kChunks / kMmaThreads; ++i) {
+    const int e = tid + i * kMmaThreads;
+    const int row = e / kChunks;
+    const int chunk = e % kChunks;
+    const bool valid = r0 + row < len;
+    const float* s = src + static_cast<size_t>(valid ? r0 + row : 0) * D + chunk * 4;
+    cp_async16(dst + row * Layout<D>::kStride + chunk * 4, s, valid);
+  }
+}
+
+// ldmatrix of four 8 x 8 b16 matrices from an f32 tile: each 16-byte row is
+// four floats, so lane 4g + t receives float t of row g of each matrix,
+// which is a TF32 fragment's own layout
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const float* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// The lane's ldmatrix row address in an f32 tile (rows of kStride floats)
+// whose rows start at `row0`, at k-step `ks` (columns 8ks .. 8ks + 7):
+// - A (16 rows x 8 k): r[0..3] are a0..a3;
+// - B from a [n][k] tile (keys x d for S = Q.K^T): n rows row0..row0+15 (two
+//   n-tiles); r[0..1] are b0, b1 of n-tile 0 and r[2..3] of n-tile 1.
+template <int D>
+__device__ __forceinline__ const float* a_addr_f32(const float* tile, int row0, int ks,
+                                                   int lane) {
+  return tile + (row0 + (lane & 15)) * Layout<D>::kStride + 8 * ks + 4 * (lane >> 4);
+}
+
+template <int D>
+__device__ __forceinline__ const float* b_addr_f32(const float* tile, int row0, int ks,
+                                                   int lane) {
+  return tile + (row0 + (lane & 7) + 8 * (lane >> 4)) * Layout<D>::kStride + 8 * ks +
+         4 * ((lane >> 3) & 1);
+}
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+template <int N>
+__device__ __forceinline__ void split_tf32(const uint32_t (&x)[N], uint32_t (&hi)[N],
+                                           uint32_t (&lo)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) split_tf32(__uint_as_float(x[i]), hi[i], lo[i]);
+}
+
+// d += a . b over one m16n8k8 step, TF32 inputs, f32 accumulators
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// t += a . b over one k-step in three TF32 passes, the two small terms
+// first. The tensor core rounds its sum toward zero, so a running sum kept
+// inside it drifts by half a unit in its last place at each of its 3 L / 8
+// mma: on an H100 at L = 512 that came to 1e-5 of the largest |grad|. So
+// `t` is a fresh accumulator that spans at most two k-steps, and add_acc
+// takes it into the running sum by f32 adds, rounded to nearest: 2e-6 of
+// the largest |grad| there. It also keeps the chains of dependent mma
+// short.
+__device__ __forceinline__ void mma_3xtf32(float (&t)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], uint32_t bh0, uint32_t bh1,
+                                           uint32_t bl0, uint32_t bl1) {
+  mma_tf32(t, al, bh0, bh1);
+  mma_tf32(t, ah, bl0, bl1);
+  mma_tf32(t, ah, bh0, bh1);
+}
+
+__device__ __forceinline__ void add_acc(float (&d)[4], const float (&t)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) d[e] += t[e];
+}
+
+// One accumulator n-tile (16 rows x 8 columns) as the A fragment of an
+// m16n8k8 step over those 8 columns, split into hi and lo. The lane holds
+// columns 2t and 2t + 1, where A wants k = t and t + 4, so the step takes
+// its k index in the order of the columns 0, 2, 4, 6, 1, 3, 5, 7: k = t is
+// column 2t and k = t + 4 is column 2t + 1. The B operand of the same step
+// reads its rows in that order (tf32_b_pair), and no shuffle is needed.
+__device__ __forceinline__ void acc_to_a_tf32(uint32_t (&hi)[4], uint32_t (&lo)[4],
+                                              const float (&c)[4]) {
+  split_tf32(c[0], hi[0], lo[0]);
+  split_tf32(c[2], hi[1], lo[1]);
+  split_tf32(c[1], hi[2], lo[2]);
+  split_tf32(c[3], hi[3], lo[3]);
+}
+
+// The B fragment, split, of a step whose k index is permuted as in
+// acc_to_a_tf32: `p` points at row 2t (of the step's 8 rows) and column g
+// of a [k][n] f32 tile with rows of kStride floats; b0 is that row and b1
+// the next. With kStride = 4 mod 32 the 32 lanes read 32 distinct banks.
+template <int D>
+__device__ __forceinline__ void tf32_b_pair(const float* p, uint32_t& h0, uint32_t& h1,
+                                            uint32_t& l0, uint32_t& l1) {
+  split_tf32(p[0], h0, l0);
+  split_tf32(p[Layout<D>::kStride], h1, l1);
 }
 
 }  // namespace flash

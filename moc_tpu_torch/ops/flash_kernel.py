@@ -14,25 +14,31 @@ rowsum(do * o)`` they recompute the probabilities and return ``dq``, and
 ``(dk, dv)``, in the input type. Their plain PyTorch version is
 ``moc_tpu_torch.ops.flash_attention.flash_bwd_reference``.
 
-Bound: operations. At the extraction shape ``[64, 12, 785, 64]`` K2's work is
-4·64·12·785²·64 = 121 GFLOP: 1.81 ms in f32 at the H100's 67 TFLOP/s outside
-the tensor cores and 0.12 ms in bf16 at 989 TFLOP/s, while its bytes (q, k,
-v and o, 154 MB each in f32) take about 0.18 ms at 3.35 TB/s. At the
-pretraining shape ``[32, 12, 512, 64]`` K3 does 6·B·H·L²·D = 38.7 GFLOP and
-K4 8·B·H·L²·D = 51.5 GFLOP: 0.58 and 0.77 ms in f32, against 0.08-0.09 ms
-for their bytes.
+Bound: operations. In f32 the least time for f32-accurate work on an H100 is
+three TF32 passes of every product at 495 TFLOP/s; in bf16 one pass at 989
+TFLOP/s. At the extraction shape ``[64, 12, 785, 64]`` K2's work is
+4·64·12·785²·64 = 121 GFLOP: 0.73 ms in f32 and 0.12 ms in bf16, while its
+bytes (q, k, v and o, 154 MB each in f32) take about 0.18 ms at 3.35 TB/s.
+At the pretraining shape ``[32, 12, 512, 64]`` K3 does 6·B·H·L²·D = 38.7
+GFLOP and K4 8·B·H·L²·D = 51.5 GFLOP: 0.2345 and 0.312 ms in f32, against
+0.08-0.09 ms for their bytes.
 
 Design: one CTA per (b·h, 64-row tile): K2 and K3 own a query tile and loop
 over 64-key K/V tiles; K4 owns a key tile and loops over the query tiles, so
 no tile is reduced across CTAs and nothing needs atomics. Running sums are
-in f32 registers. In f32 every product runs on the CUDA cores in f32 (TF32
-would miss the JAX package's f32 tolerance). In bf16 all three run on the
-tensor cores (``mma.sync`` on tiles streamed by ``cp.async``,
-``csrc/flash_mma.cuh``): exact bf16 products summed in f32, so they match the
-plain version within the bf16 tolerance rather than bit for bit. Any Lq and
-Lkv: the ragged edge is masked by bounds, so the vision trunk's 785 tokens
-need no padding to a lane multiple. Head dims 32, 64 and 128. A bf16 CUDA
-tensor reaches the tensor-core kernels and nothing else.
+in f32 registers. K2 in f32 runs on the CUDA cores in f32. K3 and K4 in f32
+run on the tensor cores in three TF32 passes (hi·hi + hi·lo + lo·hi of
+operands split as hi = tf32(x), lo = tf32(x - hi), inside the kernel, with
+no process-global TF32 flag read or set): one pass would miss the JAX
+package's f32 tolerance, three hold it and stay within 1e-5 of the largest
+|grad| of the plain version. In bf16 all three run on the tensor cores
+(``mma.sync`` on tiles streamed by ``cp.async``, ``csrc/flash_mma.cuh``):
+exact bf16 products summed in f32. On the tensor cores the kernels sum in
+another order than the plain version, so they match it within a tolerance
+rather than bit for bit. Any Lq and Lkv: the ragged edge is masked by bounds,
+so the vision trunk's 785 tokens need no padding to a lane multiple. Head
+dims 32, 64 and 128. A bf16 CUDA tensor reaches the bf16 tensor-core kernels
+and nothing else, an f32 one the f32 kernels.
 
 The wrappers take CUDA tensors only and raise on anything else; callers
 send CPU tensors to the plain versions instead. ``flash_fwd_cuda`` alone is

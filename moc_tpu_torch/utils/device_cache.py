@@ -23,8 +23,9 @@ import torch
 
 _cache: dict[bytes, tuple[torch.Tensor, ...]] = {}
 # id(array) -> (weakref, digest), for read-only arrays only (writing to one
-# raises, so the bytes behind a memoized digest cannot change); the weakref
-# guards against id() reuse after garbage collection
+# raises, so the bytes behind a memoized digest cannot change); the weakref's
+# callback drops the entry when its array is collected, before the id can be
+# reused, and the lookup checks the weakref as well
 _digest_memo: dict[int, tuple] = {}
 
 
@@ -40,10 +41,8 @@ def _array_digest(a: np.ndarray) -> bytes:
     h.update(memoryview(a).cast("B"))
     d = h.digest()
     if memo_ok:
-        if len(_digest_memo) > 64:  # drop dead references, bound the map
-            for k in [k for k, (r, _) in _digest_memo.items() if r() is None]:
-                del _digest_memo[k]
-        _digest_memo[id(a)] = (weakref.ref(a), d)
+        key = id(a)
+        _digest_memo[key] = (weakref.ref(a, lambda _, k=key: _digest_memo.pop(k, None)), d)
     return d
 
 

@@ -26,6 +26,11 @@ K2_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # K3/K4: the JAX package's flash backward tolerance in f32; in bf16, a share
 # of the largest gradient (dS and P are rounded to bf16 before the products)
 BWD_TOL = {torch.float32: 5e-4, torch.bfloat16: 2e-2}
+# f32 K3/K4 against their plain version, beside BWD_TOL: max |kernel - plain|
+# at most 1e-5 of the largest |grad| of the three. The kernels take every
+# product in three TF32 passes, each within a few units in 2^-22 of f32; one
+# pass would miss this limit.
+F32_BWD_MAX_REL = 1e-5
 # bf16 K2, K3 and K4, beside the limits above: the summed |kernel - plain| at most
 # 1% of the summed |plain|, so that a wrong mask or a dropped tile, which may
 # stay under a limit on the largest element, fails
@@ -274,16 +279,21 @@ def _bwd_case(gen, lq, lkv, d, dtype, segments, causal, b=2, h=3):
     return q, k, v, o, lse, do, qs, ks
 
 
-def _assert_bwd_close(got, want, dtype, dq_mean=False):
+def _assert_bwd_close(got, want, dtype, dq_mean=False, f32_max_rel=False):
     # bf16: within 2e-2 of the largest |grad| of the three (dq alone is
     # rounding noise when every row has one key: dP - delta is 0 there), and
-    # with dq_mean, where dq is not noise, dq alone to BF16_MEAN_REL
+    # with dq_mean, where dq is not noise, dq alone to BF16_MEAN_REL; f32 with
+    # f32_max_rel (against the plain version): also within F32_BWD_MAX_REL of
+    # the largest |grad| of the three
     largest = max(w.float().abs().max().item() for w in want)
     for g, w, name in zip(got, want, ("dq", "dk", "dv")):
         assert g.dtype == dtype and g.shape == w.shape, name
         if dtype == torch.float32:
             torch.testing.assert_close(g, w, rtol=BWD_TOL[dtype], atol=BWD_TOL[dtype],
                                        msg=name)
+            if f32_max_rel:
+                err = (g - w).abs().max().item()
+                assert err <= F32_BWD_MAX_REL * largest, (name, err, largest)
         else:
             err = (g.float() - w.float()).abs().max().item()
             assert err <= BWD_TOL[dtype] * largest, (name, err)
@@ -312,7 +322,7 @@ def test_k3_k4_match_plain(gen, dtype, d, length, causal, segments):
     q, k, v, o, lse, do, qs, ks = _bwd_case(gen, length, length, d, dtype, segments, causal)
     got = _k3_k4(q, k, v, o, lse, do, qs, ks, causal)
     want = flash_bwd_reference(q, k, v, o, lse, do, qs, ks, causal)
-    _assert_bwd_close(got, want, dtype, dq_mean=length > 1)
+    _assert_bwd_close(got, want, dtype, dq_mean=length > 1, f32_max_rel=True)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -325,7 +335,7 @@ def test_k3_k4_unequal_lengths(gen, dtype, lq, lkv, causal):
     q, k, v, o, lse, do, qs, ks = _bwd_case(gen, lq, lkv, 128, dtype, False, causal)
     got = _k3_k4(q, k, v, o, lse, do, None, None, causal)
     _assert_bwd_close(got, flash_bwd_reference(q, k, v, o, lse, do, None, None, causal),
-                      dtype)
+                      dtype, f32_max_rel=True)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -334,7 +344,8 @@ def test_k3_k4_match_plain_at_pretrain_shape(gen, dtype):
     at batch 32 and sequence 512."""
     q, k, v, o, lse, do, _, _ = _bwd_case(gen, 512, 512, 64, dtype, False, False, b=32, h=12)
     got = _k3_k4(q, k, v, o, lse, do, None, None, False)
-    _assert_bwd_close(got, flash_bwd_reference(q, k, v, o, lse, do), dtype, dq_mean=True)
+    _assert_bwd_close(got, flash_bwd_reference(q, k, v, o, lse, do), dtype, dq_mean=True,
+                      f32_max_rel=True)
 
 
 def test_k3_bf16_packed_causal_d128(gen):
@@ -359,6 +370,51 @@ def test_k3_bf16_packed_causal_d128(gen):
     err = (dq.float() - want.float()).abs().max().item()
     assert err <= BWD_TOL[torch.bfloat16] * want.float().abs().max().item(), err
     _assert_mean_close([dq], [want], torch.bfloat16)
+
+
+def test_k3_k4_f32_packed_causal_d128(gen):
+    """The f32 counterpart of the case above, for K3 and K4: D = 128 (keys
+    and queries taken in passes of 32 and 16), L 785, causal with packed
+    sequences cut inside tiles; within 5e-4 and within 1e-5 of the largest
+    |grad| of the plain version, one launch of each per call."""
+    length, d = 785, 128
+    q, k, v, do = (torch.randn((2, 3, length, d), generator=gen, device="cuda")
+                   for _ in range(4))
+    cuts = torch.tensor([100, 261, 500, 700], device="cuda")
+    seg = (torch.arange(length, device="cuda")[:, None] >= cuts).sum(1).int()[None].repeat(2, 1)
+    with torch.no_grad():
+        o, lse = flash_fwd_cuda(q, k, v, seg, seg, causal=True)
+    for _ in range(2):
+        got = _k3_k4(q, k, v, o, lse, do, seg, seg, True)
+    want = flash_bwd_reference(q, k, v, o, lse, do, seg, seg, True)
+    _assert_bwd_close(got, want, torch.float32, f32_max_rel=True)
+
+
+def test_backward_leaves_tf32_flags_alone(gen):
+    """A backward through ``flash_attention`` on the card leaves the
+    process-global TF32 flags as it found them, under each of their four
+    settings, and its f32 gradients do not depend on them: the kernels split
+    their operands for the TF32 passes themselves."""
+    q, k, v, _, _, do, _, _ = _bwd_case(gen, 300, 300, 64, torch.float32, False, True)
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    grads = []
+    try:
+        for matmul in (False, True):
+            for cudnn in (False, True):
+                torch.backends.cuda.matmul.allow_tf32 = matmul
+                torch.backends.cudnn.allow_tf32 = cudnn
+                before = (flash_bwd_dq_cuda.launches, flash_bwd_dkv_cuda.launches)
+                grads.append(_grads(lambda q, k, v: flash_attention(q, k, v, causal=True),
+                                    q, k, v, do))
+                torch.cuda.synchronize()
+                assert (flash_bwd_dq_cuda.launches, flash_bwd_dkv_cuda.launches) == (
+                    before[0] + 1, before[1] + 1)
+                assert (torch.backends.cuda.matmul.allow_tf32,
+                        torch.backends.cudnn.allow_tf32) == (matmul, cudnn)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    for other in grads[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(grads[0], other))
 
 
 def _grads(fn, q, k, v, do, dlse=None):
