@@ -52,10 +52,10 @@
 // f32 (flash_bwd_dq_tf32_kernel, flash_bwd_dkv_tf32_kernel): the bf16
 // kernels' loop on f32 tiles (rows padded to D + 4 floats: 104 KB of shared
 // memory at D = 64, two CTAs an SM; 203 KB at D = 128), every product in
-// three m16n8k8 TF32 passes of operands split by cvt.rna. The untransposed
-// operands (Q, dO, K, V of S and dP) are read by ldmatrix; there is no
-// 32-bit ldmatrix.trans, so the operands that the bf16 kernels read
-// transposed (K of ds . K, dO and Q of K4's gradients) are read as scalar
+// three m16n8k8 TF32 passes of operands split as cvt.rna rounds. The
+// untransposed operands (Q, dO, K, V of S and dP) are read by ldmatrix;
+// there is no 32-bit ldmatrix.trans, so the operands that the bf16 kernels
+// read transposed (K of ds . K, dO and Q of K4's gradients) are read as scalar
 // pairs from the same padded tile, on 32 distinct banks. The accumulator
 // holds columns 2t and 2t + 1 where a TF32 A fragment wants t and t + 4:
 // each 8-wide k-step takes its k index in the order 0, 2, 4, 6, 1, 3, 5, 7
@@ -103,105 +103,23 @@ using namespace flash;
 
 // --- f32: three TF32 passes on the tensor cores ---
 
-// acc[j] = (16 rows of a from row `arow`) . (rows b0 + 8j .. b0 + 8j + 7 of
-// bt)^T over D, for the NT n-tiles of a pass: S, dP (K3) or s^T, dp^T (K4).
-// Two k-steps a fresh accumulator; the A fragments of both steps are split
-// once and serve every n-tile.
-template <int D, int NT>
-__device__ __forceinline__ void tf32_scores(float (&acc)[NT][4], const float* a, int arow,
-                                            const float* bt, int b0, int lane) {
-  static_assert(NT % 2 == 0, "n-tiles in pairs");
-#pragma unroll
-  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-#pragma unroll 1
-  for (int ks = 0; ks < D / 8; ks += 2) {
-    uint32_t x[4], ah0[4], al0[4], ah1[4], al1[4];
-    ldsm_x4(x, a_addr_f32<D>(a, arow, ks, lane));
-    split_tf32(x, ah0, al0);
-    ldsm_x4(x, a_addr_f32<D>(a, arow, ks + 1, lane));
-    split_tf32(x, ah1, al1);
-#pragma unroll
-    for (int jj = 0; jj < NT / 2; ++jj) {
-      float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
-      uint32_t h[4], l[4];
-      ldsm_x4(x, b_addr_f32<D>(bt, b0 + 16 * jj, ks, lane));
-      split_tf32(x, h, l);
-      mma_3xtf32(t0, ah0, al0, h[0], h[1], l[0], l[1]);
-      mma_3xtf32(t1, ah0, al0, h[2], h[3], l[2], l[3]);
-      ldsm_x4(x, b_addr_f32<D>(bt, b0 + 16 * jj, ks + 1, lane));
-      split_tf32(x, h, l);
-      mma_3xtf32(t0, ah1, al1, h[0], h[1], l[0], l[1]);
-      mma_3xtf32(t1, ah1, al1, h[2], h[3], l[2], l[3]);
-      add_acc(acc[2 * jj], t0);
-      add_acc(acc[2 * jj + 1], t1);
-    }
-  }
-}
-
-// acc[n] += w . (rows r0 .. r0 + 8 NT - 1 of bt), w being NT accumulator
-// n-tiles (16 rows x 8 NT columns: ds for dq, p^T or ds^T for dv or dk)
-// taken as the A operand with the k index of acc_to_a_tf32; two k-steps a
-// fresh accumulator
-template <int D, int NT>
-__device__ __forceinline__ void tf32_grads(float (&acc)[D / 8][4], const float (&w)[NT][4],
-                                           const float* bt, int r0, int lane) {
-  static_assert(NT % 2 == 0, "k-steps in pairs");
-  constexpr int kS = Layout<D>::kStride;
-#pragma unroll
-  for (int kk = 0; kk < NT; kk += 2) {
-    uint32_t ah0[4], al0[4], ah1[4], al1[4];
-    acc_to_a_tf32(ah0, al0, w[kk]);
-    acc_to_a_tf32(ah1, al1, w[kk + 1]);
-    const float* b = bt + (r0 + 8 * kk + 2 * (lane & 3)) * kS + (lane >> 2);
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      float t[4] = {0.f, 0.f, 0.f, 0.f};
-      uint32_t h0, h1, l0, l1;
-      tf32_b_pair<D>(b + 8 * n, h0, h1, l0, l1);
-      mma_3xtf32(t, ah0, al0, h0, h1, l0, l1);
-      tf32_b_pair<D>(b + 8 * kS + 8 * n, h0, h1, l0, l1);
-      mma_3xtf32(t, ah1, al1, h0, h1, l0, l1);
-      add_acc(acc[n], t);
-    }
-  }
-}
-
-// a warp's [16, D] f32 accumulator (rows r and r + 8 of n-tiles of 8
-// columns, r = row0 + g) into a row-major [len, D] f32 slab; rows at or
-// past `len` dropped
-template <int D>
-__device__ __forceinline__ void store_acc_f32(float* __restrict__ dst, const float (&acc)[D / 8][4],
-                                              int row0, int len, int lane) {
-  const int r = row0 + (lane >> 2);
-  const int col = 2 * (lane & 3);
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    if (r < len) {
-      *reinterpret_cast<float2*>(dst + static_cast<size_t>(r) * D + 8 * n + col) =
-          make_float2(acc[n][0], acc[n][1]);
-    }
-    if (r + 8 < len) {
-      *reinterpret_cast<float2*>(dst + static_cast<size_t>(r + 8) * D + 8 * n + col) =
-          make_float2(acc[n][2], acc[n][3]);
-    }
-  }
-}
-
 template <int D>
 constexpr size_t dq_tf32_smem_bytes() {
   // Q and dO; two stages of K and V (f32 rows padded to D + 4); two of the key segment ids
   return sizeof(float) * 6 * Layout<D>::kTile + 2 * kBlock * sizeof(int);
 }
 
+// At least one CTA an SM, not the default, under which ptxas holds the
+// kernel to 168 registers at D = 32 and it spills there.
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
+__global__ void __launch_bounds__(kMmaThreads, 1)
 flash_bwd_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, const float* __restrict__ dout,
                          const float* __restrict__ lse, const float* __restrict__ delta,
                          float* __restrict__ dq, const int* __restrict__ q_seg,
                          const int* __restrict__ kv_seg, int heads, int lq, int lkv, int n_qtiles,
                          int causal, float sm_scale) {
-  // keys per pass: the register budget (at D = 32 ptxas holds the kernel to 168)
+  // keys per pass: the register budget
   constexpr int kKeyChunk = D == 128 ? 16 : D == 64 ? 64 : 32;
   constexpr int kKeyTiles = kKeyChunk / 8;       // n-tiles of S and dP in a pass
   constexpr int kTile = Layout<D>::kTile;

@@ -1,6 +1,6 @@
-// Tensor-core pieces shared by the flash-attention kernels: K2's bf16
-// forward (flash_fwd.cu), K3's dq and K4's dk/dv in bf16 and in f32
-// (flash_bwd.cu).
+// Tensor-core pieces shared by the flash-attention kernels: K2's forward
+// (flash_fwd.cu), K3's dq and K4's dk/dv (flash_bwd.cu), each in bf16 and in
+// f32.
 //
 // - cp_async16 / cp_async4: global -> shared copies (cp.async), zero-filled
 //   for rows at or past the end of a slab (the ragged 785-token edge), with
@@ -18,11 +18,14 @@
 // - the f32 tier in three TF32 passes: a [64, D] f32 tile with rows padded
 //   to D + 4 floats (Layout<D>::kStride, loaded by load_tile_f32_async),
 //   ldmatrix of its untransposed operands, split_tf32 (x = hi + lo, both
-//   rounded by cvt.rna.tf32.f32), mma_3xtf32 (hi.hi + hi.lo + lo.hi on
+//   rounded as cvt.rna.tf32.f32 rounds), mma_3xtf32 (hi.hi + hi.lo + lo.hi on
 //   mma.sync m16n8k8, into a fresh accumulator that add_acc adds in f32),
 //   acc_to_a_tf32 (an accumulator n-tile as an A fragment, with the k index
-//   permuted so that no shuffle is needed) and tf32_b_pair (the B fragment
-//   that pairs with it, read as two scalars).
+//   permuted so that no shuffle is needed), tf32_b_pair (the B fragment
+//   that pairs with it, read as two scalars), and the two products built of
+//   them: tf32_scores (a warp's 16 rows times a tile's rows, transposed: S)
+//   and tf32_grads (accumulator n-tiles times a tile: P.V, dS.K), with
+//   store_acc_f32 for the result.
 //
 // A warp owns 16 rows of a product. In the fragments of mma.sync,
 // lane = 4 * g + t: an accumulator n-tile holds rows g and g + 8, columns
@@ -217,10 +220,10 @@ __device__ __forceinline__ void store_rows_16(bf16* __restrict__ dst, const bf16
 // ---- the f32 tier: three TF32 passes ----
 //
 // One TF32 pass keeps 10 bits of each mantissa, about three decimal digits,
-// which misses the JAX package's f32 backward tolerance. Each f32 operand x
-// is split into hi = tf32(x) and lo = tf32(x - hi), both rounded to nearest
-// with ties away from zero (cvt.rna); x - hi is exact in f32, so x = hi + lo
-// within 2^-22 |x|. hi.hi + hi.lo + lo.hi leaves out lo.lo (at most
+// which misses the JAX package's f32 tolerances, forward (2e-5) and backward
+// (5e-4). Each f32 operand x is split into hi = tf32(x) and lo = tf32(x -
+// hi), both rounded to nearest with ties away from zero (as cvt.rna rounds);
+// x - hi is exact in f32, so x = hi + lo within 2^-22 |x|. hi.hi + hi.lo + lo.hi leaves out lo.lo (at most
 // 2^-22 |ab|): every product is within a few units in 2^-22 of its f32
 // value, and the sums over k-steps are f32 adds, rounded to nearest (see
 // mma_3xtf32). Nothing here reads or sets the process-global TF32 flags:
@@ -276,10 +279,12 @@ __device__ __forceinline__ const float* b_addr_f32(const float* tile, int row0, 
          4 * ((lane >> 3) & 1);
 }
 
+// x rounded to TF32 as cvt.rna.tf32.f32 rounds it (to nearest, ties away
+// from zero): half a unit of the 13 dropped bits added to the magnitude,
+// then the bits dropped. Integer ops give the same bits; on an H100 K2 in
+// f32 took a fifth longer with the cvt (scripts/flash_fwd_variants.py).
 __device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
 }
 
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
@@ -347,6 +352,90 @@ __device__ __forceinline__ void tf32_b_pair(const float* p, uint32_t& h0, uint32
                                             uint32_t& l0, uint32_t& l1) {
   split_tf32(p[0], h0, l0);
   split_tf32(p[Layout<D>::kStride], h1, l1);
+}
+
+// acc[j] = (16 rows of a from row `arow`) . (rows b0 + 8j .. b0 + 8j + 7 of
+// bt)^T over D, for the NT n-tiles of a pass: S (K2, K3), dP (K3) or s^T,
+// dp^T (K4). Two k-steps a fresh accumulator; the A fragments of both steps
+// are split once and serve every n-tile.
+template <int D, int NT>
+__device__ __forceinline__ void tf32_scores(float (&acc)[NT][4], const float* a, int arow,
+                                            const float* bt, int b0, int lane) {
+  static_assert(NT % 2 == 0, "n-tiles in pairs");
+#pragma unroll
+  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+#pragma unroll 1
+  for (int ks = 0; ks < D / 8; ks += 2) {
+    uint32_t x[4], ah0[4], al0[4], ah1[4], al1[4];
+    ldsm_x4(x, a_addr_f32<D>(a, arow, ks, lane));
+    split_tf32(x, ah0, al0);
+    ldsm_x4(x, a_addr_f32<D>(a, arow, ks + 1, lane));
+    split_tf32(x, ah1, al1);
+#pragma unroll
+    for (int jj = 0; jj < NT / 2; ++jj) {
+      float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
+      uint32_t h[4], l[4];
+      ldsm_x4(x, b_addr_f32<D>(bt, b0 + 16 * jj, ks, lane));
+      split_tf32(x, h, l);
+      mma_3xtf32(t0, ah0, al0, h[0], h[1], l[0], l[1]);
+      mma_3xtf32(t1, ah0, al0, h[2], h[3], l[2], l[3]);
+      ldsm_x4(x, b_addr_f32<D>(bt, b0 + 16 * jj, ks + 1, lane));
+      split_tf32(x, h, l);
+      mma_3xtf32(t0, ah1, al1, h[0], h[1], l[0], l[1]);
+      mma_3xtf32(t1, ah1, al1, h[2], h[3], l[2], l[3]);
+      add_acc(acc[2 * jj], t0);
+      add_acc(acc[2 * jj + 1], t1);
+    }
+  }
+}
+
+// acc[n] += w . (rows r0 .. r0 + 8 NT - 1 of bt), w being NT accumulator
+// n-tiles (16 rows x 8 NT columns: p for o (K2), ds for dq, p^T or ds^T for
+// dv or dk) taken as the A operand with the k index of acc_to_a_tf32; two
+// k-steps a fresh accumulator
+template <int D, int NT>
+__device__ __forceinline__ void tf32_grads(float (&acc)[D / 8][4], const float (&w)[NT][4],
+                                           const float* bt, int r0, int lane) {
+  static_assert(NT % 2 == 0, "k-steps in pairs");
+  constexpr int kS = Layout<D>::kStride;
+#pragma unroll
+  for (int kk = 0; kk < NT; kk += 2) {
+    uint32_t ah0[4], al0[4], ah1[4], al1[4];
+    acc_to_a_tf32(ah0, al0, w[kk]);
+    acc_to_a_tf32(ah1, al1, w[kk + 1]);
+    const float* b = bt + (r0 + 8 * kk + 2 * (lane & 3)) * kS + (lane >> 2);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      float t[4] = {0.f, 0.f, 0.f, 0.f};
+      uint32_t h0, h1, l0, l1;
+      tf32_b_pair<D>(b + 8 * n, h0, h1, l0, l1);
+      mma_3xtf32(t, ah0, al0, h0, h1, l0, l1);
+      tf32_b_pair<D>(b + 8 * kS + 8 * n, h0, h1, l0, l1);
+      mma_3xtf32(t, ah1, al1, h0, h1, l0, l1);
+      add_acc(acc[n], t);
+    }
+  }
+}
+
+// a warp's [16, D] f32 accumulator (rows r and r + 8 of n-tiles of 8
+// columns, r = row0 + g) into a row-major [len, D] f32 slab; rows at or
+// past `len` dropped
+template <int D>
+__device__ __forceinline__ void store_acc_f32(float* __restrict__ dst, const float (&acc)[D / 8][4],
+                                              int row0, int len, int lane) {
+  const int r = row0 + (lane >> 2);
+  const int col = 2 * (lane & 3);
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    if (r < len) {
+      *reinterpret_cast<float2*>(dst + static_cast<size_t>(r) * D + 8 * n + col) =
+          make_float2(acc[n][0], acc[n][1]);
+    }
+    if (r + 8 < len) {
+      *reinterpret_cast<float2*>(dst + static_cast<size_t>(r + 8) * D + 8 * n + col) =
+          make_float2(acc[n][2], acc[n][3]);
+    }
+  }
 }
 
 }  // namespace flash

@@ -26,12 +26,12 @@ GFLOP and K4 8·B·H·L²·D = 51.5 GFLOP: 0.2345 and 0.312 ms in f32, against
 Design: one CTA per (b·h, 64-row tile): K2 and K3 own a query tile and loop
 over 64-key K/V tiles; K4 owns a key tile and loops over the query tiles, so
 no tile is reduced across CTAs and nothing needs atomics. Running sums are
-in f32 registers. K2 in f32 runs on the CUDA cores in f32. K3 and K4 in f32
-run on the tensor cores in three TF32 passes (hi·hi + hi·lo + lo·hi of
-operands split as hi = tf32(x), lo = tf32(x - hi), inside the kernel, with
-no process-global TF32 flag read or set): one pass would miss the JAX
-package's f32 tolerance, three hold it and stay within 1e-5 of the largest
-|grad| of the plain version. In bf16 all three run on the tensor cores
+in f32 registers. In f32 all three run on the tensor cores in three TF32
+passes (hi·hi + hi·lo + lo·hi of operands split as hi = tf32(x), lo =
+tf32(x - hi), inside the kernel, with no process-global TF32 flag read or
+set): one pass would miss the JAX package's f32 tolerances, three hold them
+and stay within 1e-5 of the largest |O| (K2) or |grad| (K3, K4) of the plain
+version. In bf16 all three run on the tensor cores
 (``mma.sync`` on tiles streamed by ``cp.async``, ``csrc/flash_mma.cuh``):
 exact bf16 products summed in f32. On the tensor cores the kernels sum in
 another order than the plain version, so they match it within a tolerance

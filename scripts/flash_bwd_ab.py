@@ -56,9 +56,30 @@ def _time(root: str) -> None:
     print("AB " + json.dumps(record), flush=True)
 
 
-def _child(mode: str, root: str) -> subprocess.Popen:
-    return subprocess.Popen([sys.executable, os.path.abspath(__file__), f"--{mode}", root],
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+def run_in_turns(script: str, roots: list[str]) -> list[dict]:
+    """Build the kernels of every distinct root at once (``script --build
+    ROOT`` each), then run ``script --time ROOT`` for each root in turn;
+    returns the ``AB {json}`` record each run prints."""
+    def child(mode: str, root: str) -> subprocess.Popen:
+        return subprocess.Popen([sys.executable, script, f"--{mode}", root],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    builds = {r: child("build", r) for r in dict.fromkeys(roots)}
+    for root, proc in builds.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            print(out)
+            raise SystemExit(f"building {root} failed")
+    records = []
+    for root in roots:
+        proc = child("time", root)
+        out, _ = proc.communicate()
+        print(out, end="", flush=True)
+        if proc.returncode != 0:
+            raise SystemExit(f"timing {root} failed")
+        records.append(json.loads(next(line[3:] for line in out.splitlines()
+                                       if line.startswith("AB "))))
+    return records
 
 
 def main(argv: list[str]) -> int:
@@ -68,22 +89,7 @@ def main(argv: list[str]) -> int:
     if not argv:
         print(__doc__, file=sys.stderr)
         return 2
-    roots = [os.path.abspath(r) for r in argv]
-    builds = {r: _child("build", r) for r in dict.fromkeys(roots)}
-    for root, proc in builds.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            print(out)
-            raise SystemExit(f"building {root} failed")
-    records = []
-    for root in roots:
-        proc = _child("time", root)
-        out, _ = proc.communicate()
-        print(out, end="", flush=True)
-        if proc.returncode != 0:
-            raise SystemExit(f"timing {root} failed")
-        records.append(json.loads(next(line[3:] for line in out.splitlines()
-                                       if line.startswith("AB "))))
+    records = run_in_turns(os.path.abspath(__file__), [os.path.abspath(r) for r in argv])
     for rec in records:
         parts = []
         for tier in ("f32", "bf16"):

@@ -23,6 +23,11 @@ from moc_tpu_torch.ops.flash_attention import (flash_attention, flash_attention_
 from moc_tpu_torch.ops.flash_kernel import flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_fwd_cuda
 
 K2_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# f32 K2 against its plain version, beside K2_TOL: max |O - plain| at most
+# 1e-5 of the largest |O|. The kernel takes every product in three TF32
+# passes (an emulation on the CPU keeps 3.2e-7 to 1.1e-6 of it); one pass
+# would miss K2_TOL itself.
+F32_FWD_MAX_REL = 1e-5
 # K3/K4: the JAX package's flash backward tolerance in f32; in bf16, a share
 # of the largest gradient (dS and P are rounded to bf16 before the products)
 BWD_TOL = {torch.float32: 5e-4, torch.bfloat16: 2e-2}
@@ -44,6 +49,21 @@ def _assert_mean_close(got, want, dtype):
         diff = sum((g.float() - w.float()).abs().sum().item() for g, w in zip(got, want))
         ref = sum(w.float().abs().sum().item() for w in want)
         assert diff <= BF16_MEAN_REL * ref, diff / ref
+
+
+def _assert_k2_close(o, lse, ro, rlse, dtype):
+    """K2 against its plain version: within K2_TOL (O, and lse unless None),
+    in f32 within F32_FWD_MAX_REL of the largest |O|, in bf16 to
+    BF16_MEAN_REL."""
+    tol = K2_TOL[dtype]
+    assert o.dtype == dtype and (lse is None or lse.dtype == torch.float32)
+    torch.testing.assert_close(o.float(), ro.float(), rtol=tol, atol=tol)
+    if lse is not None:
+        torch.testing.assert_close(lse, rlse, rtol=tol, atol=tol)
+    if dtype == torch.float32:
+        err, largest = (o - ro).abs().max().item(), ro.abs().max().item()
+        assert err <= F32_FWD_MAX_REL * largest, (err, largest)
+    _assert_mean_close([o], [ro], dtype)
 
 
 @pytest.fixture
@@ -182,11 +202,8 @@ def test_k2_matches_plain(gen, dtype, d, length, causal, segments):
     torch.cuda.synchronize()
     assert flash_fwd_cuda.launches == before + 1
     ro, rlse = mha_reference(q, k, v, q_segment_ids=qs, kv_segment_ids=ks, causal=causal)
+    _assert_k2_close(o, lse, ro, rlse, dtype)
     tol = K2_TOL[dtype]
-    assert o.dtype == dtype and lse.dtype == torch.float32
-    torch.testing.assert_close(o.float(), ro.float(), rtol=tol, atol=tol)
-    torch.testing.assert_close(lse, rlse, rtol=tol, atol=tol)
-    _assert_mean_close([o], [ro], dtype)
     if segments and not causal:  # masked everywhere: mean(V), lse at the mask value
         torch.testing.assert_close(o[0, :, :16].float(),
                                    v[0].float().mean(1, keepdim=True).expand(-1, 16, -1),
@@ -201,10 +218,7 @@ def test_k2_matches_plain_at_extraction_shape(gen, dtype):
     with torch.no_grad():
         o, lse = flash_fwd_cuda(q, k, v)
     ro, rlse = mha_reference(q, k, v)
-    tol = K2_TOL[dtype]
-    torch.testing.assert_close(o.float(), ro.float(), rtol=tol, atol=tol)
-    torch.testing.assert_close(lse, rlse, rtol=tol, atol=tol)
-    _assert_mean_close([o], [ro], dtype)
+    _assert_k2_close(o, lse, ro, rlse, dtype)
 
 
 # (129, 785): a 16-row fragment of the last query tile holds one row; (785,
@@ -224,11 +238,7 @@ def test_k2_unequal_and_short_lengths(gen, dtype, d, lq, lkv, causal):
     with torch.no_grad():
         o, lse = flash_fwd_cuda(q, k, v, causal=causal, sm_scale=0.1)
     ro, rlse = mha_reference(q, k, v, causal=causal, sm_scale=0.1)
-    tol = K2_TOL[dtype]
-    assert o.dtype == dtype
-    torch.testing.assert_close(o.float(), ro.float(), rtol=tol, atol=tol)
-    torch.testing.assert_close(lse, rlse, rtol=tol, atol=tol)
-    _assert_mean_close([o], [ro], dtype)
+    _assert_k2_close(o, lse, ro, rlse, dtype)
 
 
 def test_k2_padding_mask_path(gen):
@@ -241,6 +251,33 @@ def test_k2_padding_mask_path(gen):
     seg = (~mask).int()
     ro, _ = mha_reference(q, k, v, q_segment_ids=seg, kv_segment_ids=seg)
     torch.testing.assert_close(o, ro, rtol=2e-5, atol=2e-5)
+    _assert_k2_close(o, None, ro, None, torch.float32)
+
+
+def test_forward_leaves_tf32_flags_alone(gen):
+    """K2 in f32 on the card leaves the process-global TF32 flags as it
+    found them, under each of their four settings, and its O and lse do not
+    depend on them: the kernel splits its operands for the TF32 passes
+    itself."""
+    q, k, v, qs, ks = _k2_inputs(gen, 785, 64, torch.float32, True, False)
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    outs = []
+    try:
+        for matmul in (False, True):
+            for cudnn in (False, True):
+                torch.backends.cuda.matmul.allow_tf32 = matmul
+                torch.backends.cudnn.allow_tf32 = cudnn
+                before = flash_fwd_cuda.launches
+                with torch.no_grad():
+                    outs.append(flash_fwd_cuda(q, k, v, qs, ks))
+                torch.cuda.synchronize()
+                assert flash_fwd_cuda.launches == before + 1
+                assert (torch.backends.cuda.matmul.allow_tf32,
+                        torch.backends.cudnn.allow_tf32) == (matmul, cudnn)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    for other in outs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(outs[0], other))
 
 
 def test_k2_wrapper_refuses(gen):

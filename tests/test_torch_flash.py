@@ -3,8 +3,11 @@ points against the JAX package's, on the CPU: causal and non-causal,
 segment ids with rows that match no key, ``padding_mask``, lengths 200, 785
 and 1024, f32 and bf16 (bf16 also over D 32, 64 and 128). JAX runs its
 Pallas kernel in interpret mode for the lane-aligned lengths and its dense
-reference for the others, as its own tests do. The kernel itself runs only on a GPU (``tests/test_torch_cuda.py``
-and ``chip_smoke.py``); here its wrapper must refuse CPU tensors."""
+reference for the others, as its own tests do. The kernel itself runs only
+on a GPU (``tests/test_torch_cuda.py`` and ``chip_smoke.py``); here its
+wrapper must refuse CPU tensors. Its f32 tier's arithmetic, three TF32
+passes on the tensor cores, is emulated here in numpy and held to the JAX
+package's f32 tolerance."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -14,10 +17,17 @@ import torch
 from moc_tpu.ops import flash_attention as jfa
 from moc_tpu_torch.ops import flash_attention as tfa
 from moc_tpu_torch.ops.flash_kernel import flash_fwd_cuda
+from tests.test_torch_flash_bwd import _tf32
 
 # the tolerances of the JAX package's own flash tests
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 MASK = np.float32(jfa.DEFAULT_MASK_VALUE)
+# K2's f32 tier against its plain version, beside TOL: max |O - plain| at most
+# 1e-5 of the largest |O|. In the emulation below three TF32 passes keep
+# 3.2e-7 to 1.1e-6 of it (and 1.4e-6 of JAX's O and lse), where one pass is
+# 3.0e-4 to 1.1e-3 off JAX's and misses TOL itself.
+F32_FWD_MAX_REL = 1e-5
+LOG2E = np.float32(1.4426950408889634)
 
 
 def _inputs(seed, b=1, h=2, lq=200, lkv=None, d=64, dtype="float32"):
@@ -186,3 +196,115 @@ def test_contracts():
     with pytest.raises(ValueError, match="CUDA tensors"):
         flash_fwd_cuda(q.detach(), k, v)
     assert flash_fwd_cuda.launches == before
+
+
+def _rna(x):
+    """f32 ``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it."""
+    return _tf32(torch.from_numpy(np.ascontiguousarray(x, np.float32))).numpy()
+
+
+def _rz(x):
+    """f64 ``x`` rounded to f32 toward zero, as the tensor core rounds its sums."""
+    f = x.astype(np.float32)
+    return np.where(np.abs(f.astype(np.float64)) > np.abs(x), np.nextafter(f, np.float32(0)), f)
+
+
+def _tf32_product(a, b, passes, out):
+    """``out + a @ b`` for ``a [H, R, K]``, ``b [H, K, N]`` as K2's f32 tier
+    takes it on the tensor cores: operands split as hi = tf32(x), lo =
+    tf32(x - hi); each 8-wide k-step an m16n8k8 mma per pass (lo.hi, hi.lo,
+    hi.hi; hi.hi alone for one pass), its 8 products exact and its sum
+    rounded toward zero; two k-steps a fresh accumulator, which an f32 add
+    takes into ``out``."""
+    ah, bh = _rna(a), _rna(b)
+    steps = ((ah, bh),) if passes == 1 else ((_rna(a - ah), bh), (ah, _rna(b - bh)), (ah, bh))
+    for k0 in range(0, a.shape[-1], 16):
+        t = np.zeros(out.shape, np.float64)
+        for ks in (slice(k0, k0 + 8), slice(k0 + 8, k0 + 16)):
+            for x, y in steps:
+                t = _rz(t + x[..., ks].astype(np.float64) @ y[..., ks, :].astype(np.float64))
+        out = out + t.astype(np.float32)
+    return out
+
+
+def _tf32_forward(q, k, v, q_seg, kv_seg, causal, scale, passes):
+    """K2's f32 tier on ``[H, L, D]`` f32 arrays of one batch row, as the
+    kernel runs it: 64-row query tiles over 64-key tiles (causal tiles
+    above the diagonal skipped), keys in passes of 64 at D = 64 (32 at
+    D = 32, 16 at D = 128), the online softmax per pass with P = exp2((S -
+    m) log2e), S and P.V by ``_tf32_product``; keys at or past Lkv at -inf,
+    masked keys at the mask value. Returns ``(o [H, Lq, D], lse [H, Lq])``."""
+    h, lq, d = q.shape
+    lkv = k.shape[1]
+    chunk = {32: 32, 64: 64, 128: 16}[d]
+    pad = -lkv % 64
+    k, v = (np.pad(x, ((0, 0), (0, pad), (0, 0))) for x in (k, v))
+    o = np.zeros((h, lq, d), np.float32)
+    lse = np.zeros((h, lq), np.float32)
+    for q0 in range(0, lq, 64):
+        rows = np.arange(q0, min(q0 + 64, lq))
+        acc = np.zeros((h, len(rows), d), np.float32)
+        m = np.full((h, len(rows)), -np.inf, np.float32)
+        l = np.zeros((h, len(rows)), np.float32)
+        for kc in range(0, min(lkv, q0 + 64) if causal else lkv, chunk):
+            keys = np.arange(kc, kc + chunk)
+            s = _tf32_product(q[:, rows], k[:, keys].transpose(0, 2, 1), passes,
+                              np.zeros((h, len(rows), chunk), np.float32)) * np.float32(scale)
+            hidden = np.zeros((len(rows), chunk), bool)
+            if causal:
+                hidden |= keys[None] > rows[:, None]
+            if q_seg is not None:
+                hidden |= kv_seg[np.minimum(keys, lkv - 1)][None] != q_seg[rows][:, None]
+            s = np.where(hidden, MASK, s)
+            s = np.where(keys >= lkv, -np.inf, s).astype(np.float32)
+            mn = np.maximum(m, s.max(-1))
+            with np.errstate(over="ignore"):  # MASK * log2e overflows to -inf: p = 0
+                alpha = np.exp2((m - mn) * LOG2E)
+                p = np.exp2((s - mn[..., None]) * LOG2E)
+            l = alpha * l + p.sum(-1, dtype=np.float32)
+            m = mn
+            acc = _tf32_product(p, v[:, keys], passes, acc * alpha[..., None])
+        o[:, rows] = acc * (np.float32(1) / l)[..., None]
+        lse[:, rows] = m + np.log(l)
+    return o, lse
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("mask", ["none", "causal", "segments"])
+def test_three_tf32_passes_hold_the_f32_tolerance(d, mask):
+    """K2's f32 tier in three TF32 passes, emulated on the CPU at B 2, H 2,
+    L 256: within the JAX package's 2e-5 of its Pallas forward (interpret
+    mode) on O and lse, and within ``F32_FWD_MAX_REL`` of the largest |O| of
+    the plain version, the limit the kernel is held to on the card. One pass
+    (hi.hi, about three decimal digits) misses 2e-5. Masks: none; causal;
+    segments with 8 rows of each batch row that match no key (mean(V),
+    lse = MASK)."""
+    length, causal = 256, mask == "causal"
+    (jq, jk, jv), (q, k, v) = _inputs(40 + d + len(mask), b=2, lq=length, d=d)
+    jseg, tseg, segs = {}, {}, [(None, None)] * 2
+    if mask == "segments":
+        rng = np.random.default_rng(d)
+        kv_seg = rng.integers(0, 3, size=(2, length)).astype(np.int32)
+        q_seg = kv_seg.copy()
+        q_seg[:, :8] = 7  # no key is in segment 7
+        jseg = dict(q_segment_ids=jnp.asarray(q_seg), kv_segment_ids=jnp.asarray(kv_seg))
+        tseg = dict(q_segment_ids=torch.from_numpy(q_seg),
+                    kv_segment_ids=torch.from_numpy(kv_seg))
+        segs = list(zip(q_seg, kv_seg))
+    want, want_lse = jfa.flash_attention_with_lse(jq, jk, jv, causal=causal, **jseg)
+    plain, _ = tfa.mha_reference(q, k, v, causal=causal, **tseg)
+    largest = plain.abs().max().item()
+    errs = {}
+    for passes in (3, 1):
+        got = [_tf32_forward(*(x[b].numpy() for x in (q, k, v)), *segs[b], causal,
+                             d ** -0.5, passes) for b in range(2)]
+        o, lse = (np.stack(x) for x in zip(*got))
+        errs[passes] = (np.abs(o - plain.numpy()).max() / largest,
+                        max(np.abs(o - _np(want)).max(), np.abs(lse - _np(want_lse)).max()))
+        if passes == 3:
+            _close(o, want)
+            _close(lse, want_lse)
+            if mask == "segments":
+                assert (lse[:, :, :8] == MASK).all()
+    assert errs[3][0] <= F32_FWD_MAX_REL, errs
+    assert errs[1][1] > TOL["float32"], errs
