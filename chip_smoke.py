@@ -106,7 +106,24 @@ Phases, each of which makes the script exit non-zero when it fails:
    with a profile, the eval packs and the trajectory's logits; and K1 at the
    sweep's shapes: selection rows [25, 4096] k=400, pooling columns
    [5, 2432, 2] and the trajectory's [1500, 2432, 2] k=10, and the eval
-   packs' rows [300, 4096] k=400.
+   packs' rows [300, 4096] k=400;
+13. selection and pooling, between 11's parity and its times, on 11's corpus:
+   ``union_selection`` and ``select_and_gather(method="sort")`` on the card
+   bit-equal to the CPU on the card's own logits at the serving point and
+   the training bucket, on tie-heavy logits and on signed zeros, where the
+   threshold union parts from the sort union (and on real logits does not);
+   all ten pooling families, ``return_indices`` both ways and the bottom-k
+   ones with ``detection`` both ways, on the train split's zero-shot logits
+   against the CPU (pooled values within 1e-6, indices equal, K1's masks at
+   [16, 4096, 1] and [16, 4096, 2] bit-equal to plain, K1 launched only on
+   the foreground families' mask route); ``cli.main_moc.main --select_method
+   sort`` at 11's protocol with losses within 1e-6 of 11's threshold run,
+   the same test AUC at best val, and no K1 row launch in its training
+   steps; the zero-shot floor of every ``zs_pooling`` family on every split,
+   card against CPU (equal AUC and accuracy, pooled logits within rtol
+   1e-4); the sort union against the threshold union at the serving point
+   (CUDA events and a profile of each) and ``select_and_gather`` of one
+   training visit, and K1's column entry at the zero-shot floor's shapes.
 
 The last lines are the card's name and power limit, one JSON object of
 kernel records, and ``{"ok": true, "device": {...}}``. No phase falls back
@@ -626,6 +643,11 @@ def _library_mask(keys: torch.Tensor, k: int, dim: int) -> torch.Tensor:
 # the gather route that training takes), and the largest bucket's rows
 K1_SHAPES = (("rows", (5, 4096), TOPJ), ("cols", (1, 4096, N_CLASSES), TOPK),
              ("cols", (1, 2432, N_CLASSES), TOPK), ("rows", (40, 131072), TOPJ))
+# K1's column entry at the zero-shot floor of the training protocol's train
+# split (16 slides in the 4096 bucket): delta_diff's margin ranks whole rows,
+# [B, N, 1]; the other foreground families rank [B, N, C]
+ZS_K1_SHAPES = (("cols", (TRAIN_VISITS, 4096, 1), TOPK),
+                ("cols", (TRAIN_VISITS, 4096, N_CLASSES), TOPK))
 
 
 # a spin of 1e8 SM cycles (~50 ms on an H100) holds the stream while the
@@ -1334,23 +1356,18 @@ def _k1_wrappers():
             "cols": topk_kernel.col_topk_threshold_mask_cuda}
 
 
-def phase_train(root: str) -> dict:
-    """``cli.main_moc.main`` on the card at the full-width synthetic protocol:
-    every loss finite, the JAX package's result keys, test AUC at best val
-    at least 0.8, K1 launched exactly twice a slide step (counted around each
-    ``train_epoch``), and the saved ``.npz`` served by ``cli.serve``
-    matching ``eval_batch`` on the test bags."""
+def _main_moc_recorded(argv: list[str]):
+    """``cli.main_moc.main(argv)`` with ``moc.episode.train_epoch`` swapped for
+    a recorder and K1's counts set to 0 just before: returns the exit code,
+    the standard output, the record (each epoch's losses, the K1 launches of
+    the training steps, each epoch's training seconds and start), the K1
+    launches of the whole run and its wall."""
     import contextlib
     import io
 
     from moc_tpu_torch.cli import main_moc
     from moc_tpu_torch.moc import episode
 
-    result_dir = os.path.join(root, "moc_train")
-    argv = [*TRAIN_ARGV, "--result_dir", result_dir, "--device", "cuda"]
-    t0 = time.perf_counter()
-    corpus = main_moc._synthetic_setup(main_moc.get_args(argv))
-    corpus_s = time.perf_counter() - t0
     k1 = _k1_wrappers()
     rec = {"losses": [], "steps": {"rows": 0, "cols": 0}, "train_s": [], "starts": []}
     inner = episode.train_epoch
@@ -1379,8 +1396,25 @@ def phase_train(root: str) -> dict:
     finally:
         episode.train_epoch = inner
     launches = {e: fn.launches for e, fn in k1.items()}
+    return rc, out.getvalue(), rec, launches, wall
+
+
+def phase_train(root: str) -> dict:
+    """``cli.main_moc.main`` on the card at the full-width synthetic protocol:
+    every loss finite, the JAX package's result keys, test AUC at best val
+    at least 0.8, K1 launched exactly twice a slide step (counted around each
+    ``train_epoch``), and the saved ``.npz`` served by ``cli.serve``
+    matching ``eval_batch`` on the test bags."""
+    from moc_tpu_torch.cli import main_moc
+
+    result_dir = os.path.join(root, "moc_train")
+    argv = [*TRAIN_ARGV, "--result_dir", result_dir, "--device", "cuda"]
+    t0 = time.perf_counter()
+    corpus = main_moc._synthetic_setup(main_moc.get_args(argv))
+    corpus_s = time.perf_counter() - t0
+    rc, stdout, rec, launches, wall = _main_moc_recorded(argv)
     check(rc == 0, f"main_moc.main returned {rc}")
-    lines = out.getvalue().strip().splitlines()
+    lines = stdout.strip().splitlines()
     with open(os.path.join(result_dir, f"best_results_shot_{TRAIN_SHOT}_fold_0.json")) as f:
         result = json.load(f)
     losses = [x for epoch in rec["losses"] for x in epoch]
@@ -1397,7 +1431,7 @@ def phase_train(root: str) -> dict:
     res = {"wall_s": wall, "corpus_s": corpus_s, "epoch_train_s": train_s,
            "epoch_with_eval_s": statistics.median(epoch_s),
            "steps_per_s": TRAIN_VISITS / train_s, "launches": launches,
-           "launches_steps": rec["steps"], "result": result,
+           "launches_steps": rec["steps"], "result": result, "losses": rec["losses"],
            "loss_first": rec["losses"][0], "loss_last": rec["losses"][-1]}
     best = next(line for line in lines if line.startswith("Best Val"))
     log(f"[train] main_moc {' '.join(TRAIN_ARGV)} on cuda: {best}")
@@ -1530,6 +1564,219 @@ def phase_train_parity(root: str) -> dict:
         f"K1 launches card {ng}, CPU {nc}; K1 on keys that require grad bit-equal in both "
         "entries")
     return {"grad_err": grad_err, "loss_err": loss_err, "param_err": param_err}
+
+
+# the ranking keys of the five foreground pooling families, as K1's column
+# entry sees them: [B, N, 1] for delta_diff's margin, [B, N, C] for the rest
+def _foreground_keys(name: str, x: torch.Tensor) -> torch.Tensor:
+    from moc_tpu_torch.ops import masked_row_margin
+    from moc_tpu_torch.ops.masking import softmax
+
+    return {"topj": lambda: x, "delta_softmax": lambda: softmax(x, dim=-1),
+            "delta_diff": lambda: masked_row_margin(x)[..., None],
+            "topj_delta_softmax": lambda: softmax(x, dim=-1) * x,
+            "topj_delta_diff": lambda: x * masked_row_margin(x)[..., None]}[name]()
+
+
+def _selection_cases(state: dict, ep, w, w_ext, cfg) -> dict:
+    """``(logits, logits_ext, valid)`` on the card for the sort-path checks:
+    the serving batch's logits at the serving point, the training bucket's
+    train split, that split's logits rounded to halves (ties, signed zeros
+    among them), and the serving logits' signs as ±0.0, where the sort and
+    the threshold path part."""
+    from moc_tpu_torch.data.batching import pack_bags
+    from moc_tpu_torch.moc.core import _dense_views_weights
+
+    batch = pack_bags(state["bags"][:BATCH], n_pad=N_PAD, device="cuda")
+    _, _, lg, le = _dense_views_weights(None, batch.features, state["w"], state["w_ext"],
+                                        state["cfg"])
+    _, _, tg, te = _dense_views_weights(None, ep.train.features, w, w_ext, cfg)
+    return {"serving": (lg, le, batch.mask), "training": (tg, te, ep.train.mask),
+            "training_ties": (torch.round(tg * 2) / 2, torch.round(te * 2) / 2, ep.train.mask),
+            "serving_signed_zeros": (torch.where(lg < 0, -0.0, 0.0),
+                                     torch.where(le < 0, -0.0, 0.0), batch.mask)}
+
+
+def phase_select_pool(root: str, state: dict, trained: dict) -> dict:
+    """The sort selection path and the ten pooling families on the card,
+    each against the CPU on the card's own logits: (a) ``union_selection``
+    and ``select_and_gather(method="sort")`` bit-equal at the serving point
+    and the training bucket, and on tie-heavy and signed-zero logits, where
+    the threshold path parts from them on the card as on the CPU; (b) every
+    family, with ``return_indices`` both ways and the bottom-k ones with
+    ``detection`` both ways, on the train split's zero-shot logits: K1's
+    membership masks bit-equal to the plain version, pooled values within
+    1e-6, indices equal; (c) ``main_moc.main --select_method sort`` at the
+    training protocol: per-epoch losses within 1e-6 of ``phase_train``'s
+    threshold run and the same test AUC at best val; (d) ``zs_eval_batches``
+    with each ``zs_pooling`` family on every split, card against CPU: equal
+    AUC and accuracy, pooled logits within rtol 1e-4. Then the times: the
+    sort union against the threshold union at the serving shape, with a
+    profile of each, and K1's column entry at the zero-shot floor's
+    shapes."""
+    from moc_tpu_torch.cli import main_moc
+    from moc_tpu_torch.moc.core import selection_capacity_for
+    from moc_tpu_torch.moc.episode import zs_eval_batches, zs_pooled_logits
+    from moc_tpu_torch.ops import (FOREGROUND_POOLINGS, POOLING_REGISTRY, masked_col_topk_mask,
+                                   masked_logits, select_and_gather, threshold_topk_mask,
+                                   union_selection, union_selection_threshold)
+
+    t_phase = time.perf_counter()
+    k1 = _k1_wrappers()
+    ep, w, w_ext, cfg = _train_setup(root, "cuda")
+    ep_cpu, w_cpu, w_ext_cpu, _ = _train_setup(root, "cpu")
+    res = {}
+    with torch.inference_mode():
+        # (a) the sort path, bit for bit against the CPU
+        cases = _selection_cases(state, ep, w, w_ext, cfg)
+        parted = {}
+        for name, args in cases.items():
+            cpu = tuple(a.cpu() for a in args)
+            n = args[0].shape[-2]
+            cap = selection_capacity_for(TOPJ, N_CLASSES, n)
+            sort = union_selection(*args, TOPJ, N_CLASSES)
+            check(torch.equal(sort.cpu(), union_selection(*cpu, TOPJ, N_CLASSES)),
+                  f"union_selection on the card differs from the CPU ({name})")
+            got = select_and_gather(*args, TOPJ, N_CLASSES, cap, method="sort")
+            want = select_and_gather(*cpu, TOPJ, N_CLASSES, cap, method="sort")
+            check(all(torch.equal(g.cpu(), x) for g, x in zip(got, want)),
+                  f"select_and_gather(method='sort') on the card differs from the CPU ({name})")
+            thr = union_selection_threshold(*args, TOPJ, N_CLASSES)
+            check(torch.equal(thr.cpu(), union_selection_threshold(*cpu, TOPJ, N_CLASSES)),
+                  f"union_selection_threshold on the card differs from the CPU ({name})")
+            parted[name] = int((sort != thr).any(-1).sum())
+        check(parted["serving"] == parted["training"] == 0,
+              f"the sort and the threshold union part on real logits: {parted}")
+        check(parted["serving_signed_zeros"] > 0,
+              "the sort and the threshold union agree on signed zeros")
+        log(f"[select] sort path bit-equal to the CPU (union_selection, select_and_gather) at "
+            f"{ {k: list(v[0].shape) for k, v in cases.items()} }; slides where the sort and "
+            f"the threshold union part: {parted}")
+        del cases
+
+        # (b) the ten pooling families on the train split's zero-shot logits
+        fg, ext, valid = ep.train.features @ w, ep.train.features @ w_ext, ep.train.mask
+        pool_err, n_calls = 0.0, 0
+        for name, fn in POOLING_REGISTRY.items():
+            is_fg = name in FOREGROUND_POOLINGS
+            x = fg if is_fg else ext
+            if is_fg:
+                keys = _foreground_keys(name, x)
+                check(torch.equal(masked_col_topk_mask(keys, valid, TOPK).cpu(),
+                                  threshold_topk_mask(masked_logits(keys, valid).cpu(), TOPK,
+                                                      axis=-2)),
+                      f"K1's mask of {name} at {list(keys.shape)} differs from plain")
+            for ri in (False, True):
+                for kw in ([{}] if is_fg else [{"n_fg": N_CLASSES, "detection": d}
+                                               for d in (False, True)]):
+                    before = k1["cols"].launches
+                    got = fn(x, valid, TOPK, return_indices=ri, **kw)
+                    launched = k1["cols"].launches - before
+                    check(launched == int(is_fg and not ri),
+                          f"{name} {kw} return_indices={ri} launched K1 {launched} times")
+                    want = fn(x.cpu(), valid.cpu(), TOPK, return_indices=ri, **kw)
+                    if ri:
+                        check(torch.equal(got[1].cpu(), want[1]),
+                              f"{name} {kw}: indices on the card differ from the CPU")
+                        got, want = got[0], want[0]
+                    pool_err = max(pool_err, float((got.cpu() - want).abs().max()))
+                    check(torch.allclose(got.cpu(), want, rtol=1e-6, atol=1e-6),
+                          f"{name} {kw} return_indices={ri}: pooled values differ from the CPU")
+                    n_calls += 1
+        log(f"[select] {n_calls} pooling-family calls on the train split's zero-shot logits "
+            f"{list(fg.shape)} / {list(ext.shape)}: pooled values within {pool_err:.3e} of the "
+            f"CPU (rtol = atol = 1e-6), indices equal; K1's masks of the five foreground "
+            f"families bit-equal to plain at [B, N, 1] and [B, N, {N_CLASSES}]")
+        del fg, ext
+
+    # (c) a main_moc episode on the sort path against phase_train's threshold run
+    corpus = main_moc._synthetic_setup(main_moc.get_args(
+        [*TRAIN_ARGV, "--result_dir", os.path.join(root, "moc_train")]))
+    sort_dir = os.path.join(root, "moc_train_sort")
+    os.makedirs(sort_dir)
+    corpus_root = os.path.dirname(corpus["csv_path"])
+    os.symlink(corpus_root, os.path.join(sort_dir, os.path.basename(corpus_root)))
+    rc, _, rec, launches, wall = _main_moc_recorded(
+        [*TRAIN_ARGV, "--select_method", "sort", "--result_dir", sort_dir, "--device", "cuda"])
+    check(rc == 0, f"main_moc.main --select_method sort returned {rc}")
+    with open(os.path.join(sort_dir, f"best_results_shot_{TRAIN_SHOT}_fold_0.json")) as f:
+        result = json.load(f)
+    loss_err = max(abs(a - b) for x, y in zip(rec["losses"], trained["losses"])
+                   for a, b in zip(x, y))
+    check(len(rec["losses"]) == len(trained["losses"]) and loss_err <= 1e-6,
+          f"the sort episode's losses differ from the threshold episode's by {loss_err}")
+    check(result["test_at_best_val"] == trained["result"]["test_at_best_val"],
+          f"test AUC at best val: sort {result['test_at_best_val']}, threshold "
+          f"{trained['result']['test_at_best_val']}")
+    want = TRAIN_EPOCHS * TRAIN_VISITS
+    check(rec["steps"] == {"rows": 0, "cols": want},
+          f"the sort episode's steps launched K1 {rec['steps']}, want no rows and {want} cols")
+    res.update(sort_wall_s=wall, sort_loss_err=loss_err, launches_sort=launches,
+               launches_sort_steps=rec["steps"])
+    log(f"[select] main_moc --select_method sort: episode wall {wall:.3f}s (threshold "
+        f"{trained['wall_s']:.3f}s); losses within {loss_err:.3e} of the threshold run's "
+        f"(tolerance 1e-6), test AUC at best val {result['test_at_best_val']} (equal); K1 "
+        f"launches: training steps {rec['steps']}, whole run {launches}")
+
+    # (d) the zero-shot floor of every family, card against CPU
+    zs_launches, zs_err = {}, 0.0
+    for name in POOLING_REGISTRY:
+        cfg_z = dataclasses.replace(cfg, zs_pooling=name)
+        for fn in k1.values():
+            fn.launches = 0
+        card = {s: zs_eval_batches(c, w, w_ext, cfg_z, torch.device("cuda"))
+                for s, c in (("train", [ep.train]), ("val", ep.val), ("test", ep.test))}
+        zs_launches[name] = {e: fn.launches for e, fn in k1.items()}
+        host = {s: zs_eval_batches(c, w_cpu, w_ext_cpu, cfg_z, torch.device("cpu"))
+                for s, c in (("train", [ep_cpu.train]), ("val", ep_cpu.val),
+                             ("test", ep_cpu.test))}
+        for s in card:
+            check(card[s].auc == host[s].auc and card[s].acc == host[s].acc,
+                  f"zero-shot {name} {s}: card {card[s].to_dict()}, CPU {host[s].to_dict()}")
+        with torch.inference_mode():
+            got = zs_pooled_logits(ep.train.features, ep.train.mask, w, w_ext, cfg_z).cpu()
+            want = zs_pooled_logits(ep_cpu.train.features, ep_cpu.train.mask, w_cpu, w_ext_cpu,
+                                    cfg_z)
+        zs_err = max(zs_err, float((got - want).abs().max()))
+        check(torch.allclose(got, want, rtol=1e-4, atol=1e-5),
+              f"zero-shot {name}: pooled logits on the card differ from the CPU's")
+        chunks = 1 + len(ep.val) + len(ep.test)
+        check(zs_launches[name] == {"rows": 0, "cols": chunks if name in FOREGROUND_POOLINGS
+                                    else 0}, f"zero-shot {name} launched K1 {zs_launches[name]}")
+    res.update(launches_zs=zs_launches, zs_err=zs_err)
+    log(f"[select] zero-shot floor of all {len(POOLING_REGISTRY)} families on the training "
+        f"corpus: AUC and accuracy equal on the card and the CPU in every split, pooled "
+        f"logits max |diff| {zs_err:.3e} (rtol 1e-4, atol 1e-5); K1 column launches per family "
+        f"{ {k: v['cols'] for k, v in zs_launches.items()} }")
+
+    # times: the sort union against the threshold union at the serving point
+    with torch.inference_mode():
+        cases = _selection_cases(state, ep, w, w_ext, cfg)
+        args = cases["serving"]
+        t_sort = _time_ms(lambda: union_selection(*args, TOPJ, N_CLASSES))
+        t_thr = _time_ms(lambda: union_selection_threshold(*args, TOPJ, N_CLASSES))
+        k1_thr = _kernel_us(lambda: union_selection_threshold(*args, TOPJ, N_CLASSES),
+                            "topk_cluster_kernel", k1["rows"])
+        train_args = tuple(a[:1] for a in cases["training"])
+        cap = selection_capacity_for(TOPJ, N_CLASSES, train_args[0].shape[-2])
+        t_gather = {m: _time_ms(lambda: select_and_gather(*train_args, TOPJ, N_CLASSES, cap,
+                                                          method=m))
+                    for m in ("sort", "threshold")}
+        for what, fn in (("sort union", union_selection),
+                         ("threshold union", union_selection_threshold)):
+            phase_profile(lambda: fn(*args, TOPJ, N_CLASSES), steps=10, what=what, host_top=5)
+    res["times"] = {"union_sort_ms": t_sort, "union_threshold_ms": t_thr,
+                    "union_threshold_k1": k1_thr, "gather_sort_ms": t_gather["sort"],
+                    "gather_threshold_ms": t_gather["threshold"]}
+    log(f"[times] selection union at the serving point {list(args[0].shape)}, topj {TOPJ}: sort "
+        f"(top_k) {t_sort:.4f} ms, threshold (K1) {t_thr:.4f} ms per call (CUDA events, median "
+        f"of 100), K1 inside the threshold union {_us(k1_thr['kernel_us'])} kernel-only, "
+        f"{_us(k1_thr['device_us'])} queued; select_and_gather of one training visit "
+        f"{list(train_args[0].shape)}: sort {t_gather['sort']:.4f} ms, threshold "
+        f"{t_gather['threshold']:.4f} ms")
+    res["k1_zs"] = _k1_at_shapes(ZS_K1_SHAPES, seed=11)
+    log(f"[select] phase wall {time.perf_counter() - t_phase:.1f}s")
+    return res
 
 
 def phase_train_times(root: str) -> dict:
@@ -1743,6 +1990,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as root:
         trained = phase_train(root)
         phase_train_parity(root)
+        selpool = phase_select_pool(root, state, trained)
         train_times = phase_train_times(root)
         swept = phase_sweep(root, trained)
         sweep_times = phase_sweep_times(root)
@@ -1765,7 +2013,12 @@ def main() -> int:
                         "launches_main_moc": trained["launches"][entry],
                         "launches_sweep": swept["launches_steps"][entry],
                         "launches_sweep_eval": swept["launches_eval"][entry],
-                        "shapes_sweep": sweep_times["k1"][entry]})
+                        "shapes_sweep": sweep_times["k1"][entry],
+                        "launches_main_moc_sort": selpool["launches_sort"][entry],
+                        "launches_train_sort": selpool["launches_sort_steps"][entry],
+                        "launches_zs_floor": {k: v[entry]
+                                              for k, v in selpool["launches_zs"].items()},
+                        "shapes_zs_floor": selpool["k1_zs"][entry]})
     for tier, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         t, tp = k2_times[tier]["extraction"], k2_times[tier]["pretraining"]
         kernels.append({"name": f"flash_fwd_{tier}", "route": "cuda", "source": K2_SOURCE,
@@ -1803,6 +2056,9 @@ def main() -> int:
         "main_moc_episodes_per_hour": 3600 / trained["wall_s"],
         "step_ms": sweep_times["step_ms"], "pack_ms": sweep_times["pack_ms"],
         "trajectory_ms": sweep_times["trajectory_ms"], "fold0_diff": swept["fold0_diff"]}))
+    log("[select] summary " + json.dumps({
+        **selpool["times"], "sort_episode_wall_s": selpool["sort_wall_s"],
+        "sort_loss_err": selpool["sort_loss_err"], "zs_max_abs_diff": selpool["zs_err"]}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

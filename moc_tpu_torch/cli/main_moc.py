@@ -27,6 +27,7 @@ import sys
 
 import numpy as np
 
+from moc_tpu_torch.cli.common import add_selection_flags
 from moc_tpu_torch.config import PRESETS
 
 
@@ -65,8 +66,7 @@ def get_args(argv=None):
     g = p.add_argument_group("performance tiers")
     g.add_argument("--dense", action="store_true")
     g.add_argument("--score_dtype", default="float32", choices=["float32", "bfloat16"])
-    g.add_argument("--select_method", default="threshold", choices=["threshold", "sort"])
-    g.add_argument("--zs_pooling", default="topj")
+    add_selection_flags(g)
     jax_only = p.add_argument_group("JAX package only (refused here)")
     jax_only.add_argument("--approx_topk", action="store_true")
     jax_only.add_argument("--platform", type=str, default=None)

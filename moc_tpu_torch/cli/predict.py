@@ -41,7 +41,8 @@ def build_predictor(args, preset, device: torch.device):
     weight matrices resident there; ``cfg`` is the ``MOCConfig`` it runs."""
     w, w_ext = _load_weights(args)
     cfg = MOCConfig(n_classes=preset.n_classes, n_ext_classes=preset.n_ext_classes,
-                    topj=args.topj, topk=args.topk, feature_dim=w.shape[0])
+                    topj=args.topj, topk=args.topk, feature_dim=w.shape[0],
+                    select_method=args.select_method, zs_pooling=args.zs_pooling)
     if w.shape[1] != cfg.n_classes or w_ext.shape[1] != cfg.n_ext_classes:
         raise SystemExit(f"weights are {w.shape}/{w_ext.shape}; --dataset "
                          f"{preset.name} has {cfg.n_classes}/{cfg.n_ext_classes} classes")

@@ -31,6 +31,7 @@ import time
 
 import numpy as np
 
+from moc_tpu_torch.cli.common import add_selection_flags
 from moc_tpu_torch.cli.predict import build_predictor, score_bags
 from moc_tpu_torch.config import PRESETS
 from moc_tpu_torch.data.bags import Bag, read_bag_h5, read_bag_pt
@@ -69,6 +70,7 @@ def get_args(argv=None):
     p.add_argument("--weights_ext_npz", default=None)
     p.add_argument("--device", default="cuda",
                    help="torch device to serve on (cuda, cuda:1, or cpu)")
+    add_selection_flags(p)
     return p.parse_args(argv)
 
 
@@ -211,7 +213,7 @@ def watch_once(server: Server, watch_dir: str, out_csv: str, seen: set[str],
         header = not os.path.exists(out_csv)
         os.makedirs(os.path.dirname(out_csv) or ".", exist_ok=True)
         with open(out_csv, "a", newline="") as f:
-            writer = csv.DictWriter(f, fieldnames=list(rows[0]))
+            writer = csv.DictWriter(f, fieldnames=list(rows[0]), lineterminator="\n")
             if header:
                 writer.writeheader()
             writer.writerows(rows)

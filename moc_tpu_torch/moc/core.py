@@ -22,7 +22,8 @@ from typing import Mapping
 import torch
 
 from moc_tpu_torch.models.senet import SENet, SENetStack, senet_stack_apply
-from moc_tpu_torch.ops import select_and_gather, topj_pooling, union_selection_threshold
+from moc_tpu_torch.ops import (POOLING_REGISTRY, select_and_gather, topj_pooling,
+                               union_selection, union_selection_threshold)
 from moc_tpu_torch.ops.masking import softmax
 from moc_tpu_torch.ops.selection import selection_capacity
 
@@ -43,9 +44,11 @@ class MOCConfig:
     reference CLI's topj=400, topk=10; Adam lr 1e-3, weight decay 1e-4;
     25 epochs; half of each bag's patches dropped per training visit).
 
-    The tiers that are not ported raise here: ``dense``, ``score_dtype``
-    bfloat16 (ROADMAP queue 1 item 6), ``select_method`` sort and any
-    ``zs_pooling`` but topj (item 5); ``approx_topk`` needs the TPU."""
+    ``select_method`` is ``"threshold"`` (kernel K1) or ``"sort"``
+    (``top_k``); the two differ only where keys tie +0.0 with −0.0
+    (``ops.selection``). ``zs_pooling`` is any ``ops.POOLING_REGISTRY`` key.
+    The tiers that are not ported raise here: ``dense`` and ``score_dtype``
+    bfloat16 (ROADMAP queue 1 item 6); ``approx_topk`` needs the TPU."""
 
     n_classes: int
     n_ext_classes: int
@@ -70,9 +73,11 @@ class MOCConfig:
         if self.dense or self.score_dtype != "float32":
             raise NotImplementedError("the dense and bfloat16-score tiers are not ported "
                                       "yet (ROADMAP queue 1 item 6)")
-        if self.select_method != "threshold" or self.zs_pooling != "topj":
-            raise NotImplementedError("only the threshold selection and topj zero-shot "
-                                      "pooling are ported (ROADMAP queue 1 item 5)")
+        if self.select_method not in ("threshold", "sort"):
+            raise ValueError(f"unknown select_method {self.select_method!r}")
+        if self.zs_pooling not in POOLING_REGISTRY:
+            raise ValueError(f"unknown zs_pooling {self.zs_pooling!r}; one of "
+                             f"{sorted(POOLING_REGISTRY)}")
         if self.approx_topk:
             raise ValueError("approx_topk is the TPU's approximate top-k; the port has none")
         if self.exact_impl not in ("auto", "masked", "gather"):
@@ -134,7 +139,8 @@ def slide_process(feats: torch.Tensor, valid: torch.Tensor, w: torch.Tensor,
     logits_all = feats @ torch.cat([w, w_ext], dim=1)  # one pass over the bag
     capacity = selection_capacity_for(cfg.topj, c, n)
     idx, sel_valid, count = select_and_gather(logits_all[..., :c], logits_all[..., c:], valid,
-                                              cfg.topj, c, capacity, cfg.discard)
+                                              cfg.topj, c, capacity, cfg.discard,
+                                              method=cfg.select_method)
     sel_feats = torch.gather(feats, -2, idx[..., None].expand(*idx.shape, d))
     sel_feats = torch.where(sel_valid[..., None], sel_feats, 0.0)
     sel_all = torch.gather(logits_all, -2, idx[..., None].expand(*idx.shape, logits_all.shape[-1]))
@@ -193,6 +199,14 @@ def fuse_views_fixed(views: torch.Tensor, mode: str) -> torch.Tensor:
     raise ValueError(f"unknown ablation mode {mode!r}")
 
 
+def _selection_union(logits: torch.Tensor, logits_ext: torch.Tensor, valid: torch.Tensor,
+                    cfg: MOCConfig) -> torch.Tensor:
+    """The selection union mask ``[B, N]`` by ``cfg.select_method``:
+    ``union_selection`` under ``"sort"``, else ``union_selection_threshold``."""
+    fn = union_selection if cfg.select_method == "sort" else union_selection_threshold
+    return fn(logits, logits_ext, valid, cfg.topj, cfg.n_classes, cfg.discard)
+
+
 def moc_slide_logits_masked(senet: SENet, feats: torch.Tensor, valid: torch.Tensor,
                             w: torch.Tensor, w_ext: torch.Tensor, cfg: MOCConfig,
                             keep: torch.Tensor | None = None) -> torch.Tensor:
@@ -202,8 +216,7 @@ def moc_slide_logits_masked(senet: SENet, feats: torch.Tensor, valid: torch.Tens
     if keep is not None:
         valid = valid & keep
     views, weights, logits, logits_ext = _dense_views_weights(senet, feats, w, w_ext, cfg)
-    union = union_selection_threshold(logits, logits_ext, valid, cfg.topj,
-                                      cfg.n_classes, cfg.discard)
+    union = _selection_union(logits, logits_ext, valid, cfg)
     fused = fuse_views(weights, views, cfg.include_flags())
     return topj_pooling(fused, union, cfg.topk)
 
@@ -228,8 +241,7 @@ def ablation_slide_logits(feats: torch.Tensor, valid: torch.Tensor, w: torch.Ten
     the masked formulation unless ``exact_impl="gather"``."""
     if cfg.exact_impl != "gather":
         views, _, logits, logits_ext = _dense_views_weights(None, feats, w, w_ext, cfg)
-        union = union_selection_threshold(logits, logits_ext, valid, cfg.topj,
-                                          cfg.n_classes, cfg.discard)
+        union = _selection_union(logits, logits_ext, valid, cfg)
         return topj_pooling(fuse_views_fixed(views, mode), union, cfg.topk)
     sel = slide_process(feats, valid, w, w_ext, cfg)
     return topj_pooling(fuse_views_fixed(sel.views, mode), sel.valid, cfg.topk)

@@ -28,7 +28,7 @@ from moc_tpu_torch.metrics import accuracy, roc_auc_host, softmax_probs
 from moc_tpu_torch.models.senet import SENet
 from moc_tpu_torch.moc.core import (MOCConfig, _full_f32, ablation_slide_logits,
                                     moc_slide_logits, moc_slide_logits_masked)
-from moc_tpu_torch.ops import topj_pooling
+from moc_tpu_torch.ops import FOREGROUND_POOLINGS, POOLING_REGISTRY
 
 # (epoch, visits V, padded bag length N) -> bool [V, N] patch-keep masks
 KeepFn = Callable[[int, int, int], torch.Tensor]
@@ -122,10 +122,16 @@ def eval_batch(params_or_module: SENet | Mapping[str, torch.Tensor], batch: BagB
 
 def zs_pooled_logits(feats: torch.Tensor, valid: torch.Tensor, w: torch.Tensor,
                      w_ext: torch.Tensor, cfg: MOCConfig) -> torch.Tensor:
-    """Zero-shot pooled logits ``[B, C]``: ``topj_pooling`` of ``feats @ w``
-    at ``topk`` (the one zero-shot pooling family ported)."""
+    """Zero-shot pooled logits ``[..., C]`` of slides ``feats [..., N, D]`` by
+    the ``cfg.zs_pooling`` family at ``topk``: the foreground families pool
+    ``feats @ w``, the bottom-k families ``feats @ w_ext`` with ``n_fg =
+    n_classes``. The one zero-shot dispatch: the streamed evaluation and the
+    sweep's floor both call it."""
     _full_f32()
-    return topj_pooling(feats @ w, valid, cfg.topk)
+    pool_fn = POOLING_REGISTRY[cfg.zs_pooling]
+    if cfg.zs_pooling in FOREGROUND_POOLINGS:
+        return pool_fn(feats @ w, valid, cfg.topk)
+    return pool_fn(feats @ w_ext, valid, cfg.topk, n_fg=cfg.n_classes)
 
 
 def _collect_metrics(logits: np.ndarray, labels: np.ndarray, cfg: MOCConfig) -> EvalMetrics:

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import csv
 import json
+import math
 import os
 from glob import glob
 
@@ -67,9 +68,15 @@ def summarize(summary_dir: str, shots=(1, 2, 4, 8), folds=(0, 1, 2, 3, 4)) -> di
             out = csv.writer(f, lineterminator="\n")
             out.writerow(["fold", *cols])
             rows = [*folds, "mean"]
-            out.writerows([rows[i], *(v[i] for v in cols.values())] for i in range(len(rows)))
+            out.writerows([rows[i], *(_cell(v[i]) for v in cols.values())]
+                          for i in range(len(rows)))
         written[shot] = out_path
     return written
+
+
+def _cell(value):
+    """A summary value as pandas writes it: NaN as an empty field."""
+    return "" if isinstance(value, float) and math.isnan(value) else value
 
 
 def _summarize_shot(shot_dir: str, shot: int, folds: list) -> dict[str, list] | None:

@@ -19,12 +19,30 @@ from moc_tpu_torch.ops.masking import (
     threshold_topk_mask,
     topk_mean,
 )
-from moc_tpu_torch.ops.pooling import topj_pooling
+from moc_tpu_torch.ops.pooling import (
+    FOREGROUND_POOLINGS,
+    POOLING_REGISTRY,
+    bottomk_irrel_delta_diff_pooling,
+    bottomk_irrel_delta_softmax_pooling,
+    bottomk_irrel_pooling,
+    delta_diff_pooling,
+    delta_softmax_pooling,
+    topj_bottomk_irrel_delta_diff_pooling,
+    topj_bottomk_irrel_delta_softmax_pooling,
+    topj_delta_diff_pooling,
+    topj_delta_softmax_pooling,
+    topj_pooling,
+)
 from moc_tpu_torch.ops.selection import (
     gather_selected,
     select_and_gather,
+    select_bottomk_irrel,
+    select_delta_diff,
+    select_delta_softmax,
+    select_topj,
     selection_capacity,
     topk_threshold_mask,
+    union_selection,
     union_selection_threshold,
 )
 
@@ -36,10 +54,26 @@ __all__ = [
     "masked_row_margin",
     "threshold_topk_mask",
     "topk_mean",
+    "FOREGROUND_POOLINGS",
+    "POOLING_REGISTRY",
+    "bottomk_irrel_delta_diff_pooling",
+    "bottomk_irrel_delta_softmax_pooling",
+    "bottomk_irrel_pooling",
+    "delta_diff_pooling",
+    "delta_softmax_pooling",
+    "topj_bottomk_irrel_delta_diff_pooling",
+    "topj_bottomk_irrel_delta_softmax_pooling",
+    "topj_delta_diff_pooling",
+    "topj_delta_softmax_pooling",
     "topj_pooling",
     "gather_selected",
     "select_and_gather",
+    "select_bottomk_irrel",
+    "select_delta_diff",
+    "select_delta_softmax",
+    "select_topj",
     "selection_capacity",
     "topk_threshold_mask",
+    "union_selection",
     "union_selection_threshold",
 ]

@@ -33,18 +33,32 @@ def softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return e / torch.sum(e, dim=dim, keepdim=True)
 
 
-def masked_col_topk(scores: torch.Tensor, valid: torch.Tensor, k: int):
+def top_k(x: torch.Tensor, k: int, dim: int = -1):
+    """``(values, indices)`` of the ``k`` largest entries of ``x`` along
+    ``dim``, in ``lax.top_k``'s order: key descending, ties in ascending
+    index, −0.0 below +0.0 (a total order). A STABLE descending sort of the
+    monotone rank of the raw bits gives that order; ``torch.topk`` promises
+    no tie order on CUDA, so index consumers never use it."""
+    idx = torch.sort(monotone_u32(x), dim=dim, descending=True,
+                     stable=True).indices.narrow(dim, 0, k)
+    return torch.gather(x, dim, idx), idx
+
+
+def topk_fn(approx: bool):
+    """``top_k``, the exact ranking. ``approx=True`` asks for the TPU's
+    approximate top-k unit, which the GPU does not have."""
+    if approx:
+        raise ValueError("approx=True is the TPU's approximate top-k; the port has none")
+    return top_k
+
+
+def masked_col_topk(scores: torch.Tensor, valid: torch.Tensor, k: int,
+                    approx: bool = False):
     """Column-wise top-k over valid rows: ``(values [..., k, C], indices
-    [..., k, C])``, per column the row indices in descending score order with
-    ties in ascending index, as ``lax.top_k`` orders them. A STABLE
-    descending sort gives that order (``torch.topk`` promises no tie order on
-    CUDA). It sorts the monotone rank of the raw bits, because ``lax.top_k``
-    ranks −0.0 below +0.0 (it is a total order). When fewer than ``k`` rows are
-    valid, trailing entries point at padded rows (score ``NEG_INF``)."""
-    m = masked_logits(scores, valid)
-    idx = torch.sort(monotone_u32(m), dim=-2, descending=True,
-                     stable=True).indices[..., :k, :]
-    return torch.gather(m, -2, idx), idx
+    [..., k, C])``, per column the row indices in ``top_k``'s order. When
+    fewer than ``k`` rows are valid, trailing entries point at padded rows
+    (score ``NEG_INF``)."""
+    return topk_fn(approx)(masked_logits(scores, valid), k, dim=-2)
 
 
 def masked_row_margin(logits: torch.Tensor) -> torch.Tensor:
@@ -68,12 +82,35 @@ def topk_mean(values: torch.Tensor, j: int, count: torch.Tensor) -> torch.Tensor
     return torch.where(count[..., None] > 0, mean, NEG_INF)
 
 
-def bottomk_bg_key(logits_ext: torch.Tensor, valid: torch.Tensor,
-                   n_fg: int) -> torch.Tensor:
+def bottomk_bg_key(logits_ext: torch.Tensor, valid: torch.Tensor, n_fg: int,
+                   detection: bool = False) -> torch.Tensor:
     """THE bottom-k stage-1 ranking key: negated background-logit sum of
-    ``logits_ext [..., N, C_ext]``, invalid rows pushed to the end with
-    ``NEG_INF`` (ascending-bg order == descending key order)."""
-    return torch.where(valid, -torch.sum(logits_ext[..., n_fg:], dim=-1), NEG_INF)
+    ``logits_ext [..., N, C_ext]`` (every column but the first under
+    ``detection``), invalid rows pushed to the end with ``NEG_INF``
+    (ascending-bg order == descending key order)."""
+    bg = logits_ext[..., 1:] if detection else logits_ext[..., n_fg:]
+    return torch.where(valid, -torch.sum(bg, dim=-1), NEG_INF)
+
+
+def gather_rows(mat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``mat[..., idx[..., r], :]`` for ``mat [..., N, F]``, ``idx [..., k]``."""
+    return torch.gather(mat, -2, idx[..., None].expand(*idx.shape, mat.shape[-1]))
+
+
+def bottomk_stage1(logits_ext: torch.Tensor, valid: torch.Tensor, n_fg: int, kb: int,
+                   detection: bool = False, approx: bool = False):
+    """Stage 1 of every bottom-k-irrelevant formulation: the ``kb`` rows of
+    least summed background logit in ``top_k``'s rank order. Returns their
+    foreground logits ``[..., kb, F]`` (column 0 beside the row's top-1
+    background logit under ``detection``), their row indices ``[..., kb]``
+    and the stage validity ``[..., kb]``."""
+    fg = logits_ext[..., :1] if detection else logits_ext[..., :n_fg]
+    _, bk_idx = topk_fn(approx)(bottomk_bg_key(logits_ext, valid, n_fg, detection), kb)
+    fg_rows = gather_rows(fg, bk_idx)
+    if detection:
+        top1_bg = top_k(logits_ext[..., 1:], 1)[0]  # [..., N, 1]
+        fg_rows = torch.cat([fg_rows, gather_rows(top1_bg, bk_idx)], dim=-1)
+    return fg_rows, bk_idx, bottomk_stage_valid(kb, valid)
 
 
 def bottomk_stage_valid(kb: int, valid: torch.Tensor) -> torch.Tensor:

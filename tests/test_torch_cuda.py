@@ -15,12 +15,15 @@ import numpy as np
 import pytest
 import torch
 
-from moc_tpu_torch.ops import (NEG_INF, masked_col_topk_mask, threshold_topk_mask,
-                               topk_threshold_mask, topk_kernel)
+from moc_tpu_torch.ops import (FOREGROUND_POOLINGS, NEG_INF, POOLING_REGISTRY,
+                               masked_col_topk_mask, masked_logits, masked_row_margin,
+                               select_and_gather, threshold_topk_mask, topk_kernel,
+                               topk_threshold_mask, union_selection, union_selection_threshold)
 from moc_tpu_torch.ops.flash_attention import (flash_attention, flash_attention_padded,
                                                flash_attention_with_lse, flash_bwd_reference,
                                                mha_reference)
 from moc_tpu_torch.ops.flash_kernel import flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_fwd_cuda
+from moc_tpu_torch.ops.masking import softmax
 
 K2_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # f32 K2 against its plain version, beside K2_TOL: max |O - plain| at most
@@ -759,3 +762,120 @@ def test_sweep_waits_for_nothing_from_its_first_step_to_its_evaluation(gen, tmp_
         torch.cuda.set_sync_debug_mode("default")
     assert len(steps) == 12
     assert bool(torch.isfinite(result.losses).all()) and result.best_epoch.shape == (2,)
+
+
+# the ranking keys of the five foreground pooling families: K1's column
+# entry sees [B, N, 1] for delta_diff's margin and [B, N, C] for the rest
+FOREGROUND_KEYS = {
+    "topj": lambda x: x,
+    "delta_softmax": lambda x: softmax(x, dim=-1),
+    "delta_diff": lambda x: masked_row_margin(x)[..., None],
+    "topj_delta_softmax": lambda x: softmax(x, dim=-1) * x,
+    "topj_delta_diff": lambda x: x * masked_row_margin(x)[..., None],
+}
+
+
+def _pooling_logits(gen, c, ties=False):
+    """Logits ``[4, 4096, c]`` on the card, with 4096, 3000, 7 and 0 valid
+    rows; padded rows hold NaN."""
+    x = torch.randn((4, 4096, c), generator=gen, device="cuda")
+    if ties:
+        x = torch.round(x)
+    valid = torch.arange(4096, device="cuda") < torch.tensor([[4096], [3000], [7], [0]],
+                                                              device="cuda")
+    return torch.where(valid[..., None], x, float("nan")), valid
+
+
+@pytest.mark.parametrize("name", sorted(FOREGROUND_KEYS))
+def test_foreground_family_k1_masks_bit_equal_to_plain(gen, name):
+    """Each foreground family's membership mask from K1 on the card is
+    bit-equal to the plain version on the same keys, and the family launches
+    K1 once on its mask route."""
+    logits, valid = _pooling_logits(gen, 2)
+    keys = FOREGROUND_KEYS[name](logits)
+    assert keys.shape[-1] == (1 if name == "delta_diff" else 2)
+    got = masked_col_topk_mask(keys, valid, 10)
+    want = threshold_topk_mask(masked_logits(keys, valid).cpu(), 10, axis=-2)
+    assert torch.equal(got.cpu(), want)
+    before = topk_kernel.col_topk_threshold_mask_cuda.launches
+    POOLING_REGISTRY[name](logits, valid, 10)
+    torch.cuda.synchronize()
+    assert topk_kernel.col_topk_threshold_mask_cuda.launches == before + 1
+
+
+@pytest.mark.parametrize("return_indices", [False, True])
+@pytest.mark.parametrize("name", sorted(POOLING_REGISTRY))
+def test_pooling_families_on_the_card_match_the_cpu(gen, name, return_indices):
+    """All ten families on the card against the CPU on the card's own
+    logits: pooled values within 1e-6, indices equal, bottom-k families with
+    ``detection`` both ways; K1 only on the foreground mask route."""
+    fg = name in FOREGROUND_POOLINGS
+    logits, valid = _pooling_logits(gen, 2 if fg else 6)
+    for kw in ([{}] if fg else [{"n_fg": 2, "detection": False}, {"n_fg": 2, "detection": True}]):
+        before = topk_kernel.col_topk_threshold_mask_cuda.launches
+        got = POOLING_REGISTRY[name](logits, valid, 10, return_indices=return_indices, **kw)
+        torch.cuda.synchronize()
+        launched = topk_kernel.col_topk_threshold_mask_cuda.launches - before
+        assert launched == (1 if fg and not return_indices else 0)
+        want = POOLING_REGISTRY[name](logits.cpu(), valid.cpu(), 10,
+                                      return_indices=return_indices, **kw)
+        if return_indices:
+            assert torch.equal(got[1].cpu(), want[1])
+            got, want = got[0], want[0]
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-6)
+        assert (got[3] == NEG_INF).all()
+
+
+def _selection_inputs(gen, kind):
+    """``(logits [8, N, 2], logits_ext [8, N, 6], valid [8, N])`` on the
+    card: random, tie-heavy (integers, signed zeros among them), or all
+    ±0.0 with mixed signs, where the sort path and the threshold path part."""
+    n = 16 if kind == "signed_zeros" else 4096
+    ext = torch.randn((8, n, 6), generator=gen, device="cuda")
+    if kind == "ties":
+        ext = torch.round(ext)
+    elif kind == "signed_zeros":
+        ext = torch.where(ext < 0, -0.0, 0.0)
+    valid = torch.arange(n, device="cuda") < torch.randint(1, n + 1, (8, 1), generator=gen,
+                                                           device="cuda")
+    valid[0] = True
+    if kind == "signed_zeros":  # every row valid, so that the paths part
+        valid[:] = True
+    return ext[..., :2].contiguous(), ext, valid
+
+
+@pytest.mark.parametrize("kind", ["random", "ties", "signed_zeros"])
+def test_sort_path_on_the_card_bit_equal_to_the_cpu(gen, kind):
+    """``union_selection`` and ``select_and_gather(method="sort")`` on the
+    card against the CPU on the same logits, bit for bit; with signed zeros
+    the two exact paths part on the card as on the CPU."""
+    args = _selection_inputs(gen, kind)
+    cpu = tuple(a.cpu() for a in args)
+    topj = 3 if kind == "signed_zeros" else 400
+    assert torch.equal(union_selection(*args, topj, 2).cpu(), union_selection(*cpu, topj, 2))
+    got = select_and_gather(*args, topj, 2, 2432, method="sort")
+    for g, w in zip(got, select_and_gather(*cpu, topj, 2, 2432, method="sort")):
+        assert torch.equal(g.cpu(), w)
+    if kind == "signed_zeros":
+        sort, thr = union_selection(*args, topj, 2), union_selection_threshold(*args, topj, 2)
+        assert torch.equal(thr.cpu(), union_selection_threshold(*cpu, topj, 2))
+        assert bool((sort != thr).any())
+
+
+def test_sort_path_and_pooling_families_wait_for_nothing(gen):
+    """No host synchronisation on the sort path or in any family (the
+    sweep's evaluation runs them under ``set_sync_debug_mode("error")``)."""
+    args = _selection_inputs(gen, "random")
+    logits, valid = _pooling_logits(gen, 6)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        union_selection(*args, 400, 2)
+        select_and_gather(*args, 400, 2, 2432, method="sort")
+        for name, fn in POOLING_REGISTRY.items():
+            fg = name in FOREGROUND_POOLINGS
+            x, kw = (logits[..., :2], {}) if fg else (logits, {"n_fg": 2, "detection": True})
+            fn(x, valid, 10, return_indices=True, **kw)
+            fn(x, valid, 10, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")

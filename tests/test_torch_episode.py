@@ -259,7 +259,7 @@ def test_select_and_gather_bit_equal(discard, ties):
     cap = selection_capacity_for(TOPJ, 2, 512)
     idx, sv, count = tops.select_and_gather(torch.from_numpy(lg), torch.from_numpy(le),
                                             torch.from_numpy(valid & keep), TOPJ, 2, cap,
-                                            discard)
+                                            discard, method="threshold")
     for b in range(2):
         ji, jv, jn = jops.select_and_gather(jnp.asarray(lg[b]), jnp.asarray(le[b]),
                                             jnp.asarray(valid[b] & keep[b]), TOPJ, 2, cap,
@@ -339,15 +339,54 @@ def test_zs_pooled_logits_match_jax(strong):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("name", sorted(jops.POOLING_REGISTRY))
+def test_zs_pooled_logits_match_jax_for_every_family(strong, name):
+    """Every ``zs_pooling`` family: the foreground ones pool ``feats @ w``,
+    the bottom-k ones ``feats @ w_ext`` with ``n_fg = n_classes``."""
+    jcfg, cfg = _cfgs(zs_pooling=name)
+    jep, tep = strong["jep"], strong["tep"]
+    got = zs_pooled_logits(tep.train.features, tep.train.mask, *_w(strong["tc"], False), cfg)
+    jw = _w(strong["jc"], True)
+    want = jax.vmap(lambda f, v: jepisode.zs_pooled_logits(f, v, *jw, jcfg))(
+        jep.train.features, jep.train.mask)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+
+
 @pytest.mark.parametrize("kw,err", [(dict(dense=True), NotImplementedError),
                                     (dict(score_dtype="bfloat16"), NotImplementedError),
-                                    (dict(select_method="sort"), NotImplementedError),
-                                    (dict(zs_pooling="delta_softmax"), NotImplementedError),
                                     (dict(approx_topk=True), ValueError),
                                     (dict(exact_impl="dense"), ValueError)])
 def test_config_refuses_unported_tiers(kw, err):
     with pytest.raises(err, match="ROADMAP|TPU|exact_impl"):
         MOCConfig(n_classes=2, n_ext_classes=6, **kw)
+
+
+@pytest.mark.parametrize("kw", [dict(select_method="sort"), dict(zs_pooling="delta_softmax")])
+def test_config_takes_the_sort_path_and_every_zs_pooling(strong, kw):
+    """Accepted and run, against the JAX package on the same slides: the
+    masked forward (sort) or the zero-shot floor (a pooling family); any
+    value outside the JAX choices raises."""
+    jcfg, cfg = _cfgs(**kw)
+    tep, jep = strong["tep"], strong["jep"]
+    w, w_ext = _w(strong["tc"], False)
+    jw = _w(strong["jc"], True)
+    if "select_method" in kw:
+        params = _jax_init(jcfg)
+        got = moc_slide_logits(senet_from_jax(jax.tree.map(np.asarray, params)),
+                               tep.train.features, tep.train.mask, w, w_ext, cfg)
+        want = jax.vmap(lambda f, v: jcore.moc_slide_logits(
+            JSENet(in_dim=DIM, out_dim=4).apply, params, f, v, *jw, jcfg))(
+            jep.train.features, jep.train.mask)
+    else:
+        got = zs_pooled_logits(tep.train.features, tep.train.mask, w, w_ext, cfg)
+        want = jax.vmap(lambda f, v: jepisode.zs_pooled_logits(f, v, *jw, jcfg))(
+            jep.train.features, jep.train.mask)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    for name in jops.POOLING_REGISTRY:
+        assert MOCConfig(n_classes=2, n_ext_classes=6, zs_pooling=name).zs_pooling == name
+    for bad in (dict(select_method="radix"), dict(zs_pooling="max")):
+        with pytest.raises(ValueError, match="unknown"):
+            MOCConfig(n_classes=2, n_ext_classes=6, **bad)
     jcfg = JMOCConfig(n_classes=2, n_ext_classes=6)
     cfg = MOCConfig(n_classes=2, n_ext_classes=6)
     for f in ("topj", "topk", "drop_prob", "learning_rate", "weight_decay", "num_epochs",
@@ -380,8 +419,17 @@ def test_one_epoch_matches_jax(strong):
     1e-5 (of each parameter's largest |grad|), parameters within 1e-5. No
     SENet gradient is rounding noise (unlike the key bias of pretraining):
     each parameter's largest |grad| is far above f32 rounding."""
+    _assert_one_epoch_matches_jax(strong)
+
+
+def test_one_epoch_under_sort_matches_jax(strong):
+    """The same epoch with ``select_method="sort"`` in both packages."""
+    _assert_one_epoch_matches_jax(strong, select_method="sort")
+
+
+def _assert_one_epoch_matches_jax(strong, **cfg_kw):
     jep, tep = strong["jep"], strong["tep"]
-    jcfg, cfg = _cfgs()
+    jcfg, cfg = _cfgs(**cfg_kw)
     params = _jax_init(jcfg)
     order = jep.train_epoch_order()
     visits, n = len(order), jep.train.padded_len

@@ -129,8 +129,6 @@ def test_summary_csv_matches_jax(tmp_path, layout):
 @pytest.mark.parametrize("argv,err,match", [
     (["--dense"], NotImplementedError, "queue 1 item 6"),
     (["--score_dtype", "bfloat16"], NotImplementedError, "queue 1 item 6"),
-    (["--select_method", "sort"], NotImplementedError, "queue 1 item 5"),
-    (["--zs_pooling", "max"], NotImplementedError, "queue 1 item 5"),
     (["--approx_topk"], SystemExit, "JAX package"),
     (["--platform", "cpu"], SystemExit, "JAX package"),
     (["--xprof", "trace"], SystemExit, "JAX package"),
@@ -138,6 +136,63 @@ def test_summary_csv_matches_jax(tmp_path, layout):
 def test_refuses_unported_and_jax_only_flags(runs, argv, err, match):
     with pytest.raises(err, match=match):
         main_moc.main([*SMALL, "--device", "cpu", "--result_dir", runs[0], *argv])
+
+
+SORT_FLAGS = ["--select_method", "sort", "--zs_pooling", "topj_bottomk_irrel_delta_softmax"]
+
+
+@pytest.mark.parametrize("extra", [["--num_epochs", "1"], ["--ablation_study", "avg"]])
+def test_sort_selection_and_a_bottomk_zs_pooling_run_as_in_jax(runs, tmp_path, extra):
+    """``--select_method sort`` with a bottom-k zero-shot family, in both
+    packages on the same corpus: the episode's zero-shot floor (equal
+    accuracy and AUC, loss within 1e-5) and result keys, or the ablation
+    metrics, which need no SENet."""
+    port, jax_dir = str(tmp_path / "port"), str(tmp_path / "jax")
+    for d, src in ((port, runs[0]), (jax_dir, runs[1])):  # the corpus, not the results
+        shutil.copytree(os.path.join(src, CORPUS), os.path.join(d, CORPUS))
+    argv = [*SMALL, *SORT_FLAGS, *extra]
+    assert main_moc.main([*argv, "--device", "cpu", "--result_dir", port]) == 0
+    assert jmain_moc.main([*argv, "--result_dir", jax_dir]) == 0
+    if "--ablation_study" in extra:
+        got, want = (_json(os.path.join(d, "ablation_results_avg_shot_2_fold_0.json"))
+                     for d in (port, jax_dir))
+        pairs = [(got, want)]
+    else:
+        got, want = (_json(os.path.join(d, "best_results_shot_2_fold_0.json"))
+                     for d in (port, jax_dir))
+        assert list(got) == list(want) == EPISODE_KEYS
+        pairs = [(got[k], want[k]) for k in ("zero_shot_train", "zero_shot_val",
+                                             "zero_shot_test")]
+    for g, w in pairs:
+        assert g["acc"] == w["acc"] and g["auc"] == w["auc"]
+        assert abs(g["loss"] - w["loss"]) <= 1e-5
+
+
+def test_unknown_zs_pooling_is_an_argparse_error_as_in_jax(capsys):
+    for get_args in (main_moc.get_args, jmain_moc.get_args):
+        with pytest.raises(SystemExit) as exc:
+            get_args([*SMALL, "--zs_pooling", "max"])
+        assert exc.value.code == 2
+        assert "invalid choice: 'max'" in capsys.readouterr().err
+
+
+def test_summary_writes_a_nan_fold_as_jax_does(tmp_path):
+    """A fold whose AUC is NaN: an empty field in the fold's row and in the
+    mean, byte for byte as the JAX package's pandas writer puts it."""
+    _write_layouts(str(tmp_path / "port"), "full")
+    path = tmp_path / "port" / "8_shot" / "best_results_shot_8_fold_2.json"
+    payload = _json(path)
+    payload["test_at_best_val"] = float("nan")
+    payload["zero_shot_test"]["auc"] = float("nan")
+    with open(path, "w") as f:
+        json.dump(payload, f)
+    shutil.copytree(tmp_path / "port", tmp_path / "jax")
+    results.summarize(str(tmp_path / "port"), shots=(8,))
+    jresults.summarize(str(tmp_path / "jax"), shots=(8,))
+    got = (tmp_path / "port" / "summary_8.csv").read_bytes()
+    assert got == (tmp_path / "jax" / "summary_8.csv").read_bytes()
+    rows = got.decode().splitlines()
+    assert rows[3].split(",")[1:3] == ["", ""] and rows[6].split(",")[1:3] == ["", ""]
 
 
 def test_runs_on_cuda_by_default_and_never_on_the_cpu(tmp_path, monkeypatch):

@@ -129,6 +129,54 @@ def test_watch_once_appends_csv_and_resumes(served, tmp_path):
     np.testing.assert_allclose(float(a["prob_0"]), float(b["prob_0"]), atol=1e-6)
 
 
+class _FixedRows:
+    """A stand-in for either package's ``Server``: the same rows for a bag,
+    whatever the package (probabilities with full float repr)."""
+
+    def score(self, bags, batch_size=None):
+        return [{"slide_id": b.slide_id, "pred": i % 2, "prob_0": 1 / (i + 3),
+                 "prob_1": 1 - 1 / (i + 3)} for i, b in enumerate(bags)]
+
+
+def test_watch_once_csv_bytes_match_jax_writer(served, tmp_path):
+    """Rows appended by two drains (the header once) are byte-equal to the
+    JAX daemon's pandas writer: ``\\n`` line ends, the same fields."""
+    first, late = tmp_path / "first" / "pt_files", tmp_path / "late" / "pt_files"
+    os.makedirs(first)
+    os.makedirs(late)
+    for i, src in enumerate(_bag_paths(served)):
+        os.symlink(src, (first if i < 4 else late) / f"s{i}.pt")
+    outs = {}
+    for name, mod in (("port", serve), ("jax", jserve)):
+        out, seen = str(tmp_path / name / "rows.csv"), set()
+        assert mod.watch_once(_FixedRows(), str(first.parent), out, seen) == 4
+        assert mod.watch_once(_FixedRows(), str(late.parent), out, seen) == 2
+        with open(out, "rb") as f:
+            outs[name] = f.read()
+    assert outs["port"] == outs["jax"]
+    assert b"\r" not in outs["port"] and outs["port"].count(b"slide_id") == 1
+
+
+@pytest.mark.parametrize("method", ["threshold", "sort"])
+def test_server_takes_selection_flags_as_jax_does(served, method):
+    """``--select_method`` and ``--zs_pooling`` reach ``MOCConfig``; both
+    exact selections serve the rows of the JAX daemon with the same flags."""
+    flags = ["--select_method", method, "--zs_pooling", "bottomk_irrel"]
+    server = serve.Server(_args(served, extra=["--from_stdin", *flags]))
+    assert (server.cfg.select_method, server.cfg.zs_pooling) == (method, "bottomk_irrel")
+    jargs = jserve.get_args(["--dataset", "nsclc", "--model", str(served / "senet.msgpack"),
+                             "--weights_npz", str(served / "w.npz"),
+                             "--weights_ext_npz", str(served / "we.npz"), "--topj", "32",
+                             "--batch_size", "4", "--from_stdin", *flags])
+    paths = _bag_paths(served)
+    want = jserve.Server(jargs).score([jserve._read_bag_path(p) for p in paths])
+    got = server.score([serve._read_bag_path(p) for p in paths])
+    for g, w in zip(got, want):
+        assert g["slide_id"] == w["slide_id"] and g["pred"] == w["pred"]
+        np.testing.assert_allclose([g["prob_0"], g["prob_1"]], [w["prob_0"], w["prob_1"]],
+                                   atol=1e-5)
+
+
 def test_main_once_and_unreadable_bag(served, tmp_path):
     watch = tmp_path / "watch"
     os.makedirs(watch / "pt_files")

@@ -197,8 +197,6 @@ def test_auto_mode_streams_past_the_memory_budget(runs, tmp_path, capsys):
 @pytest.mark.parametrize("argv,err,match", [
     (["--dense"], NotImplementedError, "queue 1 item 6"),
     (["--score_dtype", "bfloat16"], NotImplementedError, "queue 1 item 6"),
-    (["--select_method", "sort"], NotImplementedError, "queue 1 item 5"),
-    (["--zs_pooling", "max"], NotImplementedError, "queue 1 item 5"),
     (["--approx_topk"], SystemExit, "JAX package"),
     (["--platform", "cpu"], SystemExit, "JAX package"),
     (["--xprof", "trace"], SystemExit, "JAX package"),
@@ -206,6 +204,33 @@ def test_auto_mode_streams_past_the_memory_budget(runs, tmp_path, capsys):
 def test_refuses_unported_and_jax_only_flags(runs, argv, err, match):
     with pytest.raises(err, match=match):
         sweep.main([*SMALL, "--device", "cpu", "--result_dir", runs["fused"], *argv])
+
+
+def test_sort_selection_and_bottomk_zs_floor_match_jax_run_sweep_pooled(tmp_path):
+    """``--select_method sort --zs_pooling bottomk_irrel_delta_diff``, fused,
+    in both packages (the JAX command line runs ``run_sweep_pooled``): the
+    zero-shot floor of every fold with equal accuracy and AUC, loss within
+    1e-5, and the JAX package's file names."""
+    argv = [*SMALL, "--num_epochs", "1", "--mode", "fused", "--select_method", "sort",
+            "--zs_pooling", "bottomk_irrel_delta_diff"]
+    port, jax_dir = str(tmp_path / "port"), str(tmp_path / "jax")
+    assert sweep.main([*argv, "--device", "cpu", "--result_dir", port]) == 0
+    assert jsweep_cli.main([*argv, "--result_dir", jax_dir]) == 0
+    for fold in FOLDS:
+        got, want = (_results(d, fold, "zs_results") for d in (port, jax_dir))
+        assert list(got) == list(want)
+        for part, metrics in want.items():
+            assert got[part]["acc"] == metrics["acc"] and got[part]["auc"] == metrics["auc"]
+            assert abs(got[part]["loss"] - metrics["loss"]) <= 1e-5
+        assert list(_results(port, fold)) == EPISODE_KEYS
+
+
+def test_unknown_zs_pooling_is_an_argparse_error_as_in_jax(capsys):
+    for get_args in (sweep.get_args, jsweep_cli.get_args):
+        with pytest.raises(SystemExit) as exc:
+            get_args([*SMALL, "--zs_pooling", "max"])
+        assert exc.value.code == 2
+        assert "invalid choice: 'max'" in capsys.readouterr().err
 
 
 def test_runs_on_cuda_by_default_and_never_on_the_cpu(tmp_path, monkeypatch):
