@@ -123,7 +123,23 @@ Phases, each of which makes the script exit non-zero when it fails:
    card against CPU (equal AUC and accuracy, pooled logits within rtol
    1e-4); the sort union against the threshold union at the serving point
    (CUDA events and a profile of each) and ``select_and_gather`` of one
-   training visit, and K1's column entry at the zero-shot floor's shapes.
+   training visit, and K1's column entry at the zero-shot floor's shapes;
+14. zero-shot (``[zeroshot]``): a release-layout CONCH checkpoint fabricated
+   at full width from seed 3 (text tower: 12 layers of 768, 12 heads,
+   context 128, vocabulary 32007, output 512) loaded by ``load_conch`` on
+   the card and on the CPU; ``W`` and ``W_ext`` of the vendored nsclc and
+   rcc banks (176 and 220 prompts, hash vocabulary) built on both within
+   1e-5, with the TF32 flags off at every text forward on the card; K1's
+   column masks at MI-Zero's shapes ([16, 4096, 2], 1500-4000 valid rows,
+   k in {1, 5, 10, 50, 100}) bit-equal to the plain version and timed;
+   ``run_mizero`` over 16 slides (D = 512, nsclc's ``W``) on the card
+   against the CPU (pooled logits within 1e-6, predictions and metrics
+   equal, K1 launched once a j a batch); ``cli.main_moc.main --dataset
+   nsclc`` on a data root of ``.pt`` bags only (the vendored table and
+   1-shot split 0: 2 train, 50 val, 208 test bags of 500-2000 patches),
+   building its weight caches from the vendored banks (result files, finite
+   losses, K1 launched twice a training step), then again from the caches
+   with a checkpoint path that does not exist (cache bytes unchanged).
 
 The last lines are the card's name and power limit, one JSON object of
 kernel records, and ``{"ok": true, "device": {...}}``. No phase falls back
@@ -1960,6 +1976,278 @@ def phase_sweep_times(root: str) -> dict:
     return {"step_ms": step_ms, "pack_ms": pack_ms, "trajectory_ms": traj_ms, "k1": k1}
 
 
+# MI-Zero evaluation (moc_tpu/zeroshot/eval.py:66-132) and main_moc on the vendored
+# NSCLC protocol: the CONCH text tower at full width (12 layers of 768, 12 heads,
+# context 128, vocabulary 32007, output 512) from a fabricated release checkpoint,
+# the vendored banks (22 templates a class: 176 prompts for nsclc's W and W_ext,
+# 220 for rcc's), top-j pooling at MI-Zero's j over 16 slides of 1500-4000 patches,
+# and one episode of shot 1, fold 0 (2 train, 50 val, 208 test bags of 500-2000
+# patches at D = 512, 2 epochs)
+ZS_TOPJ = (1, 5, 10, 50, 100)
+ZS_SLIDES, ZS_PAD, ZS_PATCHES = 16, 4096, (1500, 4000)
+ZS_BAG_PATCHES = (500, 2000)
+ZS_EPOCHS = 2
+ZS_ARGV = ["--dataset", "nsclc", "--shot", "1", "--fold", "0", "--topj", str(TOPJ), "--topk",
+           str(TOPK), "--num_epochs", str(ZS_EPOCHS), "--seed", "0", "--device", "cuda"]
+ZS_W_TOL = 1e-5  # |W_card - W_cpu|: unit-norm columns of 512 have entries of ~0.044
+ZS_LOGIT_TOL = 1e-6
+
+
+def _timed_encode(model, device: str):
+    """``make_encode_text_fn``'s encode on ``device``, with each call's time
+    (CUDA events around it on the card, the host clock on the CPU) and the
+    TF32 flags seen at each text forward."""
+    from moc_tpu_torch.zeroshot.classifier import make_encode_text_fn
+
+    base, ms, flags = make_encode_text_fn(model, device), [], []
+    model.text.register_forward_pre_hook(lambda *_: flags.append(
+        (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)))
+
+    def encode(ids):
+        if device == "cuda":
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = base(ids)
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            out = base(ids)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    return encode, ms, flags
+
+
+def phase_zeroshot_weights(root: str) -> dict:
+    """A full-width release-layout CONCH checkpoint from seed 3, loaded by
+    ``load_conch`` on the card and on the CPU; ``W`` and ``W_ext`` of the
+    vendored nsclc and rcc banks built on both (hash vocabulary), within
+    ``ZS_W_TOL``, with the TF32 flags off at every text forward on the card
+    (turned on just before)."""
+    from moc_tpu_torch.config import DEFAULT_PROMPT_ROOT, NSCLC, RCC
+    from moc_tpu_torch.zeroshot import (ConchTokenizer, build_zero_shot_classifier, load_conch,
+                                        load_prompt_bank)
+    from moc_tpu_torch.zeroshot.convert import random_conch_state_dict
+
+    t0 = time.perf_counter()
+    ckpt = os.path.join(root, "conch_zs.bin")
+    sd = random_conch_state_dict(seed=3)
+    torch.save(sd, ckpt)
+    n_text = sum(v.numel() for k, v in sd.items() if k.startswith("text."))
+    del sd
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    card = load_conch(ckpt, device="cuda")
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    cpu = load_conch(ckpt, device="cpu")
+    check(card.cfg.text.layers == 12 and card.cfg.text.width == 768
+          and card.cfg.text.output_dim == 512, f"text config {card.cfg.text}")
+    tokenizer = ConchTokenizer()
+    encode_card, ms_card, flags = _timed_encode(card, "cuda")
+    encode_cpu, ms_cpu, _ = _timed_encode(cpu, "cpu")
+    encode_card(tokenizer(["a warm-up prompt"]))  # cuBLAS's first-call set-up, untimed
+    weights, rec = {}, {"banks": {}}
+    for preset in (NSCLC, RCC):
+        for suffix, f, labels in (("", preset.prompt_file, preset.label_dict),
+                                  ("_ext", preset.prompt_file_ext, preset.label_dict_ext)):
+            bank = load_prompt_bank(os.path.join(DEFAULT_PROMPT_ROOT, f), labels)
+            n_prompts = sum(len(t) for c in range(bank.n_classes)
+                            for t in bank.texts_for_class(c))
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+            del ms_card[:], ms_cpu[:]
+            t0 = time.perf_counter()
+            w = build_zero_shot_classifier(encode_card, tokenizer, bank)
+            wall = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            w_cpu = build_zero_shot_classifier(encode_cpu, tokenizer, bank)
+            wall_cpu = time.perf_counter() - t0
+            err = float(np.abs(w - w_cpu).max())
+            name = f"{preset.name}{suffix}"
+            check(w.shape == (512, bank.n_classes) and np.isfinite(w).all(),
+                  f"W {name} shape {w.shape}")
+            check(err <= ZS_W_TOL, f"W {name}: max |card - cpu| {err} above {ZS_W_TOL}")
+            weights[name] = w
+            rec["banks"][name] = {"prompts": n_prompts, "calls": len(ms_card),
+                                  "card_ms": sum(ms_card), "card_wall_s": wall,
+                                  "cpu_ms": sum(ms_cpu), "cpu_wall_s": wall_cpu,
+                                  "max_abs_err": err}
+            log(f"[zeroshot] W {name} {tuple(w.shape)} from {n_prompts} prompts in "
+                f"{len(ms_card)} calls: card {sum(ms_card):.2f} ms by CUDA events "
+                f"(text forward, copies in and out), {wall * 1e3:.1f} ms wall; CPU "
+                f"{wall_cpu * 1e3:.1f} ms; max |W_card - W_cpu| {err:.3e} (limit {ZS_W_TOL})")
+    check(flags and not any(a or b for a, b in flags),
+          f"TF32 on during {sum(a or b for a, b in flags)} of {len(flags)} text forwards")
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    rec.update(ckpt=ckpt, weights=weights, text_params=n_text, write_s=t_write, load_s=t_load,
+               max_abs_err=max(b["max_abs_err"] for b in rec["banks"].values()))
+    log(f"[zeroshot] fabricated a CONCH checkpoint ({n_text / 1e6:.1f}M text parameters) in "
+        f"{t_write:.1f}s, load_conch on cuda {t_load:.2f}s; TF32 off at all {len(flags)} "
+        f"text forwards; largest |W_card - W_cpu| {rec['max_abs_err']:.3e}")
+    del card, cpu
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_zeroshot_mizero(w: np.ndarray) -> dict:
+    """K1 at MI-Zero's shapes ([16, 4096, 2], 1500-4000 valid rows a slide,
+    k in ZS_TOPJ) through ``masked_col_topk_mask``, bit-equal to its plain
+    version on the same keys, and timed; then ``run_mizero`` over 16 slides
+    at D = 512 with nsclc's ``W`` on the card and on the CPU: pooled logits
+    within ``ZS_LOGIT_TOL``, equal predictions and metrics, K1 launched once
+    a j a batch (counted from 0 around the card's run)."""
+    from moc_tpu_torch.data import Bag, pack_bags
+    from moc_tpu_torch.ops import masked_col_topk_mask, masked_logits, threshold_topk_mask
+    from moc_tpu_torch.ops import topk_kernel
+    from moc_tpu_torch.zeroshot import run_mizero
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    counts = torch.randint(ZS_PATCHES[0], ZS_PATCHES[1] + 1, (ZS_SLIDES,), generator=gen,
+                           device="cuda")
+    valid = torch.arange(ZS_PAD, device="cuda") < counts[:, None]
+    keys = torch.randn(ZS_SLIDES, ZS_PAD, N_CLASSES, generator=gen, device="cuda")
+    masked = masked_logits(keys, valid)
+    records = []
+    with torch.inference_mode():
+        for k in ZS_TOPJ:
+            got = masked_col_topk_mask(keys, valid, k)
+            want = threshold_topk_mask(masked, k, axis=-2)
+            check(torch.equal(got, want), f"K1 at MI-Zero's [16, 4096, 2] k={k} differs from plain")
+            check(bool((got & valid[..., None]).sum(-2).eq(k).all()),
+                  f"K1 at k={k}: not k valid rows a column")
+            records.append(_k1_record(
+                "cols", masked, k, lambda: topk_kernel.col_topk_threshold_mask_cuda(masked, k),
+                lambda: threshold_topk_mask(masked, k, axis=-2),
+                lambda: _library_mask(masked, k, -2)))
+    rng = np.random.default_rng(12)
+    bags = []
+    for i in range(ZS_SLIDES):
+        n, y = int(rng.integers(ZS_PATCHES[0], ZS_PATCHES[1] + 1)), i % N_CLASSES
+        f = rng.normal(size=(n, DIM)).astype(np.float32)
+        f[: n // 4] += 0.05 * w[:, y]
+        bags.append(Bag(slide_id=f"zs{i}", features=f, label=y,
+                        coords=rng.integers(0, 10 ** 5, (n, 2)).astype(np.int32)))
+    runs = {}
+    for device in ("cuda", "cpu"):
+        batches = [pack_bags(bags[i: i + BATCH], n_pad=ZS_PAD, device=device, with_coords=True)
+                   for i in range(0, ZS_SLIDES, BATCH)]
+        for fn in _k1_wrappers().values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        runs[device] = run_mizero(batches, w, topj=ZS_TOPJ, dump_patch_level=True)
+        wall = time.perf_counter() - t0
+        launches = {e: fn.launches for e, fn in _k1_wrappers().items()}
+        if device == "cuda":
+            want = {"rows": 0, "cols": len(ZS_TOPJ) * len(batches)}
+            check(launches == want, f"run_mizero launched K1 {launches}, want {want}")
+            card_wall, card_launches = wall, launches["cols"]
+    (res, dump), (res_cpu, dump_cpu) = runs["cuda"], runs["cpu"]
+    err = max(float(np.abs(dump["logits"][j] - dump_cpu["logits"][j]).max()) for j in ZS_TOPJ)
+    check(err <= ZS_LOGIT_TOL, f"run_mizero pooled logits differ by {err}")
+    for j in ZS_TOPJ:
+        check(np.array_equal(dump["preds"][j], dump_cpu["preds"][j]), f"preds differ at j={j}")
+    for m, per_j in res.items():
+        for j, v in per_j.items():
+            same = (math.isnan(v) and math.isnan(res_cpu[m][j])) or v == res_cpu[m][j]
+            check(same, f"run_mizero {m} at j={j}: card {v}, CPU {res_cpu[m][j]}")
+    check(len(dump["coords"]) == ZS_SLIDES and all(
+        np.array_equal(c, b.coords) for c, b in zip(dump["coords"], bags)), "coords dump")
+    log(f"[zeroshot] run_mizero over {ZS_SLIDES} slides ({len(ZS_TOPJ)} j x 2 batches of "
+        f"{BATCH} x {ZS_PAD} x {DIM}) on cuda: {card_wall * 1e3:.1f} ms wall, K1 launched "
+        f"{card_launches} times; pooled logits within {err:.3e} of the CPU, predictions and "
+        f"metrics equal; auc {res['roc_auc']}, bacc {res['bacc']}")
+    return {"k1": records, "launches": card_launches, "logit_err": err, "wall_s": card_wall,
+            "metrics": res}
+
+
+def _write_nsclc_bags(data_root: str) -> int:
+    """One seeded ``.pt`` bag at D = 512 (500-2000 patches) for each slide of
+    the vendored nsclc 1-shot split 0, and nothing else under ``data_root``."""
+    from moc_tpu_torch.config import NSCLC
+    from moc_tpu_torch.data import read_split_csv
+    from moc_tpu_torch.data.bags import write_bag_pt
+
+    split = read_split_csv(NSCLC.split_csv(data_root, 1, 0))
+    check((len(split.train), len(split.val), len(split.test)) == (2, 50, 208),
+          f"vendored split sizes {len(split.train)}, {len(split.val)}, {len(split.test)}")
+    rng = np.random.default_rng(5)
+    ids = [*split.train, *split.val, *split.test]
+    for sid in ids:
+        n = int(rng.integers(ZS_BAG_PATCHES[0], ZS_BAG_PATCHES[1] + 1))
+        write_bag_pt(os.path.join(data_root, NSCLC.feature_dir, "pt_files", f"{sid}.pt"),
+                     rng.normal(size=(n, DIM)).astype(np.float32))
+    return len(ids)
+
+
+def phase_zeroshot_main_moc(root: str, ckpt: str) -> dict:
+    """``cli.main_moc.main --dataset nsclc`` on the card with a data root of
+    bags only: the table and split come from the vendored files, ``W`` and
+    ``W_ext`` are built from the vendored banks through the text tower of
+    ``ckpt`` into an empty cache; the result files are written; K1 runs in
+    the training steps. A second run reads the caches, with a checkpoint
+    path that does not exist, and leaves their bytes as they were."""
+    from moc_tpu_torch.cli import main_moc
+
+    data_root = os.path.join(root, "nsclc_data")
+    t0 = time.perf_counter()
+    n_bags = _write_nsclc_bags(data_root)
+    write_s = time.perf_counter() - t0
+    check(sorted(os.listdir(data_root)) == ["data"], f"data root holds {os.listdir(data_root)}")
+    cache = os.path.join(root, "zs_weights")
+    build_s = []
+    inner = main_moc._build_weights
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = inner(*args, **kwargs)
+        build_s.append(time.perf_counter() - t0)
+        return out
+
+    main_moc._build_weights = timed
+    runs = []
+    try:
+        for i, path in enumerate((ckpt, os.path.join(root, "absent_conch.bin"))):
+            result_dir = os.path.join(root, f"nsclc_run{i}")
+            rc, stdout, rec, launches, wall = _main_moc_recorded(
+                [*ZS_ARGV, "--data_root", data_root, "--conch_checkpoint", path,
+                 "--weights_cache_dir", cache, "--result_dir", result_dir])
+            check(rc == 0, f"main_moc --dataset nsclc run {i} returned {rc}")
+            check("zeroshot weights: (512, 2), ext: (512, 6)" in stdout,
+                  f"run {i} printed no zero-shot weight shapes")
+            for name in ("best_results", "zs_results"):
+                check(os.path.exists(os.path.join(result_dir, f"{name}_shot_1_fold_0.json")),
+                      f"run {i} wrote no {name}")
+            check(os.path.exists(os.path.join(result_dir, "best_model_shot_1_fold_0.npz")),
+                  f"run {i} wrote no best_model")
+            with open(os.path.join(result_dir, "best_results_shot_1_fold_0.json")) as f:
+                result = json.load(f)
+            losses = [x for epoch in rec["losses"] for x in epoch]
+            check(list(result) == RESULT_KEYS, f"result keys {list(result)}")
+            check(len(losses) == ZS_EPOCHS * N_CLASSES and all(map(math.isfinite, losses)),
+                  f"run {i}: {len(losses)} training losses, not all finite")
+            want = ZS_EPOCHS * N_CLASSES
+            check(rec["steps"] == {"rows": want, "cols": want},
+                  f"run {i}: the training steps launched K1 {rec['steps']}, want {want} each")
+            caches = {n: open(os.path.join(cache, n), "rb").read()
+                      for n in ("weights_nsclc_conch.npz", "weights_nsclc_ext_conch.npz")}
+            runs.append({"wall_s": wall, "build_s": build_s[-1], "launches": launches,
+                         "launches_steps": rec["steps"], "result": result, "caches": caches})
+            log(f"[zeroshot] main_moc {' '.join(ZS_ARGV)} run {i} ("
+                f"{'built the caches' if i == 0 else 'from the caches, checkpoint absent'}): "
+                f"weights {build_s[-1]:.2f}s, episode wall {wall:.2f}s; K1 launches: training "
+                f"steps {rec['steps']}, whole run {launches}; test AUC at best val "
+                f"{result['test_at_best_val']}, zero-shot test {result['zero_shot_test']}")
+    finally:
+        main_moc._build_weights = inner
+    check(runs[1]["caches"] == runs[0]["caches"], "the second run changed the weight caches")
+    log(f"[zeroshot] {n_bags} nsclc bags written in {write_s:.1f}s; cache bytes equal after "
+        f"the second run")
+    return {"runs": [{k: v for k, v in r.items() if k != "caches"} for r in runs],
+            "bags_write_s": write_s}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py runs on a GPU only", file=sys.stderr)
@@ -1994,6 +2282,10 @@ def main() -> int:
         train_times = phase_train_times(root)
         swept = phase_sweep(root, trained)
         sweep_times = phase_sweep_times(root)
+    with tempfile.TemporaryDirectory() as root:
+        zs = phase_zeroshot_weights(root)
+        mizero = phase_zeroshot_mizero(zs["weights"]["nsclc"])
+        zs_main = phase_zeroshot_main_moc(root, zs["ckpt"])
     smi =subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip().splitlines()[0]
@@ -2018,7 +2310,11 @@ def main() -> int:
                         "launches_train_sort": selpool["launches_sort_steps"][entry],
                         "launches_zs_floor": {k: v[entry]
                                               for k, v in selpool["launches_zs"].items()},
-                        "shapes_zs_floor": selpool["k1_zs"][entry]})
+                        "shapes_zs_floor": selpool["k1_zs"][entry],
+                        "launches_main_moc_nsclc": zs_main["runs"][0]["launches"][entry],
+                        "launches_train_nsclc": zs_main["runs"][0]["launches_steps"][entry],
+                        **({"launches_mizero": mizero["launches"], "shapes_mizero": mizero["k1"]}
+                           if entry == "cols" else {})})
     for tier, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         t, tp = k2_times[tier]["extraction"], k2_times[tier]["pretraining"]
         kernels.append({"name": f"flash_fwd_{tier}", "route": "cuda", "source": K2_SOURCE,
@@ -2059,6 +2355,10 @@ def main() -> int:
     log("[select] summary " + json.dumps({
         **selpool["times"], "sort_episode_wall_s": selpool["sort_wall_s"],
         "sort_loss_err": selpool["sort_loss_err"], "zs_max_abs_diff": selpool["zs_err"]}))
+    log("[zeroshot] summary " + json.dumps({
+        "w_max_abs_err": zs["max_abs_err"], "banks": zs["banks"], "load_conch_s": zs["load_s"],
+        "mizero_logit_err": mizero["logit_err"], "mizero_wall_s": mizero["wall_s"],
+        "main_moc_nsclc": zs_main["runs"], "bags_write_s": zs_main["bags_write_s"]}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

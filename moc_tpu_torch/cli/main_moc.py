@@ -6,13 +6,19 @@ of per-slide Adam steps, best-val model selection, and the result files
 ``best_results_shot_{s}_fold_{f}.json``, ``zs_results_shot_{s}_fold_{f}.json``
 and the best SENet as ``best_model_shot_{s}_fold_{f}.npz`` (which
 ``cli.serve --model`` reads). ``--dataset synthetic`` writes a separable
-corpus with oracle weights under ``--result_dir``; ``nsclc`` and ``rcc``
-read the table, the splits and the ``.pt`` bags under ``--data_root`` and
-the zero-shot weights from ``--weights_cache_dir``.
+corpus with oracle weights under ``--result_dir``. The real datasets
+(``nsclc``, ``rcc``, ``ebrains12``, ``ebrains30``) read the ``.pt`` bags
+under ``--data_root``, and the table and the few-shot splits there too, or
+the vendored ones where ``--data_root`` lacks them. Their zero-shot weights
+are built from the prompt banks (``--prompt_root``, by default the vendored
+ones) through the CONCH text tower of ``--conch_checkpoint`` on
+``--device``, and cached under ``--weights_cache_dir``.
 
   python -m moc_tpu_torch.cli.main_moc --dataset synthetic --shot 8 --fold 0 \\
       --topj 400 --topk 10 --synthetic_min_patches 1500 \\
       --synthetic_max_patches 4000 --result_dir R
+  python -m moc_tpu_torch.cli.main_moc --dataset nsclc --shot 8 --fold 0 \\
+      --data_root D --conch_checkpoint conch.bin [--tokenizer_file tokenizer.json]
   python -m moc_tpu_torch.cli.main_moc --summary --summary_dir R
 
 Runs on ``--device cuda`` (the default) and raises without a GPU unless
@@ -28,7 +34,7 @@ import sys
 import numpy as np
 
 from moc_tpu_torch.cli.common import add_selection_flags
-from moc_tpu_torch.config import PRESETS
+from moc_tpu_torch.config import DEFAULT_PROMPT_ROOT, PRESETS
 
 
 def get_args(argv=None):
@@ -56,8 +62,8 @@ def get_args(argv=None):
     p.add_argument("--synthetic_min_patches", type=int, default=500)
     p.add_argument("--synthetic_max_patches", type=int, default=2000)
     p.add_argument("--data_root", type=str, default="data")
-    # the text tower's inputs, read once it is ported (ROADMAP queue 1 item 7)
-    p.add_argument("--prompt_root", type=str, default=None)
+    p.add_argument("--prompt_root", type=str, default=DEFAULT_PROMPT_ROOT,
+                   help="prompt-bank dir (default: the vendored banks)")
     p.add_argument("--conch_checkpoint", type=str, default="models/conch_checkpoint.bin")
     p.add_argument("--tokenizer_file", type=str, default=None)
     p.add_argument("--weights_cache_dir", type=str, default="models/classifier_weights")
@@ -74,18 +80,34 @@ def get_args(argv=None):
     return p.parse_args(argv)
 
 
-def _load_weights(args, preset) -> tuple[np.ndarray, np.ndarray]:
-    """The zero-shot weight matrices the JAX package caches,
-    ``weights_{name}_conch.npz`` and ``weights_{name}_ext_conch.npz``
-    (key ``weights``)."""
+def _build_weights(args, preset, device) -> tuple[np.ndarray, np.ndarray]:
+    """The zero-shot weight matrices of the tumour bank and the extended bank,
+    cached as ``weights_{name}_conch.npz`` and ``weights_{name}_ext_conch.npz``
+    (key ``weights``) under ``--weights_cache_dir``. A cache is read where it
+    exists and ``--load_weight`` holds; otherwise the banks go through the
+    CONCH text tower of ``--conch_checkpoint`` on ``device``, which is loaded
+    only then."""
+    from moc_tpu_torch.zeroshot import (ConchTokenizer, cached_zero_shot_classifier, load_conch,
+                                        load_prompt_bank)
+    from moc_tpu_torch.zeroshot.classifier import make_encode_text_fn
+
+    banks = [load_prompt_bank(os.path.join(args.prompt_root, f), labels)
+             for f, labels in ((preset.prompt_file, preset.label_dict),
+                               (preset.prompt_file_ext, preset.label_dict_ext))]
     paths = [os.path.join(args.weights_cache_dir, f"weights_{preset.name}{s}_conch.npz")
              for s in ("", "_ext")]
-    missing = [p for p in paths if not os.path.exists(p)]
-    if missing or not args.load_weight:
-        raise FileNotFoundError(
-            f"zero-shot weights {missing or paths} must be given as files: building them "
-            "needs the CONCH text tower, which is not ported (ROADMAP queue 1 item 7)")
-    return tuple(np.load(p)["weights"] for p in paths)
+    encode = tokenizer = None
+    if not (args.load_weight and all(os.path.exists(p) for p in paths)):
+        if not os.path.exists(args.conch_checkpoint):
+            raise FileNotFoundError(
+                f"CONCH checkpoint {args.conch_checkpoint!r} not found: --dataset {preset.name} "
+                f"builds its zero-shot weights with its text tower (or reads {paths} with "
+                "--load_weight true)")
+        tokenizer = ConchTokenizer(args.tokenizer_file)
+        encode = make_encode_text_fn(load_conch(args.conch_checkpoint, device=device), device)
+    w, w_ext = (cached_zero_shot_classifier(p, encode, tokenizer, bank, use_cache=args.load_weight)
+                for p, bank in zip(paths, banks))
+    return w, w_ext
 
 
 def _synthetic_setup(args) -> dict:
@@ -161,7 +183,7 @@ def main(argv=None) -> int:
         preset = PRESETS[args.dataset]
         csv_path, data_dir = preset.csv_path(args.data_root), preset.data_dir(args.data_root)
         label_dict = preset.label_dict
-        w, w_ext = _load_weights(args, preset)
+        w, w_ext = _build_weights(args, preset, device)
         split_csv = preset.split_csv(args.data_root, args.shot, args.fold)
         n_classes, n_ext = preset.n_classes, preset.n_ext_classes
         repeat = preset.repeat_num(args.shot)

@@ -4,12 +4,16 @@ zero-shot weight matrices → per-slide predictions (PyTorch port of
 
 The SENet comes as a torch ``.pt`` state dict or as the ``.npz`` that
 ``moc_tpu_torch.convert.senet_state_dict_to_npz`` writes; the weight
-matrices as ``.npz`` files with a ``weights`` array.
+matrices as ``.npz`` files with a ``weights`` array, or built from a CONCH
+checkpoint and the vendored prompt banks as ``cli.main_moc`` builds them,
+cached in ``classifier_weights/`` beside ``--out``.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -21,11 +25,22 @@ from moc_tpu_torch.models.senet import SENet
 from moc_tpu_torch.moc import MOCConfig, eval_batch
 
 
-def _load_weights(args) -> tuple[np.ndarray, np.ndarray]:
-    if not (args.weights_npz and args.weights_ext_npz):
-        raise SystemExit("need --weights_npz and --weights_ext_npz")
-    return (np.load(args.weights_npz)["weights"],
-            np.load(args.weights_ext_npz)["weights"])
+def _load_weights(args, preset, device: torch.device) -> tuple[np.ndarray, np.ndarray]:
+    """The ``--weights_npz`` / ``--weights_ext_npz`` pair, or else the
+    matrices built from ``--conch_checkpoint`` (cached beside ``--out``)."""
+    if args.weights_npz and args.weights_ext_npz:
+        return (np.load(args.weights_npz)["weights"],
+                np.load(args.weights_ext_npz)["weights"])
+    if not args.conch_checkpoint:
+        raise SystemExit("need --weights_npz/--weights_ext_npz or --conch_checkpoint")
+    from moc_tpu_torch.cli.main_moc import _build_weights
+    from moc_tpu_torch.config import DEFAULT_PROMPT_ROOT
+
+    ns = argparse.Namespace(
+        conch_checkpoint=args.conch_checkpoint, tokenizer_file=args.tokenizer_file,
+        prompt_root=DEFAULT_PROMPT_ROOT, load_weight=True,
+        weights_cache_dir=os.path.join(os.path.dirname(args.out) or ".", "classifier_weights"))
+    return _build_weights(ns, preset, device)
 
 
 def load_senet(path: str) -> SENet:
@@ -39,7 +54,7 @@ def build_predictor(args, preset, device: torch.device):
     """``(batch_logits, cfg)``: ``batch_logits(BagBatch)`` returns the
     ``[B, C]`` slide logits of a batch on ``device``, with the SENet and the
     weight matrices resident there; ``cfg`` is the ``MOCConfig`` it runs."""
-    w, w_ext = _load_weights(args)
+    w, w_ext = _load_weights(args, preset, device)
     cfg = MOCConfig(n_classes=preset.n_classes, n_ext_classes=preset.n_ext_classes,
                     topj=args.topj, topk=args.topk, feature_dim=w.shape[0],
                     select_method=args.select_method, zs_pooling=args.zs_pooling)

@@ -15,6 +15,10 @@ bags are scored as they appear. Two modes:
       --weights_npz w.npz --weights_ext_npz w_ext.npz \\
       --watch_dir /data/nsclc/features --out predictions.csv --once
 
+Without the ``--weights_npz`` pair, ``--conch_checkpoint`` (and optionally
+``--tokenizer_file``) builds the weight matrices from the vendored prompt
+banks, cached in ``classifier_weights/`` beside ``--out``.
+
 Runs on ``--device cuda`` (the default) and raises without a GPU unless
 ``--device cpu`` is given.
 """
@@ -68,6 +72,10 @@ def get_args(argv=None):
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--weights_npz", default=None)
     p.add_argument("--weights_ext_npz", default=None)
+    p.add_argument("--conch_checkpoint", default=None,
+                   help="build the weight matrices with this CONCH checkpoint's text tower "
+                        "when no --weights_npz pair is given")
+    p.add_argument("--tokenizer_file", default=None)
     p.add_argument("--device", default="cuda",
                    help="torch device to serve on (cuda, cuda:1, or cpu)")
     add_selection_flags(p)

@@ -30,8 +30,8 @@ import time
 import torch
 
 from moc_tpu_torch.cli.common import add_selection_flags
-from moc_tpu_torch.cli.main_moc import _load_weights, _synthetic_setup, refuse_jax_only
-from moc_tpu_torch.config import PRESETS
+from moc_tpu_torch.cli.main_moc import _build_weights, _synthetic_setup, refuse_jax_only
+from moc_tpu_torch.config import DEFAULT_PROMPT_ROOT, PRESETS
 
 
 def get_args(argv=None):
@@ -44,8 +44,8 @@ def get_args(argv=None):
     p.add_argument("--num_epochs", type=int, default=25)
     p.add_argument("--result_dir", default="results/moc_sweep")
     p.add_argument("--data_root", default="data")
-    # the text tower's inputs, read once it is ported (ROADMAP queue 1 item 7)
-    p.add_argument("--prompt_root", default=None)
+    p.add_argument("--prompt_root", default=DEFAULT_PROMPT_ROOT,
+                   help="prompt-bank dir (default: the vendored banks)")
     p.add_argument("--conch_checkpoint", default="models/conch_checkpoint.bin")
     p.add_argument("--tokenizer_file", default=None)
     p.add_argument("--weights_cache_dir", default="models/classifier_weights")
@@ -190,9 +190,10 @@ def run_fused_shot(args, shot, folds, *, splits, pool_ctx, w, w_ext, cfg, n_clas
     return result
 
 
-def _dataset(args):
+def _dataset(args, device):
     """``(csv_path, data_dir, label_dict, w, w_ext, split_path(shot, fold),
-    n_classes, n_ext)`` of ``--dataset``."""
+    n_classes, n_ext)`` of ``--dataset``; a real dataset's zero-shot weights
+    are built (or read from the cache) as ``main_moc`` builds them."""
     if args.dataset == "synthetic":
         corpus = _synthetic_setup(args)
         label_dict = corpus["label_dict"]
@@ -200,7 +201,7 @@ def _dataset(args):
                 corpus["weights_ext"], lambda s, f: corpus["split_paths"][(s, f)],
                 len(set(label_dict.values())), corpus["weights_ext"].shape[1])
     preset = PRESETS[args.dataset]
-    w, w_ext = _load_weights(args, preset)
+    w, w_ext = _build_weights(args, preset, device)
     return (preset.csv_path(args.data_root), preset.data_dir(args.data_root),
             preset.label_dict, w, w_ext,
             lambda s, f: preset.split_csv(args.data_root, s, f), preset.n_classes,
@@ -222,7 +223,7 @@ def main(argv=None) -> int:
 
     device = resolve_device(args.device)
     os.makedirs(args.result_dir, exist_ok=True)
-    csv_path, data_dir, label_dict, w, w_ext, split_path, n_classes, n_ext = _dataset(args)
+    csv_path, data_dir, label_dict, w, w_ext, split_path, n_classes, n_ext = _dataset(args, device)
     table = SlideTable.from_csv(csv_path, label_dict)
     loader = BagLoader(table, data_dir, cache=True)
     cfg = MOCConfig(n_classes=n_classes, n_ext_classes=n_ext, topj=args.topj, topk=args.topk,

@@ -1,5 +1,6 @@
 """Carry weights across from the JAX package: flax params → torch modules
-(the SENet, the CONCH vision tower and the masked-token pretraining model),
+(the SENet, the CONCH vision and text towers and the whole CoCa, and the
+masked-token pretraining model),
 and a flax-free ``.npz`` file format for SENet on hosts without flax or
 msgpack; SENet state dicts stacked into a ``SENetStack``.
 
@@ -18,6 +19,8 @@ import numpy as np
 import torch
 
 from moc_tpu_torch.models.senet import STACK_KEYS, SENet, SENetStack
+from moc_tpu_torch.zeroshot.coca import CoCa, CoCaConfig
+from moc_tpu_torch.zeroshot.text_tower import TextConfig, TextTower
 from moc_tpu_torch.zeroshot.vision_tower import VisionConfig, VisionTower
 
 
@@ -90,6 +93,16 @@ def _pooler_from_jax(p: Mapping, name: str) -> dict[str, torch.Tensor]:
     return out
 
 
+def _block_from_jax(blk: Mapping, name: str) -> dict[str, torch.Tensor]:
+    """A flax residual attention block → the port's block keys under ``name``."""
+    return {**_ln_from_jax(blk["ln_1"], f"{name}.ln_1"),
+            **_ln_from_jax(blk["ln_2"], f"{name}.ln_2"),
+            **_linear_from_jax(blk["attn"]["in_proj"], f"{name}.attn.in_proj"),
+            **_linear_from_jax(blk["attn"]["out_proj"], f"{name}.attn.out_proj"),
+            **_linear_from_jax(blk["mlp"]["c_fc"], f"{name}.mlp.c_fc"),
+            **_linear_from_jax(blk["mlp"]["c_proj"], f"{name}.mlp.c_proj")}
+
+
 def vision_tower_from_jax(params: Mapping, cfg: VisionConfig | None = None) -> VisionTower:
     """``VisionTower`` holding the weights of a JAX ``VisionTower``. ``params``
     is the nested dict of numpy arrays that ``jax.tree.map(np.asarray, ...)``
@@ -117,15 +130,48 @@ def vision_tower_from_jax(params: Mapping, cfg: VisionConfig | None = None) -> V
              **_ln_from_jax(p["ln_caption"], "ln_caption"),
              "proj_contrast": _t(p["proj_contrast"])}
     for i in range(cfg.layers):
-        blk, name = trunk["blocks"][f"resblocks_{i}"], f"trunk.blocks.resblocks.{i}"
-        state.update({**_ln_from_jax(blk["ln_1"], f"{name}.ln_1"),
-                      **_ln_from_jax(blk["ln_2"], f"{name}.ln_2"),
-                      **_linear_from_jax(blk["attn"]["in_proj"], f"{name}.attn.in_proj"),
-                      **_linear_from_jax(blk["attn"]["out_proj"], f"{name}.attn.out_proj"),
-                      **_linear_from_jax(blk["mlp"]["c_fc"], f"{name}.mlp.c_fc"),
-                      **_linear_from_jax(blk["mlp"]["c_proj"], f"{name}.mlp.c_proj")})
+        state.update(_block_from_jax(trunk["blocks"][f"resblocks_{i}"],
+                                     f"trunk.blocks.resblocks.{i}"))
     model = VisionTower(cfg)
     model.load_state_dict(state)
+    return model
+
+
+def text_tower_from_jax(params: Mapping, cfg: TextConfig | None = None) -> TextTower:
+    """``TextTower`` holding the weights of a JAX ``TextTower`` (``params`` as
+    for ``vision_tower_from_jax``). Context, vocabulary, width, depth and
+    output width are read off the arrays; the head count and pad id come from
+    ``cfg`` (default: the CONCH configuration)."""
+    p = params.get("params", params)
+    vocab, width = np.shape(p["token_embedding"]["embedding"])
+    cfg = dataclasses.replace(
+        cfg or TextConfig(), context_length=np.shape(p["positional_embedding"])[0],
+        vocab_size=vocab, width=width, layers=len(p["transformer"]),
+        output_dim=np.shape(p["text_projection"])[1])
+    state = {"token_embedding.weight": _t(p["token_embedding"]["embedding"]),
+             "cls_emb": _t(p["cls_emb"]), "positional_embedding": _t(p["positional_embedding"]),
+             **_ln_from_jax(p["ln_final"], "ln_final"),
+             "text_projection": _t(p["text_projection"])}
+    for i in range(cfg.layers):
+        state.update(_block_from_jax(p["transformer"][f"resblocks_{i}"],
+                                     f"transformer.resblocks.{i}"))
+    model = TextTower(cfg)
+    model.load_state_dict(state)
+    return model
+
+
+def coca_from_jax(params: Mapping, cfg: CoCaConfig | None = None) -> CoCa:
+    """``CoCa`` holding the weights of a JAX ``CoCa`` (``params`` as for
+    ``vision_tower_from_jax``); head counts come from ``cfg`` (default: the
+    CONCH configuration)."""
+    p = params.get("params", params)
+    cfg = cfg or CoCaConfig()
+    text = text_tower_from_jax(p["text"], cfg.text)
+    visual = vision_tower_from_jax(p["visual"], cfg.vision)
+    model = CoCa(CoCaConfig(text=text.cfg, vision=visual.cfg))
+    model.text, model.visual = text, visual
+    if "logit_scale" in p:
+        model.logit_scale.data = _t(p["logit_scale"]).reshape(())
     return model
 
 

@@ -29,12 +29,14 @@ class BagBatch:
       mask:      ``[B, N]`` bool, True on real patches.
       labels:    ``[B]`` int32 slide labels (-1 when unknown or filler).
       n_patches: ``[B]`` int32 true patch counts.
+      coords:    ``[B, N, 2]`` int32 patch coordinates, or None.
     """
 
     features: torch.Tensor
     mask: torch.Tensor
     labels: torch.Tensor
     n_patches: torch.Tensor
+    coords: torch.Tensor | None = None
 
     @property
     def batch_size(self) -> int:
@@ -52,8 +54,9 @@ class BagBatch:
         pinned host memory the copies are asynchronous."""
         if self.features.device == device:
             return self
-        return BagBatch(*(t.to(device, non_blocking=True) for t in
-                          (self.features, self.mask, self.labels, self.n_patches)))
+        return BagBatch(*(None if t is None else t.to(device, non_blocking=True) for t in
+                          (self.features, self.mask, self.labels, self.n_patches,
+                           self.coords)))
 
     def real_rows(self) -> np.ndarray:
         """Host bool ``[B]``: True on real slides, False on filler rows
@@ -96,11 +99,14 @@ def bucketize(bags: Sequence[Bag], buckets: Sequence[int] = DEFAULT_BUCKETS) -> 
 
 def pack_bags(bags: Sequence[Bag], *, n_pad: int | None = None,
               buckets: Sequence[int] = DEFAULT_BUCKETS,
-              device: str | torch.device | None = None) -> BagBatch:
+              device: str | torch.device | None = None,
+              with_coords: bool = False) -> BagBatch:
     """Pad a list of bags to a common bucketed length and stack them into a
     batch on ``device`` (default ``cuda``). The features are padded with
     numpy straight into one pinned host buffer and leave it in one
-    asynchronous copy; the mask is built on the device from the counts."""
+    asynchronous copy; the mask is built on the device from the counts.
+    ``with_coords`` also stacks the bags' coordinates (zero-padded), which
+    every bag must then carry."""
     if not bags:
         raise ValueError("pack_bags needs at least one bag")
     dev = resolve_device(device)
@@ -124,5 +130,14 @@ def pack_bags(bags: Sequence[Bag], *, n_pad: int | None = None,
                          [b.n_patches for b in bags]], dtype=torch.int32).to(dev)
     labels, n_patches = meta[0], meta[1]
     mask = torch.arange(n_pad, device=dev) < n_patches[:, None]
+    coords = None
+    if with_coords:
+        missing = [b.slide_id for b in bags if b.coords is None]
+        if missing:
+            raise ValueError(f"with_coords=True but bags lack coords: {missing[:5]}")
+        padded = np.zeros((len(bags), n_pad, 2), np.int32)
+        for i, b in enumerate(bags):
+            padded[i, :b.n_patches] = b.coords
+        coords = torch.from_numpy(padded).to(dev)
     return BagBatch(features=host.to(dev, non_blocking=True), mask=mask,
-                    labels=labels, n_patches=n_patches)
+                    labels=labels, n_patches=n_patches, coords=coords)

@@ -1,9 +1,12 @@
-"""CONCH release checkpoint → the port's modules (PyTorch port of
-``moc_tpu/zeroshot/convert.py``, vision half).
+"""CONCH release checkpoint → the port's ``CoCa`` (PyTorch port of
+``moc_tpu/zeroshot/convert.py``).
 
 The open_clip CoCa release layout is already torch, so loading is a key map
 with no transposes:
 
+  * the text tower's names are the port's, but for its fused
+    ``attn.in_proj_weight`` / ``attn.in_proj_bias`` (``nn.MultiheadAttention``)
+    → ``attn.in_proj.weight`` / ``attn.in_proj.bias``;
   * the timm trunk names (``patch_embed.proj``, ``blocks.{i}.norm1``,
     ``attn.qkv``, ``attn.proj``, ``norm2``, ``mlp.fc1``, ``mlp.fc2``) → the
     shared block names (``patch_embed``, ``blocks.resblocks.{i}.ln_1``,
@@ -17,9 +20,10 @@ with no transposes:
   * the ``module.`` prefix and the ``{"state_dict": ...}`` nesting;
   * ``pos_embed`` resampled bilinearly when the image size differs.
 
-The text tower and the caption decoder's keys are ignored.
-``random_conch_state_dict`` fabricates a checkpoint in the same layout from
-a seed, for runs without the released weights.
+The caption decoder's keys are ignored. Head counts are not stored: every
+tower has ``width / 64`` heads and each pooler 8, as in the conch_ViT-B-16
+configuration. ``random_conch_state_dict`` fabricates a checkpoint in the
+same layout from a seed, for runs without the released weights.
 """
 
 from __future__ import annotations
@@ -31,12 +35,13 @@ import torch
 from moc_tpu_torch.device import resolve_device
 from moc_tpu_torch.nn.vit import resample_pos_embed
 from moc_tpu_torch.zeroshot.coca import CoCa, CoCaConfig
+from moc_tpu_torch.zeroshot.text_tower import TextConfig
 from moc_tpu_torch.zeroshot.vision_tower import VisionConfig
 
 # timm block names → the port's block names
 _BLOCK_KEYS = {"norm1": "ln_1", "attn.qkv": "attn.in_proj", "attn.proj": "attn.out_proj",
                "norm2": "ln_2", "mlp.fc1": "mlp.c_fc", "mlp.fc2": "mlp.c_proj"}
-HEAD_DIM = 64  # the trunk's head width in every CONCH / timm ViT-B configuration
+HEAD_DIM = 64  # the head width of both towers in every CONCH / timm ViT-B configuration
 POOLER_HEADS = 8  # open_clip CoCa's attentional-pooler heads
 
 
@@ -47,8 +52,9 @@ def strip_release_nesting(ckpt) -> dict[str, torch.Tensor]:
     return {k[7:] if k.startswith("module.") else k: v for k, v in sd.items()}
 
 
-def _n_layers(sd, prefix: str) -> int:
-    pat = re.compile(re.escape(prefix) + r"\.trunk\.blocks\.(\d+)\.")
+def _n_layers(sd, blocks: str) -> int:
+    """The number of ``{blocks}.{i}.`` blocks in ``sd``."""
+    pat = re.compile(re.escape(blocks) + r"\.(\d+)\.")
     found = {int(m.group(1)) for k in sd for m in [pat.match(k)] if m}
     return max(found) + 1 if found else 0
 
@@ -62,7 +68,8 @@ def vision_config_from_state_dict(sd, prefix: str = "visual", image_size: int = 
     caption = sd[f"{prefix}.attn_pool_caption.query"]
     return VisionConfig(image_size=image_size,
                         patch_size=sd[f"{prefix}.trunk.patch_embed.proj.weight"].shape[-1],
-                        width=width, layers=_n_layers(sd, prefix), heads=width // HEAD_DIM,
+                        width=width, layers=_n_layers(sd, f"{prefix}.trunk.blocks"),
+                        heads=width // HEAD_DIM,
                         embed_dim_contrast=sd[f"{prefix}.attn_pool_contrast.query"].shape[-1],
                         embed_dim_caption=caption.shape[-1], pooler_heads=POOLER_HEADS,
                         n_queries_caption=caption.shape[0], attn_impl=attn_impl)
@@ -94,7 +101,7 @@ def convert_vision_tower(sd, prefix: str = "visual", image_size: int = 448) -> d
            "trunk.patch_embed.bias": sd[f"{p}.patch_embed.proj.bias"],
            "trunk.cls_token": sd[f"{p}.cls_token"], "trunk.pos_embed": pos,
            "trunk.norm.weight": sd[f"{p}.norm.weight"], "trunk.norm.bias": sd[f"{p}.norm.bias"]}
-    for i in range(_n_layers(sd, prefix)):
+    for i in range(_n_layers(sd, f"{p}.blocks")):
         for src, dst in _BLOCK_KEYS.items():
             for leaf in ("weight", "bias"):
                 out[f"trunk.blocks.resblocks.{i}.{dst}.{leaf}"] = \
@@ -108,11 +115,37 @@ def convert_vision_tower(sd, prefix: str = "visual", image_size: int = 448) -> d
     return out
 
 
+def text_config_from_state_dict(sd, prefix: str = "text") -> TextConfig:
+    """The ``TextConfig`` a release state dict holds (``width / 64`` heads)."""
+    vocab, width = sd[f"{prefix}.token_embedding.weight"].shape
+    return TextConfig(context_length=sd[f"{prefix}.positional_embedding"].shape[0],
+                      vocab_size=vocab, width=width, heads=width // HEAD_DIM,
+                      layers=_n_layers(sd, f"{prefix}.transformer.resblocks"),
+                      output_dim=sd[f"{prefix}.text_projection"].shape[1])
+
+
+def convert_text_tower(sd, prefix: str = "text") -> dict:
+    """Release-layout keys under ``prefix`` → a ``TextTower`` state dict."""
+    out = {n: sd[f"{prefix}.{n}"] for n in ("token_embedding.weight", "cls_emb",
+                                            "positional_embedding", "ln_final.weight",
+                                            "ln_final.bias", "text_projection")}
+    for i in range(_n_layers(sd, f"{prefix}.transformer.resblocks")):
+        src, dst = f"{prefix}.transformer.resblocks.{i}", f"transformer.resblocks.{i}"
+        for name in ("ln_1", "ln_2", "attn.out_proj", "mlp.c_fc", "mlp.c_proj"):
+            for leaf in ("weight", "bias"):
+                out[f"{dst}.{name}.{leaf}"] = sd[f"{src}.{name}.{leaf}"]
+        out[f"{dst}.attn.in_proj.weight"] = sd[f"{src}.attn.in_proj_weight"]
+        out[f"{dst}.attn.in_proj.bias"] = sd[f"{src}.attn.in_proj_bias"]
+    return out
+
+
 def coca_from_state_dict(sd, image_size: int = 448, attn_impl: str = "dense") -> CoCa:
-    """``CoCa`` (vision half) holding a flat release state dict's weights."""
-    cfg = CoCaConfig(vision=vision_config_from_state_dict(sd, "visual", image_size, attn_impl))
+    """``CoCa`` holding a flat release state dict's weights."""
+    cfg = CoCaConfig(text=text_config_from_state_dict(sd, "text"),
+                     vision=vision_config_from_state_dict(sd, "visual", image_size, attn_impl))
     model = CoCa(cfg)
     state = {f"visual.{k}": v for k, v in convert_vision_tower(sd, "visual", image_size).items()}
+    state.update({f"text.{k}": v for k, v in convert_text_tower(sd, "text").items()})
     state["logit_scale"] = sd.get("logit_scale", model.logit_scale.detach()).reshape(())
     model.load_state_dict(state)
     return model
@@ -120,24 +153,27 @@ def coca_from_state_dict(sd, image_size: int = 448, attn_impl: str = "dense") ->
 
 def load_conch(checkpoint_path: str, image_size: int = 448, attn_impl: str = "dense",
                device: str | torch.device | None = None) -> CoCa:
-    """A CONCH release checkpoint → the vision half of ``CoCa`` on ``device``
-    (the GPU unless ``device="cpu"``), in eval mode. ``attn_impl="flash"``
-    runs the trunk's attention on K2 (the weights are the same)."""
+    """A CONCH release checkpoint → ``CoCa`` (text and vision towers) on
+    ``device`` (the GPU unless ``device="cpu"``), in eval mode.
+    ``attn_impl="flash"`` runs the vision trunk's attention on K2 (the
+    weights are the same); the text tower's masked attention is dense."""
     dev = resolve_device(device)
     ckpt = torch.load(checkpoint_path, map_location="cpu", weights_only=True)
     model = coca_from_state_dict(strip_release_nesting(ckpt), image_size, attn_impl)
     return model.to(dev).eval()
 
 
-def random_conch_state_dict(cfg: VisionConfig = VisionConfig(),
-                            seed: int = 0) -> dict[str, torch.Tensor]:
-    """A release-layout CoCa state dict with random vision weights from
-    ``seed`` (normal with std 0.02, ``proj_contrast`` at 1/sqrt(512),
-    queries at 1; LayerNorms at 1 and 0), at
-    the shapes of ``cfg``, plus a few text and caption-decoder keys that a
-    loader must ignore. Head counts must be those ``load_conch`` infers."""
-    if cfg.heads != cfg.width // HEAD_DIM or cfg.pooler_heads != POOLER_HEADS:
-        raise ValueError(f"{cfg} has head counts a release checkpoint cannot express")
+def random_conch_state_dict(cfg: VisionConfig = VisionConfig(), seed: int = 0,
+                            text: TextConfig = TextConfig()) -> dict[str, torch.Tensor]:
+    """A release-layout CoCa state dict with random weights from ``seed``
+    (normal with std 0.02; the text embeddings at 0.01, ``proj_contrast`` and
+    ``text_projection`` at 1/sqrt(width), pooler queries at 1; LayerNorms at
+    1 and 0) at the shapes of ``cfg`` and ``text``, the vision tower's drawn
+    first, plus a caption-decoder key that a loader must ignore. Head counts
+    must be those ``load_conch`` infers."""
+    if cfg.heads != cfg.width // HEAD_DIM or cfg.pooler_heads != POOLER_HEADS \
+            or text.heads != text.width // HEAD_DIM:
+        raise ValueError(f"{cfg}, {text} have head counts a release checkpoint cannot express")
     g = torch.Generator().manual_seed(seed)
     w, p = cfg.width, "visual.trunk"
 
@@ -177,7 +213,22 @@ def random_conch_state_dict(cfg: VisionConfig = VisionConfig(),
     sd["visual.proj_contrast"] = rnd(cfg.embed_dim_contrast, cfg.embed_dim_contrast,
                                      scale=cfg.embed_dim_contrast ** -0.5)
     sd["logit_scale"] = torch.tensor(4.6052)
-    # keys of the text tower and caption decoder that the loader skips
-    sd["text.ln_final.weight"] = torch.ones(8)
+    t = text.width
+    sd["text.token_embedding.weight"] = rnd(text.vocab_size, t)
+    sd["text.positional_embedding"] = rnd(text.context_length, t, scale=0.01)
+    sd["text.cls_emb"] = rnd(t, scale=0.01)
+    for i in range(text.layers):
+        b = f"text.transformer.resblocks.{i}"
+        sd[f"{b}.attn.in_proj_weight"] = rnd(3 * t, t)
+        sd[f"{b}.attn.in_proj_bias"] = rnd(3 * t)
+        for name, shape in (("attn.out_proj", (t, t)), ("mlp.c_fc", (4 * t, t)),
+                            ("mlp.c_proj", (t, 4 * t))):
+            sd[f"{b}.{name}.weight"] = rnd(*shape)
+            sd[f"{b}.{name}.bias"] = rnd(shape[0])
+        for ln in ("ln_1", "ln_2"):
+            sd[f"{b}.{ln}.weight"], sd[f"{b}.{ln}.bias"] = torch.ones(t), torch.zeros(t)
+    sd["text.ln_final.weight"], sd["text.ln_final.bias"] = torch.ones(t), torch.zeros(t)
+    sd["text.text_projection"] = rnd(t, text.output_dim, scale=t ** -0.5)
+    # a caption-decoder key, which the loader skips
     sd["text_decoder.ln_final.weight"] = torch.ones(8)
     return sd

@@ -879,3 +879,93 @@ def test_sort_path_and_pooling_families_wait_for_nothing(gen):
             fn(x, valid, 10, **kw)
     finally:
         torch.cuda.set_sync_debug_mode("default")
+
+
+# MI-Zero's top-j pooling (run_mizero): [16, 4096, 2] patch logits, 1500-4000
+# valid rows a slide
+MIZERO_TOPJ = (1, 5, 10, 50, 100)
+
+
+@pytest.mark.parametrize("k", MIZERO_TOPJ)
+def test_k1_masks_at_mizero_shapes_bit_equal_to_plain(gen, k):
+    counts = torch.randint(1500, 4001, (16,), generator=gen, device="cuda")
+    valid = torch.arange(4096, device="cuda") < counts[:, None]
+    keys = torch.randn(16, 4096, 2, generator=gen, device="cuda")
+    before = topk_kernel.col_topk_threshold_mask_cuda.launches
+    got = masked_col_topk_mask(keys, valid, k)
+    assert topk_kernel.col_topk_threshold_mask_cuda.launches == before + 1
+    assert torch.equal(got, threshold_topk_mask(masked_logits(keys, valid), k, axis=-2))
+    assert torch.equal(got.cpu(), masked_col_topk_mask(keys.cpu(), valid.cpu(), k))
+    assert (got & valid[..., None]).sum(-2).eq(k).all()
+
+
+def test_text_tower_and_weights_on_the_card_match_the_cpu(gen, tmp_path):
+    """A CONCH-width text tower (768 wide, 12 heads; 2 layers) from a release
+    checkpoint on the GPU and on the CPU: ``encode_text`` on pad-heavy ids and
+    the nsclc banks' ``W`` within 1e-5, with TF32 off at every text forward
+    on the card, though turned on before."""
+    from moc_tpu_torch.config import DEFAULT_PROMPT_ROOT, NSCLC
+    from moc_tpu_torch.zeroshot import (ConchTokenizer, build_zero_shot_classifier, load_conch,
+                                        load_prompt_bank)
+    from moc_tpu_torch.zeroshot.classifier import make_encode_text_fn
+    from moc_tpu_torch.zeroshot.convert import random_conch_state_dict
+    from moc_tpu_torch.zeroshot.text_tower import TextConfig
+    from moc_tpu_torch.zeroshot.vision_tower import VisionConfig
+
+    vision = VisionConfig(image_size=32, patch_size=16, width=64, layers=1, heads=1,
+                          embed_dim_contrast=32, embed_dim_caption=64, n_queries_caption=4)
+    torch.save(random_conch_state_dict(vision, seed=4, text=TextConfig(layers=2)),
+               tmp_path / "conch.bin")
+    card = load_conch(str(tmp_path / "conch.bin"), image_size=32, device="cuda")
+    cpu = load_conch(str(tmp_path / "conch.bin"), image_size=32, device="cpu")
+    flags = []
+    card.text.register_forward_pre_hook(lambda *_: flags.append(
+        torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32))
+    ids = torch.zeros((4, 128), dtype=torch.int64)
+    for i, n in enumerate((0, 1, 40, 127)):
+        ids[i, :n] = torch.randint(1, 32007, (n,))
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    tokenizer = ConchTokenizer()
+    try:
+        got = make_encode_text_fn(card)(ids.numpy())
+        want = make_encode_text_fn(cpu)(ids.numpy())
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+        for f, labels in ((NSCLC.prompt_file, NSCLC.label_dict),
+                          (NSCLC.prompt_file_ext, NSCLC.label_dict_ext)):
+            bank = load_prompt_bank(f"{DEFAULT_PROMPT_ROOT}/{f}", labels)
+            w = build_zero_shot_classifier(make_encode_text_fn(card, "cuda"), tokenizer, bank)
+            w_cpu = build_zero_shot_classifier(make_encode_text_fn(cpu, "cpu"), tokenizer, bank)
+            assert w.shape == (512, len(labels))
+            np.testing.assert_allclose(w, w_cpu, rtol=0, atol=1e-5)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    assert len(flags) == 1 + 8 and not any(flags)
+
+
+def test_run_mizero_on_the_card_matches_the_cpu(gen):
+    """16 slides, two batches: pooled logits within 1e-6, predictions and
+    metrics equal, K1 launched once a j a batch."""
+    from moc_tpu_torch.data import Bag, pack_bags
+    from moc_tpu_torch.zeroshot import run_mizero
+
+    rng = np.random.default_rng(1)
+    w = rng.normal(size=(64, 3)).astype(np.float32)
+    w /= np.linalg.norm(w, axis=0)
+    bags = []
+    for i in range(16):
+        n = int(rng.integers(1500, 4001))
+        f = rng.normal(size=(n, 64)).astype(np.float32)
+        f[: n // 4] += 0.3 * w[:, i % 3]
+        bags.append(Bag(slide_id=f"s{i}", features=f, label=i % 3))
+    out = {}
+    for device in ("cuda", "cpu"):
+        batches = [pack_bags(bags[i: i + 8], n_pad=4096, device=device) for i in (0, 8)]
+        before = topk_kernel.col_topk_threshold_mask_cuda.launches
+        out[device] = run_mizero(batches, w, topj=MIZERO_TOPJ)
+        launched = topk_kernel.col_topk_threshold_mask_cuda.launches - before
+        assert launched == (2 * len(MIZERO_TOPJ) if device == "cuda" else 0)
+    (res, dump), (res_cpu, dump_cpu) = out["cuda"], out["cpu"]
+    for j in MIZERO_TOPJ:
+        np.testing.assert_allclose(dump["logits"][j], dump_cpu["logits"][j], rtol=0, atol=1e-6)
+        np.testing.assert_array_equal(dump["preds"][j], dump_cpu["preds"][j])
+    assert res == res_cpu

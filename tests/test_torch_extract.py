@@ -30,6 +30,7 @@ from moc_tpu_torch.convert import vision_tower_from_jax
 from moc_tpu_torch.data import bags, patches
 from moc_tpu_torch.nn.vit import resample_pos_embed
 from moc_tpu_torch.zeroshot import coca, convert, transform
+from moc_tpu_torch.zeroshot.text_tower import TextConfig
 from moc_tpu_torch.zeroshot.vision_tower import VisionConfig
 
 ATOL = 1e-5
@@ -38,6 +39,8 @@ SMALL = dict(image_size=64, patch_size=16, width=64, layers=2, heads=2,
              embed_dim_contrast=32, embed_dim_caption=64, pooler_heads=8, n_queries_caption=8)
 # small widths a release checkpoint can express (trunk heads = width / 64)
 RELEASE_SMALL = dict(SMALL, width=128, embed_dim_contrast=64, embed_dim_caption=128)
+# a one-layer text tower beside them, which these tests do not run
+NARROW_TEXT = TextConfig(width=64, heads=1, layers=1, output_dim=64)
 
 
 def _images(seed, n=2, size=64):
@@ -102,7 +105,7 @@ def test_vision_tower_and_encode_image_match_jax(small_jax, attn_impl):
 
     jc = jcoca.CoCa(jcoca.CoCaConfig(vision=jvt.VisionConfig(**SMALL, attn_impl=attn_impl)))
     jparams = {"params": {"visual": small_jax["params"], "logit_scale": np.float32(2.6593)}}
-    model = coca.CoCa(coca.CoCaConfig(vision=tower.cfg))
+    model = coca.CoCa(coca.CoCaConfig(text=NARROW_TEXT, vision=tower.cfg))
     model.visual = tower
     for normalize in (True, False):
         for proj in (True, False):
@@ -148,7 +151,8 @@ def test_resample_pos_embed_matches_jax(new_grid):
 
 @pytest.fixture(scope="module")
 def release_sd():
-    return convert.random_conch_state_dict(VisionConfig(**RELEASE_SMALL), seed=1)
+    return convert.random_conch_state_dict(VisionConfig(**RELEASE_SMALL), seed=1,
+                                           text=NARROW_TEXT)
 
 
 def _jax_release_tower(sd, image_size=64):

@@ -224,7 +224,7 @@ def test_nsclc_layout_with_cached_weights(runs, tmp_path):
     argv = ["--dataset", "nsclc", "--shot", "2", "--fold", "0", "--topj", "24", "--num_epochs",
             "1", "--device", "cpu", "--data_root", str(tmp_path / "data"),
             "--weights_cache_dir", str(tmp_path / "w"), "--result_dir", str(tmp_path / "r")]
-    with pytest.raises(FileNotFoundError, match="queue 1 item 7"):
+    with pytest.raises(FileNotFoundError, match="CONCH checkpoint"):
         main_moc.main(argv)
     w, w_ext = zero_shot_weights(SyntheticWSIConfig(min_patches=60, max_patches=480,
                                                     slides_per_class=16))
