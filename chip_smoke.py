@@ -85,7 +85,7 @@ Phases, each of which makes the script exit non-zero when it fails:
    of 16 per-slide Adam steps, seed 0): every loss finite, the JAX
    package's result keys, test AUC at best val at least 0.8, K1 launched
    exactly 2 x 16 x 25 times by the training steps (counted around each
-   ``train_epoch``), the saved ``.npz`` served by ``cli.serve.watch_once``
+   ``train_epoch``), the saved ``.msgpack`` served by ``cli.serve.watch_once``
    matching ``eval_batch`` on the test bags within 1e-5; one epoch on the
    card against the CPU from one SENet and one set of keep masks
    (first-step gradients within 1e-5 of each largest |grad|, losses within
@@ -97,7 +97,7 @@ Phases, each of which makes the script exit non-zero when it fails:
 12. the fused sweep: ``cli.sweep.main --mode fused`` on ``cuda`` over all five
    folds of shot 8 at the protocol of 11, on its corpus: five
    ``best_results_*.json`` with the JAX package's keys, five
-   ``zs_results_*.json`` and ``.npz`` files and ``summary_8.csv``; test AUC
+   ``zs_results_*.json`` and ``.msgpack`` files and ``summary_8.csv``; test AUC
    at best val at least 0.8 in every fold, every step's losses finite, K1
    launched exactly 2 x 16 x 25 times by the batched steps (counted around
    each ``sweep_step``), fold 0 equal to ``main_moc``'s fold 0 (the same best
@@ -140,6 +140,21 @@ Phases, each of which makes the script exit non-zero when it fails:
    building its weight caches from the vendored banks (result files, finite
    losses, K1 launched twice a training step), then again from the caches
    with a checkpoint path that does not exist (cache bytes unchanged).
+15. serving tiers (``[tiers]``), on 4's corpus: ``cli.serve`` at every tier
+   (exact f32; ``--dense``; ``--score_dtype bfloat16``; ``--storage_dtype``
+   bfloat16 and int8; ``--dense --storage_dtype int8``) draining the 16
+   slides through ``watch_once`` on the card and on the CPU: pooled logits
+   within rtol 1e-4 / atol 1e-5 (bf16 scoring: each slide's union overlap
+   card/CPU above 0.95, the views of the rows both select within that
+   bound, and the logits held where no row moved), K1 launched once on the rows and once
+   on the columns a batch (the dense tiers: on the columns only), K1's
+   union and pooling masks bit-equal to plain on the card's own keys, the
+   int8 product (``torch._int_mm``) equal to the CPU's; the forward by CUDA
+   events with a profile, and ``pack_bags`` (native packer asserted) with
+   the bytes it copies, beside the pad step through the native packer and
+   through numpy; then ``cli.predict.main`` over the corpus with rows equal
+   to the exact tier's served rows, and the port's ``.msgpack`` of the
+   SENet served with the ``.pt``'s rows.
 
 The last lines are the card's name and power limit, one JSON object of
 kernel records, and ``{"ok": true, "device": {...}}``. No phase falls back
@@ -549,15 +564,17 @@ def write_corpus(root: str) -> list[str]:
     return ids
 
 
-def server_args(root: str, device: str, watch_dir: str | None = None):
+def server_args(root: str, device: str, watch_dir: str | None = None, extra=(),
+                model: str = "senet.pt"):
     from moc_tpu_torch.cli import serve
 
-    return serve.get_args(["--dataset", "nsclc", "--model", os.path.join(root, "senet.pt"),
+    return serve.get_args(["--dataset", "nsclc", "--model", os.path.join(root, model),
                            "--weights_npz", os.path.join(root, "w.npz"),
                            "--weights_ext_npz", os.path.join(root, "we.npz"),
                            "--topj", str(TOPJ), "--topk", str(TOPK),
                            "--batch_size", str(BATCH), "--device", device,
-                           "--watch_dir", watch_dir or os.path.join(root, "bags"), "--once"])
+                           "--watch_dir", watch_dir or os.path.join(root, "bags"), "--once",
+                           *extra])
 
 
 def phase_serve(root: str, ids: list[str]) -> dict:
@@ -881,6 +898,271 @@ def phase_profile(forward, steps: int = 5, what: str = "forward", host_top: int 
         for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:host_top]:
             log(f"[profile]   host {e.self_cpu_time_total / steps:9.1f} us  "
                 f"x{e.count // steps:<4d} {e.key[:80]}")
+
+
+# the serving tiers at the serving point: name -> (flags of cli.serve / cli.predict)
+TIERS = {"exact": [], "dense": ["--dense"], "score_bf16": ["--score_dtype", "bfloat16"],
+         "storage_bf16": ["--storage_dtype", "bfloat16"],
+         "storage_int8": ["--storage_dtype", "int8"],
+         "dense_int8": ["--dense", "--storage_dtype", "int8"]}
+# bf16 scoring may move a near-tied row of the union where the card and the
+# CPU round a bf16 sum apart: the JAX package's bound for that tier
+# (tests/test_moc_core.py:243-278), union overlap above 0.95; the views of
+# the rows both select are f32 re-scores, held to the card-against-CPU bound
+# of every tier (rtol 1e-4, atol 1e-5). JAX's 1e-6 on the views holds two
+# routes on one backend: across devices the 512-term sums run in other
+# orders (1.13e-6 apart on an H100 against its host's CPU)
+BF16_UNION_OVERLAP, CARD_CPU_RTOL, CARD_CPU_ATOL = 0.95, 1e-4, 1e-5
+
+
+def _drain(server, root: str, name: str) -> tuple[list[dict], dict, float]:
+    """``watch_once`` of the corpus by ``server`` with K1's counts set to 0
+    just before: (rows, K1 launches, wall s)."""
+    from moc_tpu_torch.cli import serve
+
+    rows_fn, cols_fn = _k1_wrappers().values()
+    out_csv = os.path.join(root, f"served_{name}.csv")
+    if os.path.exists(out_csv):
+        os.remove(out_csv)
+    rows_fn.launches = cols_fn.launches = 0
+    t0 = time.perf_counter()
+    n = serve.watch_once(server, os.path.join(root, "bags"), out_csv, set())
+    if server.device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"rows": rows_fn.launches, "cols": cols_fn.launches}
+    check(n == N_SLIDES, f"[tiers] {name}: watch_once scored {n} of {N_SLIDES} slides")
+    with open(out_csv, newline="") as f:
+        return list(csv.DictReader(f)), launches, wall
+
+
+def _tier_masks(server, batch, cfg) -> tuple[int, int]:
+    """K1's masks of one tier's forward against its plain version on the
+    same keys, the card's own: the selection rows (the policy keys of the
+    card's logits; none in the dense tier) and the pooling columns (the
+    card's fused views, gated by the card's union). Keys computed apart on
+    the CPU would differ by an ulp of ``exp`` where the softmax key ties.
+    Returns the numbers of mask elements held."""
+    from moc_tpu_torch.moc.core import _dense_views_weights, _precision, fuse_views
+    from moc_tpu_torch.ops import (masked_col_topk_mask, threshold_topk_mask, topk_kernel,
+                                   union_selection_threshold)
+    from moc_tpu_torch.ops.selection import _stacked_policy_keys
+
+    senet = server.senet
+    with torch.inference_mode(), _precision(cfg, batch.scales):
+        views, weights, logits, logits_ext = _dense_views_weights(
+            senet, batch.features, server.w, server.w_ext, cfg, batch.scales)
+        gate, n_rows = batch.mask, 0
+        if not cfg.dense:
+            stacked, _ = _stacked_policy_keys(logits, logits_ext, batch.mask, N_CLASSES, ())
+            rows = stacked[:, :-1].reshape(-1, N_PAD).contiguous()  # [B·(2C+1), N]
+            check(torch.equal(topk_kernel.topk_threshold_mask_cuda(rows, TOPJ).cpu(),
+                              threshold_topk_mask(rows.cpu(), TOPJ, axis=-1)),
+                  f"[tiers] {cfg}: K1's selection rows differ from plain on the card's keys")
+            n_rows = rows.numel()
+            gate = union_selection_threshold(logits, logits_ext, batch.mask, TOPJ, N_CLASSES)
+        fused = fuse_views(weights, views, cfg.include_flags())
+        pool = masked_col_topk_mask(fused, gate, TOPK)
+        check(torch.equal(pool.cpu(), masked_col_topk_mask(fused.cpu(), gate.cpu(), TOPK)),
+              f"[tiers] {cfg}: K1's pooling mask differs from plain")
+    return n_rows, pool.numel()
+
+
+def _bf16_selection_close(gpu_batch, cpu_batch, server, cpu_server) -> dict:
+    """The bf16-score tier's gather route on the card and on the CPU: each
+    slide's union overlap and the views of the rows both select."""
+    from moc_tpu_torch.moc.core import slide_process
+
+    with torch.inference_mode():
+        sel_g = slide_process(gpu_batch.features, gpu_batch.mask, server.w, server.w_ext,
+                              server.cfg)
+        sel_c = slide_process(cpu_batch.features, cpu_batch.mask, cpu_server.w,
+                              cpu_server.w_ext, cpu_server.cfg)
+    worst_overlap, view_err, moved = 1.0, 0.0, 0
+    for b in range(gpu_batch.batch_size):
+        pos = []
+        for sel in (sel_g, sel_c):
+            idx, valid = sel.idx[b].cpu().numpy(), sel.valid[b].cpu().numpy()
+            pos.append({int(i): p for p, i in enumerate(idx) if valid[p]})
+        common = sorted(set(pos[0]) & set(pos[1]))
+        union = set(pos[0]) | set(pos[1])
+        worst_overlap = min(worst_overlap, len(common) / max(len(union), 1))
+        moved += len(union) - len(common)
+        vg = sel_g.views[b][:, [pos[0][i] for i in common]].cpu()
+        vc = sel_c.views[b][:, [pos[1][i] for i in common]]
+        view_err = max(view_err, (vg - vc).abs().max().item())
+        check(torch.allclose(vg, vc, rtol=CARD_CPU_RTOL, atol=CARD_CPU_ATOL),
+              f"[tiers] bf16 scoring: views of common rows differ by {view_err}")
+    check(worst_overlap > BF16_UNION_OVERLAP,
+          f"[tiers] bf16 scoring: union overlap card/CPU {worst_overlap} <= {BF16_UNION_OVERLAP}")
+    return {"min_overlap": worst_overlap, "rows_moved": moved, "view_err": view_err}
+
+
+def _pack_times(bags, dtype: str) -> dict:
+    """``pack_bags`` of one batch to the card at a storage tier (host wall
+    with the copy, median of 5) and the bytes it copies; and the pad step
+    alone through the native packer and through numpy."""
+    from moc_tpu_torch.data import native
+    from moc_tpu_torch.data.batching import pack_bags
+
+    feats = [b.features for b in bags]
+    before = dict(native.native_calls)
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        batch = pack_bags(bags, n_pad=N_PAD, device="cuda", dtype=dtype)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    check(native.native_calls["pack"] - before["pack"] == 5,
+          f"[tiers] {dtype}: pack_bags did not run the native packer")
+    check(native.native_calls["quantize"] - before["quantize"] == (5 if dtype == "int8" else 0),
+          f"[tiers] {dtype}: the int8 rows were not quantized natively")
+    copied = (batch.features.numel() * batch.features.element_size()
+              + (0 if batch.scales is None else batch.scales.numel() * 4) + 2 * len(bags) * 4)
+    buf = torch.empty((len(bags), N_PAD, DIM), pin_memory=True).numpy()
+    pad = {}
+    for route in ("native", "numpy"):
+        ts = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            if route == "native":
+                native.pack_bags_native(feats, N_PAD, out=buf, required=True)
+            else:
+                for i, f in enumerate(feats):
+                    buf[i, :len(f)] = f
+                    buf[i, len(f):] = 0.0
+            ts.append((time.perf_counter() - t0) * 1e3)
+        pad[route] = statistics.median(ts)
+    return {"pack_ms": statistics.median(times), "copied_bytes": copied,
+            "pad_native_ms": pad["native"], "pad_numpy_ms": pad["numpy"]}
+
+
+def phase_tiers(root: str, ids: list[str]) -> dict:
+    """``[tiers]``: every serving tier through ``cli.serve`` at the serving
+    point (``TIERS``): ``watch_once`` on the card and on the CPU (rows with
+    equal predictions; pooled logits within rtol 1e-4 / atol 1e-5, or the
+    bf16-score bounds), K1's launches per batch (1 row + 1 column launch, 0 +
+    1 in the dense tiers), K1's masks bit-equal to plain on the card's keys,
+    the int8 product equal to the CPU's, the forward by CUDA events with a
+    profile, and ``pack_bags`` by tier and route with its bytes; then
+    ``cli.predict.main`` over the corpus with rows equal to ``serve``'s, and
+    the port's own ``.msgpack`` of the SENet served as the ``.pt`` is."""
+    from moc_tpu_torch.cli import predict, serve
+    from moc_tpu_torch.convert import senet_to_jax
+    from moc_tpu_torch.data.bags import read_bag_pt
+    from moc_tpu_torch.data.batching import pack_bags
+    from moc_tpu_torch.ops import quant
+    from moc_tpu_torch.utils.checkpoint import save_params
+
+    bags = [read_bag_pt(os.path.join(root, "bags", "pt_files", f"{s}.pt")) for s in ids]
+    n_batches = math.ceil(N_SLIDES / BATCH)
+    out = {}
+    for name, flags in TIERS.items():
+        server = serve.Server(server_args(root, "cuda", extra=flags))
+        cpu_server = serve.Server(server_args(root, "cpu", extra=flags))
+        for srv in (server, cpu_server):  # the resident weights, for the checks below
+            srv.senet = predict.load_senet(srv.args.model).to(srv.device)
+            srv.w = torch.from_numpy(np.load(srv.args.weights_npz)["weights"]).to(srv.device)
+            srv.w_ext = torch.from_numpy(np.load(srv.args.weights_ext_npz)["weights"]).to(
+                srv.device)
+        cfg, dtype = server.cfg, server.dtype
+        rows, launches, wall = _drain(server, root, name)
+        cpu_rows, _, cpu_wall = _drain(cpu_server, root, f"{name}_cpu")
+        want = {"rows": 0 if cfg.dense else n_batches, "cols": n_batches}
+        check(launches == want, f"[tiers] {name}: K1 launches {launches}, want {want}")
+        check([r["slide_id"] for r in rows] == [r["slide_id"] for r in cpu_rows],
+              f"[tiers] {name}: the card's rows are not the CPU's")
+        probs = np.array([[float(r[f"prob_{c}"]) for c in range(N_CLASSES)] for r in rows])
+        check(bool(np.isfinite(probs).all()) and np.abs(probs.sum(1) - 1).max() < 1e-5,
+              f"[tiers] {name}: probabilities not finite or not summing to 1")
+        rec = {"launches": launches, "drain_s": wall, "drain_cpu_s": cpu_wall,
+               "pred_equal": all(a["pred"] == b["pred"] for a, b in zip(rows, cpu_rows))}
+        logit_err, held, bf16 = 0.0, [0, 0], []
+        for i in range(0, N_SLIDES, BATCH):
+            gpu_batch = pack_bags(bags[i:i + BATCH], n_pad=N_PAD, device="cuda", dtype=dtype)
+            cpu_batch = pack_bags(bags[i:i + BATCH], n_pad=N_PAD, device="cpu", dtype=dtype)
+            lg = server.batch_logits(gpu_batch).cpu()
+            lc = cpu_server.batch_logits(cpu_batch)
+            check(bool(torch.isfinite(lg).all()) and lg.shape == (BATCH, N_CLASSES),
+                  f"[tiers] {name}: logits {tuple(lg.shape)} not finite")
+            err = (lg - lc).abs().max().item()
+            logit_err = max(logit_err, err)
+            moved = 0
+            if name == "score_bf16":  # pooled logits are held where no union row moved
+                bf16.append(_bf16_selection_close(gpu_batch, cpu_batch, server, cpu_server))
+                moved = bf16[-1]["rows_moved"]
+            check(moved > 0 or torch.allclose(lg, lc, rtol=CARD_CPU_RTOL, atol=CARD_CPU_ATOL),
+                  f"[tiers] {name}: pooled logits differ from the CPU's by {err}")
+            h = _tier_masks(server, gpu_batch, cfg)
+            held = [held[0] + h[0], held[1] + h[1]]
+            if dtype == torch.int8:
+                w_cat = torch.cat([server.w, server.w_ext, server.senet.dense0.weight.t()], 1)
+                got = quant.int8_row_matmul(gpu_batch.features, gpu_batch.scales, w_cat).cpu()
+                ref = quant.int8_row_matmul(cpu_batch.features, cpu_batch.scales,
+                                            w_cat.cpu())
+                check(torch.equal(got, ref), f"[tiers] {name}: the int8 product on the card "
+                      f"differs from the CPU's by {(got - ref).abs().max().item()}")
+        if bf16:
+            rec["bf16_selection"] = {"min_overlap": min(b["min_overlap"] for b in bf16),
+                                     "rows_moved": sum(b["rows_moved"] for b in bf16),
+                                     "view_err": max(b["view_err"] for b in bf16)}
+        rec.update(logit_err=logit_err, masks_held=held)
+        batch = pack_bags(bags[:BATCH], n_pad=N_PAD, device="cuda", dtype=dtype)
+
+        def forward():
+            server.batch_logits(batch)
+
+        with torch.inference_mode():
+            rec["forward_ms"] = _time_ms(forward, iters=30, warmup=5)
+        rec.update(_pack_times(bags[:BATCH], server.args.storage_dtype))
+        log(f"[tiers] {name} ({' '.join(flags) or 'f32, exact'}): watch_once {wall:.3f}s on "
+            f"the card, {cpu_wall:.3f}s on the CPU; K1 launches {launches}; pooled logits "
+            f"card vs CPU max |diff| {logit_err:.3e}; predictions equal: {rec['pred_equal']}; "
+            f"K1 masks bit-equal to plain ({held[0]} selection-row, {held[1]} pooling elements); "
+            f"forward {rec['forward_ms']:.4f} ms (CUDA events, median of 30); pack_bags "
+            f"{rec['pack_ms']:.3f} ms, {rec['copied_bytes']} B to the card; pad step "
+            f"native {rec['pad_native_ms']:.3f} ms, numpy {rec['pad_numpy_ms']:.3f} ms"
+            + (f"; bf16 selection {rec['bf16_selection']}" if bf16 else "")
+            + ("; int8 product equal to the CPU's" if dtype == torch.int8 else ""))
+        log(f"[profile] tier {name}:")
+        with torch.inference_mode():
+            phase_profile(forward, steps=5, host_top=8)
+        out[name] = rec
+
+    # predict.main over the corpus: the exact tier's rows, as serve wrote them
+    table = os.path.join(root, "slides.csv")
+    with open(table, "w", newline="") as f:
+        csv.writer(f, lineterminator="\n").writerows(
+            [("slide_id", "label"), *((s, ("LUAD", "LUSC")[i % N_CLASSES])
+                                      for i, s in enumerate(ids))])
+    pred_csv = os.path.join(root, "predicted.csv")
+    argv = ["--dataset", "nsclc", "--model", os.path.join(root, "senet.pt"),
+            "--feature_dir", os.path.join(root, "bags"), "--csv", table,
+            "--weights_npz", os.path.join(root, "w.npz"),
+            "--weights_ext_npz", os.path.join(root, "we.npz"), "--topj", str(TOPJ),
+            "--topk", str(TOPK), "--batch_size", str(BATCH), "--out", pred_csv]
+    rc = predict.main(argv)
+    check(rc == 0, f"[tiers] predict.main returned {rc}")
+    with open(pred_csv, newline="") as f:
+        predicted = {r["slide_id"]: r for r in csv.DictReader(f)}
+    with open(os.path.join(root, "served_exact.csv"), newline="") as f:
+        served = {r["slide_id"]: r for r in csv.DictReader(f)}
+    check(sorted(predicted) == sorted(served) == sorted(ids), "[tiers] predict's slides differ")
+    for sid, r in served.items():
+        p = predicted[sid]
+        check(p["pred"] == r["pred"] and all(p[f"prob_{c}"] == r[f"prob_{c}"]
+                                             for c in range(N_CLASSES)),
+              f"[tiers] predict's row of {sid} differs from serve's: {p} vs {r}")
+    # the port's .msgpack of the same SENet, served: the .pt's rows, bit for bit
+    save_params(os.path.join(root, "senet.msgpack"),
+                senet_to_jax(predict.load_senet(os.path.join(root, "senet.pt"))))
+    msg_rows, _, _ = _drain(serve.Server(server_args(root, "cuda", model="senet.msgpack")),
+                            root, "msgpack")
+    check({r["slide_id"]: r for r in msg_rows} == served,
+          "[tiers] the .msgpack SENet is served unlike the .pt")
+    log(f"[tiers] predict.main over the {N_SLIDES} slides: rows equal to serve's exact tier; "
+        f"the port's .msgpack of the SENet served as the .pt (rows equal)")
+    return out
 
 
 def write_patch_corpus(root: str) -> tuple[str, str, list[str]]:
@@ -1419,7 +1701,7 @@ def phase_train(root: str) -> dict:
     """``cli.main_moc.main`` on the card at the full-width synthetic protocol:
     every loss finite, the JAX package's result keys, test AUC at best val
     at least 0.8, K1 launched exactly twice a slide step (counted around each
-    ``train_epoch``), and the saved ``.npz`` served by ``cli.serve``
+    ``train_epoch``), and the saved ``.msgpack`` served by ``cli.serve``
     matching ``eval_batch`` on the test bags."""
     from moc_tpu_torch.cli import main_moc
 
@@ -1465,7 +1747,7 @@ def phase_train(root: str) -> dict:
 
 
 def _serve_trained(root: str, corpus: dict, model: str) -> float:
-    """The trained ``.npz`` through ``cli.serve.watch_once`` on the card;
+    """The trained ``.msgpack`` through ``cli.serve.watch_once`` on the card;
     each test slide's served probabilities against ``eval_batch`` with the
     same file on the same bags. Returns the largest difference."""
     from moc_tpu_torch.cli import serve
@@ -1496,7 +1778,7 @@ def _serve_trained(root: str, corpus: dict, model: str) -> float:
                                      w_ext, cfg)).cpu().numpy()
     err = max(float(np.abs(np.array(served[b.slide_id]) - p).max()) for b, p in zip(bags, probs))
     check(err <= 1e-5, f"served probabilities differ from eval_batch's by {err}")
-    log(f"[train] the saved .npz served by watch_once (32 slides) against eval_batch on the "
+    log(f"[train] the saved .msgpack served by watch_once (32 slides) against eval_batch on the "
         f"{len(bags)} test bags: max |diff| of the probabilities {err:.3e} (tolerance 1e-5)")
     return err
 
@@ -1878,7 +2160,7 @@ def phase_sweep(root: str, trained: dict) -> dict:
         with open(os.path.join(shot_dir, f"best_results_{name}.json")) as f:
             results[fold] = json.load(f)
         check(list(results[fold]) == RESULT_KEYS, f"fold {fold} result keys {list(results[fold])}")
-        for path in (f"zs_results_{name}.json", f"best_model_{name}.npz"):
+        for path in (f"zs_results_{name}.json", f"best_model_{name}.msgpack"):
             check(os.path.exists(os.path.join(shot_dir, path)), f"the sweep wrote no {path}")
         check(results[fold]["test_at_best_val"] >= 0.8,
               f"fold {fold}: test AUC at best val {results[fold]['test_at_best_val']} below 0.8")
@@ -2219,7 +2501,7 @@ def phase_zeroshot_main_moc(root: str, ckpt: str) -> dict:
             for name in ("best_results", "zs_results"):
                 check(os.path.exists(os.path.join(result_dir, f"{name}_shot_1_fold_0.json")),
                       f"run {i} wrote no {name}")
-            check(os.path.exists(os.path.join(result_dir, "best_model_shot_1_fold_0.npz")),
+            check(os.path.exists(os.path.join(result_dir, "best_model_shot_1_fold_0.msgpack")),
                   f"run {i} wrote no best_model")
             with open(os.path.join(result_dir, "best_results_shot_1_fold_0.json")) as f:
                 result = json.load(f)
@@ -2264,6 +2546,7 @@ def main() -> int:
         ids = write_corpus(root)
         state = phase_serve(root, ids)
         times = phase_times(state)
+        tiers = phase_tiers(root, ids)
         ckpt, patch_dir, paths = write_patch_corpus(root)
         out_dir = os.path.join(root, "features")
         extracted = phase_extract(ckpt, patch_dir, paths, out_dir)
@@ -2312,6 +2595,7 @@ def main() -> int:
                                               for k, v in selpool["launches_zs"].items()},
                         "shapes_zs_floor": selpool["k1_zs"][entry],
                         "launches_main_moc_nsclc": zs_main["runs"][0]["launches"][entry],
+                        "launches_tiers": {k: v["launches"][entry] for k, v in tiers.items()},
                         "launches_train_nsclc": zs_main["runs"][0]["launches_steps"][entry],
                         **({"launches_mizero": mizero["launches"], "shapes_mizero": mizero["k1"]}
                            if entry == "cols" else {})})
@@ -2342,6 +2626,8 @@ def main() -> int:
                             "kernel_us": t["kernel_us"], "device_us": t["device_us"],
                             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    log("[tiers] summary " + json.dumps({k: {f: v for f, v in r.items() if f != "launches"}
+                                         for k, r in tiers.items()}))
     log("[train] summary " + json.dumps({
         "step_ms": train_times, "episode_wall_s": trained["wall_s"],
         "epoch_train_s": trained["epoch_train_s"],

@@ -4,8 +4,10 @@
 One episode per (shot, fold): the zero-shot floor, ``--num_epochs`` epochs
 of per-slide Adam steps, best-val model selection, and the result files
 ``best_results_shot_{s}_fold_{f}.json``, ``zs_results_shot_{s}_fold_{f}.json``
-and the best SENet as ``best_model_shot_{s}_fold_{f}.npz`` (which
-``cli.serve --model`` reads). ``--dataset synthetic`` writes a separable
+and the best SENet as ``best_model_shot_{s}_fold_{f}.msgpack``, in the JAX
+package's layout (which ``cli.serve --model`` and ``cli.predict`` of either
+package read). The performance tiers (``--dense``, ``--score_dtype``) and
+``--select_method``/``--zs_pooling`` are ``cli.common.add_perf_flags``. ``--dataset synthetic`` writes a separable
 corpus with oracle weights under ``--result_dir``. The real datasets
 (``nsclc``, ``rcc``, ``ebrains12``, ``ebrains30``) read the ``.pt`` bags
 under ``--data_root``, and the table and the few-shot splits there too, or
@@ -33,7 +35,7 @@ import sys
 
 import numpy as np
 
-from moc_tpu_torch.cli.common import add_selection_flags
+from moc_tpu_torch.cli.common import add_perf_flags, perf_cfg_kwargs
 from moc_tpu_torch.config import DEFAULT_PROMPT_ROOT, PRESETS
 
 
@@ -69,12 +71,8 @@ def get_args(argv=None):
     p.add_argument("--weights_cache_dir", type=str, default="models/classifier_weights")
     p.add_argument("--device", default="cuda",
                    help="torch device to train on (cuda, cuda:1, or cpu)")
-    g = p.add_argument_group("performance tiers")
-    g.add_argument("--dense", action="store_true")
-    g.add_argument("--score_dtype", default="float32", choices=["float32", "bfloat16"])
-    add_selection_flags(g)
+    add_perf_flags(p)
     jax_only = p.add_argument_group("JAX package only (refused here)")
-    jax_only.add_argument("--approx_topk", action="store_true")
     jax_only.add_argument("--platform", type=str, default=None)
     jax_only.add_argument("--xprof", default=None, metavar="DIR")
     return p.parse_args(argv)
@@ -140,8 +138,10 @@ def _synthetic_setup(args) -> dict:
 
 def refuse_jax_only(args) -> None:
     """Exit on a flag that only the JAX package's command lines take."""
-    for flag, given in (("--approx_topk", args.approx_topk), ("--platform", args.platform),
-                        ("--xprof", args.xprof)):
+    if args.approx_topk:
+        raise SystemExit("--approx_topk is the TPU's approximate top-k and belongs to the JAX "
+                         "package; the GPU port has none (use the exact --select_method)")
+    for flag, given in (("--platform", args.platform), ("--xprof", args.xprof)):
         if given:
             raise SystemExit(f"{flag} belongs to the JAX package; this CLI runs PyTorch "
                              "(use --device, and torch.profiler for traces)")
@@ -159,13 +159,12 @@ def main(argv=None) -> int:
         print("end summary")
         return 0
 
-    from moc_tpu_torch.convert import senet_state_dict_to_npz
     from moc_tpu_torch.data.loader import BagLoader, EpisodeBags
     from moc_tpu_torch.data.splits import read_split_csv
     from moc_tpu_torch.data.table import SlideTable
     from moc_tpu_torch.device import resolve_device
     from moc_tpu_torch.moc import MOCConfig, ablation_evaluation, run_episode
-    from moc_tpu_torch.moc.results import (best_model_path, write_ablation_result,
+    from moc_tpu_torch.moc.results import (save_best_model, write_ablation_result,
                                            write_episode_result, write_zeroshot_result)
 
     device = resolve_device(args.device)
@@ -191,8 +190,7 @@ def main(argv=None) -> int:
 
     cfg = MOCConfig(n_classes=n_classes, n_ext_classes=n_ext, topj=args.topj, topk=args.topk,
                     discard=tuple(args.discard_classifiers), num_epochs=args.num_epochs,
-                    feature_dim=w.shape[0], dense=args.dense, score_dtype=args.score_dtype,
-                    select_method=args.select_method, zs_pooling=args.zs_pooling)
+                    feature_dim=w.shape[0], **perf_cfg_kwargs(args))
     table = SlideTable.from_csv(csv_path, label_dict)
     split = read_split_csv(split_csv)
     split.check_disjoint()
@@ -212,8 +210,7 @@ def main(argv=None) -> int:
         write_zeroshot_result(args.result_dir, args.shot, args.fold, result.zero_shot_train,
                               result.zero_shot_val, result.zero_shot_test)
     path = write_episode_result(args.result_dir, args.shot, args.fold, result)
-    senet_state_dict_to_npz(result.params, best_model_path(args.result_dir, args.shot,
-                                                           args.fold))
+    save_best_model(args.result_dir, args.shot, args.fold, result.params)
     print(f"Best Val: {result.best_val}, Test at Best Val: {result.test_at_best_val}, "
           f"Test acc: {result.test_acc_at_best_val}, Best Epoch: {result.best_epoch}")
     print(f"results → {path}")

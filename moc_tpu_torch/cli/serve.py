@@ -11,16 +11,26 @@ bags are scored as they appear. Two modes:
 * ``--from_stdin``: read one bag path (or slide id, resolved against
   ``--feature_dir``) per line and print one JSON object per line.
 
-  python -m moc_tpu_torch.cli.serve --dataset nsclc --model senet.pt \\
+  python -m moc_tpu_torch.cli.serve --dataset nsclc \\
+      --model best_model_shot_8_fold_0.msgpack \\
       --weights_npz w.npz --weights_ext_npz w_ext.npz \\
       --watch_dir /data/nsclc/features --out predictions.csv --once
 
-Without the ``--weights_npz`` pair, ``--conch_checkpoint`` (and optionally
+``--model`` is a SENet as ``cli.predict.load_senet`` reads it (the JAX
+package's ``.msgpack``, a ``.pt`` state dict or its ``.npz`` form). Without
+the ``--weights_npz`` pair, ``--conch_checkpoint`` (and optionally
 ``--tokenizer_file``) builds the weight matrices from the vendored prompt
-banks, cached in ``classifier_weights/`` beside ``--out``.
+banks, cached in ``classifier_weights/`` beside ``--out``. The tiers are
+``cli.predict``'s: ``--storage_dtype`` float32|bfloat16|int8 for the bags
+on the card (``--warmup`` packs its zero bags at it), ``--dense`` and
+``--score_dtype`` for the forward. A multi-process pod's hash-disjoint
+shards (``_shard_owns``, ``watch_once(shard=)``) are ported; the processes'
+discovery waits for the multi-device runtime, so ``main`` runs one shard.
 
 Runs on ``--device cuda`` (the default) and raises without a GPU unless
-``--device cpu`` is given.
+``--device cpu`` is given. ``--model_kind mil``, ``--model_type``,
+``--from_program``, ``--xprof`` and ``--platform`` are refused by name, as
+in ``cli.predict``.
 """
 
 from __future__ import annotations
@@ -28,6 +38,7 @@ from __future__ import annotations
 import argparse
 import csv
 import glob
+import hashlib
 import json
 import os
 import sys
@@ -35,8 +46,9 @@ import time
 
 import numpy as np
 
-from moc_tpu_torch.cli.common import add_selection_flags
-from moc_tpu_torch.cli.predict import build_predictor, score_bags
+from moc_tpu_torch.cli.common import add_perf_flags
+from moc_tpu_torch.cli.predict import (_storage_dtype, build_predictor, refuse_unported,
+                                       score_bags)
 from moc_tpu_torch.config import PRESETS
 from moc_tpu_torch.data.bags import Bag, read_bag_h5, read_bag_pt
 from moc_tpu_torch.device import resolve_device
@@ -45,8 +57,10 @@ from moc_tpu_torch.device import resolve_device
 def get_args(argv=None):
     p = argparse.ArgumentParser(description="MOC slide prediction daemon (GPU)")
     p.add_argument("--dataset", default="nsclc", choices=sorted(PRESETS))
-    p.add_argument("--model", required=True,
-                   help="SENet weights: a torch state dict (.pt) or its .npz form")
+    p.add_argument("--model", default=None,
+                   help="SENet checkpoint: best_model_*.msgpack, a torch .pt state dict or "
+                        "its .npz form")
+    p.add_argument("--model_size", default="conch", help="a MIL head's size (unused by MOC)")
     src = p.add_mutually_exclusive_group(required=True)
     src.add_argument("--watch_dir", default=None,
                      help="feature dir to poll for new bags")
@@ -70,6 +84,10 @@ def get_args(argv=None):
     p.add_argument("--topj", type=int, default=400)
     p.add_argument("--topk", type=int, default=10)
     p.add_argument("--batch_size", type=int, default=8)
+    p.add_argument("--storage_dtype", default="float32",
+                   choices=["bfloat16", "float32", "int8"],
+                   help="dtype of the bags on the card (see cli.predict); int8 also "
+                        "quarters each request's host-to-device copy")
     p.add_argument("--weights_npz", default=None)
     p.add_argument("--weights_ext_npz", default=None)
     p.add_argument("--conch_checkpoint", default=None,
@@ -78,7 +96,13 @@ def get_args(argv=None):
     p.add_argument("--tokenizer_file", default=None)
     p.add_argument("--device", default="cuda",
                    help="torch device to serve on (cuda, cuda:1, or cpu)")
-    add_selection_flags(p)
+    refused = p.add_argument_group("not in the GPU port (refused here)")
+    refused.add_argument("--model_kind", default="moc", choices=["moc", "mil"])
+    refused.add_argument("--model_type", default=None)
+    refused.add_argument("--from_program", default=None, metavar="PATH")
+    refused.add_argument("--platform", default=None)
+    refused.add_argument("--xprof", default=None, metavar="DIR")
+    add_perf_flags(p)
     return p.parse_args(argv)
 
 
@@ -107,14 +131,16 @@ class Server:
     """Resident predictor: SENet and weight matrices on the device, fed bags."""
 
     def __init__(self, args):
+        refuse_unported(args)
         self.args = args
         self.preset = PRESETS[args.dataset]
         self.device = resolve_device(args.device)
+        self.dtype = _storage_dtype(args)  # check the tier before building anything
         self.batch_logits, self.cfg = build_predictor(args, self.preset, self.device)
 
     def warmup(self, pads, dim=None):
         """Score a zero bag of exactly ``n`` rows for each padded size ``n``
-        before any real request arrives."""
+        before any real request arrives, packed at the storage tier."""
         dim = dim or self.cfg.feature_dim
         for n in sorted(set(int(p) for p in pads)):
             t0 = time.time()
@@ -129,7 +155,8 @@ class Server:
         return score_bags(self.batch_logits, bags,
                           batch_size=batch_size or self.args.batch_size,
                           n_classes=self.preset.n_classes,
-                          temperature=self.cfg.temperature, device=self.device)
+                          temperature=self.cfg.temperature, device=self.device,
+                          dtype=self.dtype)
 
 
 def serve_stream(server: Server, lines, resolve_dir: str | None = None):
@@ -167,6 +194,17 @@ def _parse_warmup(spec: str) -> list[int]:
     return pads
 
 
+def _shard_owns(slide_id: str, shard: tuple[int, int] | None) -> bool:
+    """Stable ownership of a slide id by an ``(index, count)`` process shard,
+    content-hashed (blake2b, not Python's per-process salted ``hash``) as in
+    the JAX package, so every daemon of a pod claims a disjoint subset."""
+    if shard is None:
+        return True
+    index, count = shard
+    digest = hashlib.blake2b(slide_id.encode(), digest_size=8).digest()
+    return int.from_bytes(digest, "big") % count == index
+
+
 MAX_READ_RETRIES = 3
 
 
@@ -182,16 +220,19 @@ def _note_failure(failures: dict[str, int], seen: set[str], sid: str, what: str,
 
 
 def watch_once(server: Server, watch_dir: str, out_csv: str, seen: set[str],
+               shard: tuple[int, int] | None = None,
                failures: dict[str, int] | None = None) -> int:
-    """Score every not-yet-seen bag under ``watch_dir`` and append the rows
-    to ``out_csv``. Returns the number of new rows.
+    """Score every not-yet-seen bag under ``watch_dir`` (of those that
+    ``shard`` owns, see ``_shard_owns``) and append the rows to ``out_csv``.
+    Returns the number of new rows.
 
     A bag can still be mid-copy when it is found: an unreadable bag is
     retried on later polls and written off only after ``MAX_READ_RETRIES``
     failures (pass a persistent ``failures`` dict to carry counts across
     polls). A batch the model rejects falls back to per-bag scoring, so one
     bad bag neither kills the daemon nor loses its neighbours' rows."""
-    backlog = {sid: p for sid, p in _discover(watch_dir).items() if sid not in seen}
+    backlog = {sid: p for sid, p in _discover(watch_dir).items()
+               if sid not in seen and _shard_owns(sid, shard)}
     if not backlog:
         return 0
     if failures is None:

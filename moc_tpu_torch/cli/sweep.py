@@ -8,7 +8,7 @@ committed to the card once a run. A shot whose folds cannot be stacked, or
 whose pool and eval packs pass ``--fused_hbm_gb`` under ``--mode auto``,
 streams its episodes one at a time through ``run_episode`` instead
 (``--mode stream`` forces that). Both write the reference's result files,
-``best_model_shot_{s}_fold_{f}.npz`` (which ``cli.serve --model`` reads)
+``best_model_shot_{s}_fold_{f}.msgpack`` (which ``cli.serve --model`` reads)
 and ``summary_{shot}.csv``, and train each fold alike.
 
   python -m moc_tpu_torch.cli.sweep --dataset synthetic --shots 8 \\
@@ -29,7 +29,7 @@ import time
 
 import torch
 
-from moc_tpu_torch.cli.common import add_selection_flags
+from moc_tpu_torch.cli.common import add_perf_flags, perf_cfg_kwargs
 from moc_tpu_torch.cli.main_moc import _build_weights, _synthetic_setup, refuse_jax_only
 from moc_tpu_torch.config import DEFAULT_PROMPT_ROOT, PRESETS
 
@@ -70,12 +70,8 @@ def get_args(argv=None):
                         "committed once) plus the widest shot's eval packs")
     p.add_argument("--device", default="cuda",
                    help="torch device to train on (cuda, cuda:1, or cpu)")
-    g = p.add_argument_group("performance tiers")
-    g.add_argument("--dense", action="store_true")
-    g.add_argument("--score_dtype", default="float32", choices=["float32", "bfloat16"])
-    add_selection_flags(g)
+    add_perf_flags(p)
     jax_only = p.add_argument_group("JAX package only (refused here)")
-    jax_only.add_argument("--approx_topk", action="store_true")
     jax_only.add_argument("--platform", default=None)
     jax_only.add_argument("--xprof", default=None, metavar="DIR")
     return p.parse_args(argv)
@@ -140,10 +136,9 @@ def run_fused_shot(args, shot, folds, *, splits, pool_ctx, w, w_ext, cfg, n_clas
     device from the run's committed pool. Returns None, after saying why,
     where ``--mode auto`` streams the shot instead: its folds' train splits
     differ in size, or the pool and eval packs pass ``--fused_hbm_gb``."""
-    from moc_tpu_torch.convert import senet_state_dict_to_npz
     from moc_tpu_torch.moc import (PooledEpisodes, episode_index, pooled_bytes_estimate,
                                    run_sweep_pooled, sweep_episode_results)
-    from moc_tpu_torch.moc.results import (best_model_path, write_episode_result,
+    from moc_tpu_torch.moc.results import (save_best_model, write_episode_result,
                                            write_zeroshot_result)
 
     t0 = time.perf_counter()
@@ -180,7 +175,7 @@ def run_fused_shot(args, shot, folds, *, splits, pool_ctx, w, w_ext, cfg, n_clas
             write_zeroshot_result(shot_dir, shot, fold, ep_result.zero_shot_train,
                                   ep_result.zero_shot_val, ep_result.zero_shot_test)
         write_episode_result(shot_dir, shot, fold, ep_result)
-        senet_state_dict_to_npz(ep_result.params, best_model_path(shot_dir, shot, fold))
+        save_best_model(shot_dir, shot, fold, ep_result.params)
         print(f"shot {shot} fold {fold}: best_val={ep_result.best_val:.4f} "
               f"test={ep_result.test_at_best_val:.4f} (fused)")
     t_write = time.perf_counter() - t0
@@ -212,13 +207,12 @@ def main(argv=None) -> int:
     args = get_args(argv)
     refuse_jax_only(args)
 
-    from moc_tpu_torch.convert import senet_state_dict_to_npz
     from moc_tpu_torch.data.loader import BagLoader, EpisodeBags
     from moc_tpu_torch.data.splits import read_split_csv
     from moc_tpu_torch.data.table import SlideTable
     from moc_tpu_torch.device import resolve_device
     from moc_tpu_torch.moc import MOCConfig, pack_slide_pool, run_episode, unique_split_ids
-    from moc_tpu_torch.moc.results import (best_model_path, episode_result_path, summarize,
+    from moc_tpu_torch.moc.results import (episode_result_path, save_best_model, summarize,
                                            write_episode_result, write_zeroshot_result)
 
     device = resolve_device(args.device)
@@ -227,9 +221,7 @@ def main(argv=None) -> int:
     table = SlideTable.from_csv(csv_path, label_dict)
     loader = BagLoader(table, data_dir, cache=True)
     cfg = MOCConfig(n_classes=n_classes, n_ext_classes=n_ext, topj=args.topj, topk=args.topk,
-                    num_epochs=args.num_epochs, feature_dim=w.shape[0], dense=args.dense,
-                    score_dtype=args.score_dtype, select_method=args.select_method,
-                    zs_pooling=args.zs_pooling)
+                    num_epochs=args.num_epochs, feature_dim=w.shape[0], **perf_cfg_kwargs(args))
 
     t0 = time.perf_counter()
     n_run = 0
@@ -290,7 +282,7 @@ def main(argv=None) -> int:
                 write_zeroshot_result(shot_dir, shot, fold, result.zero_shot_train,
                                       result.zero_shot_val, result.zero_shot_test)
             write_episode_result(shot_dir, shot, fold, result)
-            senet_state_dict_to_npz(result.params, best_model_path(shot_dir, shot, fold))
+            save_best_model(shot_dir, shot, fold, result.params)
             print(f"shot {shot} fold {fold}: best_val={result.best_val:.4f} "
                   f"test={result.test_at_best_val:.4f}")
     print(f"sweep wallclock: {time.perf_counter() - t0:.1f}s ({n_run} episodes)")

@@ -1,8 +1,9 @@
 """Carry weights across from the JAX package: flax params → torch modules
 (the SENet, the CONCH vision and text towers and the whole CoCa, and the
-masked-token pretraining model),
-and a flax-free ``.npz`` file format for SENet on hosts without flax or
-msgpack; SENet state dicts stacked into a ``SENetStack``.
+masked-token pretraining model), and back for the SENet (``senet_to_jax``,
+the tree that ``utils.checkpoint`` writes as the JAX package's
+``.msgpack``); an older ``.npz`` file format for SENet; SENet state dicts
+stacked into a ``SENetStack``.
 
 flax ``Dense.kernel`` is ``[in, out]``; torch ``Linear.weight`` is
 ``[out, in]``. A flax ``Conv`` kernel is ``[kh, kw, in, out]``; torch's is
@@ -39,6 +40,21 @@ def senet_from_jax(params: Mapping) -> SENet:
         "dense1.bias": torch.from_numpy(np.asarray(d1["bias"], np.float32).copy()),
     })
     return model
+
+
+def senet_to_jax(model: SENet | Mapping[str, torch.Tensor]) -> dict:
+    """The JAX SENet's parameter tree of a SENet (module or state dict), the
+    inverse of ``senet_from_jax``: ``{"params": {"Dense_0": {"kernel", "bias"},
+    "Dense_1": {...}}}`` of f32 numpy arrays, each kernel ``[in, out]``, in
+    flax's order (``utils.checkpoint.save_params`` writes it as JAX does)."""
+    state = model.state_dict() if isinstance(model, torch.nn.Module) else model
+
+    def arr(key: str, transpose: bool = False) -> np.ndarray:
+        x = state[key].detach().cpu().float().numpy()
+        return np.ascontiguousarray(x.T if transpose else x)
+
+    return {"params": {f"Dense_{i}": {"kernel": arr(f"dense{i}.weight", True),
+                                      "bias": arr(f"dense{i}.bias")} for i in (0, 1)}}
 
 
 def senet_state_dict_to_npz(model: SENet | Mapping[str, torch.Tensor], path: str) -> str:

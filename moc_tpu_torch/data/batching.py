@@ -2,7 +2,11 @@
 ``moc_tpu/data/batching.py``).
 
 Bags are padded to a small set of *bucket* sizes, and every op downstream
-consumes a ``[B, N, D]`` batch plus a ``[B, N]`` validity mask.
+consumes a ``[B, N, D]`` batch plus a ``[B, N]`` validity mask. The host
+pads through the native packer (``data.native``) and copies to the device
+only the bytes of the batch's storage tier: f32, bf16 (cast on the host,
+round to nearest even), or int8 rows with their f32 scales (quantized on
+the host).
 """
 
 from __future__ import annotations
@@ -25,11 +29,14 @@ class BagBatch:
     """A batch of padded bags on one device.
 
     Attributes:
-      features:  ``[B, N, D]`` float32 patch embeddings (pad rows are zero).
+      features:  ``[B, N, D]`` patch embeddings (pad rows are zero): float32,
+                 bfloat16, or int8 in the int8 storage tier.
       mask:      ``[B, N]`` bool, True on real patches.
       labels:    ``[B]`` int32 slide labels (-1 when unknown or filler).
       n_patches: ``[B]`` int32 true patch counts.
       coords:    ``[B, N, 2]`` int32 patch coordinates, or None.
+      scales:    ``[B, N]`` f32 per-row scales of int8 ``features``
+                 (``features ~= q * scales[..., None]``), else None.
     """
 
     features: torch.Tensor
@@ -37,6 +44,7 @@ class BagBatch:
     labels: torch.Tensor
     n_patches: torch.Tensor
     coords: torch.Tensor | None = None
+    scales: torch.Tensor | None = None
 
     @property
     def batch_size(self) -> int:
@@ -56,7 +64,13 @@ class BagBatch:
             return self
         return BagBatch(*(None if t is None else t.to(device, non_blocking=True) for t in
                           (self.features, self.mask, self.labels, self.n_patches,
-                           self.coords)))
+                           self.coords, self.scales)))
+
+    def slice_batch(self, start: int, size: int) -> "BagBatch":
+        """Slides ``start:start + size`` of the batch (views, no copies)."""
+        return BagBatch(*(None if t is None else t[start:start + size] for t in
+                          (self.features, self.mask, self.labels, self.n_patches,
+                           self.coords, self.scales)))
 
     def real_rows(self) -> np.ndarray:
         """Host bool ``[B]``: True on real slides, False on filler rows
@@ -97,19 +111,43 @@ def bucketize(bags: Sequence[Bag], buckets: Sequence[int] = DEFAULT_BUCKETS) -> 
     return out
 
 
+STORAGE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}
+
+
+def storage_dtype(dtype: str | torch.dtype | None) -> torch.dtype:
+    """The torch dtype of a storage tier given by name (``float32``,
+    ``bfloat16``, ``int8``) or as a torch dtype."""
+    if dtype is None:
+        return torch.float32
+    out = STORAGE_DTYPES.get(dtype, dtype) if isinstance(dtype, str) else dtype
+    if out not in STORAGE_DTYPES.values():
+        raise ValueError(f"unknown storage dtype {dtype!r}; one of {sorted(STORAGE_DTYPES)}")
+    return out
+
+
 def pack_bags(bags: Sequence[Bag], *, n_pad: int | None = None,
               buckets: Sequence[int] = DEFAULT_BUCKETS,
               device: str | torch.device | None = None,
-              with_coords: bool = False) -> BagBatch:
+              with_coords: bool = False,
+              dtype: str | torch.dtype | None = None) -> BagBatch:
     """Pad a list of bags to a common bucketed length and stack them into a
-    batch on ``device`` (default ``cuda``). The features are padded with
-    numpy straight into one pinned host buffer and leave it in one
-    asynchronous copy; the mask is built on the device from the counts.
-    ``with_coords`` also stacks the bags' coordinates (zero-padded), which
-    every bag must then carry."""
+    batch on ``device`` (default ``cuda``) in the storage tier ``dtype``
+    (default float32). The native packer pads into host memory, pinned
+    where the batch goes to a GPU, and the batch leaves in asynchronous
+    copies of the tier's bytes only: f32 features; bf16 features cast on
+    the host (round to nearest even); or int8 rows and their f32 scales,
+    quantized on the host (``ops.quant.quantize_rows_host``; pad rows get
+    scale 0). For a GPU the native library is required: a failed build
+    raises. The mask is built on the device from the counts. ``with_coords``
+    also stacks the bags' coordinates (zero-padded), which every bag must
+    then carry."""
+    from moc_tpu_torch.data.native import pack_bags_native
+    from moc_tpu_torch.ops.quant import quantize_rows_host
+
     if not bags:
         raise ValueError("pack_bags needs at least one bag")
     dev = resolve_device(device)
+    dtype = storage_dtype(dtype)
     max_n = max(b.n_patches for b in bags)
     if n_pad is None:
         n_pad = bucket_size(max_n, buckets)
@@ -120,12 +158,25 @@ def pack_bags(bags: Sequence[Bag], *, n_pad: int | None = None,
     if len(dims) > 1:
         raise ValueError(f"bags mix feature dims {sorted(dims)}; one batch must "
                          "come from one extractor")
-    host = torch.empty((len(bags), n_pad, dims.pop()), dtype=torch.float32,
-                       pin_memory=dev.type == "cuda")
-    view = host.numpy()
-    for i, b in enumerate(bags):
-        view[i, :b.n_patches] = b.features
-        view[i, b.n_patches:] = 0.0
+    shape = (len(bags), n_pad, dims.pop())
+    pin = dev.type == "cuda"
+
+    def host(dt, shp=shape):
+        return torch.empty(shp, dtype=dt, pin_memory=pin)
+
+    # the f32 staging buffer is pinned too where the batch goes to a GPU:
+    # PyTorch's pinned allocator hands back cached blocks whose pages are
+    # resident, where a fresh pageable buffer faults in every page again
+    f32 = host(torch.float32)
+    pack_bags_native([b.features for b in bags], n_pad, out=f32.numpy(), required=pin)
+    scales = None
+    if dtype == torch.float32:
+        features = f32
+    elif dtype == torch.bfloat16:
+        features = host(torch.bfloat16).copy_(f32)
+    else:
+        features, scales = host(torch.int8), host(torch.float32, shape[:2])
+        quantize_rows_host(f32.numpy(), out=(features.numpy(), scales.numpy()), required=pin)
     meta = torch.tensor([[b.label if b.label is not None else -1 for b in bags],
                          [b.n_patches for b in bags]], dtype=torch.int32).to(dev)
     labels, n_patches = meta[0], meta[1]
@@ -139,5 +190,6 @@ def pack_bags(bags: Sequence[Bag], *, n_pad: int | None = None,
         for i, b in enumerate(bags):
             padded[i, :b.n_patches] = b.coords
         coords = torch.from_numpy(padded).to(dev)
-    return BagBatch(features=host.to(dev, non_blocking=True), mask=mask,
-                    labels=labels, n_patches=n_patches, coords=coords)
+    return BagBatch(features=features.to(dev, non_blocking=True), mask=mask,
+                    labels=labels, n_patches=n_patches, coords=coords,
+                    scales=None if scales is None else scales.to(dev, non_blocking=True))

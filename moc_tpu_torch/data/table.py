@@ -33,10 +33,19 @@ class SlideTable:
         string, so zero-padded slide ids survive; a label missing from
         ``label_dict`` raises KeyError."""
         with open(csv_path, newline="") as f:
-            rows = list(csv.DictReader(f))
-        slide_ids = tuple(r["slide_id"] for r in rows)
+            return cls.from_rows(list(csv.DictReader(f)), label_dict)
+
+    @classmethod
+    def from_rows(cls, rows: Sequence[Mapping[str, str]],
+                  label_dict: Mapping[str, int]) -> "SlideTable":
+        """A table from CSV records (``csv.DictReader`` rows, every field a
+        string) with ``slide_id``, ``label`` and optionally ``case_id``: what
+        the JAX package's ``SlideTable.from_frame`` keeps of a frame without
+        its filter, ignore and shuffle options. A label missing from
+        ``label_dict`` raises KeyError."""
+        rows = list(rows)
         return cls(case_ids=tuple(r.get("case_id", r["slide_id"]) for r in rows),
-                   slide_ids_=slide_ids,
+                   slide_ids_=tuple(r["slide_id"] for r in rows),
                    labels_=tuple(int(label_dict[r["label"]]) for r in rows),
                    label_dict=dict(label_dict),
                    num_classes=len(set(label_dict.values())))

@@ -3,7 +3,8 @@ fused episode sweep and their result files."""
 
 from moc_tpu_torch.moc.core import (CLASSIFIER_NAMES, EvalPack, MOCConfig, SlideViews,
                                     ablation_slide_logits, fuse_views, fuse_views_fixed,
-                                    moc_logits_packed, moc_slide_logits, moc_slide_logits_masked,
+                                    moc_logits_packed, moc_slide_logits,
+                                    moc_slide_logits_dense, moc_slide_logits_masked,
                                     precompute_eval_pack, selection_capacity_for, slide_process,
                                     views_from_logits)
 from moc_tpu_torch.moc.episode import (EpisodeResult, EvalMetrics, ablation_evaluation,
@@ -22,7 +23,7 @@ __all__ = ["CLASSIFIER_NAMES", "EpisodeIndex", "EpisodeResult", "EvalMetrics", "
            "ablation_evaluation", "ablation_slide_logits", "assemble_episode",
            "episode_from_bags", "episode_index", "eval_batch", "fuse_views", "fuse_views_fixed",
            "init_senet", "make_optimizer", "make_sweep_fn", "moc_logits_packed",
-           "moc_slide_logits", "moc_slide_logits_masked", "pack_slide_pool",
+           "moc_slide_logits", "moc_slide_logits_dense", "moc_slide_logits_masked", "pack_slide_pool",
            "pad_and_stack_episodes", "pool_episode_bags", "pool_episode_splits",
            "pooled_bytes_estimate", "precompute_eval_pack", "run_episode", "run_sweep",
            "run_sweep_pooled", "selection_capacity_for", "slide_process", "stack_episode_bags",

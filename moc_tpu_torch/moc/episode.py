@@ -27,8 +27,8 @@ from moc_tpu_torch.data.loader import EpisodeBags
 from moc_tpu_torch.metrics import accuracy, roc_auc_host, softmax_probs
 from moc_tpu_torch.models.senet import SENet
 from moc_tpu_torch.moc.core import (MOCConfig, _full_f32, ablation_slide_logits,
-                                    moc_slide_logits, moc_slide_logits_masked)
-from moc_tpu_torch.ops import FOREGROUND_POOLINGS, POOLING_REGISTRY
+                                    moc_slide_logits, moc_slide_logits_dense)
+from moc_tpu_torch.ops import FOREGROUND_POOLINGS, POOLING_REGISTRY, int8_row_matmul
 
 # (epoch, visits V, padded bag length N) -> bool [V, N] patch-keep masks
 KeepFn = Callable[[int, int, int], torch.Tensor]
@@ -93,13 +93,18 @@ def train_epoch(senet: SENet, optimizer: torch.optim.Optimizer, batch: BagBatch,
                 order: Sequence[int], keep: torch.Tensor, w: torch.Tensor,
                 w_ext: torch.Tensor, cfg: MOCConfig) -> torch.Tensor:
     """One oversampled epoch: for visit ``v`` of slide ``order[v]``, one
-    forward with ``keep[v]``, one cross-entropy on the raw pooled logits, one
-    backward and one Adam step. Returns the visits' losses ``[V]`` on the
+    forward with ``keep[v]`` (``moc_slide_logits``, or the ``dense`` tier's
+    ``moc_slide_logits_dense``), one cross-entropy on the raw pooled logits,
+    one backward and one Adam step. Returns the visits' losses ``[V]`` on the
     device (nothing here waits for the device)."""
+    if batch.scales is not None:
+        raise ValueError("int8-resident features are a serving tier: training needs f32 or "
+                         "bf16 bags")
+    slide_fn = moc_slide_logits_dense if cfg.dense else moc_slide_logits
     losses = []
     for v, i in enumerate(int(i) for i in order):
-        logits = moc_slide_logits(senet, batch.features[i:i + 1], batch.mask[i:i + 1],
-                                  w, w_ext, cfg, keep[v:v + 1])
+        logits = slide_fn(senet, batch.features[i:i + 1], batch.mask[i:i + 1], w, w_ext, cfg,
+                          keep[v:v + 1])
         loss = F.cross_entropy(logits, batch.labels[i:i + 1].long())
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -110,28 +115,39 @@ def train_epoch(senet: SENet, optimizer: torch.optim.Optimizer, batch: BagBatch,
 
 def eval_batch(params_or_module: SENet | Mapping[str, torch.Tensor], batch: BagBatch,
                w: torch.Tensor, w_ext: torch.Tensor, cfg: MOCConfig) -> torch.Tensor:
-    """Pooled slide logits ``[B, C]`` for a padded batch (no patch mask):
-    the exact masked forward, on the device the batch lies on. The SENet
-    comes as a module or as its state dict."""
+    """Pooled slide logits ``[B, C]`` for a padded batch (no patch mask), on
+    the device the batch lies on: ``moc_slide_logits`` (the masked route
+    unless bf16 scoring of f32 features asks for the gather route), or
+    ``moc_slide_logits_dense`` under ``cfg.dense``; an int8 batch brings its
+    ``scales``. The SENet comes as a module or as its state dict."""
     senet = (params_or_module if isinstance(params_or_module, SENet)
              else senet_from_state_dict(params_or_module))
     senet = senet.to(batch.features.device)
+    slide_fn = moc_slide_logits_dense if cfg.dense else moc_slide_logits
     with torch.inference_mode():
-        return moc_slide_logits_masked(senet, batch.features, batch.mask, w, w_ext, cfg)
+        return slide_fn(senet, batch.features, batch.mask, w, w_ext, cfg, scales=batch.scales)
 
 
 def zs_pooled_logits(feats: torch.Tensor, valid: torch.Tensor, w: torch.Tensor,
-                     w_ext: torch.Tensor, cfg: MOCConfig) -> torch.Tensor:
+                     w_ext: torch.Tensor, cfg: MOCConfig,
+                     scales: torch.Tensor | None = None) -> torch.Tensor:
     """Zero-shot pooled logits ``[..., C]`` of slides ``feats [..., N, D]`` by
     the ``cfg.zs_pooling`` family at ``topk``: the foreground families pool
     ``feats @ w``, the bottom-k families ``feats @ w_ext`` with ``n_fg =
-    n_classes``. The one zero-shot dispatch: the streamed evaluation and the
-    sweep's floor both call it."""
-    _full_f32()
+    n_classes``. int8 rows with ``scales`` take the W8A8 product; other
+    features the f32 one (bf16 upcast exactly). The one zero-shot dispatch:
+    the streamed evaluation and the sweep's floor both call it."""
+    fg = cfg.zs_pooling in FOREGROUND_POOLINGS
+    wx = w if fg else w_ext
+    if scales is not None:
+        logits = int8_row_matmul(feats, scales, wx)
+    else:
+        _full_f32()
+        logits = feats.float() @ wx
     pool_fn = POOLING_REGISTRY[cfg.zs_pooling]
-    if cfg.zs_pooling in FOREGROUND_POOLINGS:
-        return pool_fn(feats @ w, valid, cfg.topk)
-    return pool_fn(feats @ w_ext, valid, cfg.topk, n_fg=cfg.n_classes)
+    if fg:
+        return pool_fn(logits, valid, cfg.topk)
+    return pool_fn(logits, valid, cfg.topk, n_fg=cfg.n_classes)
 
 
 def _collect_metrics(logits: np.ndarray, labels: np.ndarray, cfg: MOCConfig) -> EvalMetrics:
@@ -166,7 +182,7 @@ def zs_eval_batches(chunks: Sequence[BagBatch], w: torch.Tensor, w_ext: torch.Te
                     cfg: MOCConfig, device: torch.device) -> EvalMetrics:
     def fn(b: BagBatch) -> torch.Tensor:
         with torch.inference_mode():
-            return zs_pooled_logits(b.features, b.mask, w, w_ext, cfg)
+            return zs_pooled_logits(b.features, b.mask, w, w_ext, cfg, scales=b.scales)
 
     return _eval_chunks(fn, chunks, cfg, device)
 

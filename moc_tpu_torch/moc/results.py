@@ -1,8 +1,9 @@
 """Episode result files with the reference's names, keys and fold summary
 (port of ``moc_tpu/moc/results.py`` on ``json`` and ``csv``).
 
-The best SENet is saved as the ``.npz`` of
-``convert.senet_state_dict_to_npz``, which ``cli.serve --model`` reads.
+The best SENet is saved as ``best_model_shot_{s}_fold_{f}.msgpack`` in the
+JAX package's layout (``save_best_model``), which both packages' ``serve``
+and ``predict`` read.
 """
 
 from __future__ import annotations
@@ -12,10 +13,14 @@ import json
 import math
 import os
 from glob import glob
+from typing import Mapping
 
 import numpy as np
+import torch
 
+from moc_tpu_torch.convert import senet_to_jax
 from moc_tpu_torch.moc.episode import EpisodeResult
+from moc_tpu_torch.utils.checkpoint import save_params
 
 
 def episode_result_path(result_dir: str, shot: int, fold: int) -> str:
@@ -23,7 +28,14 @@ def episode_result_path(result_dir: str, shot: int, fold: int) -> str:
 
 
 def best_model_path(result_dir: str, shot: int, fold: int) -> str:
-    return os.path.join(result_dir, f"best_model_shot_{shot}_fold_{fold}.npz")
+    return os.path.join(result_dir, f"best_model_shot_{shot}_fold_{fold}.msgpack")
+
+
+def save_best_model(result_dir: str, shot: int, fold: int,
+                    params: Mapping[str, torch.Tensor]) -> str:
+    """Write an episode's best SENet (a state dict) to ``best_model_path`` as
+    the JAX package's parameter tree in flax's msgpack layout."""
+    return save_params(best_model_path(result_dir, shot, fold), senet_to_jax(params))
 
 
 def _write_json(path: str, payload: dict) -> str:

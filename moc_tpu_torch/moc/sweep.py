@@ -42,7 +42,8 @@ from moc_tpu_torch.device import resolve_device
 from moc_tpu_torch.metrics import auc_from_probs, softmax_probs
 from moc_tpu_torch.models.senet import STACK_KEYS
 from moc_tpu_torch.moc.core import (MOCConfig, fuse_views, moc_logits_packed,
-                                    precompute_eval_pack, selection_capacity_for, slide_process)
+                                    moc_slide_logits_dense, precompute_eval_pack,
+                                    selection_capacity_for, slide_process)
 from moc_tpu_torch.moc.episode import (EpisodeResult, draw_keep_masks, init_senet,
                                        make_optimizer, zs_pooled_logits)
 from moc_tpu_torch.ops import topj_pooling
@@ -145,11 +146,16 @@ def sweep_step(stack: torch.nn.Module, optimizer: torch.optim.Optimizer, feats: 
     ``keep [E, N]``, ``labels [E]`` through ``slide_process`` (one K1 launch
     over the ``E·(2C+1)`` selection rows), the ``SENetStack``, the fusion
     and ``topj_pooling`` (one K1 launch over the ``E·C`` columns); one
-    backward of the summed cross-entropies and one Adam step. Returns each
-    episode's loss ``[E]`` on the device, without waiting for it."""
-    sel = slide_process(feats, mask, w, w_ext, cfg, keep)
-    logits = topj_pooling(fuse_views(stack(sel.feats), sel.views, cfg.include_flags()),
-                          sel.valid, cfg.topk)
+    backward of the summed cross-entropies and one Adam step. The ``dense``
+    tier drops the selection: ``moc_slide_logits_dense`` over the whole bag
+    (K1 on the columns only). Returns each episode's loss ``[E]`` on the
+    device, without waiting for it."""
+    if cfg.dense:
+        logits = moc_slide_logits_dense(stack, feats, mask, w, w_ext, cfg, keep)
+    else:
+        sel = slide_process(feats, mask, w, w_ext, cfg, keep)
+        logits = topj_pooling(fuse_views(stack(sel.feats), sel.views, cfg.include_flags()),
+                              sel.valid, cfg.topk)
     ce = F.cross_entropy(logits, labels, reduction="none")
     optimizer.zero_grad(set_to_none=True)
     ce.sum().backward()
@@ -323,7 +329,11 @@ def stack_episode_bags(episodes) -> StackedEpisode:
     """``episode_from_bags`` and ``pad_and_stack_episodes`` in one pass over
     a list of ``EpisodeBags``: the ``[E, rows, N, D]`` buffers are allocated
     once and each chunk's real slides are copied straight into place (the
-    same output)."""
+    same output). Chunks whose real slides are a prefix (filler rows sit at
+    a chunk's end) go through the native threaded gather
+    (``data.native.gather_pack_f32``), which also zeroes their column tails;
+    the rest, and every chunk where the library is missing, through numpy."""
+    from moc_tpu_torch.data.native import gather_pack_f32
 
     def gather(split: str, dim_hint: int = 1):
         chunk_lists = [[ep.train] if split == "train" else getattr(ep, split)
@@ -341,17 +351,34 @@ def stack_episode_bags(episodes) -> StackedEpisode:
         n = max(c.features.shape[1] for c in all_chunks)
         dim = all_chunks[0].features.shape[-1]
         r = max(max(rows), 1)
-        feats = np.zeros((e, r, n, dim), np.float32)
+        # np.empty: the copies below fill every row a chunk owns, its column
+        # tail included, and the rows no chunk fills are zeroed explicitly
+        feats = np.empty((e, r, n, dim), np.float32)
+        flat = feats.reshape(e * r, n, dim)
         mask = np.zeros((e, r, n), bool)
         labels = np.full((e, r), -1, np.int32)
+        srcs, cols, offs = [], [], []
         for i, chunks in enumerate(chunk_lists):
             at = 0
             for c, keep in zip(chunks, keeps[i]):
                 nb, cn = int(keep.sum()), c.features.shape[1]
-                feats[i, at:at + nb, :cn] = _np(c.features)[keep]
+                f = _np(c.features)
+                prefix = nb and bool(keep[:nb].all())
+                if prefix and f.dtype == np.float32 and f.flags.c_contiguous:
+                    srcs.append(f[:nb])
+                    cols.append(cn)
+                    offs.append(i * r + at)
+                else:
+                    feats[i, at:at + nb, :cn] = f[keep]
+                    feats[i, at:at + nb, cn:] = 0.0
                 mask[i, at:at + nb, :cn] = _np(c.mask)[keep]
                 labels[i, at:at + nb] = _np(c.labels)[keep]
                 at += nb
+            feats[i, at:] = 0.0  # rows no chunk filled
+        if srcs and not gather_pack_f32(srcs, cols, offs, flat):
+            for f, cn, off in zip(srcs, cols, offs):  # no library: numpy
+                flat[off:off + f.shape[0], :cn] = f
+                flat[off:off + f.shape[0], cn:] = 0.0
         return feats, mask, labels
 
     tf, tm, tl = gather("train")
@@ -454,7 +481,7 @@ def pooled_bytes_estimate(pooled: PooledEpisodes, cfg: MOCConfig | None = None) 
     rows = sum(int(np.prod(np.shape(x))) for x in (ix.train_idx, ix.val_idx, ix.test_idx))
     total = (rows + u) * n * (d * 4 + 1)
     if cfg is not None:
-        cap = selection_capacity_for(cfg.topj, cfg.n_classes, n)
+        cap = n if cfg.dense else selection_capacity_for(cfg.topj, cfg.n_classes, n)
         eval_rows = sum(int(np.prod(np.shape(x))) for x in (ix.val_idx, ix.test_idx))
         total += eval_rows * cap * (d + 4 * cfg.n_classes + 1) * 4
     return int(total)

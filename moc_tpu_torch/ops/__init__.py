@@ -5,7 +5,8 @@ PyTorch counterpart of ``moc_tpu.ops``. Every selection and pooling op takes
 a padded bag plus a boolean validity mask, with the slide batch as a leading
 dimension. The exact top-k membership search runs in the hand-written CUDA
 kernel K1 (``ops.topk_kernel``) on the GPU and in its plain PyTorch version
-on the CPU. Flash attention (``ops.flash_attention``) runs its forward in K2
+on the CPU. The int8 serving tier's W8A8 product (``ops.quant``) runs in
+``torch._int_mm``. Flash attention (``ops.flash_attention``) runs its forward in K2
 and its backward in K3 and K4 (``ops.flash_kernel``) on the GPU, and in
 ``mha_reference`` and ``flash_bwd_reference`` on the CPU.
 """
@@ -32,6 +33,13 @@ from moc_tpu_torch.ops.pooling import (
     topj_delta_diff_pooling,
     topj_delta_softmax_pooling,
     topj_pooling,
+)
+from moc_tpu_torch.ops.quant import (
+    dequantize_rows,
+    int8_row_matmul,
+    quantize_columns,
+    quantize_rows_device,
+    quantize_rows_host,
 )
 from moc_tpu_torch.ops.selection import (
     gather_selected,
@@ -66,6 +74,11 @@ __all__ = [
     "topj_delta_diff_pooling",
     "topj_delta_softmax_pooling",
     "topj_pooling",
+    "dequantize_rows",
+    "int8_row_matmul",
+    "quantize_columns",
+    "quantize_rows_device",
+    "quantize_rows_host",
     "gather_selected",
     "select_and_gather",
     "select_bottomk_irrel",

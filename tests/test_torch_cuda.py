@@ -4,6 +4,9 @@ contracts, the flash-attention gradients against autograd of the dense
 reference, and the extraction and pretraining CLIs, a MOC training epoch and
 the fused episode sweep on the GPU against the CPU.
 
+The serving tiers (dense, bf16 scoring, bf16 and int8 storage) on the card
+against the CPU, with ``torch._int_mm`` against the CPU's int32 product.
+
 Needs an NVIDIA GPU and nvcc: every test here carries the ``cuda`` marker and
 skips without a card. This file imports no JAX, so the card's host runs it
 without the JAX-only conftest:
@@ -969,3 +972,111 @@ def test_run_mizero_on_the_card_matches_the_cpu(gen):
         np.testing.assert_allclose(dump["logits"][j], dump_cpu["logits"][j], rtol=0, atol=1e-6)
         np.testing.assert_array_equal(dump["preds"][j], dump_cpu["preds"][j])
     assert res == res_cpu
+
+
+# ------------------------------------------------------------------ serving tiers
+
+@pytest.mark.parametrize("m,k,n", [(64, 512, 72), (16384, 512, 74), (5, 64, 8), (17, 60, 3),
+                                   (1000, 520, 1)])
+def test_int_mm_on_the_card_equals_the_cpu_int32_product(gen, m, k, n):
+    """The int8 tier's product (``ops.quant._int_product``, ``torch._int_mm``
+    with zero padding to its shape rules) on the card against the CPU's int32
+    product, exactly: at the NSCLC (72) and RCC (74) widths of the fused
+    scoring product, below ``_int_mm``'s m > 16, and with k and n off a
+    multiple of 8."""
+    from moc_tpu_torch.ops import quant
+
+    cpu = torch.Generator().manual_seed(m + k + n)
+    q = torch.randint(-127, 128, (m, k), generator=cpu, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (k, n), generator=cpu, dtype=torch.int8)
+    got = quant._int_product(q.cuda(), wq.cuda())
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    assert torch.equal(got.cpu(), q.to(torch.int32) @ wq.to(torch.int32))
+    rows = torch.rand(m, generator=cpu)
+    w = torch.randn((k, n), generator=cpu)
+    got = quant.int8_row_matmul(q.cuda(), rows.cuda(), w.cuda()).cpu()
+    assert torch.equal(got, quant.int8_row_matmul(q, rows, w))
+
+
+def _tier_batches(device):
+    from moc_tpu_torch.data import Bag
+    from moc_tpu_torch.data.synthetic import SyntheticWSIConfig, sample_bag, zero_shot_weights
+
+    syn = SyntheticWSIConfig(min_patches=1500, max_patches=4000, seed=4)
+    rng = np.random.default_rng(4)
+    bags = [Bag(slide_id=str(i), features=sample_bag(syn, i % 2, rng)[0], label=i % 2)
+            for i in range(4)]
+    w, w_ext = (torch.from_numpy(x).to(device) for x in zero_shot_weights(syn))
+    return bags, w, w_ext
+
+
+TIER_CASES = {"dense": ("float32", dict(dense=True)),
+              "score_bf16": ("float32", dict(score_dtype="bfloat16")),
+              "storage_bf16": ("bfloat16", {}), "storage_int8": ("int8", {}),
+              "dense_int8": ("int8", dict(dense=True))}
+
+
+@pytest.mark.parametrize("tier", sorted(TIER_CASES))
+def test_tier_forward_on_the_card_matches_the_cpu(gen, tier):
+    """Each tier's ``eval_batch`` on the card against the CPU from the same
+    bags (each side packs its own batch, through the native packer): pooled
+    logits within rtol 1e-4 / atol 1e-5, K1 launched once on the rows (none
+    in the dense tier) and once on the columns; the batch carries the tier's
+    dtype and only its bytes."""
+    from moc_tpu_torch.data import native
+    from moc_tpu_torch.data.batching import STORAGE_DTYPES, pack_bags
+    from moc_tpu_torch.moc import MOCConfig, eval_batch, init_senet
+
+    storage, kw = TIER_CASES[tier]
+    cfg = MOCConfig(n_classes=2, n_ext_classes=6, **kw)
+    out = {}
+    for device in ("cuda", "cpu"):
+        bags, w, w_ext = _tier_batches(device)
+        before = native.native_calls["pack"]
+        batch = pack_bags(bags, device=device, dtype=storage)
+        assert native.native_calls["pack"] == before + 1
+        assert batch.features.dtype == STORAGE_DTYPES[storage]
+        assert (batch.scales is not None) == (storage == "int8")
+        rows0 = topk_kernel.topk_threshold_mask_cuda.launches
+        cols0 = topk_kernel.col_topk_threshold_mask_cuda.launches
+        out[device] = eval_batch(init_senet(0, cfg, device), batch, w, w_ext, cfg).cpu()
+        torch.cuda.synchronize()
+        launched = (topk_kernel.topk_threshold_mask_cuda.launches - rows0,
+                    topk_kernel.col_topk_threshold_mask_cuda.launches - cols0)
+        want = ((0 if cfg.dense else 1, 1) if device == "cuda" else (0, 0))
+        assert launched == want, (device, launched)
+    assert torch.isfinite(out["cuda"]).all()
+    torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("tier", sorted(TIER_CASES))
+def test_tiers_leave_tf32_flags_as_their_precision_says(gen, tier):
+    """Under each of the four TF32 settings: the bf16-scoring and int8 tiers
+    leave the process-global flags as they found them, the f32-scoring
+    tiers leave them off (the exact tier's ``_full_f32``); every setting
+    gives the same logits."""
+    from moc_tpu_torch.data.batching import pack_bags
+    from moc_tpu_torch.moc import MOCConfig, eval_batch, init_senet
+
+    storage, kw = TIER_CASES[tier]
+    cfg = MOCConfig(n_classes=2, n_ext_classes=6, **kw)
+    bags, w, w_ext = _tier_batches("cuda")
+    batch = pack_bags(bags, device="cuda", dtype=storage)
+    senet = init_senet(0, cfg, "cuda")
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    keeps = cfg.score_dtype == "bfloat16" or storage == "int8"
+    outs = []
+    try:
+        for matmul in (False, True):
+            for cudnn in (False, True):
+                torch.backends.cuda.matmul.allow_tf32 = matmul
+                torch.backends.cudnn.allow_tf32 = cudnn
+                outs.append(eval_batch(senet, batch, w, w_ext, cfg))
+                torch.cuda.synchronize()
+                assert (torch.backends.cuda.matmul.allow_tf32,
+                        torch.backends.cudnn.allow_tf32) == ((matmul, cudnn) if keeps
+                                                             else (False, False))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    for other in outs[1:]:
+        assert torch.equal(outs[0], other)

@@ -352,13 +352,21 @@ def test_zs_pooled_logits_match_jax_for_every_family(strong, name):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("kw,err", [(dict(dense=True), NotImplementedError),
-                                    (dict(score_dtype="bfloat16"), NotImplementedError),
+@pytest.mark.parametrize("kw,err", [(dict(score_dtype="float16"), ValueError),
+                                    (dict(score_dtype="int8", dense=True), ValueError),
                                     (dict(approx_topk=True), ValueError),
                                     (dict(exact_impl="dense"), ValueError)])
 def test_config_refuses_unported_tiers(kw, err):
-    with pytest.raises(err, match="ROADMAP|TPU|exact_impl"):
+    """What the port refuses: the TPU's approximate top-k and values outside
+    the JAX choices. The dense and bf16-score tiers construct (their
+    forwards are held against JAX in ``tests/test_torch_tiers.py``)."""
+    with pytest.raises(err, match="score_dtype|TPU|exact_impl"):
         MOCConfig(n_classes=2, n_ext_classes=6, **kw)
+    for ok in (dict(dense=True), dict(score_dtype="bfloat16"),
+               dict(dense=True, score_dtype="bfloat16")):
+        cfg = MOCConfig(n_classes=2, n_ext_classes=6, **ok)
+        assert (cfg.dense, cfg.score_dtype) == (ok.get("dense", False),
+                                                ok.get("score_dtype", "float32"))
 
 
 @pytest.mark.parametrize("kw", [dict(select_method="sort"), dict(zs_pooling="delta_softmax")])

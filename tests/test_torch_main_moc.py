@@ -70,7 +70,8 @@ def test_result_files_have_jax_keys(runs):
     name = "best_results_shot_2_fold_0.json"
     got, want = _json(os.path.join(port, name)), _json(os.path.join(jax_dir, name))
     assert list(got) == list(want) == EPISODE_KEYS
-    assert got["best_model_path"] == os.path.join(port, "best_model_shot_2_fold_0.npz")
+    assert got["best_model_path"] == os.path.join(port, "best_model_shot_2_fold_0.msgpack")
+    assert got["best_model_path"].replace(port, jax_dir) == want["best_model_path"]
     assert os.path.exists(got["best_model_path"])
     assert 0.0 <= got["best_val"] <= 1.0 and got["best_epoch"] in (0, 1)
     for key in ("zero_shot_train", "zero_shot_val", "zero_shot_test"):
@@ -127,9 +128,7 @@ def test_summary_csv_matches_jax(tmp_path, layout):
 
 
 @pytest.mark.parametrize("argv,err,match", [
-    (["--dense"], NotImplementedError, "queue 1 item 6"),
-    (["--score_dtype", "bfloat16"], NotImplementedError, "queue 1 item 6"),
-    (["--approx_topk"], SystemExit, "JAX package"),
+    (["--approx_topk"], SystemExit, "TPU's approximate top-k.*JAX package"),
     (["--platform", "cpu"], SystemExit, "JAX package"),
     (["--xprof", "trace"], SystemExit, "JAX package"),
 ])
@@ -161,6 +160,36 @@ def test_sort_selection_and_a_bottomk_zs_pooling_run_as_in_jax(runs, tmp_path, e
         got, want = (_json(os.path.join(d, "best_results_shot_2_fold_0.json"))
                      for d in (port, jax_dir))
         assert list(got) == list(want) == EPISODE_KEYS
+        pairs = [(got[k], want[k]) for k in ("zero_shot_train", "zero_shot_val",
+                                             "zero_shot_test")]
+    for g, w in pairs:
+        assert g["acc"] == w["acc"] and g["auc"] == w["auc"]
+        assert abs(g["loss"] - w["loss"]) <= 1e-5
+
+
+@pytest.mark.parametrize("extra", [["--dense", "--num_epochs", "1"],
+                                   ["--score_dtype", "bfloat16", "--num_epochs", "1"],
+                                   ["--score_dtype", "bfloat16", "--ablation_study", "avg"]])
+def test_dense_and_bf16_score_tiers_run_as_in_jax(runs, tmp_path, extra):
+    """``--dense`` and ``--score_dtype bfloat16`` in both packages on the same
+    corpus: every loss finite, the result keys and the zero-shot floor
+    (equal accuracy and AUC, loss within 1e-5); or, for bf16 scoring, the
+    ablation metrics (the gather route with its f32 re-score, no SENet)."""
+    port, jax_dir = str(tmp_path / "port"), str(tmp_path / "jax")
+    for d, src in ((port, runs[0]), (jax_dir, runs[1])):  # the corpus, not the results
+        shutil.copytree(os.path.join(src, CORPUS), os.path.join(d, CORPUS))
+    argv = [*SMALL, *extra]
+    assert main_moc.main([*argv, "--device", "cpu", "--result_dir", port]) == 0
+    assert jmain_moc.main([*argv, "--result_dir", jax_dir]) == 0
+    if "--ablation_study" in extra:
+        got, want = (_json(os.path.join(d, "ablation_results_avg_shot_2_fold_0.json"))
+                     for d in (port, jax_dir))
+        pairs = [(got, want)]
+    else:
+        got, want = (_json(os.path.join(d, "best_results_shot_2_fold_0.json"))
+                     for d in (port, jax_dir))
+        assert list(got) == list(want) == EPISODE_KEYS
+        assert 0.0 <= got["best_val"] <= 1.0 and 0.0 <= got["test_at_best_val"] <= 1.0
         pairs = [(got[k], want[k]) for k in ("zero_shot_train", "zero_shot_val",
                                              "zero_shot_test")]
     for g, w in pairs:
@@ -239,15 +268,16 @@ def test_nsclc_layout_with_cached_weights(runs, tmp_path):
 
 
 def test_trained_npz_served_matches_eval_batch(runs, tmp_path):
-    """``cli.serve`` fed the saved ``.npz`` scores the test bags as
-    ``eval_batch`` does with the best parameters."""
+    """``cli.serve`` fed the saved best SENet (the ``.msgpack`` of the JAX
+    package's layout since the result files name what JAX names) scores the
+    test bags as ``eval_batch`` does with the best parameters."""
     port = runs[0]
     corpus = os.path.join(port, CORPUS)
     w, w_ext = zero_shot_weights(SyntheticWSIConfig(min_patches=60, max_patches=480,
                                                     slides_per_class=16))
     np.savez(tmp_path / "w.npz", weights=w)
     np.savez(tmp_path / "we.npz", weights=w_ext)
-    model = os.path.join(port, "best_model_shot_2_fold_0.npz")
+    model = os.path.join(port, "best_model_shot_2_fold_0.msgpack")
     args = serve.get_args(["--dataset", "nsclc", "--model", model, "--weights_npz",
                            str(tmp_path / "w.npz"), "--weights_ext_npz",
                            str(tmp_path / "we.npz"), "--topj", "24", "--device", "cpu",

@@ -40,14 +40,17 @@ TRAINING_MODULES = ["moc_tpu_torch.cli.main_moc", "moc_tpu_torch.data.loader",
                     "moc_tpu_torch.data.splits", "moc_tpu_torch.data.table",
                     "moc_tpu_torch.metrics.auc", "moc_tpu_torch.moc.episode",
                     "moc_tpu_torch.moc.results", "moc_tpu_torch.cli.sweep",
-                    "moc_tpu_torch.moc.sweep", "moc_tpu_torch.utils.device_cache"]
+                    "moc_tpu_torch.moc.sweep", "moc_tpu_torch.utils.device_cache",
+                    "moc_tpu_torch.data.native", "moc_tpu_torch.ops.quant",
+                    "moc_tpu_torch.utils.checkpoint", "moc_tpu_torch.cli.predict"]
 DIM = 64
 
 
 @pytest.fixture(scope="module")
 def served(tmp_path_factory):
     """A feature dir of ``.pt`` bags in two buckets, oracle weights, and one
-    SENet saved for both packages (flax msgpack, torch ``.pt`` and ``.npz``)."""
+    SENet saved for both packages (flax msgpack, which the port reads too,
+    torch ``.pt`` and ``.npz``)."""
     root = tmp_path_factory.mktemp("serve")
     cfg = synthetic.SyntheticWSIConfig(dim=DIM, min_patches=120, max_patches=700,
                                        signal=0.9, seed=4)
@@ -80,7 +83,7 @@ def _bag_paths(root):
     return sorted(str(p) for p in (root / "bags" / "pt_files").iterdir())
 
 
-@pytest.mark.parametrize("model", ["senet.pt", "senet.npz"])
+@pytest.mark.parametrize("model", ["senet.pt", "senet.npz", "senet.msgpack"])
 def test_server_rows_match_jax_server(served, model):
     jargs = jserve.get_args(["--dataset", "nsclc", "--model",
                              str(served / "senet.msgpack"),

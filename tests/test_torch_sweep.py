@@ -457,3 +457,28 @@ def test_sweep_matches_run_episode_per_fold(corpus):
         np.testing.assert_allclose(f.losses, stream.losses, rtol=0, atol=1e-5)
         for key, t in f.params.items():
             assert (t - stream.params[key]).abs().max().item() <= 1e-5, (fold, key)
+
+
+def test_dense_sweep_matches_jax(corpus):
+    """The ``dense`` tier's fused sweep (``sweep_step`` and the eval packs of
+    ``moc_slide_logits_dense``, no selection union) against JAX's from the
+    same initial SENets and keep masks: best epochs equal, AUCs, accuracies
+    and best parameters within 1e-5, the zero-shot floor equal."""
+    jcfg, cfg = _cfgs(dense=True)
+    jpooled = jsweep.pool_episode_splits(corpus["jl"], corpus["js"])
+    want = jax.tree.map(np.asarray, jsweep.run_sweep_pooled(
+        jpooled, corpus["jc"]["weights"], corpus["jc"]["weights_ext"], jcfg, repeat_num=VISITS,
+        seeds=jnp.asarray(SEEDS, jnp.int32), with_zs=True))
+    pooled = pool_episode_splits(corpus["tl"], corpus["ts"])
+    got = run_sweep_pooled(pooled, corpus["tc"]["weights"], corpus["tc"]["weights_ext"], cfg,
+                           repeat_num=VISITS, seeds=SEEDS, with_zs=True, device="cpu",
+                           keep_fn=_jax_keep_fn(SEEDS), init_states=_jax_init_states(jcfg, SEEDS))
+    np.testing.assert_array_equal(got.best_epoch.numpy(), want.best_epoch)
+    for name in ("best_val_auc", "test_auc_at_best", "test_acc_at_best"):
+        np.testing.assert_allclose(getattr(got, name).numpy(), getattr(want, name), rtol=0,
+                                   atol=1e-5, err_msg=name)
+    np.testing.assert_array_equal(got.zs.numpy()[..., 1:], want.zs[..., 1:])
+    for e in range(2):
+        want_p = senet_from_jax(jax.tree.map(lambda x: x[e], want.best_params)).state_dict()
+        for key, t in sweep_episode_results(got)[e].params.items():
+            assert (t - want_p[key]).abs().max().item() <= 1e-5, (e, key)

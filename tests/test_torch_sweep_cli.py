@@ -15,6 +15,7 @@ import os
 import shutil
 from types import SimpleNamespace
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -24,6 +25,7 @@ from moc_tpu_torch.cli import sweep
 from moc_tpu_torch.data import read_split_csv
 from moc_tpu_torch.data.loader import BagLoader
 from moc_tpu_torch.utils import device_cache
+from moc_tpu_torch.utils.checkpoint import load_params
 
 SMALL = ["--dataset", "synthetic", "--shots", "2", "--folds", "0", "1", "--topj", "24",
          "--topk", "10", "--num_epochs", "2", "--synthetic_min_patches", "60",
@@ -76,11 +78,11 @@ def test_fused_and_stream_write_the_same_results(runs):
         assert list(fused) == list(stream) == EPISODE_KEYS
         _assert_same_episode(fused, stream)
         assert fused["best_model_path"] == os.path.join(runs["fused"], "2_shot",
-                                                        f"best_model_shot_2_fold_{fold}.npz")
-        a, b = (np.load(r["best_model_path"]) for r in (fused, stream))
-        assert sorted(a.files) == sorted(b.files)
-        for key in a.files:
-            np.testing.assert_allclose(a[key], b[key], rtol=0, atol=1e-5, err_msg=key)
+                                                        f"best_model_shot_2_fold_{fold}.msgpack")
+        a, b = (jax.tree.leaves(load_params(r["best_model_path"])) for r in (fused, stream))
+        assert len(a) == len(b) == 4
+        for x, y in zip(a, b):
+            np.testing.assert_allclose(x, y, rtol=0, atol=1e-5)
         zs_f, zs_s = (_results(runs[m], fold, "zs_results") for m in ("fused", "stream"))
         assert list(zs_f) == list(zs_s) == ["zs_train", "zs_val", "zs_test"]
     (head_f, *rows_f), (head_s, *rows_s) = (_csv(os.path.join(runs[m], "summary_2.csv"))
@@ -92,10 +94,10 @@ def test_fused_and_stream_write_the_same_results(runs):
 
 
 def test_files_match_the_jax_command_line(runs):
-    """Same file names (the SENet as ``.npz`` where JAX writes msgpack), the
+    """Same file names (the SENet as ``.msgpack``, as JAX writes it), the
     same keys, the same zero-shot floor, the same summary columns."""
     def names(d):
-        return sorted(os.path.splitext(n)[0] for n in os.listdir(os.path.join(d, "2_shot")))
+        return sorted(os.listdir(os.path.join(d, "2_shot")))
 
     assert names(runs["fused"]) == names(runs["jax"])
     for fold in FOLDS:
@@ -195,9 +197,7 @@ def test_auto_mode_streams_past_the_memory_budget(runs, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,err,match", [
-    (["--dense"], NotImplementedError, "queue 1 item 6"),
-    (["--score_dtype", "bfloat16"], NotImplementedError, "queue 1 item 6"),
-    (["--approx_topk"], SystemExit, "JAX package"),
+    (["--approx_topk"], SystemExit, "TPU's approximate top-k.*JAX package"),
     (["--platform", "cpu"], SystemExit, "JAX package"),
     (["--xprof", "trace"], SystemExit, "JAX package"),
 ])
@@ -223,6 +223,26 @@ def test_sort_selection_and_bottomk_zs_floor_match_jax_run_sweep_pooled(tmp_path
             assert got[part]["acc"] == metrics["acc"] and got[part]["auc"] == metrics["auc"]
             assert abs(got[part]["loss"] - metrics["loss"]) <= 1e-5
         assert list(_results(port, fold)) == EPISODE_KEYS
+
+
+@pytest.mark.parametrize("tier", [["--dense"], ["--score_dtype", "bfloat16"]])
+def test_dense_and_bf16_score_sweeps_match_jax_floor(tmp_path, tier):
+    """``--dense`` and ``--score_dtype bfloat16``, fused, in both packages:
+    the zero-shot floor of every fold equal (accuracy and AUC, loss within
+    1e-5), the JAX package's file names, and a valid AUC at best val."""
+    argv = [*SMALL, "--num_epochs", "1", "--mode", "fused", *tier]
+    port, jax_dir = str(tmp_path / "port"), str(tmp_path / "jax")
+    assert sweep.main([*argv, "--device", "cpu", "--result_dir", port]) == 0
+    assert jsweep_cli.main([*argv, "--result_dir", jax_dir]) == 0
+    assert sorted(os.listdir(os.path.join(port, "2_shot"))) == \
+        sorted(os.listdir(os.path.join(jax_dir, "2_shot")))
+    for fold in FOLDS:
+        got, want = (_results(d, fold, "zs_results") for d in (port, jax_dir))
+        for part, metrics in want.items():
+            assert got[part]["acc"] == metrics["acc"] and got[part]["auc"] == metrics["auc"]
+            assert abs(got[part]["loss"] - metrics["loss"]) <= 1e-5
+        res = _results(port, fold)
+        assert list(res) == EPISODE_KEYS and 0.0 <= res["test_at_best_val"] <= 1.0
 
 
 def test_unknown_zs_pooling_is_an_argparse_error_as_in_jax(capsys):

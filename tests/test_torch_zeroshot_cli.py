@@ -66,7 +66,7 @@ def test_main_moc_builds_weights_from_the_vendored_banks_and_trains(study, built
     root, split = study
     assert (len(split.train), len(split.val), len(split.test)) == (2, 50, 208)
     for name in ("best_results_shot_1_fold_0.json", "zs_results_shot_1_fold_0.json",
-                 "best_model_shot_1_fold_0.npz"):
+                 "best_model_shot_1_fold_0.msgpack"):
         assert (root / "r" / name).exists(), name
     for name, shape in zip(CACHES, ((DIM, 2), (DIM, 6))):
         with np.load(root / "w" / name) as f:
@@ -117,12 +117,12 @@ def test_sweep_builds_the_same_weights(study, built):
                        "--weights_cache_dir", str(root / "ws"), "--result_dir",
                        str(root / "sweep")]) == 0
     assert {n: (root / "ws" / n).read_bytes() for n in CACHES} == built
-    assert (root / "sweep" / "1_shot" / "best_model_shot_1_fold_0.npz").exists()
+    assert (root / "sweep" / "1_shot" / "best_model_shot_1_fold_0.msgpack").exists()
 
 
 def test_serve_builds_weights_beside_its_output(study, built):
     root, split = study
-    base = ["--dataset", "nsclc", "--model", str(root / "r" / "best_model_shot_1_fold_0.npz"),
+    base = ["--dataset", "nsclc", "--model", str(root / "r" / "best_model_shot_1_fold_0.msgpack"),
             "--topj", "16", "--device", "cpu", "--watch_dir", "x"]
     with pytest.raises(SystemExit, match="conch_checkpoint"):
         serve.Server(serve.get_args(base))
