@@ -50,8 +50,10 @@ Phases, each of which makes the script exit non-zero when it fails:
 6. end to end: the extracted bags served by ``watch_once`` (nsclc, seeded
    SENet, synthetic D=512 weights) to finite probability rows, K1 launched;
 7. times: K2 at [64, 12, 785, 64] and [32, 12, 512, 64] in f32 and bf16,
-   first held against ``mha_reference`` on the same tensors (O and lse, the
-   tolerances of 3),
+   and at MUSK-large's vision [64, 16, 577, 64] and text [176, 16, 100, 64]
+   shapes (the text's padding as segment ids, the library given the same
+   mask), first held against ``mha_reference`` on the same tensors (O and
+   lse, the tolerances of 3),
    then per launch against its bound, its plain version and
    ``scaled_dot_product_attention`` (timed only), kernel-only by the
    profiler and queued behind a spin, the batch-64
@@ -156,6 +158,29 @@ Phases, each of which makes the script exit non-zero when it fails:
    to the exact tier's served rows, and the port's ``.msgpack`` of the
    SENet served with the ``.pt``'s rows.
 
+16. MUSK (``[musk]``, after 7): MUSK-large fabricated at full width in the
+   release layout (24 multiway layers of 1024, FFN 4096, 16 heads, 384 px,
+   vocabulary 64010; 673M parameters), saved in half precision under
+   ``{"model": ...}`` and read by ``load_musk`` on the card and the CPU;
+   the batch-64 vision forward in f32 and bf16 by CUDA events with a
+   profile (busy share, K2's share; K2 launched 24 times a forward), two
+   images' f32 embeddings within 1e-4 of the CPU, bf16 against f32 by the
+   least cosine (above 0.98); the text tower over the nsclc banks (176
+   prompts, hash tokenizer, padding as segments) with 16 rows within 1e-4
+   of the CPU, and one mixed call against the CPU on every real token;
+17. ResNet-50 (``[resnet]``): a fabricated torchvision-layout file (random
+   BatchNorm statistics, ``layer4`` and ``fc`` included) read by
+   ``load_resnet50``; the batch-64 trunk at 256 px in f32 and bf16 with
+   TF32 off, 8 images within 1e-4 of the CPU;
+18. extraction beyond CONCH (``[extract]``): ``cli.extract_features.main``
+   with ``--backbone musk`` (16's file), ``resnet50`` (17's) and ``debug``
+   over three ``.npz`` bags of 256 px patches (160, 90 and 3), and
+   ``resnet50`` with ``--wsi_dir`` over two PNG slides and coords-only bags
+   (a 256 px grid and crops past the edges): bags of the backbone's width,
+   finite and (but ResNet-50's) unit-norm, K2 launched 24 times a MUSK
+   batch, the small slide's rows within 1e-4 of a CPU run, images/s of the
+   host wall.
+
 The last lines are the card's name and power limit, one JSON object of
 kernel records, and ``{"ok": true, "device": {...}}``. No phase falls back
 to the CPU: without a GPU, or without the port beside it, the script fails.
@@ -234,9 +259,19 @@ NARROW_ARGV = ["--batch", "4", "--seq_len", "128", "--layers", "2", "--embed_dim
 PATCH_PX, EXTRACT_BATCH, SLIDE_PATCHES = 256, 64, (600, 424)
 TRUNK_LAYERS, TOKENS, HEADS, HEAD_DIM = 12, 785, 12, 64
 EXTRACT_BATCHES = sum(math.ceil(n / EXTRACT_BATCH) for n in SLIDE_PATCHES)  # 10 + 7
-# K2's timing shapes: the CONCH trunk's at batch 64 and the encoder's in pretraining
+# MUSK-large (musk_large_patch16_384; JAX moc_tpu/models/musk.py:23-31): 24 multiway
+# layers of 1024, FFN 4096, 16 heads of 64, 384 px (577 tokens), vocabulary 64010, text
+# length 100; its text stream here is the vendored nsclc banks through the hash tokenizer
+MUSK_LAYERS, MUSK_TOKENS, MUSK_HEADS, MUSK_TEXT_LEN, MUSK_OUT = 24, 577, 16, 100, 1024
+MUSK_CPU_IMAGES, MUSK_CPU_PROMPTS = 2, 16  # the rows held against the CPU
+RESNET_PX, RESNET_CPU_IMAGES = 256, 8
+# K2's timing shapes: the CONCH trunk's at batch 64, the encoder's in pretraining, and
+# MUSK's vision stream at batch 64 and text stream over the nsclc banks (its padding as
+# segment ids; the batch is the banks' prompt count, 176)
 K2_SHAPES = {"extraction": (EXTRACT_BATCH, HEADS, TOKENS, HEAD_DIM),
-             "pretraining": PRETRAIN_SHAPE}
+             "pretraining": PRETRAIN_SHAPE,
+             "musk_vision": (EXTRACT_BATCH, MUSK_HEADS, MUSK_TOKENS, HEAD_DIM),
+             "musk_text": (None, MUSK_HEADS, MUSK_TEXT_LEN, HEAD_DIM)}
 # MOC training: the JAX CLI's synthetic protocol (moc_tpu/cli/main_moc.py:52-55,123-126):
 # D=512, SENet 512-64-4, C=2 with 4 background concepts, topj 400, topk 10, shot 8,
 # fold 0, 16 slides a class (val 2, test 4), bags of 1500-4000 patches (the 4096
@@ -855,11 +890,13 @@ def phase_times(state: dict) -> dict:
     return records
 
 
-def phase_profile(forward, steps: int = 5, what: str = "forward", host_top: int = 0) -> None:
+def phase_profile(forward, steps: int = 5, what: str = "forward", host_top: int = 0) -> dict:
     """Device time of ``forward`` (a batch forward, or a train step) by
     kernel, from ``torch.profiler``, and the device's busy share of the host
     wall over the same steps; with ``host_top``, also that many host-side
-    operations by their own host time."""
+    operations by their own host time. Returns ``busy`` (the share),
+    ``device_us`` a step and ``flash_fwd_share`` (K2's share of the device
+    time); empty when the profiler recorded no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -877,7 +914,7 @@ def phase_profile(forward, steps: int = 5, what: str = "forward", host_top: int 
     annotated_us = sum(e.self_device_time_total for e in device) - busy_us
     if busy_us <= 0:
         log("[profile] the profiler recorded no device time")
-        return
+        return {}
     log(f"[profile] {steps} x {what}: device busy {busy_us / steps:.1f} us/{what} of "
         f"{wall_us / steps:.1f} us host wall ({100 * busy_us / wall_us:.1f}% busy), "
         f"{sum(e.count for e in events) // steps} kernels/{what} (user annotations over "
@@ -898,6 +935,9 @@ def phase_profile(forward, steps: int = 5, what: str = "forward", host_top: int 
         for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:host_top]:
             log(f"[profile]   host {e.self_cpu_time_total / steps:9.1f} us  "
                 f"x{e.count // steps:<4d} {e.key[:80]}")
+    flash_us = sum(e.self_device_time_total for e in events if "flash_fwd" in e.key)
+    return {"busy": busy_us / wall_us, "device_us": busy_us / steps,
+            "flash_fwd_share": flash_us / busy_us}
 
 
 # the serving tiers at the serving point: name -> (flags of cli.serve / cli.predict)
@@ -1282,11 +1322,36 @@ def phase_serve_extracted(root: str, out_dir: str) -> dict:
     return launches
 
 
+def nsclc_prompts() -> list[str]:
+    """Every prompt of the vendored nsclc banks, ``W``'s and ``W_ext``'s (176),
+    class by class: the texts a zero-shot weight build for nsclc encodes."""
+    from moc_tpu_torch.config import DEFAULT_PROMPT_ROOT, NSCLC
+    from moc_tpu_torch.zeroshot import load_prompt_bank
+
+    out = []
+    for f, labels in ((NSCLC.prompt_file, NSCLC.label_dict),
+                      (NSCLC.prompt_file_ext, NSCLC.label_dict_ext)):
+        bank = load_prompt_bank(os.path.join(DEFAULT_PROMPT_ROOT, f), labels)
+        out += [t for c in range(bank.n_classes) for alias in bank.texts_for_class(c)
+                for t in alias]
+    return out
+
+
+def musk_text_segments() -> torch.Tensor:
+    """Segment ids ``[176, 100]`` on the card of the nsclc banks under MUSK's
+    hash tokenizer: 1 on tokens, 0 on padding (``nn.encoder``'s convention)."""
+    from moc_tpu_torch.zeroshot.musk_tokenizer import MuskTokenizer
+
+    _, pad = MuskTokenizer(max_len=MUSK_TEXT_LEN)(nsclc_prompts())
+    return torch.from_numpy(~pad).int().cuda()
+
+
 def phase_flash_times() -> dict:
-    """K2 at the extraction and the pretraining shape (``K2_SHAPES``): its O
-    and lse held against its plain version on the same tensors, then its
-    time per launch against its bound, its plain version and one library
-    call. Returns ``records[tier][cell]``."""
+    """K2 at each shape of ``K2_SHAPES``: its O and lse held against its
+    plain version on the same tensors, then its time per launch against its
+    bound, its plain version and one library call
+    (``scaled_dot_product_attention`` with the same mask). Returns
+    ``records[tier][cell]``."""
     import torch.nn.functional as F
 
     from moc_tpu_torch.ops.flash_attention import mha_reference
@@ -1296,30 +1361,43 @@ def phase_flash_times() -> dict:
     records = {"f32": {}, "bf16": {}}
     with torch.inference_mode():
         for cell, shape in K2_SHAPES.items():
+            seg = musk_text_segments() if cell == "musk_text" else None
+            if seg is not None:
+                shape = (seg.shape[0],) + shape[1:]
+            b, h, length, d = shape
+            # the library's mask: a query sees the keys of its own segment
+            mask = None if seg is None else (seg[:, None, :, None] == seg[:, None, None, :])
+            # the query-key pairs the function needs: every pair, or those within
+            # a segment (a row's real tokens, and its padding among itself)
+            pairs = (b * length * length if seg is None
+                     else int(((seg == 1).sum(1) ** 2 + (seg == 0).sum(1) ** 2).sum()))
             for dtype, name, peak in ((torch.float32, "f32", F32_ACCURATE_OPS_PER_S),
                                       (torch.bfloat16, "bf16", BF16_OPS_PER_S)):
                 q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
                            for _ in range(3))
-                b, h, length, d = shape
-                o, lse = flash_fwd_cuda(q, k, v)
-                ro, rlse = mha_reference(q, k, v)
-                err = _k2_errors(o, lse, ro, rlse, dtype, f"{name} at {list(shape)}")
-                log(f"[parity] K2 {name} {list(shape)}: max |O - plain| {err['o']:.3e} "
-                    f"({err['max_rel']:.3e} of the largest |O|), max |lse - plain| "
-                    f"{err['lse']:.3e} (tolerance {K2_TOL[dtype]}); mean |O - plain| / "
-                    f"mean |plain| {err['mean_rel']:.3e}")
+                o, lse = flash_fwd_cuda(q, k, v, seg, seg)
+                ro, rlse = mha_reference(q, k, v, q_segment_ids=seg, kv_segment_ids=seg)
+                err = _k2_errors(o, lse, ro, rlse, dtype, f"{name} at {list(shape)}"
+                                 + (" with segments" if seg is not None else ""))
+                log(f"[parity] K2 {name} {list(shape)}{' segments' if seg is not None else ''}"
+                    f": max |O - plain| {err['o']:.3e} ({err['max_rel']:.3e} of the largest "
+                    f"|O|), max |lse - plain| {err['lse']:.3e} (tolerance {K2_TOL[dtype]}); "
+                    f"mean |O - plain| / mean |plain| {err['mean_rel']:.3e}")
                 del o, lse, ro, rlse
-                # q, k, v read once and O written once, plus the f32 lse; two
-                # products of 2·L²·D operations per head
-                bytes_s = (4 * q.numel() * q.element_size() + b * h * length * 4) / HBM_BYTES_PER_S
-                ops_s = 4 * b * h * length * length * d / peak
-                rec = {"shape": list(shape), "max_abs_err": max(err["o"], err["lse"]),
-                       "max_rel": err["max_rel"],
-                       "ms": _time_ms(lambda: flash_fwd_cuda(q, k, v)),
-                       **_kernel_us(lambda: flash_fwd_cuda(q, k, v), K2_KERNEL[dtype],
+                # q, k, v read once and O written once, plus the f32 lse and the
+                # int32 segment ids; two products of 2·D operations per pair a head
+                bytes_s = (4 * q.numel() * q.element_size() + b * h * length * 4
+                           + (0 if seg is None else 2 * seg.numel() * 4)) / HBM_BYTES_PER_S
+                ops_s = 4 * h * pairs * d / peak
+                rec = {"shape": list(shape), "segments": seg is not None,
+                       "max_abs_err": max(err["o"], err["lse"]), "max_rel": err["max_rel"],
+                       "ms": _time_ms(lambda: flash_fwd_cuda(q, k, v, seg, seg)),
+                       **_kernel_us(lambda: flash_fwd_cuda(q, k, v, seg, seg), K2_KERNEL[dtype],
                                     flash_fwd_cuda),
-                       "plain_ms": _time_ms(lambda: mha_reference(q, k, v), iters=20, warmup=3),
-                       "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+                       "plain_ms": _time_ms(lambda: mha_reference(
+                           q, k, v, q_segment_ids=seg, kv_segment_ids=seg), iters=20, warmup=3),
+                       "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
+                           q, k, v, attn_mask=mask)),
                        "bound_ms": max(bytes_s, ops_s) * 1e3,
                        "bound_by": "bytes" if bytes_s >= ops_s else "operations"}
                 records[name][cell] = rec
@@ -1357,6 +1435,279 @@ def phase_encode_tiers(ckpt: str) -> None:
                     phase_profile(forward, steps=3)
             del model, x
             torch.cuda.empty_cache()
+
+
+def _least_cosine(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.float(), b.float()
+    return float((a * b).sum(1).div(a.norm(dim=1) * b.norm(dim=1)).min())
+
+
+def _tiers_forward(name: str, card, forward_of, images, want_launches: int) -> dict:
+    """The batch forward of ``card`` in f32 and in bf16 (a bf16 copy of the
+    weights and images): the output, K2's launches in one forward (checked
+    against ``want_launches``), the forward by CUDA events and a profile of
+    it. Returns ``{tier: {...}}``."""
+    import copy
+
+    from moc_tpu_torch.ops.flash_kernel import flash_fwd_cuda
+
+    res = {}
+    for tier, dtype, iters in (("f32", torch.float32, 5), ("bf16", torch.bfloat16, 10)):
+        model = card if dtype == torch.float32 else copy.deepcopy(card).to(dtype)
+        x = images.to(dtype)
+        with torch.inference_mode():
+            def forward():
+                return forward_of(model, x)
+
+            flash_fwd_cuda.launches = 0
+            out = forward().float()
+            torch.cuda.synchronize()
+            launches = flash_fwd_cuda.launches
+            check(launches == want_launches,
+                  f"[{name}] {tier}: K2 launched {launches} times in one forward, "
+                  f"want {want_launches}")
+            check(bool(torch.isfinite(out).all()), f"[{name}] {tier}: output not finite")
+            ms = _time_ms(forward, iters=iters, warmup=1)
+            prof = phase_profile(forward, steps=2, what=f"{name} {tier} forward")
+        res[tier] = {"out": out, "ms": ms, "images_per_s": images.shape[0] / ms * 1e3,
+                     "k2_launches": launches, "busy": prof.get("busy"),
+                     "device_us": prof.get("device_us"), "k2_share": prof.get("flash_fwd_share")}
+        log(f"[{name}] batch {images.shape[0]} {tier} forward: {ms:.3f} ms by CUDA events "
+            f"(median of {iters}), {res[tier]['images_per_s']:.1f} images/s, K2 launches "
+            f"{launches}, busy {100 * (prof.get('busy') or 0):.1f}%, K2 "
+            f"{100 * (prof.get('flash_fwd_share') or 0):.1f}% of the device time")
+        if model is not card:
+            del model
+        del x
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_musk(root: str) -> dict:
+    """``[musk]``: MUSK-large fabricated at full width in the release layout
+    (seed 6), saved in half precision under ``{"model": ...}`` and loaded by
+    ``load_musk`` on the card and on the CPU; the batch-64 vision forward in
+    f32 and bf16 (K2 24 times a forward), f32 embeddings of
+    ``MUSK_CPU_IMAGES`` images within 1e-4 of the CPU, bf16 against f32 by
+    the least cosine; the text tower over the nsclc banks through the hash
+    tokenizer (its padding as segment ids) and ``MUSK_CPU_PROMPTS`` rows
+    within 1e-4 of the CPU; one mixed call (2 images, 2 prompts) against
+    the CPU on every real token. Returns the checkpoint's path and the
+    records."""
+    from moc_tpu_torch.models.musk import MuskConfig
+    from moc_tpu_torch.ops.flash_kernel import flash_fwd_cuda
+    from moc_tpu_torch.zeroshot.convert_musk import load_musk, random_musk_state_dict
+    from moc_tpu_torch.zeroshot.musk_tokenizer import MuskTokenizer
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    sd = random_musk_state_dict(seed=6)
+    ckpt = os.path.join(root, "musk.pth")
+    torch.save({"model": {k: v.half() for k, v in sd.items()}}, ckpt)
+    del sd
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    card = load_musk(ckpt, device="cuda")
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    cpu = load_musk(ckpt, device="cpu")
+    check(card.cfg == MuskConfig(), f"[musk] config read off the checkpoint: {card.cfg}")
+    n_params = sum(p.numel() for p in card.parameters())
+    log(f"[musk] fabricated a release-layout MUSK-large checkpoint (half precision, "
+        f"{os.path.getsize(ckpt) / 1e9:.2f} GB) in {t_write:.1f}s; load_musk on cuda "
+        f"{t_load:.2f}s: {n_params / 1e6:.1f}M parameters, 24 x 1024, 16 heads, 384 px")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    images = torch.randn((EXTRACT_BATCH, 384, 384, 3), generator=gen, device="cuda")
+    res = _tiers_forward("musk", card, lambda m, x: m(images=x)[0], images, MUSK_LAYERS)
+    f32, bf16 = res["f32"]["out"], res["bf16"]["out"]
+    norm_err = float((f32.norm(dim=1) - 1).abs().max())
+    check(f32.shape == (EXTRACT_BATCH, MUSK_OUT) and norm_err < 1e-4,
+          f"[musk] vision embeddings {tuple(f32.shape)}, norm error {norm_err}")
+    cos = _least_cosine(f32, bf16)
+    check(cos > 0.98, f"[musk] bf16 vision embeddings drift from f32 (least cosine {cos})")
+    with torch.inference_mode():
+        want = cpu(images=images[:MUSK_CPU_IMAGES].cpu())[0]
+        err_v = float((f32[:MUSK_CPU_IMAGES].cpu() - want).abs().max())
+        check(err_v <= 1e-4, f"[musk] vision embeddings: max |card - CPU| {err_v}")
+        prompts = nsclc_prompts()
+        ids, pad = (torch.from_numpy(a) for a in MuskTokenizer(max_len=MUSK_TEXT_LEN)(prompts))
+        ids = ids.long()
+        ids_c, pad_c = ids.cuda(), pad.cuda()
+
+        def text():
+            return card(token_ids=ids_c, text_padding_mask=pad_c)[1]
+
+        flash_fwd_cuda.launches = 0
+        emb_t = text()
+        torch.cuda.synchronize()
+        text_launches = flash_fwd_cuda.launches
+        check(text_launches == MUSK_LAYERS, f"[musk] text: K2 launched {text_launches} times")
+        text_ms = _time_ms(text, iters=10, warmup=1)
+        n = MUSK_CPU_PROMPTS
+        want_t = cpu(token_ids=ids[:n], text_padding_mask=pad[:n])[1]
+        err_t = float((emb_t[:n].cpu() - want_t).abs().max())
+        check(emb_t.shape == (len(prompts), MUSK_OUT) and bool(torch.isfinite(emb_t).all())
+              and err_t <= 1e-4, f"[musk] text embeddings {tuple(emb_t.shape)}: max |card - "
+              f"CPU| {err_t}")
+        mixed = {dev: model.beit3(textual_tokens=ids[:2].to(dev),
+                                  visual_tokens=images[:2].to(dev),
+                                  text_padding_mask=pad[:2].to(dev))[0].cpu()
+                 for dev, model in (("cuda", card), ("cpu", cpu))}
+        real = ~torch.cat([torch.zeros(2, card.cfg.n_vision_tokens, dtype=torch.bool), pad[:2]],
+                          dim=1)
+        err_m = float((mixed["cuda"] - mixed["cpu"])[real].abs().max())
+        check(err_m <= 1e-4, f"[musk] mixed call: max |card - CPU| {err_m} on real tokens")
+    log(f"[musk] f32 vision embeddings of {MUSK_CPU_IMAGES} images against the CPU: max |diff| "
+        f"{err_v:.3e}; text over the nsclc banks ({len(prompts)} prompts, "
+        f"{int((~pad).sum())} real of {pad.numel()} tokens, segments into K2): {text_ms:.3f} ms "
+        f"by CUDA events, {text_launches} K2 launches, {n} rows against the CPU {err_t:.3e}; "
+        f"mixed call (2 images + 2 prompts, split 577) against the CPU {err_m:.3e} (limit 1e-4); "
+        f"bf16 against f32 vision embeddings: least cosine {cos:.5f}")
+    del card, cpu
+    torch.cuda.empty_cache()
+    return {"ckpt": ckpt, "params": n_params, "load_s": t_load, "write_s": t_write,
+            "vision": {t: {k: v for k, v in r.items() if k != "out"} for t, r in res.items()},
+            "bf16_least_cosine": cos, "vision_err": err_v, "text_err": err_t,
+            "mixed_err": err_m, "text_ms": text_ms, "text_launches": text_launches,
+            "text_prompts": len(prompts)}
+
+
+def phase_resnet(root: str) -> dict:
+    """``[resnet]``: a torchvision-layout ResNet-50 state dict fabricated
+    from seed 8 (random BatchNorm statistics, ``layer4`` and ``fc``
+    included), loaded by ``load_resnet50`` on the card and on the CPU; the
+    batch-64 trunk at 256 px in f32 and bf16 with TF32 off, ``RESNET_CPU_IMAGES``
+    rows within 1e-4 of the CPU, bf16 against f32 by the least cosine."""
+    from moc_tpu_torch.models.convert_resnet import load_resnet50, random_resnet50_state_dict
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    ckpt = os.path.join(root, "resnet50.pth")
+    torch.save(random_resnet50_state_dict(seed=8), ckpt)
+    card = load_resnet50(ckpt, device="cuda")
+    cpu = load_resnet50(ckpt, device="cpu")
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    images = torch.randn((EXTRACT_BATCH, RESNET_PX, RESNET_PX, 3), generator=gen, device="cuda")
+    res = _tiers_forward("resnet", card, lambda m, x: m(x), images, 0)
+    f32 = res["f32"]["out"]
+    check(f32.shape == (EXTRACT_BATCH, 1024), f"[resnet] features {tuple(f32.shape)}")
+    with torch.inference_mode():
+        want = cpu(images[:RESNET_CPU_IMAGES].cpu())
+    err = float((f32[:RESNET_CPU_IMAGES].cpu() - want).abs().max())
+    check(err <= 1e-4, f"[resnet] features: max |card - CPU| {err}")
+    cos = _least_cosine(f32, res["bf16"]["out"])
+    check(cos > 0.98, f"[resnet] bf16 features drift from f32 (least cosine {cos})")
+    log(f"[resnet] f32 features of {RESNET_CPU_IMAGES} images against the CPU: max |diff| "
+        f"{err:.3e} (limit 1e-4; largest |feature| {float(want.abs().max()):.3f}); bf16 "
+        f"against f32: least cosine {cos:.5f}")
+    del card, cpu
+    torch.cuda.empty_cache()
+    return {"ckpt": ckpt, "err": err, "bf16_least_cosine": cos,
+            "forward": {t: {k: v for k, v in r.items() if k != "out"} for t, r in res.items()}}
+
+
+# the extraction cohort of the other backbones: two slides and a small one that
+# also runs on the CPU; the --wsi_dir cohort: two PNG slides and their coords
+BACKBONE_SLIDES = {"s0": 160, "s1": 90, "tiny": 3}
+WSI_SLIDES = {"big": (2048, 2048), "tiny": (600, 500)}
+BACKBONE_DIM = {"musk": MUSK_OUT, "resnet50": 1024, "debug": 512}
+
+
+def write_backbone_corpus(root: str) -> dict:
+    """The raw-pixel ``.npz`` patch bags (256 px) and the ``--wsi_dir``
+    cohort: PNG slides with coords-only ``.npz`` bags (a 256 px grid, and
+    crops past the right and bottom edges); a CSV naming the small slide."""
+    from PIL import Image
+
+    rng = np.random.default_rng(10)
+    dirs = {k: os.path.join(root, k) for k in ("bb_patches", "bb_coords", "bb_wsi")}
+    for d in dirs.values():
+        os.makedirs(os.path.join(d, "h5_files"), exist_ok=True)
+    for slide, n in BACKBONE_SLIDES.items():
+        np.savez(os.path.join(dirs["bb_patches"], "h5_files", f"{slide}.npz"),
+                 imgs=rng.integers(0, 256, (n, PATCH_PX, PATCH_PX, 3), np.uint8),
+                 coords=rng.integers(0, 100000, (n, 2)).astype(np.int32))
+    wsi_patches = {}
+    for slide, (w, h) in WSI_SLIDES.items():
+        Image.fromarray(rng.integers(0, 256, (h, w, 3), np.uint8)).save(
+            os.path.join(dirs["bb_wsi"], f"{slide}.png"))
+        grid = [(x, y) for y in range(0, h - PATCH_PX + 1, PATCH_PX)
+                for x in range(0, w - PATCH_PX + 1, PATCH_PX)]
+        edge = [(w - 100, 0), (0, h - 50), (w - 30, h - 30)]
+        coords = np.asarray(grid + edge, np.int32)
+        np.savez(os.path.join(dirs["bb_coords"], "h5_files", f"{slide}.npz"), coords=coords)
+        wsi_patches[slide] = len(coords)
+    csv_path = os.path.join(root, "bb_tiny.csv")
+    with open(csv_path, "w") as f:
+        f.write("slide_id\ntiny\n")
+    return {**dirs, "csv": csv_path, "wsi_patches": wsi_patches}
+
+
+def _extract_run(corpus: dict, out: str, backbone: str, ckpt: str | None, device: str,
+                 wsi: bool) -> tuple[int, float]:
+    """``cli.extract_features.main`` over the cohort on ``device`` (on the CPU
+    the small slide alone, at batch 4); returns (K2 launches, host wall s)."""
+    from moc_tpu_torch.cli import extract_features
+    from moc_tpu_torch.ops.flash_kernel import flash_fwd_cuda
+
+    argv = ["--patch_dir", corpus["bb_coords" if wsi else "bb_patches"], "--out_dir", out,
+            "--backbone", backbone, "--out_format", "pt", "--device", device,
+            "--batch_size", str(EXTRACT_BATCH if device == "cuda" else 4)]
+    argv += ["--checkpoint", ckpt] if ckpt else []
+    argv += ["--wsi_dir", corpus["bb_wsi"], "--wsi_ext", ".png",
+             "--patch_size", str(PATCH_PX)] if wsi else []
+    argv += ["--csv", corpus["csv"]] if device == "cpu" else []
+    flash_fwd_cuda.launches = 0
+    t0 = time.perf_counter()
+    rc = extract_features.main(argv)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    check(rc == 0, f"extract_features.main {backbone} on {device} returned {rc}")
+    return flash_fwd_cuda.launches, time.perf_counter() - t0
+
+
+def phase_extract_backbones(root: str, musk_ckpt: str, resnet_ckpt: str) -> dict:
+    """``[extract]`` beyond CONCH: ``cli.extract_features.main`` with
+    ``--backbone musk`` (the half-precision MUSK-large file), ``resnet50``
+    and ``debug`` over ``BACKBONE_SLIDES``, and ``resnet50`` with
+    ``--wsi_dir`` over the PNG slides, on the card: every bag of the
+    backbone's width, finite, unit-norm but for resnet50; MUSK launching K2
+    24 times a batch; and the small slide's rows within 1e-4 of a CPU run."""
+    from moc_tpu_torch.data.bags import read_bag_pt
+
+    corpus = write_backbone_corpus(root)
+    runs = {}
+    for name, backbone, ckpt, wsi in (("musk", "musk", musk_ckpt, False),
+                                      ("resnet50", "resnet50", resnet_ckpt, False),
+                                      ("debug", "debug", None, False),
+                                      ("wsi_resnet50", "resnet50", resnet_ckpt, True)):
+        out = {dev: os.path.join(root, f"bb_out_{name}_{dev}") for dev in ("cuda", "cpu")}
+        launches, wall = _extract_run(corpus, out["cuda"], backbone, ckpt, "cuda", wsi)
+        _extract_run(corpus, out["cpu"], backbone, ckpt, "cpu", wsi)
+        slides = corpus["wsi_patches"] if wsi else BACKBONE_SLIDES
+        n_img = sum(slides.values())
+        batches = sum(math.ceil(n / EXTRACT_BATCH) for n in slides.values())
+        want_launches = MUSK_LAYERS * batches if backbone == "musk" else 0
+        check(launches == want_launches, f"[extract] {name}: K2 launched {launches} times, "
+              f"want {want_launches}")
+        for slide, n in slides.items():
+            f = read_bag_pt(os.path.join(out["cuda"], "pt_files", f"{slide}.pt")).features
+            check(f.shape == (n, BACKBONE_DIM[backbone]) and bool(np.isfinite(f).all()),
+                  f"[extract] {name} bag {slide}: shape {f.shape}")
+            if backbone != "resnet50":
+                norm_err = float(np.abs(np.linalg.norm(f, axis=1) - 1).max())
+                check(norm_err < 1e-4, f"[extract] {name} bag {slide}: norm error {norm_err}")
+        got, want = (read_bag_pt(os.path.join(out[dev], "pt_files", "tiny.pt")).features
+                     for dev in ("cuda", "cpu"))
+        err = float(np.abs(got - want).max())
+        check(err <= 1e-4, f"[extract] {name}: the small slide's rows differ from the CPU's "
+              f"by {err}")
+        runs[name] = {"images": n_img, "wall_s": wall, "images_per_s": n_img / wall,
+                      "launches": launches, "cpu_rows": len(want), "max_abs_err": err}
+        log(f"[extract] {name}: {n_img} patches of {len(slides)} slides in {wall:.3f}s host "
+            f"wall ({n_img / wall:.1f} images/s, checkpoint load, reads and preprocessing "
+            f"included); K2 launches {launches}; the small slide's {len(want)} rows against "
+            f"the CPU: max |diff| {err:.3e} (limit 1e-4)")
+    return runs
 
 
 def _bwd_errors(got, want, dtype) -> dict:
@@ -2553,6 +2904,9 @@ def main() -> int:
         phase_serve_extracted(root, out_dir)
         k2_times = phase_flash_times()
         phase_encode_tiers(ckpt)
+        musk = phase_musk(root)
+        resnet = phase_resnet(root)
+        backbones = phase_extract_backbones(root, musk["ckpt"], resnet["ckpt"])
     bwd_err = phase_flash_bwd_parity()
     pretrained = {tier: run_pretrain_cli(tier) for tier in ("f32", "bf16")}
     phase_pretrain_narrow()
@@ -2601,9 +2955,15 @@ def main() -> int:
                            if entry == "cols" else {})})
     for tier, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         t, tp = k2_times[tier]["extraction"], k2_times[tier]["pretraining"]
+        musk_cells = {f"{key}_{cell}": k2_times[tier][cell][key]
+                      for cell in ("musk_vision", "musk_text")
+                      for key in ("shape", "max_abs_err", "max_rel", "ms", "kernel_us",
+                                  "device_us", "plain_ms", "bound_ms", "bound_by", "library_ms")}
         kernels.append({"name": f"flash_fwd_{tier}", "route": "cuda", "source": K2_SOURCE,
                         "replaces": K2_REPLACES, "launches": extracted[tier]["launches"],
-                        "max_abs_err": max(*k2_err[dtype].values(), t["max_abs_err"]),
+                        "max_abs_err": max(*k2_err[dtype].values(), t["max_abs_err"],
+                                           *(k2_times[tier][c]["max_abs_err"]
+                                             for c in ("musk_vision", "musk_text"))),
                         "max_abs_err_main_shape": t["max_abs_err"],
                         "max_rel_main_shape": t["max_rel"], "ms": t["ms"],
                         "kernel_us": t["kernel_us"], "device_us": t["device_us"],
@@ -2614,7 +2974,10 @@ def main() -> int:
                         "kernel_us_pretrain_shape": tp["kernel_us"],
                         "device_us_pretrain_shape": tp["device_us"],
                         "bound_ms_pretrain_shape": bwd_times[tier]["k2_bound_ms"],
-                        "library_ms_pretrain_shape": bwd_times[tier]["k2_library_ms"]})
+                        "library_ms_pretrain_shape": bwd_times[tier]["k2_library_ms"],
+                        "launches_musk_forward": musk["vision"][tier]["k2_launches"],
+                        "launches_musk_text": musk["text_launches"],
+                        "launches_musk_extract": backbones["musk"]["launches"], **musk_cells})
     for entry, kid, replaces in (("dq", "K3", K3_REPLACES), ("dkv", "K4", K4_REPLACES)):
         for tier, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
             t = bwd_times[tier][entry]
@@ -2641,6 +3004,9 @@ def main() -> int:
     log("[select] summary " + json.dumps({
         **selpool["times"], "sort_episode_wall_s": selpool["sort_wall_s"],
         "sort_loss_err": selpool["sort_loss_err"], "zs_max_abs_diff": selpool["zs_err"]}))
+    log("[musk] summary " + json.dumps({k: v for k, v in musk.items() if k != "ckpt"}))
+    log("[resnet] summary " + json.dumps({k: v for k, v in resnet.items() if k != "ckpt"}))
+    log("[extract] backbones summary " + json.dumps(backbones))
     log("[zeroshot] summary " + json.dumps({
         "w_max_abs_err": zs["max_abs_err"], "banks": zs["banks"], "load_conch_s": zs["load_s"],
         "mizero_logit_err": mizero["logit_err"], "mizero_wall_s": mizero["wall_s"],

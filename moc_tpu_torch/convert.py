@@ -1,8 +1,8 @@
 """Carry weights across from the JAX package: flax params → torch modules
-(the SENet, the CONCH vision and text towers and the whole CoCa, and the
-masked-token pretraining model), and back for the SENet (``senet_to_jax``,
-the tree that ``utils.checkpoint`` writes as the JAX package's
-``.msgpack``); an older ``.npz`` file format for SENet; SENet state dicts
+(the SENet, the CONCH vision and text towers and the whole CoCa, the
+masked-token pretraining model, MUSK and the ResNet-50 trunk), and back
+for the SENet (``senet_to_jax``, the tree that ``utils.checkpoint`` writes
+as the JAX package's ``.msgpack``); an older ``.npz`` file format for SENet; SENet state dicts
 stacked into a ``SENetStack``.
 
 flax ``Dense.kernel`` is ``[in, out]``; torch ``Linear.weight`` is
@@ -19,8 +19,12 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from moc_tpu_torch.models.musk import MUSK, MuskConfig
 from moc_tpu_torch.models.senet import STACK_KEYS, SENet, SENetStack
+from moc_tpu_torch.nn.resnet import STAGES as RESNET_STAGES
+from moc_tpu_torch.nn.resnet import ResNet50Trunk
 from moc_tpu_torch.zeroshot.coca import CoCa, CoCaConfig
+from moc_tpu_torch.zeroshot.convert import HEAD_DIM
 from moc_tpu_torch.zeroshot.text_tower import TextConfig, TextTower
 from moc_tpu_torch.zeroshot.vision_tower import VisionConfig, VisionTower
 
@@ -92,6 +96,11 @@ def _t(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32))
 
 
+def _conv_from_jax(kernel) -> torch.Tensor:
+    """flax Conv ``[kh, kw, in, out]`` → torch ``[out, in, kh, kw]``."""
+    return _t(kernel).permute(3, 2, 0, 1).contiguous()
+
+
 def _linear_from_jax(p: Mapping, name: str) -> dict[str, torch.Tensor]:
     """flax Dense ``{kernel [in, out], bias}`` → torch Linear ``weight [out, in]``."""
     return {f"{name}.weight": _t(p["kernel"]).T.contiguous(), f"{name}.bias": _t(p["bias"])}
@@ -135,8 +144,7 @@ def vision_tower_from_jax(params: Mapping, cfg: VisionConfig | None = None) -> V
         width=kernel[3], layers=len(trunk["blocks"]),
         embed_dim_contrast=np.shape(p["attn_pool_contrast"]["query"])[1],
         embed_dim_caption=caption[1], n_queries_caption=caption[0])
-    state = {"trunk.patch_embed.weight": _t(trunk["patch_embed"]["kernel"])
-             .permute(3, 2, 0, 1).contiguous(),
+    state = {"trunk.patch_embed.weight": _conv_from_jax(trunk["patch_embed"]["kernel"]),
              "trunk.patch_embed.bias": _t(trunk["patch_embed"]["bias"]),
              "trunk.cls_token": _t(trunk["cls_token"]), "trunk.pos_embed": _t(trunk["pos_embed"]),
              **_ln_from_jax(trunk["norm"], "trunk.norm"),
@@ -191,14 +199,11 @@ def coca_from_jax(params: Mapping, cfg: CoCaConfig | None = None) -> CoCa:
     return model
 
 
-def masked_token_model_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
-    """The ``train.pretrain.MaskedTokenModel`` state dict holding a JAX
-    ``MaskedTokenModel``'s parameters (``params`` as ``jax.tree.map(np.asarray,
-    ...)`` gives them, with or without the top-level ``"params"`` key).
-
-    Names map one to one (``layers_3`` → ``layers.3``); a Dense ``kernel
-    [in, out]`` becomes ``weight [out, in]``, a LayerNorm ``scale`` and an
-    ``Embed.embedding`` become ``weight``; biases and ``pos`` keep theirs."""
+def _flax_state(tree: Mapping, prefix: str = "") -> dict[str, torch.Tensor]:
+    """A flax parameter tree → torch state-dict entries under ``prefix``: names
+    map one to one (``layers_3`` → ``layers.3``); a Dense ``kernel [in, out]``
+    becomes ``weight [out, in]``, a LayerNorm ``scale`` and an
+    ``Embed.embedding`` become ``weight``; other leaves keep their names."""
     state: dict[str, torch.Tensor] = {}
 
     def walk(tree: Mapping, prefix: str) -> None:
@@ -213,5 +218,84 @@ def masked_token_model_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
             else:
                 state[path] = _t(sub)
 
-    walk(params.get("params", params), "")
+    walk(tree, prefix)
     return state
+
+
+def masked_token_model_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The ``train.pretrain.MaskedTokenModel`` state dict holding a JAX
+    ``MaskedTokenModel``'s parameters (``params`` as ``jax.tree.map(np.asarray,
+    ...)`` gives them, with or without the top-level ``"params"`` key), by
+    ``_flax_state``'s names. An ``Encoder``'s own parameters map the same way
+    (a multiway tree without ``B`` loads as ``Multiway`` says)."""
+    return _flax_state(params.get("params", params))
+
+
+def musk_from_jax(params: Mapping, cfg: MuskConfig | None = None) -> MUSK:
+    """``MUSK`` holding the weights of a JAX ``MUSK`` (``params`` as for
+    ``vision_tower_from_jax``). Widths, depth, patch and image size,
+    vocabulary and text length are read off the arrays; the head count comes
+    from ``cfg`` (default: ``width / 64``, MUSK-large's)."""
+    p = params.get("params", params)
+    b = p["beit3"]
+    kernel = np.shape(b["vision_embed"]["proj"]["kernel"])  # [p, p, 3, D]
+    vocab, width = np.shape(b["text_embed"]["embedding"])
+    grid = int(round((np.shape(b["vision_pos"])[0] - 1) ** 0.5))
+    enc = b["encoder"]
+    heads = cfg.encoder.heads if cfg else width // HEAD_DIM
+    base = cfg or MuskConfig()
+    cfg = dataclasses.replace(
+        base, image_size=grid * kernel[0], patch_size=kernel[0], vocab_size=vocab,
+        max_text_len=np.shape(b["text_pos"])[0], embed_dim=width,
+        out_dim=np.shape(p["vision_head"]["kernel"])[1],
+        encoder=dataclasses.replace(
+            base.encoder, embed_dim=width,
+            ffn_dim=np.shape(enc["layers_0"]["ffn"]["A"]["fc1"]["kernel"])[1],
+            layers=sum(k.startswith("layers_") for k in enc),
+            heads=heads))
+    state = _flax_state(enc, "beit3.encoder.")
+    state.update({"beit3.text_embed.weight": _t(b["text_embed"]["embedding"]),
+                  "beit3.vision_embed.proj.weight":
+                      _conv_from_jax(b["vision_embed"]["proj"]["kernel"]),
+                  "beit3.vision_embed.proj.bias": _t(b["vision_embed"]["proj"]["bias"]),
+                  "beit3.vision_embed.cls_token": _t(b["vision_embed"]["cls_token"]),
+                  "beit3.vision_embed.mask_token": _t(b["vision_embed"]["mask_token"])
+                  .reshape(1, 1, -1),
+                  "beit3.vision_pos": _t(b["vision_pos"]), "beit3.text_pos": _t(b["text_pos"]),
+                  "vision_head.weight": _t(p["vision_head"]["kernel"]).T.contiguous(),
+                  "language_head.weight": _t(p["language_head"]["kernel"]).T.contiguous(),
+                  "logit_scale": _t(p["logit_scale"]).reshape(())})
+    model = MUSK(cfg)
+    model.load_state_dict(state)
+    return model
+
+
+def resnet50_from_jax(variables: Mapping) -> ResNet50Trunk:
+    """``ResNet50Trunk`` holding a JAX ``ResNet50Trunk``'s variables
+    (``{"params", "batch_stats"}`` as numpy arrays), in eval mode."""
+    params, stats = variables["params"], variables["batch_stats"]
+    state: dict[str, torch.Tensor] = {}
+
+    def conv(src: Mapping, dst: str) -> None:
+        state[f"{dst}.weight"] = _conv_from_jax(src["kernel"])
+
+    def bn(p: Mapping, s: Mapping, dst: str) -> None:
+        state.update({f"{dst}.weight": _t(p["scale"]), f"{dst}.bias": _t(p["bias"]),
+                      f"{dst}.running_mean": _t(s["mean"]), f"{dst}.running_var": _t(s["var"]),
+                      f"{dst}.num_batches_tracked": torch.tensor(0)})
+
+    conv(params["conv1"], "conv1")
+    bn(params["bn1"], stats["bn1"], "bn1")
+    for stage, n_blocks in enumerate(RESNET_STAGES):
+        for block in range(n_blocks):
+            src, dst = f"layer{stage + 1}_{block}", f"layer{stage + 1}.{block}"
+            p, s = params[src], stats[src]
+            for i in (1, 2, 3):
+                conv(p[f"conv{i}"], f"{dst}.conv{i}")
+                bn(p[f"bn{i}"], s[f"bn{i}"], f"{dst}.bn{i}")
+            if "downsample_conv" in p:
+                conv(p["downsample_conv"], f"{dst}.downsample.0")
+                bn(p["downsample_bn"], s["downsample_bn"], f"{dst}.downsample.1")
+    model = ResNet50Trunk()
+    model.load_state_dict(state)
+    return model.eval()

@@ -1,15 +1,21 @@
-"""Raw-pixel patch bags (PyTorch port of ``moc_tpu/data/patches.py``, the
-image-bearing reader).
+"""Raw-pixel patch bags (PyTorch port of ``moc_tpu/data/patches.py``).
 
-A patch bag holds one slide's patch images ``imgs [N, H, W, 3]`` (uint8)
-and optionally ``coords [N, 2]``, as CLAM's ``Whole_Slide_Bag`` reads them.
+Two readers, as CLAM's datasets have them:
+
+  * ``PatchBagReader`` (``Whole_Slide_Bag``): a patch bag holding one
+    slide's patch images ``imgs [N, H, W, 3]`` (uint8) and optionally
+    ``coords [N, 2]``;
+  * ``CoordPatchReader`` (``Whole_Slide_Bag_FP``): a bag holding only
+    ``coords``, whose pixels are read from the slide image at each
+    coordinate (``open_slide``: OpenSlide where it imports and reads the
+    file, else PIL for plain images; reads at level 0, crops past the edge
+    zero-filled).
+
 The container is an ``.h5`` file where h5py imports, or an ``.npz`` file
 with the same array names on hosts without h5py; the schema is the same.
-Reads are host-side numpy; images are preprocessed per patch by the CLIP
-transform (``zeroshot.transform.preprocess_image``), the one CONCH uses. The
-PLIP, MUSK and ImageNet readers come with the backbones that use them, and
-the coords-only reader that reads pixels from the slide (OpenSlide) waits
-for a later slice.
+Reads are host-side numpy; each patch is preprocessed by the backbone's
+transform (``transform``: ``clip`` for CONCH, ``plip``, ``musk``,
+``imagenet`` for the ResNet-50; ``zeroshot.transform``).
 """
 
 from __future__ import annotations
@@ -21,9 +27,32 @@ from typing import Iterator
 
 import numpy as np
 
-from moc_tpu_torch.zeroshot.transform import preprocess_image
+from moc_tpu_torch.zeroshot.transform import (preprocess_image, preprocess_image_imagenet,
+                                              preprocess_image_musk, preprocess_image_plip)
 
 PATCH_BAG_EXTS = (".h5", ".npz")  # in order of preference for one slide
+TRANSFORMS = {"clip": preprocess_image, "plip": preprocess_image_plip,
+              "musk": preprocess_image_musk, "imagenet": preprocess_image_imagenet}
+
+
+def _make_transform(kind: str, image_size: int):
+    if kind not in TRANSFORMS:
+        raise ValueError(f"unknown transform {kind!r} ({' | '.join(TRANSFORMS)})")
+    fn = TRANSFORMS[kind]
+    return lambda im: fn(im, image_size)
+
+
+def _open_bag(path: str):
+    """An ``.npz`` bag (read whole on first access) or an ``.h5`` one (read
+    batch by batch)."""
+    if path.endswith(".npz"):
+        return np.load(path)
+    try:
+        import h5py
+    except ImportError as e:
+        raise ImportError(f"h5py is required for .h5 patch bags ({path}); "
+                          "store the bag as .npz on such hosts") from e
+    return h5py.File(path, "r")
 
 
 @dataclasses.dataclass
@@ -34,20 +63,13 @@ class PatchBagReader:
     path: str
     image_size: int = 224
     normalize: bool = True
+    transform: str = "clip"  # clip | plip | musk | imagenet
 
     def _open(self):
-        """``(file, imgs, coords)``: h5 images are read batch by batch, an
-        npz array whole on first access."""
-        if self.path.endswith(".npz"):
-            f = np.load(self.path)
-            return f, f["imgs"], (f["coords"] if "coords" in f.files else None)
-        try:
-            import h5py
-        except ImportError as e:
-            raise ImportError(f"h5py is required for .h5 patch bags ({self.path}); "
-                              "store the bag as .npz on such hosts") from e
-        f = h5py.File(self.path, "r")
-        return f, f["imgs"], (f["coords"][:] if "coords" in f else None)
+        """``(file, imgs, coords)``."""
+        f = _open_bag(self.path)
+        coords = f["coords"][:] if "coords" in f else None
+        return f, f["imgs"], coords
 
     def __len__(self) -> int:
         f, imgs, _ = self._open()
@@ -56,12 +78,98 @@ class PatchBagReader:
 
     def batches(self, batch_size: int = 64) -> Iterator[tuple[np.ndarray, np.ndarray | None]]:
         f, imgs, coords = self._open()
+        tf = _make_transform(self.transform, self.image_size)
         with f:
             for i in range(0, len(imgs), batch_size):
                 chunk = np.asarray(imgs[i: i + batch_size])
                 if self.normalize:
-                    chunk = np.stack([preprocess_image(im, self.image_size) for im in chunk])
+                    chunk = np.stack([tf(im) for im in chunk])
                 yield chunk, (None if coords is None else np.asarray(coords[i: i + batch_size]))
+
+
+class _PILSlide:
+    """A plain image (PNG, JPEG, simple TIFF) read as a slide through PIL:
+    level 0 only; a crop past the edge is zero-filled."""
+
+    def __init__(self, path: str):
+        from PIL import Image
+
+        with Image.open(path) as im:
+            self._im = im.convert("RGB")
+
+    def read(self, coord: tuple[int, int], size: int) -> np.ndarray:
+        x, y = int(coord[0]), int(coord[1])
+        return np.asarray(self._im.crop((x, y, x + size, y + size)))
+
+
+class _OpenSlide:
+    """An OpenSlide slide with :class:`_PILSlide`'s surface."""
+
+    def __init__(self, path: str):
+        import openslide
+
+        self._s = openslide.OpenSlide(path)
+
+    def read(self, coord: tuple[int, int], size: int, level: int = 0) -> np.ndarray:
+        region = self._s.read_region((int(coord[0]), int(coord[1])), level, (size, size))
+        return np.asarray(region.convert("RGB"))
+
+
+def open_slide(path: str):
+    """A slide for pixel reads: OpenSlide where it imports and reads the
+    file, else PIL. Both give ``read((x, y), size) -> [size, size, 3]``
+    uint8 at level 0."""
+    try:
+        import openslide
+    except ImportError:
+        return _PILSlide(path)
+    try:
+        return _OpenSlide(path)
+    except openslide.OpenSlideError:  # a plain image OpenSlide does not read
+        return _PILSlide(path)
+
+
+@dataclasses.dataclass
+class CoordPatchReader:
+    """Iterate one slide's patches read from ``wsi_path`` at the ``coords``
+    of a coords-bearing ``.h5`` or ``.npz`` bag. ``level != 0`` is a pyramid
+    level of a whole-slide format and needs OpenSlide."""
+
+    path: str
+    wsi_path: str
+    patch_size: int = 256
+    level: int = 0
+    image_size: int = 224
+    normalize: bool = True
+    transform: str = "clip"  # clip | plip | musk | imagenet
+
+    def coords(self) -> np.ndarray:
+        with _open_bag(self.path) as f:
+            return np.asarray(f["coords"][:])
+
+    def _reader(self):
+        if self.level == 0:
+            return open_slide(self.wsi_path).read
+        try:
+            import openslide  # noqa: F401
+        except ImportError as e:
+            raise ImportError(f"--level {self.level} reads a pyramid level, which needs "
+                              "OpenSlide (openslide-python); it does not import on this "
+                              "host, which reads level 0 only") from e
+        slide = _OpenSlide(self.wsi_path)
+        return lambda c, s: slide.read(c, s, self.level)
+
+    def batches(self, batch_size: int = 64) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+        read = self._reader()
+        coords = self.coords()
+        tf = _make_transform(self.transform, self.image_size)
+        for i in range(0, len(coords), batch_size):
+            chunk = coords[i: i + batch_size]
+            imgs = []
+            for x, y in chunk:
+                img = read((int(x), int(y)), self.patch_size)
+                imgs.append(tf(img) if self.normalize else img)
+            yield np.stack(imgs), chunk
 
 
 def bag_dir(data_dir: str) -> str:

@@ -14,13 +14,20 @@ carries flax parameters across one to one.
 
 ``compute_dtype`` follows flax's ``nn.Dense(dtype=...)``: a projection casts
 its input, weight and bias to that type (parameters stay f32), while the
-LayerNorms compute their statistics and output in f32. So under
-``"bfloat16"`` the q, k and v that reach the kernels are bf16.
+LayerNorms compute their statistics in f32 and return f32 (the type of their
+f32 parameters). So under ``"bfloat16"`` the q, k and v that reach the
+kernels are bf16. With bf16 parameters (extraction's ``--bf16`` cast) a
+LayerNorm returns bf16, as flax's does, and the whole stack runs in bf16.
+
+The multiway modules hold two branches, ``A`` and ``B`` (torchscale's
+``MultiwayWrapper``), routed by ``split``: ``None`` runs A alone, ``0`` B
+alone, and ``split = n`` runs A over positions below n and B over the rest
+(BEiT-3's vision-then-text stream).
 
 Not ported yet (ROADMAP queue 1, item 9), and refused with
 ``NotImplementedError`` rather than ignored: MoE layers (``moe_freq > 0``),
 dilated (LongNet) and ring attention, xPos, the T5 relative position bias,
-the B branch of the multiway modules (a ``split``), and remat.
+and remat.
 """
 
 from __future__ import annotations
@@ -103,40 +110,57 @@ class Dense(nn.Linear):
 
 
 class LayerNorm(nn.LayerNorm):
-    """LayerNorm whose statistics and output are f32 whatever the input
-    type, as flax's ``nn.LayerNorm`` with f32 parameters gives."""
+    """LayerNorm with its statistics in f32 whatever the input type, as
+    flax's ``nn.LayerNorm`` computes them. The output is f32 with f32
+    parameters, and the parameters' type otherwise: PyTorch's bf16
+    ``layer_norm`` accumulates in f32 and rounds its output once, so the
+    input is cast to that type rather than the statistics' copies made."""
 
     def forward(self, x):
-        return F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps)
+        return F.layer_norm(x.to(self.weight.dtype), self.normalized_shape, self.weight,
+                            self.bias, self.eps)
 
 
-def _branch_a(split: int | None) -> None:
-    if split is not None:
-        raise NotImplementedError(f"the multiway B branch (split={split}) {_LATER}")
+class Multiway(nn.Module):
+    """Copies of a module, ``A`` and (with ``branch_b``) ``B``, routed by
+    ``split`` (JAX :190-264): ``None`` runs A alone, ``0`` B alone, ``n`` A
+    over the positions below n and B over the rest. Every module wrapped is
+    position-wise, so each branch runs only on its own positions. Without
+    ``branch_b`` (an encoder that is not multiway: flax then creates A
+    alone) a split raises.
 
+    flax creates B at the first call with a split, so a tree initialised
+    without one holds A alone: a state dict without B loads B from A, and
+    the module runs as JAX's does without a split."""
 
-class MultiwayDense(nn.Module):
-    """The multiway wrapper's A branch (``split=None``, JAX :190-210)."""
-
-    def __init__(self, in_features: int, out_features: int, compute_dtype: str | None = None):
+    def __init__(self, make, branch_b: bool = True):
         super().__init__()
-        self.A = Dense(in_features, out_features, compute_dtype)
+        self.A = make()
+        self.B = make() if branch_b else None
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        if self.B is not None and not any(k.startswith(prefix + "B.") for k in state_dict):
+            for key in [k for k in state_dict if k.startswith(prefix + "A.")]:
+                state_dict[prefix + "B." + key[len(prefix) + 2:]] = state_dict[key]
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
     def forward(self, x, split: int | None = None):
-        _branch_a(split)
-        return self.A(x)
+        if split is None:
+            return self.A(x)
+        if self.B is None:
+            raise ValueError(f"split={split} needs a multiway encoder (cfg.multiway)")
+        if split == 0:
+            return self.B(x)
+        return torch.cat([self.A(x[:, :split]), self.B(x[:, split:])], dim=1)
 
 
-class MultiwayLayerNorm(nn.Module):
-    """The multiway wrapper's A branch around a LayerNorm (JAX :213-223)."""
+def MultiwayDense(in_features: int, out_features: int,
+                  compute_dtype: str | None = None) -> Multiway:
+    return Multiway(lambda: Dense(in_features, out_features, compute_dtype))
 
-    def __init__(self, dim: int, eps: float = 1e-5):
-        super().__init__()
-        self.A = LayerNorm(dim, eps=eps)
 
-    def forward(self, x, split: int | None = None):
-        _branch_a(split)
-        return self.A(x)
+def MultiwayLayerNorm(dim: int, eps: float = 1e-5, branch_b: bool = True) -> Multiway:
+    return Multiway(lambda: LayerNorm(dim, eps=eps), branch_b)
 
 
 class FeedForward(nn.Module):
@@ -156,15 +180,9 @@ class FeedForward(nn.Module):
         return self.fc2(h)
 
 
-class MultiwayFeedForward(nn.Module):
-    def __init__(self, dim: int, ffn_dim: int, subln: bool = True, eps: float = 1e-5,
-                 compute_dtype: str | None = None):
-        super().__init__()
-        self.A = FeedForward(dim, ffn_dim, subln, eps, compute_dtype)
-
-    def forward(self, x, split: int | None = None):
-        _branch_a(split)
-        return self.A(x)
+def MultiwayFeedForward(dim: int, ffn_dim: int, subln: bool = True, eps: float = 1e-5,
+                        compute_dtype: str | None = None, branch_b: bool = True) -> Multiway:
+    return Multiway(lambda: FeedForward(dim, ffn_dim, subln, eps, compute_dtype), branch_b)
 
 
 class SelfAttention(nn.Module):
@@ -217,11 +235,12 @@ class EncoderLayer(nn.Module):
         check_ported(cfg)
         self.normalize_before = cfg.normalize_before
         self.alpha = math.pow(2.0 * cfg.layers, 0.25) if cfg.deepnorm else 1.0
-        self.self_attn_layer_norm = MultiwayLayerNorm(cfg.embed_dim, cfg.layernorm_eps)
+        b = cfg.multiway
+        self.self_attn_layer_norm = MultiwayLayerNorm(cfg.embed_dim, cfg.layernorm_eps, b)
         self.self_attn = SelfAttention(cfg)
-        self.final_layer_norm = MultiwayLayerNorm(cfg.embed_dim, cfg.layernorm_eps)
+        self.final_layer_norm = MultiwayLayerNorm(cfg.embed_dim, cfg.layernorm_eps, b)
         self.ffn = MultiwayFeedForward(cfg.embed_dim, cfg.ffn_dim, cfg.subln,
-                                       cfg.layernorm_eps, cfg.compute_dtype)
+                                       cfg.layernorm_eps, cfg.compute_dtype, b)
 
     def forward(self, x, padding_mask=None, split: int | None = None):
         residual = x
@@ -248,7 +267,7 @@ class Encoder(nn.Module):
         check_ported(cfg)
         self.cfg = cfg
         self.layers = nn.ModuleList(EncoderLayer(cfg) for _ in range(cfg.layers))
-        self.layer_norm = (MultiwayLayerNorm(cfg.embed_dim, cfg.layernorm_eps)
+        self.layer_norm = (MultiwayLayerNorm(cfg.embed_dim, cfg.layernorm_eps, cfg.multiway)
                            if cfg.normalize_before else None)
 
     def forward(self, x, padding_mask=None, split: int | None = None):

@@ -17,6 +17,7 @@ import math
 import torch
 from torch import nn
 
+from moc_tpu_torch.models.layers import l2norm
 from moc_tpu_torch.zeroshot.text_tower import TextConfig, TextTower
 from moc_tpu_torch.zeroshot.vision_tower import VisionConfig, VisionTower
 
@@ -28,11 +29,6 @@ class CoCaConfig:
 
 
 CONCH_VITB16 = CoCaConfig()  # the conch_ViT-B-16.json configuration
-
-
-def l2norm(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
-    """Clip-guarded L2 normalisation."""
-    return x / torch.linalg.vector_norm(x, dim=dim, keepdim=True).clamp(min=1e-12)
 
 
 class CoCa(nn.Module):

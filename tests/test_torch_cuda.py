@@ -6,6 +6,9 @@ the fused episode sweep on the GPU against the CPU.
 
 The serving tiers (dense, bf16 scoring, bf16 and int8 storage) on the card
 against the CPU, with ``torch._int_mm`` against the CPU's int32 product.
+K2 at MUSK-large's vision and padded text shapes; MUSK, the ResNet-50 trunk
+and the extraction CLI's other backbones (and ``--wsi_dir``) on the card
+against the CPU.
 
 Needs an NVIDIA GPU and nvcc: every test here carries the ``cuda`` marker and
 skips without a card. This file imports no JAX, so the card's host runs it
@@ -1080,3 +1083,147 @@ def test_tiers_leave_tf32_flags_as_their_precision_says(gen, tier):
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
     for other in outs[1:]:
         assert torch.equal(outs[0], other)
+
+
+def _musk_text_segments():
+    """Segment ids of the vendored nsclc banks (176 prompts) under MUSK's
+    hash tokenizer at length 100: 1 on tokens, 0 on padding."""
+    import os
+
+    from moc_tpu_torch.config import DEFAULT_PROMPT_ROOT, NSCLC
+    from moc_tpu_torch.zeroshot import load_prompt_bank
+    from moc_tpu_torch.zeroshot.musk_tokenizer import MuskTokenizer
+
+    texts = []
+    for name, labels in ((NSCLC.prompt_file, NSCLC.label_dict),
+                         (NSCLC.prompt_file_ext, NSCLC.label_dict_ext)):
+        bank = load_prompt_bank(os.path.join(DEFAULT_PROMPT_ROOT, name), labels)
+        texts += [t for c in range(bank.n_classes) for alias in bank.texts_for_class(c)
+                  for t in alias]
+    _, pad = MuskTokenizer(max_len=100)(texts)
+    return torch.from_numpy(~pad).int().cuda()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stream", ["vision", "text"])
+def test_k2_matches_plain_at_musk_shapes(gen, dtype, stream):
+    """MUSK-large's streams: vision [64, 16, 577, 64]; text [176, 16, 100,
+    64] with the prompts' padding as segment ids (a padded query sees only
+    padding)."""
+    seg = _musk_text_segments() if stream == "text" else None
+    shape = (64, 16, 577, 64) if seg is None else (seg.shape[0], 16, 100, 64)
+    assert seg is None or seg.shape[0] == 176
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(3))
+    with torch.no_grad():
+        o, lse = flash_fwd_cuda(q, k, v, seg, seg)
+    ro, rlse = mha_reference(q, k, v, q_segment_ids=seg, kv_segment_ids=seg)
+    _assert_k2_close(o, lse, ro, rlse, dtype)
+
+
+def _small_musk():
+    from moc_tpu_torch.models.musk import MuskConfig
+    from moc_tpu_torch.nn.encoder import EncoderConfig
+    from moc_tpu_torch.zeroshot.convert_musk import random_musk_state_dict
+
+    cfg = MuskConfig(image_size=64, patch_size=16, vocab_size=300, embed_dim=128, out_dim=64,
+                     encoder=EncoderConfig(embed_dim=128, ffn_dim=512, layers=3, heads=2,
+                                           multiway=True))
+    return random_musk_state_dict(cfg, seed=0)
+
+
+def test_musk_gpu_matches_cpu(gen, tmp_path):
+    """A small release-layout MUSK (3 multiway layers, 64 px) from one file
+    on the card and on the CPU: vision, padded text and mixed calls within
+    1e-4, K2 launched once a layer a call."""
+    from moc_tpu_torch.zeroshot.convert_musk import load_musk
+    from moc_tpu_torch.zeroshot.musk_tokenizer import MuskTokenizer
+
+    torch.save({"model": _small_musk()}, tmp_path / "musk.pth")
+    models = {dev: load_musk(str(tmp_path / "musk.pth"), image_size=64, device=dev)
+              for dev in ("cuda", "cpu")}
+    images = torch.randn((4, 64, 64, 3), generator=gen, device="cuda")
+    ids, pad = (torch.from_numpy(a) for a in MuskTokenizer(max_len=20, vocab_size=300)(
+        ["squamous cell carcinoma", "a photomicrograph of lung adenocarcinoma tissue", ""]))
+    outs = {}
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        for dev, model in models.items():
+            before = flash_fwd_cuda.launches
+            with torch.inference_mode():
+                vis, txt, _ = model(images.to(dev), ids.long().to(dev), pad.to(dev))
+                mixed, _ = model.beit3(textual_tokens=ids[:2].long().to(dev),
+                                       visual_tokens=images[:2].to(dev),
+                                       text_padding_mask=pad[:2].to(dev))
+            torch.cuda.synchronize()
+            assert flash_fwd_cuda.launches - before == (9 if dev == "cuda" else 0)
+            outs[dev] = [t.cpu() for t in (vis, txt, mixed)]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    real = ~torch.cat([torch.zeros(2, 17, dtype=torch.bool), pad[:2]], dim=1)
+    for i, (got, want) in enumerate(zip(outs["cuda"], outs["cpu"])):
+        if i == 2:
+            got, want = got[real], want[real]
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_resnet_gpu_matches_cpu(gen, tmp_path):
+    """The ResNet-50 trunk from one torchvision-layout file at 64 px on the
+    card (TF32 off) and on the CPU, within 1e-4."""
+    from moc_tpu_torch.models.convert_resnet import load_resnet50, random_resnet50_state_dict
+
+    torch.save(random_resnet50_state_dict(seed=0), tmp_path / "resnet50.pth")
+    images = torch.randn((4, 64, 64, 3), generator=gen, device="cuda")
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            got, want = (load_resnet50(str(tmp_path / "resnet50.pth"), device=dev)(
+                images.to(dev)).cpu() for dev in ("cuda", "cpu"))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    assert got.shape == (4, 1024)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("backbone", ["musk", "resnet50", "debug", "wsi"])
+def test_extraction_backbones_gpu_match_cpu(gen, tmp_path, backbone):
+    """Five 80 px patches through the extraction CLI (batch 4, a padded tail)
+    with each backbone on the card and on the CPU; ``wsi`` reads them at
+    coordinates of a PNG slide through ``--wsi_dir`` (ResNet-50)."""
+    from PIL import Image
+
+    from moc_tpu_torch.cli import extract_features
+    from moc_tpu_torch.data.bags import read_bag_pt
+    from moc_tpu_torch.models.convert_resnet import random_resnet50_state_dict
+
+    rng = np.random.default_rng(0)
+    (tmp_path / "patches").mkdir()
+    if backbone == "wsi":
+        Image.fromarray(rng.integers(0, 256, (200, 240, 3), np.uint8)).save(tmp_path / "s.png")
+        np.savez(tmp_path / "patches" / "s.npz",
+                 coords=np.asarray([[0, 0], [80, 40], [160, 120], [200, 180], [10, 150]]))
+    else:
+        np.savez(tmp_path / "patches" / "s.npz",
+                 imgs=rng.integers(0, 256, (5, 80, 80, 3), np.uint8))
+    torch.save({"model": _small_musk()}, tmp_path / "musk.pth")
+    torch.save(random_resnet50_state_dict(seed=1), tmp_path / "resnet50.pth")
+    extra = {"musk": ["--backbone", "musk", "--checkpoint", str(tmp_path / "musk.pth"),
+                      "--image_size", "64"],
+             "resnet50": ["--backbone", "resnet50", "--checkpoint",
+                          str(tmp_path / "resnet50.pth"), "--image_size", "64"],
+             "debug": ["--backbone", "debug"],
+             "wsi": ["--backbone", "resnet50", "--checkpoint", str(tmp_path / "resnet50.pth"),
+                     "--image_size", "64", "--wsi_dir", str(tmp_path), "--wsi_ext", ".png",
+                     "--patch_size", "80"]}[backbone]
+    feats = {}
+    for device in ("cuda", "cpu"):
+        before = flash_fwd_cuda.launches
+        assert extract_features.main([
+            "--patch_dir", str(tmp_path / "patches"), "--out_dir", str(tmp_path / device),
+            "--batch_size", "4", "--out_format", "pt", "--device", device, *extra]) == 0
+        want = 6 if backbone == "musk" and device == "cuda" else 0  # 3 layers x 2 batches
+        assert flash_fwd_cuda.launches - before == want
+        feats[device] = read_bag_pt(str(tmp_path / device / "pt_files" / "s.pt")).features
+    assert feats["cuda"].shape == (5, {"musk": 64, "debug": 512}.get(backbone, 1024))
+    np.testing.assert_allclose(feats["cuda"], feats["cpu"], atol=1e-4)

@@ -203,9 +203,14 @@ def test_encoder_refuses_what_is_not_ported(field, value):
 
 
 def test_multiway_runs_branch_a_and_refuses_a_split():
+    """A multiway encoder runs A alone without a split (JAX's parameters
+    from an init without a split, which holds no B: the converter fills B
+    from A). A split in an encoder that is not multiway, which holds A alone,
+    raises."""
     jmodel, params, tmodel, x = _encoders(5, 128, multiway=True)
     want, _ = jmodel.apply(params, jnp.asarray(x))
     got, _ = tmodel(torch.from_numpy(x))
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="multiway B branch"):
-        tmodel(torch.from_numpy(x), split=64)
+    _, _, plain, _ = _encoders(5, 128)
+    with pytest.raises(ValueError, match="multiway"):
+        plain(torch.from_numpy(x), split=64)
