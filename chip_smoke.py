@@ -181,6 +181,23 @@ Phases, each of which makes the script exit non-zero when it fails:
    batch, the small slide's rows within 1e-4 of a CPU run, images/s of the
    host wall.
 
+19. MIL baselines (``[mil]``, after 12, on 11's corpus): ``cli.train_mil.main``
+   on ``cuda`` for every single-scale head (CLAM-SB, CLAM-MB, ABMIL, MIL-fc,
+   TransMIL, CHIEF, TITAN) at the conch width (D = 512), shot 8, fold 0, 3
+   epochs of 16 slide steps: the JAX package's result keys, finite AUCs,
+   the ``.msgpack`` beside each JSON; ``--folds 0 1 2 3 4 --fused`` for
+   CLAM-SB and TransMIL with ``<model>_summary_8.csv``; each head on the card
+   against the CPU from one initial state, dropout off (first-step
+   gradients within 1e-5 of the largest |grad|, one epoch's step losses
+   within 1e-5: all 16 train slides, or the 4 shortest for TransMIL and
+   TITAN); the B = 1 slide step of each head by CUDA events with a profile
+   (busy share, kernels a step); ``cli.predict``'s MIL path over each
+   trained ``.msgpack`` at batch 8 on the 16384 bucket in f32 and bf16
+   storage (forward by CUDA events, a profile, two slides' rows within rtol
+   1e-4 of the CPU, TITAN's on their first 2048 patches); one ``cli.serve
+   --model_kind mil`` drain of CLAM-SB's ``.msgpack``; K1-K4 launched no
+   time on the MIL path (``launches_mil`` in the kernel records).
+
 The last lines are the card's name and power limit, one JSON object of
 kernel records, and ``{"ok": true, "device": {...}}``. No phase falls back
 to the CPU: without a GPU, or without the port beside it, the script fails.
@@ -937,7 +954,9 @@ def phase_profile(forward, steps: int = 5, what: str = "forward", host_top: int 
                 f"x{e.count // steps:<4d} {e.key[:80]}")
     flash_us = sum(e.self_device_time_total for e in events if "flash_fwd" in e.key)
     return {"busy": busy_us / wall_us, "device_us": busy_us / steps,
-            "flash_fwd_share": flash_us / busy_us}
+            "flash_fwd_share": flash_us / busy_us,
+            "kernels": sum(e.count for e in events) // steps, "wall_us": wall_us / steps,
+            "top": [(e.key[:60], e.self_device_time_total / steps) for e in ranked[:5]]}
 
 
 # the serving tiers at the serving point: name -> (flags of cli.serve / cli.predict)
@@ -2609,6 +2628,394 @@ def phase_sweep_times(root: str) -> dict:
     return {"step_ms": step_ms, "pack_ms": pack_ms, "trajectory_ms": traj_ms, "k1": k1}
 
 
+# The MIL baselines (moc_tpu/cli/train_mil.py, moc_tpu/cli/predict.py:185-200): every
+# single-scale head trained by cli.train_mil on the MOC training corpus (D = 512,
+# shot 8, fold 0, bags of 1500-4000 patches) at the conch width, clam_sb and transmil
+# also as a fused grid of five folds, then scored by cli.predict's path at batch 8 on
+# the 16384-patch bucket (f32 and bf16 storage) and served by cli.serve. Cut: epochs.
+MIL_HEADS = ("clam_sb", "clam_mb", "abmil", "mil", "transmil", "chief", "titan")
+MIL_FUSED = ("clam_sb", "transmil")
+MIL_EPOCHS = 3
+MIL_ARGV = ["--dataset", "synthetic", "--shot", str(TRAIN_SHOT), "--fold", "0", "--seed", "0",
+            "--synthetic_min_patches", str(TRAIN_PATCHES[0]),
+            "--synthetic_max_patches", str(TRAIN_PATCHES[1]), "--max_epochs", str(MIL_EPOCHS)]
+MIL_RESULT_KEYS = ["val_auc", "val_acc", "test_auc", "test_acc", "test_bacc", "stop_epoch",
+                   "class_summary", "patient_results", "model_type", "model_size", "n_classes"]
+# heads whose CPU reference runs on the 4 shortest train slides (and 2 val, 2 test),
+# not the whole split: a TITAN epoch at 4096 tokens costs the CPU minutes
+MIL_SHORT_PARITY = ("transmil", "titan")
+MIL_PREDICT_ITERS = {"titan": 2}
+# card against CPU logits, relative to the largest |logit|; the seeded head's
+# forward with TF32 on is printed beside it as the control this must catch
+MIL_LOGIT_RTOL = 1e-5
+
+
+def _all_launches() -> dict:
+    k1 = _k1_wrappers()
+    return {"rows": k1["rows"].launches, "cols": k1["cols"].launches,
+            **{k: fn.launches for k, fn in _counters().items()}}
+
+
+def _reset_launches() -> None:
+    for fn in (*_k1_wrappers().values(), *_counters().values()):
+        fn.launches = 0
+
+
+def _mil_corpus(root: str):
+    """The MOC training corpus (made once, by ``phase_train`` or here): the
+    table, the shot-8 fold-0 split and its bags by split."""
+    from moc_tpu_torch.cli import main_moc
+    from moc_tpu_torch.data import BagLoader, SlideTable, read_split_csv
+
+    corpus = main_moc._synthetic_setup(main_moc.get_args(
+        [*TRAIN_ARGV, "--result_dir", os.path.join(root, "moc_train")]))
+    table = SlideTable.from_csv(corpus["csv_path"], corpus["label_dict"])
+    split = read_split_csv(corpus["split_paths"][(TRAIN_SHOT, 0)])
+    loader = BagLoader(table, corpus["data_dir"])
+    return {k: loader.read_all(getattr(split, k)) for k in ("train", "val", "test")}
+
+
+def _run_train_mil(argv: list[str]) -> tuple[int, str, float]:
+    import contextlib
+    import io
+
+    from moc_tpu_torch.cli import train_mil
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = train_mil.main(argv)
+    torch.cuda.synchronize()
+    return rc, out.getvalue(), time.perf_counter() - t0
+
+
+def phase_mil_train(root: str) -> dict:
+    """``cli.train_mil.main`` on the card for every head (3 epochs of 16
+    slide steps) and a fused grid of five folds for CLAM-SB and TransMIL:
+    the JAX package's result keys, finite AUCs, the ``.msgpack`` beside each
+    JSON and ``<model>_summary_8.csv``; no kernel of the port launched."""
+    result_dir = os.path.join(root, "moc_train")
+    _mil_corpus(root)
+    t_phase = time.perf_counter()
+    _reset_launches()
+    res = {"single": {}, "fused": {}}
+    for head in MIL_HEADS:
+        rc, stdout, wall = _run_train_mil([*MIL_ARGV, "--model_type", head, "--result_dir",
+                                           result_dir, "--device", "cuda"])
+        check(rc == 0, f"train_mil {head} returned {rc}")
+        path = os.path.join(result_dir, f"{head}_shot_{TRAIN_SHOT}_fold_0.json")
+        with open(path) as f:
+            payload = json.load(f)
+        check(list(payload) == MIL_RESULT_KEYS, f"{head} result keys {list(payload)}")
+        check(all(math.isfinite(payload[k]) for k in ("val_auc", "test_auc", "test_acc")),
+              f"{head}: non-finite metrics {payload}")
+        check(os.path.exists(path[:-len(".json")] + ".msgpack"), f"{head}: no .msgpack")
+        val_aucs = [float(line.split("auc=")[1].split()[0]) for line in stdout.splitlines()
+                    if line.startswith("epoch ")]
+        res["single"][head] = {"wall_s": wall, "test_auc": payload["test_auc"],
+                               "val_auc": payload["val_auc"], "test_acc": payload["test_acc"],
+                               "epoch_val_auc": val_aucs, "msgpack": path[:-5] + ".msgpack"}
+        log(f"[mil] train_mil {head} on cuda ({MIL_EPOCHS} epochs of {TRAIN_VISITS} steps): "
+            f"wall {wall:.2f}s, val AUC by epoch {val_aucs}, test AUC at best val "
+            f"{payload['test_auc']:.4f}, test acc {payload['test_acc']:.4f}")
+    for head in MIL_FUSED:
+        rc, stdout, wall = _run_train_mil([*MIL_ARGV, "--model_type", head, "--result_dir",
+                                           os.path.join(root, "mil_fused"), "--folds",
+                                           *map(str, SWEEP_FOLDS), "--fused", "--device", "cuda"])
+        check(rc == 0, f"train_mil --fused {head} returned {rc}")
+        with open(os.path.join(root, "mil_fused", f"{head}_summary_{TRAIN_SHOT}.csv")) as f:
+            summary = list(csv.DictReader(f))
+        check([r["fold"] for r in summary] == [*map(str, SWEEP_FOLDS), "mean"],
+              f"{head} fused summary rows {summary}")
+        aucs = [float(r["test_auc"]) for r in summary[:-1]]
+        check(all(math.isfinite(a) for a in aucs), f"{head} fused test AUCs {aucs}")
+        res["fused"][head] = {"wall_s": wall, "test_auc": aucs,
+                              "folds_per_hour": len(SWEEP_FOLDS) * 3600 / wall}
+        log(f"[mil] train_mil {head} --fused, folds {list(SWEEP_FOLDS)} on cuda: wall "
+            f"{wall:.2f}s ({res['fused'][head]['folds_per_hour']:.0f} folds/hour, beside "
+            f"{res['single'][head]['wall_s']:.2f}s for one fold alone), test AUC at best val "
+            f"by fold {[round(a, 4) for a in aucs]}")
+    res["launches"] = _all_launches()
+    check(not any(res["launches"].values()),
+          f"the MIL training path launched the port's kernels: {res['launches']}")
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"[mil] train phase wall {res['phase_s']:.1f}s")
+    return res
+
+
+def phase_mil_parity(root: str) -> dict:
+    """Each head on the card against the CPU from one initial state, dropout
+    off: the first step's gradients within 1e-5 of the largest |grad|, and
+    one ``train_fold`` epoch's step losses within 1e-5 (the 16 train slides,
+    or the 4 shortest for TransMIL and TITAN, whose CPU epoch takes minutes)."""
+    from moc_tpu_torch.data.batching import pack_bags
+    from moc_tpu_torch.models.layers import full_f32
+    from moc_tpu_torch.train.mil import MilTrainConfig, build_model, slide_losses, train_fold
+
+    t_phase = time.perf_counter()
+    bags = _mil_corpus(root)
+    shortest = {k: sorted(v, key=lambda b: b.n_patches) for k, v in bags.items()}
+    res = {}
+    for head in MIL_HEADS:
+        cfg = MilTrainConfig(model_type=head, max_epochs=1, steps_per_epoch=TRAIN_VISITS)
+        init = build_model(cfg, in_dim=DIM)[2]()
+        grads = {}
+        for dev in ("cuda", "cpu"):
+            batch = pack_bags(shortest["train"][:1], device=dev)
+            state = {k: v.to(dev).requires_grad_() for k, v in init.items()}
+            _, forward, _ = build_model(cfg, in_dim=DIM)
+            with full_f32():
+                loss = slide_losses(cfg, forward, state, batch.features, batch.mask,
+                                    batch.labels)
+                grads[dev] = [g.cpu() for g in torch.autograd.grad(loss.sum(),
+                                                                   list(state.values()))]
+        scale = max(float(g.abs().max()) for g in grads["cpu"])
+        grad_err = max(float((a - b).abs().max()) for a, b in zip(grads["cuda"], grads["cpu"]))
+        check(grad_err <= 1e-5 * scale, f"{head}: first-step gradients card/CPU differ by "
+              f"{grad_err} (largest |grad| {scale})")
+        short = head in MIL_SHORT_PARITY
+        parts = {"train": shortest["train"][:4], "val": shortest["val"][:2],
+                 "test": shortest["test"][:2]} if short else bags
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            loaders = {k: (lambda v=v, dev=dev: (pack_bags([b], device=dev) for b in v))
+                       for k, v in parts.items()}
+            runs[dev] = train_fold(loaders, cfg, init_params=init, dropout=False, device=dev)
+        got, want = (np.array(runs[d].step_losses[0]) for d in ("cuda", "cpu"))
+        loss_err = float(np.abs(got - want).max())
+        check(loss_err <= 1e-5 * max(1.0, float(np.abs(want).max())),
+              f"{head}: epoch losses card/CPU differ by {loss_err}")
+        res[head] = {"grad_err": grad_err, "grad_scale": scale, "loss_err": loss_err,
+                     "steps": len(got), "val_auc": [runs[d].val_auc for d in ("cuda", "cpu")]}
+        log(f"[mil] {head} card vs CPU: first-step gradients max |diff| {grad_err:.3e} "
+            f"(largest |grad| {scale:.3e}), {len(got)} step losses max |diff| {loss_err:.3e} "
+            f"(tolerance 1e-5), val AUC {runs['cuda'].val_auc:.4f} / {runs['cpu'].val_auc:.4f}")
+    log(f"[mil] parity phase wall {time.perf_counter() - t_phase:.1f}s")
+    return res
+
+
+def phase_mil_times(root: str) -> dict:
+    """The B = 1 slide step of each head (forward, backward, Adam) at the
+    training bucket by CUDA events, steps/s, and a profile: busy share and
+    kernels a step."""
+    from moc_tpu_torch.data.batching import pack_bags
+    from moc_tpu_torch.models.layers import full_f32
+    from moc_tpu_torch.train.mil import MilTrainConfig, batch_loss, build_model, make_optimizer
+
+    bags = _mil_corpus(root)
+    batch = pack_bags(bags["train"][:1], n_pad=4096, device="cuda")
+    res = {}
+    for head in MIL_HEADS:
+        cfg = MilTrainConfig(model_type=head, steps_per_epoch=TRAIN_VISITS)
+        model, forward, _ = build_model(cfg, in_dim=DIM)
+        model.cuda()
+        opt, sched = make_optimizer(cfg, model.parameters())
+        gen = torch.Generator(device="cuda").manual_seed(0)
+
+        def step():
+            with full_f32():
+                loss = batch_loss(cfg, forward, None, batch, gen)
+                opt.zero_grad(set_to_none=True)
+                loss.backward()
+                opt.step()
+                sched.step()
+
+        ms = _time_ms(step, iters=20, warmup=3)
+        prof = phase_profile(step, steps=5, what="step")
+        res[head] = {"step_ms": ms, "steps_per_s": 1e3 / ms, "busy": prof.get("busy"),
+                     "kernels": prof.get("kernels"), "device_us": prof.get("device_us")}
+        log(f"[mil] {head} slide step [1, 4096, {DIM}]: {ms:.3f} ms by CUDA events (median of "
+            f"20), {1e3 / ms:.1f} steps/s, device {prof.get('device_us', float('nan')):.1f} "
+            f"us a step ({100 * prof.get('busy', float('nan')):.1f}% busy), "
+            f"{prof.get('kernels')} kernels a step")
+        del model, opt
+    torch.cuda.empty_cache()
+    return res
+
+
+def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """``max |got - want| / max |want|``, on the host in f32."""
+    want = want.detach().float().cpu()
+    return float((got.detach().float().cpu() - want).abs().max() / want.abs().max())
+
+
+def _mil_logit_errs(head: str, argv: list, preset, card, cpu, bags: list, sub: str) -> dict:
+    """Slide logits of ``bags`` on the card against the CPU, relative to the
+    largest |logit|, for the trained head (``card``/``cpu``) and for a seeded
+    untrained head of the same architecture served from a ``.pt`` through
+    ``build_predictor``: its outputs are not saturated, so they move with the
+    precision of every product and with every patch of the bag. Both are held
+    to ``MIL_LOGIT_RTOL``. Controls, printed: bf16 storage for both heads, and
+    the seeded head's forward with TF32 on, which the tolerance must catch."""
+    from moc_tpu_torch.cli import predict
+    from moc_tpu_torch.data.batching import pack_bags
+    from moc_tpu_torch.train.mil import MilTrainConfig, build_model, model_from_params
+
+    cfg = MilTrainConfig(model_type=head, model_size="conch", n_classes=2)
+    state = build_model(cfg, in_dim=DIM)[2](torch.Generator().manual_seed(5))
+    path = os.path.join(sub, f"{head}_seeded.pt")
+    torch.save(state, path)
+    seeded = [*argv[:argv.index("--model") + 1], path, *argv[argv.index("--model") + 2:],
+              "--model_type", head, "--model_size", "conch"]
+    s_card, _ = predict.build_predictor(predict.get_args([*seeded, "--device", "cuda"]),
+                                        preset, torch.device("cuda"))
+    s_cpu, _ = predict.build_predictor(predict.get_args([*seeded, "--device", "cpu"]),
+                                       preset, torch.device("cpu"))
+    errs = {}
+    on_card = pack_bags(bags, device="cuda")
+    for name, c_fn, p_fn in (("trained", card, cpu), ("seeded", s_card, s_cpu)):
+        want = p_fn(pack_bags(bags, device="cpu"))
+        errs[name] = _rel_err(c_fn(on_card), want)
+        errs[f"{name}_bf16"] = _rel_err(c_fn(pack_bags(bags, device="cuda", dtype="bfloat16")),
+                                        want)
+        if name == "seeded":
+            model, forward = model_from_params(cfg, state)
+            model.cuda().eval()
+            saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+            try:
+                with torch.no_grad():
+                    errs["seeded_tf32"] = _rel_err(forward(None, on_card.features,
+                                                           on_card.mask)[0], want)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+            del model
+    for name in ("trained", "seeded"):
+        check(errs[name] <= MIL_LOGIT_RTOL, f"{head} ({name}): card logits differ from the "
+              f"CPU's by {errs[name]} of the largest |logit|")
+    check(errs["seeded_tf32"] > MIL_LOGIT_RTOL, f"{head}: a TF32 forward passes the logit "
+          f"check ({errs['seeded_tf32']}), which then cannot see the precision")
+    return errs
+
+
+def _titan_chunk_err(card, bag, chunked: torch.Tensor) -> float:
+    """TITAN's logits of ``bag`` alone at the 16384 bucket with the whole
+    ``[8, L, L]`` score matrix a layer (no query chunks) against ``chunked``,
+    the same slide's row of the timed batch."""
+    from moc_tpu_torch.data.batching import pack_bags
+    from moc_tpu_torch.models import titan
+
+    one = pack_bags([bag], n_pad=N_PAD, device="cuda")
+    limit = titan._SCORE_ELEMS
+    titan._SCORE_ELEMS = 2 ** 62
+    try:
+        whole = card(one)
+    finally:
+        titan._SCORE_ELEMS = limit
+    torch.cuda.empty_cache()
+    return _rel_err(chunked, whole)
+
+
+def phase_mil_predict(root: str, trained: dict) -> dict:
+    """``cli.predict``'s MIL path (``build_predictor``, ``score_bags``) over
+    the trained ``.msgpack`` of each head at batch 8 on the 16384 bucket,
+    f32 and bf16 storage: the forward by CUDA events and a profile, the rows
+    of two slides against the CPU in f32 (rtol 1e-4; TITAN on their first
+    2048 patches, whose dense attention costs the CPU minutes at 16384) and
+    their logits (``_mil_logit_errs``, the trained and a seeded head), bf16's
+    largest probability error against f32 printed, TITAN's query-chunked
+    attention against the whole on the card (``_titan_chunk_err``); then one
+    ``cli.serve`` drain of the 16 bags with CLAM-SB's ``.msgpack``,
+    rows equal to ``score_bags``'s, and no kernel of the port launched."""
+    import dataclasses as dc
+
+    from moc_tpu_torch.cli import predict, serve
+    from moc_tpu_torch.config import PRESETS
+    from moc_tpu_torch.data.bags import read_bag_pt
+    from moc_tpu_torch.data.batching import pack_bags
+
+    t_phase = time.perf_counter()
+    sub = os.path.join(root, "mil_predict")
+    os.makedirs(sub)
+    ids = write_corpus(sub)
+    bags = [read_bag_pt(os.path.join(sub, "bags", "pt_files", f"{i}.pt")) for i in ids]
+    preset = PRESETS["nsclc"]
+    _reset_launches()
+    res = {}
+    for head in MIL_HEADS:
+        argv = ["--dataset", "nsclc", "--model_kind", "mil", "--model",
+                trained["single"][head]["msgpack"], "--feature_dir", os.path.join(sub, "bags"),
+                "--batch_size", str(BATCH)]
+        card, serving = predict.build_predictor(predict.get_args([*argv, "--device", "cuda"]),
+                                                preset, torch.device("cuda"))
+        cpu, _ = predict.build_predictor(predict.get_args([*argv, "--device", "cpu"]), preset,
+                                         torch.device("cpu"))
+        rec, rows = {}, {}
+        for storage in ("float32", "bfloat16"):
+            # the rows first: their forward is the timing's warm-up
+            rows[storage] = predict.score_bags(card, bags[:BATCH], batch_size=BATCH,
+                                               n_classes=2, temperature=serving.temperature,
+                                               device=torch.device("cuda"), dtype=storage)
+            batch = pack_bags(bags[:BATCH], n_pad=N_PAD, device="cuda", dtype=storage)
+            rec[f"{storage}_ms"] = _time_ms(lambda: card(batch),
+                                            iters=MIL_PREDICT_ITERS.get(head, 5), warmup=0)
+            if storage == "float32":
+                prof = phase_profile(lambda: card(batch), steps=1 if head == "titan" else 2,
+                                     what="forward")
+                rec.update(busy=prof.get("busy"), kernels=prof.get("kernels"),
+                           top=prof.get("top"))
+                if head == "titan":
+                    chunked = card(batch)[:1].cpu()
+            del batch
+        if head == "titan":
+            # the timed batch attends in query chunks (256 rows at B = 8); its first
+            # slide against that slide's whole-matrix attention, on the card
+            rec["chunk_err"] = _titan_chunk_err(card, bags[0], chunked)
+            check(rec["chunk_err"] <= MIL_LOGIT_RTOL, f"titan: query-chunked logits differ "
+                  f"from the whole attention's by {rec['chunk_err']}")
+        probs = {k: np.array([[r["prob_0"], r["prob_1"]] for r in v]) for k, v in rows.items()}
+        check(all(np.isfinite(p).all() and p.shape == (BATCH, 2) for p in probs.values()),
+              f"{head}: predict rows not finite")
+        check_bags = bags[:2]
+        if head == "titan":
+            check_bags = [dc.replace(b, features=b.features[:2048]) for b in check_bags]
+        got, want = (np.array([[r["prob_0"], r["prob_1"]] for r in predict.score_bags(
+            fn, check_bags, batch_size=2, n_classes=2, temperature=1.0, device=dev)])
+            for fn, dev in ((card, torch.device("cuda")), (cpu, torch.device("cpu"))))
+        cpu_err = float(np.abs(got - want).max())
+        check(np.allclose(got, want, rtol=1e-4, atol=1e-6),
+              f"{head}: card rows differ from the CPU's by {cpu_err}")
+        rec.update(cpu_err=cpu_err, bf16_err=float(np.abs(probs["bfloat16"]
+                                                          - probs["float32"]).max()))
+        rec["logits"] = _mil_logit_errs(head, argv, preset, card, cpu, check_bags, sub)
+        res[head] = rec
+        lg = rec["logits"]
+        log(f"[mil] predict {head} [{BATCH}, {N_PAD}, {DIM}]: forward {rec['float32_ms']:.3f} ms "
+            f"f32 / {rec['bfloat16_ms']:.3f} ms bf16 storage (CUDA events), "
+            f"{100 * (rec.get('busy') or float('nan')):.1f}% busy, {rec.get('kernels')} kernels; "
+            f"rows card vs CPU max |diff| {cpu_err:.3e} (rtol 1e-4), bf16 storage vs f32 max "
+            f"|diff| {rec['bf16_err']:.3e}; logits card vs CPU max |diff| / max |logit|: "
+            f"trained {lg['trained']:.3e}, seeded {lg['seeded']:.3e} (tolerance "
+            f"{MIL_LOGIT_RTOL:.0e}); controls: bf16 storage {lg['trained_bf16']:.3e} / "
+            f"{lg['seeded_bf16']:.3e}, seeded head with TF32 on {lg['seeded_tf32']:.3e}"
+            + (f"; query-chunked vs whole attention on the card {rec['chunk_err']:.3e}"
+               if "chunk_err" in rec else ""))
+        del card, cpu
+        torch.cuda.empty_cache()
+    args = serve.get_args(["--dataset", "nsclc", "--model_kind", "mil", "--model",
+                           trained["single"]["clam_sb"]["msgpack"], "--device", "cuda",
+                           "--watch_dir", os.path.join(sub, "bags"), "--once",
+                           "--batch_size", str(BATCH)])
+    t0 = time.perf_counter()
+    server = serve.Server(args)
+    n = serve.watch_once(server, os.path.join(sub, "bags"), os.path.join(sub, "served.csv"),
+                         set())
+    wall = time.perf_counter() - t0
+    check(n == len(ids), f"serve --model_kind mil scored {n} of {len(ids)} bags")
+    with open(os.path.join(sub, "served.csv"), newline="") as f:
+        served = {r["slide_id"]: float(r["prob_1"]) for r in csv.DictReader(f)}
+    direct = predict.score_bags(server.batch_logits, bags, batch_size=BATCH, n_classes=2,
+                                temperature=1.0, device=torch.device("cuda"))
+    serve_err = max(abs(served[r["slide_id"]] - r["prob_1"]) for r in direct)
+    check(serve_err <= 1e-6, f"served rows differ from score_bags's by {serve_err}")
+    launches = _all_launches()
+    check(not any(launches.values()), f"the MIL serving path launched kernels: {launches}")
+    log(f"[mil] serve --model_kind mil (train_mil's clam_sb .msgpack): {n} bags drained in "
+        f"{wall:.2f}s, rows within {serve_err:.1e} of score_bags; kernel launches on the MIL "
+        f"path: {launches}; predict phase wall {time.perf_counter() - t_phase:.1f}s")
+    return {"heads": res, "serve_wall_s": wall, "serve_err": serve_err, "launches": launches}
+
+
 # MI-Zero evaluation (moc_tpu/zeroshot/eval.py:66-132) and main_moc on the vendored
 # NSCLC protocol: the CONCH text tower at full width (12 layers of 768, 12 heads,
 # context 128, vocabulary 32007, output 512) from a fabricated release checkpoint,
@@ -2919,6 +3326,10 @@ def main() -> int:
         train_times = phase_train_times(root)
         swept = phase_sweep(root, trained)
         sweep_times = phase_sweep_times(root)
+        mil_trained = phase_mil_train(root)
+        mil_parity = phase_mil_parity(root)
+        mil_times = phase_mil_times(root)
+        mil_pred = phase_mil_predict(root, mil_trained)
     with tempfile.TemporaryDirectory() as root:
         zs = phase_zeroshot_weights(root)
         mizero = phase_zeroshot_mizero(zs["weights"]["nsclc"])
@@ -2951,6 +3362,8 @@ def main() -> int:
                         "launches_main_moc_nsclc": zs_main["runs"][0]["launches"][entry],
                         "launches_tiers": {k: v["launches"][entry] for k, v in tiers.items()},
                         "launches_train_nsclc": zs_main["runs"][0]["launches_steps"][entry],
+                        "launches_mil": mil_trained["launches"][entry]
+                        + mil_pred["launches"][entry],
                         **({"launches_mizero": mizero["launches"], "shapes_mizero": mizero["k1"]}
                            if entry == "cols" else {})})
     for tier, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
@@ -2977,7 +3390,9 @@ def main() -> int:
                         "library_ms_pretrain_shape": bwd_times[tier]["k2_library_ms"],
                         "launches_musk_forward": musk["vision"][tier]["k2_launches"],
                         "launches_musk_text": musk["text_launches"],
-                        "launches_musk_extract": backbones["musk"]["launches"], **musk_cells})
+                        "launches_musk_extract": backbones["musk"]["launches"],
+                        "launches_mil": mil_trained["launches"]["K2"]
+                        + mil_pred["launches"]["K2"], **musk_cells})
     for entry, kid, replaces in (("dq", "K3", K3_REPLACES), ("dkv", "K4", K4_REPLACES)):
         for tier, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
             t = bwd_times[tier][entry]
@@ -2988,7 +3403,9 @@ def main() -> int:
                             "max_abs_err_main_shape": t["max_abs_err"], "ms": t["ms"],
                             "kernel_us": t["kernel_us"], "device_us": t["device_us"],
                             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+                            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                            "launches_mil": mil_trained["launches"][kid]
+                            + mil_pred["launches"][kid]})
     log("[tiers] summary " + json.dumps({k: {f: v for f, v in r.items() if f != "launches"}
                                          for k, r in tiers.items()}))
     log("[train] summary " + json.dumps({
@@ -3004,6 +3421,13 @@ def main() -> int:
     log("[select] summary " + json.dumps({
         **selpool["times"], "sort_episode_wall_s": selpool["sort_wall_s"],
         "sort_loss_err": selpool["sort_loss_err"], "zs_max_abs_diff": selpool["zs_err"]}))
+    log("[mil] summary " + json.dumps({
+        "train": {k: {f: v for f, v in r.items() if f != "msgpack"}
+                  for k, r in mil_trained["single"].items()},
+        "fused": mil_trained["fused"], "parity": mil_parity, "step": mil_times,
+        "predict": {k: {f: v for f, v in r.items() if f != "top"}
+                    for k, r in mil_pred["heads"].items()},
+        "serve_wall_s": mil_pred["serve_wall_s"], "launches": mil_pred["launches"]}))
     log("[musk] summary " + json.dumps({k: v for k, v in musk.items() if k != "ckpt"}))
     log("[resnet] summary " + json.dumps({k: v for k, v in resnet.items() if k != "ckpt"}))
     log("[extract] backbones summary " + json.dumps(backbones))

@@ -1,7 +1,7 @@
-"""Standalone MOC inference on the GPU: a trained SENet and the zero-shot
-weight matrices → per-slide predictions (PyTorch port of
-``moc_tpu/cli/predict.py``; ``build_predictor`` and ``score_bags`` also
-serve ``cli.serve``).
+"""Standalone inference on the GPU: a trained SENet and the zero-shot weight
+matrices, or a trained MIL baseline head, → per-slide predictions (PyTorch
+port of ``moc_tpu/cli/predict.py``; ``build_predictor`` and ``score_bags``
+also serve ``cli.serve``).
 
   python -m moc_tpu_torch.cli.predict --dataset nsclc \\
       --model results/1_shot/best_model_shot_1_fold_0.msgpack \\
@@ -23,12 +23,17 @@ Bags are read from ``<feature_dir>/pt_files`` where it exists, else from
 ``--storage_dtype`` picks the tier the bags are held in on the card
 (float32, bfloat16, or int8 with per-row scales and the W8A8 product), and
 ``--dense``/``--score_dtype`` the forward (``cli.common.add_perf_flags``).
+
+``--model_kind mil`` scores a head that ``cli.train_mil`` of either package
+trained (``--model`` its ``.msgpack``): no weight matrices, temperature 1,
+the architecture from ``--model_type``/``--model_size`` or else from the
+JSON beside the checkpoint (a ViLa checkpoint is refused). MIL heads take
+float bags: ``--storage_dtype bfloat16`` (upcast on the card) but not int8.
+
 Runs on ``--device cuda`` (the default) and raises without a GPU unless
-``--device cpu`` is given. The JAX package's MIL heads (``--model_kind
-mil``, ``--model_type``) wait for the MIL port; data parallelism
-(``--data_parallel``) for the multi-device runtime; ``--export_program``,
-``--from_program``, ``--xprof`` and ``--platform`` are JAX's own. Each is
-refused by name.
+``--device cpu`` is given. Data parallelism (``--data_parallel``) waits for
+the multi-device runtime; ``--export_program``, ``--from_program``,
+``--xprof`` and ``--platform`` are JAX's own. Each is refused by name.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from __future__ import annotations
 import argparse
 import csv
 import dataclasses
+import json
 import os
 import sys
 
@@ -56,11 +62,14 @@ def get_args(argv=None):
     p = argparse.ArgumentParser(description="MOC slide prediction (GPU)")
     p.add_argument("--dataset", default="nsclc", choices=sorted(PRESETS))
     p.add_argument("--model", default=None,
-                   help="SENet checkpoint: best_model_*.msgpack, a torch .pt state dict or "
-                        "its .npz form")
+                   help="checkpoint: a SENet (best_model_*.msgpack, a torch .pt state dict "
+                        "or its .npz form) or, with --model_kind mil, a MIL head's .msgpack")
     p.add_argument("--model_kind", default="moc", choices=["moc", "mil"],
-                   help="moc = SENet + zero-shot weight matrices (mil is refused here)")
-    p.add_argument("--model_type", default=None, help="MIL head architecture (refused here)")
+                   help="moc = SENet + zero-shot weight matrices; mil = a baseline MIL head "
+                        "from train_mil (no weights needed)")
+    p.add_argument("--model_type", default=None,
+                   help="MIL head architecture for --model_kind mil (default: read from the "
+                        "checkpoint's sidecar JSON, which train_mil writes)")
     p.add_argument("--model_size", default="conch", help="a MIL head's size (unused by MOC)")
     p.add_argument("--feature_dir", required=True,
                    help="CLAM feature dir ({pt_files,h5_files})")
@@ -95,10 +104,6 @@ def get_args(argv=None):
 
 # flag → why the port refuses it, for the flags of the JAX command lines
 _REFUSED = {
-    "model_kind": "--model_kind mil scores the MIL baselines, which are not ported yet "
-                  "(ROADMAP queue 1 item 8)",
-    "model_type": "--model_type names a MIL head, which is not ported yet (ROADMAP queue 1 "
-                  "item 8)",
     "data_parallel": "--data_parallel shards batches over devices, which waits for the "
                      "multi-device runtime (ROADMAP queue 1 item 9)",
     "export_program": "--export_program writes a jax.export artifact and belongs to the JAX "
@@ -115,14 +120,81 @@ def refuse_unported(args) -> None:
     """Exit, naming the flag, on a JAX command-line flag the port lacks."""
     for name, why in _REFUSED.items():
         value = getattr(args, name, None)
-        if value and not (name == "model_kind" and value == "moc"):
+        if value:
             raise SystemExit(why)
 
 
 def _storage_dtype(args) -> torch.dtype:
-    """The torch dtype of ``--storage_dtype`` (MIL heads, whose bags could
-    not be int8, are refused before this by ``refuse_unported``)."""
+    """The torch dtype of ``--storage_dtype``. MIL heads take raw feature
+    rows (attention nets, Nyström towers) with no scaled product, so int8
+    bags would need a dequantised copy: refused for them."""
+    if args.storage_dtype == "int8" and getattr(args, "model_kind", "moc") == "mil":
+        raise SystemExit("--storage_dtype int8 is a MOC serving tier; MIL heads take float "
+                         "bags (use bfloat16)")
     return STORAGE_DTYPES[args.storage_dtype]
+
+
+def resolve_model_config(args) -> None:
+    """Fill ``--model_type``/``--model_size`` from the checkpoint's sidecar
+    JSON (``train_mil`` writes the model config beside every ``.msgpack``)
+    when they were not given. No-op for the MOC kind."""
+    if getattr(args, "model_kind", "moc") != "mil" or args.model_type is not None:
+        return
+    sidecar, cand = None, None
+    if args.model and args.model.endswith(".msgpack"):
+        cand = args.model[:-len(".msgpack")] + ".json"
+        if os.path.exists(cand):
+            with open(cand) as f:
+                sidecar = json.load(f)
+    if sidecar and "model_type" in sidecar:
+        if sidecar["model_type"] == "vila":
+            raise SystemExit("this checkpoint is a ViLa model (dual-scale bags and prompt "
+                             "constants), which waits for ROADMAP queue 1 item 8b; it does "
+                             "not run on the single-scale predict path")
+        args.model_type = sidecar["model_type"]
+        if sidecar.get("model_size"):
+            args.model_size = sidecar["model_size"]
+        print(f"model config from sidecar {os.path.basename(cand)}: "
+              f"{args.model_type} ({args.model_size})", file=sys.stderr)
+        return
+    raise SystemExit("--model_kind mil needs --model_type (no sidecar JSON with a model_type "
+                     "field found next to the checkpoint)")
+
+
+@dataclasses.dataclass(frozen=True)
+class MilServing:
+    """What the serving loop reads of a MIL head: the temperature of its
+    probabilities (1: no CONCH logit scale) and its input width."""
+
+    feature_dim: int
+    temperature: float = 1.0
+
+
+def _mil_predictor(args, preset, device: torch.device):
+    """``(batch_logits, MilServing)`` of the MIL head in ``--model``: the
+    JAX package's ``.msgpack`` tree or the port's ``.pt`` state dict, on
+    ``device``; each forward in full f32 on the upcast bags."""
+    from moc_tpu_torch.models.layers import full_f32
+    from moc_tpu_torch.train.mil import MilTrainConfig, in_dim_of, model_from_params
+
+    resolve_model_config(args)
+    cfg = MilTrainConfig(model_type=args.model_type, model_size=args.model_size,
+                         n_classes=preset.n_classes)
+    if args.model.endswith(".msgpack"):
+        from moc_tpu_torch.utils.checkpoint import load_params
+
+        params = load_params(args.model)
+    else:
+        params = torch.load(args.model, map_location="cpu", weights_only=True)
+    model, forward = model_from_params(cfg, params)
+    model.to(device).eval()
+
+    @torch.no_grad()
+    def batch_logits(batch):
+        with full_f32():
+            return forward(None, batch.features.float(), batch.mask)[0]
+
+    return batch_logits, MilServing(feature_dim=in_dim_of(model.state_dict()))
 
 
 def _load_weights(args, preset, device: torch.device) -> tuple[np.ndarray, np.ndarray]:
@@ -158,10 +230,13 @@ def load_senet(path: str) -> SENet:
 def build_predictor(args, preset, device: torch.device):
     """``(batch_logits, cfg)``: ``batch_logits(BagBatch)`` returns the
     ``[B, C]`` slide logits of a batch on ``device``, with the SENet and the
-    weight matrices resident there; ``cfg`` is the ``MOCConfig`` it runs."""
+    weight matrices (or the MIL head) resident there; ``cfg`` is the
+    ``MOCConfig`` it runs, or a ``MilServing`` (temperature 1)."""
     refuse_unported(args)
     if not args.model:
         raise SystemExit("--model is required")
+    if args.model_kind == "mil":
+        return _mil_predictor(args, preset, device)
     w, w_ext = _load_weights(args, preset, device)
     cfg = MOCConfig(n_classes=preset.n_classes, n_ext_classes=preset.n_ext_classes,
                     topj=args.topj, topk=args.topk, feature_dim=w.shape[0],
@@ -232,6 +307,7 @@ def main(argv=None) -> int:
 
     preset = PRESETS[args.dataset]
     device = resolve_device(args.device)
+    dtype = _storage_dtype(args)  # check the tier before building anything
     table, labelled = read_slide_table(args.csv or preset.csv_path("/nonexistent"),
                                        preset.label_dict)
     batch_logits, cfg = build_predictor(args, preset, device)
@@ -253,7 +329,7 @@ def main(argv=None) -> int:
             f"slide_id column (expected <slide_id>.h5/.pt files)")
     rows = score_bags(batch_logits, bags, batch_size=args.batch_size,
                       n_classes=preset.n_classes, temperature=cfg.temperature, device=device,
-                      with_labels=labelled, dtype=_storage_dtype(args))
+                      with_labels=labelled, dtype=dtype)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w", newline="") as f:
         writer = csv.DictWriter(f, fieldnames=list(rows[0]), lineterminator="\n")

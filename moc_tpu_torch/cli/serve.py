@@ -27,10 +27,15 @@ on the card (``--warmup`` packs its zero bags at it), ``--dense`` and
 shards (``_shard_owns``, ``watch_once(shard=)``) are ported; the processes'
 discovery waits for the multi-device runtime, so ``main`` runs one shard.
 
+``--model_kind mil`` serves a MIL baseline head from ``cli.train_mil``
+(``--model`` its ``.msgpack``; ``--model_type``/``--model_size`` or the
+JSON beside it), as ``cli.predict`` scores it: temperature 1, float bags
+only (``--storage_dtype int8`` is refused), ``--warmup`` sized by the
+head's input width.
+
 Runs on ``--device cuda`` (the default) and raises without a GPU unless
-``--device cpu`` is given. ``--model_kind mil``, ``--model_type``,
-``--from_program``, ``--xprof`` and ``--platform`` are refused by name, as
-in ``cli.predict``.
+``--device cpu`` is given. ``--from_program``, ``--xprof`` and
+``--platform`` are refused by name, as in ``cli.predict``.
 """
 
 from __future__ import annotations
@@ -58,8 +63,12 @@ def get_args(argv=None):
     p = argparse.ArgumentParser(description="MOC slide prediction daemon (GPU)")
     p.add_argument("--dataset", default="nsclc", choices=sorted(PRESETS))
     p.add_argument("--model", default=None,
-                   help="SENet checkpoint: best_model_*.msgpack, a torch .pt state dict or "
-                        "its .npz form")
+                   help="checkpoint: a SENet (best_model_*.msgpack, a torch .pt state dict "
+                        "or its .npz form) or, with --model_kind mil, a MIL head's .msgpack")
+    p.add_argument("--model_kind", default="moc", choices=["moc", "mil"],
+                   help="moc = SENet + zero-shot weight matrices; mil = a MIL head")
+    p.add_argument("--model_type", default=None,
+                   help="MIL head architecture (default: the checkpoint's sidecar JSON)")
     p.add_argument("--model_size", default="conch", help="a MIL head's size (unused by MOC)")
     src = p.add_mutually_exclusive_group(required=True)
     src.add_argument("--watch_dir", default=None,
@@ -97,8 +106,6 @@ def get_args(argv=None):
     p.add_argument("--device", default="cuda",
                    help="torch device to serve on (cuda, cuda:1, or cpu)")
     refused = p.add_argument_group("not in the GPU port (refused here)")
-    refused.add_argument("--model_kind", default="moc", choices=["moc", "mil"])
-    refused.add_argument("--model_type", default=None)
     refused.add_argument("--from_program", default=None, metavar="PATH")
     refused.add_argument("--platform", default=None)
     refused.add_argument("--xprof", default=None, metavar="DIR")
@@ -128,7 +135,8 @@ def _read_bag_path(path: str) -> Bag:
 
 
 class Server:
-    """Resident predictor: SENet and weight matrices on the device, fed bags."""
+    """Resident predictor: SENet and weight matrices (or a MIL head) on the
+    device, fed bags."""
 
     def __init__(self, args):
         refuse_unported(args)

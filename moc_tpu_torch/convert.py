@@ -299,3 +299,52 @@ def resnet50_from_jax(variables: Mapping) -> ResNet50Trunk:
     model = ResNet50Trunk()
     model.load_state_dict(state)
     return model.eval()
+
+
+# ------------------------------------------------------------------ MIL heads
+
+def flax_tree_state(tree: Mapping, prefix: str = "") -> dict[str, torch.Tensor]:
+    """A flax parameter tree → a state dict whose keys are the tree's paths
+    joined by dots and whose values keep flax's layouts: the MIL heads hold
+    their parameters so (``models.layers.Dense.kernel`` is ``[in, out]``)."""
+    state: dict[str, torch.Tensor] = {}
+    for name, sub in tree.items():
+        if isinstance(sub, Mapping):
+            state.update(flax_tree_state(sub, f"{prefix}{name}."))
+        else:
+            state[prefix + name] = _t(sub)
+    return state
+
+
+def mil_from_jax(params: Mapping, cfg) -> torch.nn.Module:
+    """The port's MIL head of ``cfg`` (a ``train.mil.MilTrainConfig``)
+    holding the weights of the JAX package's head: ``params`` is its tree as
+    ``jax.tree.map(np.asarray, ...)`` gives it (or as ``utils.checkpoint.
+    load_params`` reads its ``.msgpack``), with or without the top-level
+    ``"params"`` key. The input width comes from the tree; loading is
+    strict (an ABMIL tree has no instance heads, a CLAM-SB tree has them)."""
+    from moc_tpu_torch.train.mil import model_from_params
+
+    return model_from_params(cfg, params)[0]
+
+
+def mil_to_jax(model: torch.nn.Module | Mapping[str, torch.Tensor]) -> dict:
+    """The JAX package's parameter tree of a MIL head (module or state dict),
+    the inverse of ``mil_from_jax``: ``{"params": {...}}`` of f32 numpy
+    arrays with every level's keys sorted, the order a trained flax tree
+    has after ``jax.tree.map`` (``utils.checkpoint.save_params`` then writes
+    the bytes JAX's ``save_params`` writes)."""
+    state = model.state_dict() if isinstance(model, torch.nn.Module) else model
+    tree: dict = {}
+    for key, value in state.items():
+        *path, leaf = key.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = np.ascontiguousarray(value.detach().cpu().float().numpy())
+
+    def ordered(node):
+        return {k: ordered(node[k]) if isinstance(node[k], dict) else node[k]
+                for k in sorted(node)}
+
+    return {"params": ordered(tree)}

@@ -125,3 +125,20 @@ def append_hdf5(path: str, asset_dict: dict, attr_dict: dict | None = None,
                 dset.resize(len(dset) + val.shape[0], axis=0)
                 dset[-val.shape[0]:] = val
     return path
+
+
+def save_pkl(path: str, obj) -> None:
+    """Pickle writer (the reference's ``utils/file_utils.save_pkl``)."""
+    import pickle
+
+    with open(path, "wb") as f:
+        pickle.dump(obj, f)
+
+
+def load_pkl(path: str):
+    """Pickle reader (the reference's ``load_pkl``). Unpickling runs code:
+    read only files this program wrote."""
+    import pickle
+
+    with open(path, "rb") as f:
+        return pickle.load(f)

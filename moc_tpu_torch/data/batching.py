@@ -129,7 +129,8 @@ def pack_bags(bags: Sequence[Bag], *, n_pad: int | None = None,
               buckets: Sequence[int] = DEFAULT_BUCKETS,
               device: str | torch.device | None = None,
               with_coords: bool = False,
-              dtype: str | torch.dtype | None = None) -> BagBatch:
+              dtype: str | torch.dtype | None = None,
+              pin_memory: bool | None = None) -> BagBatch:
     """Pad a list of bags to a common bucketed length and stack them into a
     batch on ``device`` (default ``cuda``) in the storage tier ``dtype``
     (default float32). The native packer pads into host memory, pinned
@@ -140,7 +141,9 @@ def pack_bags(bags: Sequence[Bag], *, n_pad: int | None = None,
     scale 0). For a GPU the native library is required: a failed build
     raises. The mask is built on the device from the counts. ``with_coords``
     also stacks the bags' coordinates (zero-padded), which every bag must
-    then carry."""
+    then carry. ``pin_memory`` (default: whether the batch goes to a GPU)
+    keeps a host batch's features in pinned memory, for a later
+    asynchronous copy (``data.loader.prefetch_to_device``)."""
     from moc_tpu_torch.data.native import pack_bags_native
     from moc_tpu_torch.ops.quant import quantize_rows_host
 
@@ -159,7 +162,7 @@ def pack_bags(bags: Sequence[Bag], *, n_pad: int | None = None,
         raise ValueError(f"bags mix feature dims {sorted(dims)}; one batch must "
                          "come from one extractor")
     shape = (len(bags), n_pad, dims.pop())
-    pin = dev.type == "cuda"
+    pin = dev.type == "cuda" if pin_memory is None else pin_memory
 
     def host(dt, shp=shape):
         return torch.empty(shp, dtype=dt, pin_memory=pin)

@@ -1,4 +1,4 @@
-"""Split files and seeded few-shot split generation (port of
+"""Split files and seeded split generation, full and few-shot (port of
 ``moc_tpu/data/splits.py`` on the ``csv`` module instead of pandas).
 
 A ``Split`` holds slide-id lists; the consumer resolves them against a
@@ -51,11 +51,18 @@ def read_split_csv(path: str) -> Split:
                          and r[col[k]] != "") for k in _KEYS))
 
 
-def write_split_csv(path: str, split: Split) -> None:
-    """Write ``split`` in the column style, laid out as the JAX package's
-    pandas writer lays it out."""
+def write_split_csv(path: str, split: Split, boolean_style: bool = False) -> None:
+    """Write ``split`` in the column style or, with ``boolean_style``, one row
+    a slide (train, then val, then test) with ``True``/``False`` flags under
+    an empty index header; either byte for byte as the JAX package's pandas
+    writer lays it out."""
     with open(path, "w", newline="") as f:
         out = csv.writer(f, lineterminator="\n")
+        if boolean_style:
+            out.writerow(("", *_KEYS))
+            out.writerows((sid, *(str(k == part) for k in _KEYS))
+                          for part in _KEYS for sid in getattr(split, part))
+            return
         out.writerow(_KEYS)
         out.writerows(itertools.zip_longest(*(getattr(split, k) for k in _KEYS), fillvalue=""))
 
@@ -66,14 +73,29 @@ def _stratified_pick(rng: np.random.Generator, pool: np.ndarray, count: int) -> 
     return rng.choice(pool, size=count, replace=False)
 
 
-def generate_fewshot_splits(table: SlideTable, *, shot: int, n_splits: int = 5,
-                            val_num: Sequence[int], test_num: Sequence[int],
-                            seed: int = 7) -> list[Split]:
-    """Few-shot splits: per class, ``val_num[c]`` val and ``test_num[c]``
-    test slides, then ``shot`` train slides from what remains, drawn from
-    one ``default_rng(seed)`` over ``n_splits`` folds."""
+def _generate(table: SlideTable, *, n_splits: int, val_num: Sequence[int],
+              test_num: Sequence[int], seed: int, label_frac: float, shot: int | None,
+              patient_strat: bool = False, patient_voting: str = "max") -> list[Split]:
+    """Per class, ``val_num[c]`` val and ``test_num[c]`` test units, then
+    ``shot`` train units (or the first ``label_frac`` of the rest), from one
+    ``default_rng(seed)`` over ``n_splits`` folds. With ``patient_strat`` the
+    units are PATIENTS (voted labels), each bringing all its slides."""
     ids = table.slide_ids
-    class_pools = [table.class_indices(c) for c in range(table.num_classes)]
+    if patient_strat:
+        patients = table.patient_table(patient_voting)
+        case_ids, unit_labels = patients["case_id"], patients["label"]
+        case_col = table.case_ids
+
+        def expand(unit_rows):
+            cases = {case_ids[i] for i in unit_rows}
+            return [i for i, c in enumerate(case_col) if c in cases]
+    else:
+        unit_labels = table.labels
+
+        def expand(unit_rows):
+            return list(unit_rows)
+
+    class_pools = [np.where(unit_labels == c)[0] for c in range(table.num_classes)]
     rng = np.random.default_rng(seed)
     splits = []
     for _ in range(n_splits):
@@ -83,9 +105,33 @@ def generate_fewshot_splits(table: SlideTable, *, shot: int, n_splits: int = 5,
             remaining = np.setdiff1d(pool, val_rows)
             test_rows = _stratified_pick(rng, remaining, test_num[c])
             remaining = np.setdiff1d(remaining, test_rows)
-            train_rows = _stratified_pick(rng, remaining, shot)
-            rows["val"].extend(val_rows.tolist())
-            rows["test"].extend(test_rows.tolist())
-            rows["train"].extend(train_rows.tolist())
+            if shot is not None:
+                train_rows = _stratified_pick(rng, remaining, shot)
+            elif label_frac >= 1.0:
+                train_rows = remaining
+            else:
+                train_rows = remaining[:int(np.ceil(len(remaining) * label_frac))]
+            rows["val"].extend(expand(val_rows.tolist()))
+            rows["test"].extend(expand(test_rows.tolist()))
+            rows["train"].extend(expand(np.asarray(train_rows).tolist()))
         splits.append(Split(*(tuple(ids[i] for i in rows[k]) for k in _KEYS)))
     return splits
+
+
+def generate_splits(table: SlideTable, *, n_splits: int = 5, val_num: Sequence[int],
+                    test_num: Sequence[int], seed: int = 7, label_frac: float = 1.0,
+                    patient_strat: bool = False) -> list[Split]:
+    """Fully supervised stratified splits (the reference's ``generate_split``):
+    every remaining unit of a class trains, or the first ``label_frac``."""
+    return _generate(table, n_splits=n_splits, val_num=val_num, test_num=test_num, seed=seed,
+                     label_frac=label_frac, shot=None, patient_strat=patient_strat)
+
+
+def generate_fewshot_splits(table: SlideTable, *, shot: int, n_splits: int = 5,
+                            val_num: Sequence[int], test_num: Sequence[int],
+                            seed: int = 7, patient_strat: bool = False) -> list[Split]:
+    """Few-shot splits (the reference's ``generate_split_few``): per class,
+    ``val_num[c]`` val and ``test_num[c]`` test slides, then ``shot`` train
+    slides from what remains, drawn from one ``default_rng(seed)``."""
+    return _generate(table, n_splits=n_splits, val_num=val_num, test_num=test_num, seed=seed,
+                     label_frac=1.0, shot=shot, patient_strat=patient_strat)

@@ -5,7 +5,8 @@ Two forms:
 
 * ``roc_auc_host``: numpy, float64, scikit-learn's ``roc_auc_score``
   semantics with the reference's arguments (binary: P(class 1); multiclass:
-  ``ovo`` macro), for reporting. Hosts without scikit-learn run it.
+  ``ovo`` macro), for reporting, and ``roc_auc_ovr_host`` (``ovr`` macro),
+  the MIL baselines'. Hosts without scikit-learn run them.
 * ``auc_binary``, ``auc_ovo_macro``, ``auc_ovr_macro`` and
   ``auc_from_probs``: torch, on the tensors' device, batched over leading
   axes, with a ``valid`` mask for padded score arrays; a class that is
@@ -87,6 +88,27 @@ def roc_auc_host(probs, labels) -> float:
         raise ValueError(f"y_score of shape {probs.shape} for binary labels: "
                          "scikit-learn takes a 1-D score here")
     return _ovo_host(labels, probs)
+
+
+def roc_auc_ovr_host(probs, labels) -> float:
+    """``roc_auc_score(labels, probs, multi_class="ovr", average="macro")`` (the
+    MIL baselines' multiclass protocol) in float64 without scikit-learn: the
+    mean over columns of the AUC of P(class) against that class. It raises
+    where scikit-learn raises: non-finite scores, rows that do not sum to 1,
+    a class count that differs from the columns."""
+    probs = np.asarray(probs, dtype=np.float64)
+    labels = np.asarray(labels)
+    if not np.isfinite(probs).all():
+        raise ValueError("Input contains NaN or infinity.")
+    if not np.allclose(1, probs.sum(axis=1)):
+        raise ValueError("Target scores need to be probabilities for multiclass roc_auc, "
+                         "i.e. they should sum up to 1.0 over classes")
+    classes = np.unique(labels)
+    if len(classes) != probs.shape[1]:
+        raise ValueError("Number of classes in y_true not equal to the number of columns "
+                         "in 'y_score'")
+    return float(np.mean([_rank_auc_f64(labels == c, probs[:, i])
+                          for i, c in enumerate(classes)]))
 
 
 def _rank_u(scores: torch.Tensor, pos: torch.Tensor, neg: torch.Tensor):

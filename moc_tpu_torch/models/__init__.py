@@ -1,5 +1,22 @@
-"""moc_tpu_torch.models — the MOC fusion network (SENet)."""
+"""moc_tpu_torch.models — the MOC fusion network (SENet) and the MIL
+baseline heads (CLAM-SB/MB, ABMIL, MIL-fc, CHIEF, TransMIL, TITAN)."""
 
+from moc_tpu_torch.models.chief import CHIEF, ChiefConfig
+from moc_tpu_torch.models.clam import CLAM, ClamConfig, abmil, clam_mb, clam_sb
+from moc_tpu_torch.models.convert_mil import (clean_torch_state_dict, convert_clam_checkpoint,
+                                              load_torch_mil_checkpoint)
+from moc_tpu_torch.models.layers import (AttnNet, GatedAttnNet, StackedDense,
+                                         masked_attention_weights, masked_topk_feats)
+from moc_tpu_torch.models.mil import MILFc, MILFcMC, MilFcConfig
 from moc_tpu_torch.models.senet import SENet
+from moc_tpu_torch.models.titan import (TitanConfig, TitanEncoderUnavailable, TitanHead,
+                                        convert_titan_probe, load_titan_probe_checkpoint,
+                                        titan_encoder_keys)
+from moc_tpu_torch.models.transmil import NystromAttention, TransMIL, TransMILConfig
 
-__all__ = ["SENet"]
+__all__ = ["AttnNet", "CHIEF", "CLAM", "ChiefConfig", "ClamConfig", "GatedAttnNet", "MILFc",
+           "MILFcMC", "MilFcConfig", "NystromAttention", "SENet", "StackedDense",
+           "TitanConfig", "TitanEncoderUnavailable", "TitanHead", "TransMIL", "TransMILConfig",
+           "abmil", "clam_mb", "clam_sb", "clean_torch_state_dict", "convert_clam_checkpoint",
+           "convert_titan_probe", "load_titan_probe_checkpoint", "load_torch_mil_checkpoint",
+           "masked_attention_weights", "masked_topk_feats", "titan_encoder_keys"]

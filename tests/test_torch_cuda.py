@@ -1227,3 +1227,100 @@ def test_extraction_backbones_gpu_match_cpu(gen, tmp_path, backbone):
         feats[device] = read_bag_pt(str(tmp_path / device / "pt_files" / "s.pt")).features
     assert feats["cuda"].shape == (5, {"musk": 64, "debug": 512}.get(backbone, 1024))
     np.testing.assert_allclose(feats["cuda"], feats["cpu"], atol=1e-4)
+
+
+# ------------------------------------------------------------------ MIL heads
+
+MIL_HEADS = ["clam_sb", "clam_mb", "abmil", "mil", "transmil", "chief", "titan"]
+
+
+def _mil_batch(n_pad=1024, counts=(1024, 700, 5), dim=512, seed=0):
+    rng = np.random.default_rng(seed)
+    feats = rng.normal(size=(len(counts), n_pad, dim)).astype(np.float32)
+    valid = np.zeros((len(counts), n_pad), bool)
+    for b, n in enumerate(counts):
+        valid[b, :n] = True
+    feats[~valid] = 0.0
+    return torch.from_numpy(feats), torch.from_numpy(valid), torch.tensor([1, 0, 1])
+
+
+@pytest.mark.parametrize("model_type", MIL_HEADS)
+def test_mil_head_forward_and_grads_on_the_card_match_the_cpu(gen, model_type):
+    """Each head's training forward (logits, instance loss) and its first
+    step's gradients on the card within 1e-5 of the CPU (TF32 off for the
+    call, the flags as found after it)."""
+    from moc_tpu_torch.models.layers import full_f32
+    from moc_tpu_torch.train.mil import MilTrainConfig, build_model, slide_losses
+
+    cfg = MilTrainConfig(model_type=model_type, n_classes=3 if model_type == "clam_mb" else 2)
+    feats, valid, labels = _mil_batch()
+    labels = labels % cfg.n_classes
+    out = {}
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    for dev in ("cuda", "cpu"):
+        model, forward, init_fn = build_model(cfg)
+        state = {k: v.to(dev).requires_grad_() for k, v in init_fn().items()}
+        with full_f32():
+            loss = slide_losses(cfg, forward, state, feats.to(dev), valid.to(dev),
+                                labels.to(dev))
+            grads = torch.autograd.grad(loss.sum(), list(state.values()))
+        out[dev] = (loss.detach().cpu(), [g.cpu() for g in grads])
+    assert (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == flags
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-5, atol=1e-5)
+    scale = max(float(g.abs().max()) for g in out["cpu"][1])
+    for got, want in zip(out["cuda"][1], out["cpu"][1]):
+        assert float((got - want).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("model_type", ["clam_sb", "transmil"])
+def test_mil_train_fold_epoch_on_the_card_matches_the_cpu(gen, tmp_path, model_type):
+    """One ``train_fold`` epoch (dropout off, one initial state) on the card
+    and on the CPU: the per-step losses within 1e-5, the val AUC equal."""
+    from moc_tpu_torch.data import BagLoader, SlideTable, prefetch_to_device
+    from moc_tpu_torch.data.bags import write_bag_pt
+    from moc_tpu_torch.train.mil import MilTrainConfig, build_model, train_fold
+
+    rng = np.random.default_rng(1)
+    rows = []
+    for i in range(10):
+        n = int(rng.integers(300, 900))
+        write_bag_pt(str(tmp_path / "pt_files" / f"s{i}.pt"),
+                     (rng.normal(size=(n, 512)) + 0.3 * (i % 2)).astype(np.float32))
+        rows.append({"slide_id": f"s{i}", "label": str(i % 2)})
+    table = SlideTable.from_rows(rows, {"0": 0, "1": 1})
+    parts = {"train": [f"s{i}" for i in range(6)], "val": ["s6", "s7"], "test": ["s8", "s9"]}
+    cfg = MilTrainConfig(model_type=model_type, max_epochs=1, steps_per_epoch=6, lr=1e-4)
+    init = build_model(cfg)[2]()
+    res = {}
+    for dev in ("cuda", "cpu"):
+        loaders = {k: (lambda ids=ids, dev=dev: prefetch_to_device(
+            BagLoader(table.subset_by_slide_ids(ids), str(tmp_path)).stream_batches(
+                batch_size=1, pin_memory=dev == "cuda"), dev)) for k, ids in parts.items()}
+        res[dev] = train_fold(loaders, cfg, init_params=init, dropout=False, device=dev)
+    np.testing.assert_allclose(res["cuda"].step_losses, res["cpu"].step_losses, rtol=1e-5,
+                               atol=1e-5)
+    assert res["cuda"].epoch_val_auc == res["cpu"].epoch_val_auc
+
+
+def test_mil_fused_on_the_card_matches_the_cpu(gen):
+    """Two folds of ``run_mil_folds_fused`` (TransMIL, stacked parameters,
+    grouped convolutions folded per fold) on the card and on the CPU."""
+    from moc_tpu_torch.moc.sweep import StackedEpisode
+    from moc_tpu_torch.train.mil import MilTrainConfig
+    from moc_tpu_torch.train.mil_fused import run_mil_folds_fused
+
+    rng = np.random.default_rng(2)
+
+    def split(rows):
+        feats = rng.normal(size=(2, rows, 512, 512)).astype(np.float32)
+        mask = np.ones((2, rows, 512), bool)
+        mask[:, :, 400:] = False
+        labels = np.tile(np.arange(rows) % 2, (2, 1)).astype(np.int32)
+        feats[..., 0] += labels[..., None]
+        return feats, mask, labels
+
+    ep = StackedEpisode(*split(4), *split(4), *split(4))
+    cfg = MilTrainConfig(model_type="transmil", max_epochs=2, steps_per_epoch=4)
+    res = {dev: run_mil_folds_fused(ep, cfg, device=dev, dropout=False) for dev in ("cuda", "cpu")}
+    torch.testing.assert_close(res["cuda"].losses.cpu(), res["cpu"].losses, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(res["cuda"].val_auc.cpu(), res["cpu"].val_auc)

@@ -122,8 +122,9 @@ def test_labelled_csv_bytes_match_jax_writer(study, tmp_path):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--model_kind", "mil"], "--model_kind mil.*item 8"),
-    (["--model_type", "abmil"], "--model_type.*item 8"),
+    (["--model_kind", "mil"], "--model_kind mil needs --model_type"),
+    (["--model_kind", "mil", "--model_type", "abmil", "--storage_dtype", "int8"],
+     "--storage_dtype int8 is a MOC serving tier"),
     (["--data_parallel"], "--data_parallel.*item 9"),
     (["--export_program", "p.bin"], "--export_program.*JAX package"),
     (["--from_program", "p.bin"], "--from_program.*JAX package"),
