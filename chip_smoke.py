@@ -197,6 +197,36 @@ Phases, each of which makes the script exit non-zero when it fails:
    1e-4 of the CPU, TITAN's on their first 2048 patches); one ``cli.serve
    --model_kind mil`` drain of CLAM-SB's ``.msgpack``; K1-K4 launched no
    time on the MIL path (``launches_mil`` in the kernel records).
+20. ViLa-MIL (``[vila]``, after 19, on its corpus): ``cli.train_mil.main
+   --model_type vila`` on ``cuda`` over the corpus at two scales (the large
+   scale written beside it: three quarters of each bag's rows, reordered,
+   with noise; 1500-4000 patches) with a fabricated release-layout CONCH
+   checkpoint (text tower 12 layers of 768, 12 heads, 128 tokens), 2 epochs:
+   JAX's result keys, finite AUCs, K1-K4 launched no time (ViLa is dense);
+   the step by CUDA events with a profile; a 2-layer text tower of that
+   width on the card against the CPU (first-step gradients within 1e-5 of
+   the largest |grad| or 4x the CPU's own float32 distance, a TF32 step as
+   the control that limit must catch), the trained and a seeded model's
+   logits within 1e-5 of the largest |logit|;
+21. (MoE-)LoRA (``[lora]``): ``cli.lora_finetune.main`` on ``cuda`` at
+   CONCH's trunk (448 px, patch 16, 12 layers of 768, 12 heads), rank 4 with
+   1 and 4 experts: JAX's files and keys; the slide step (16 patches) by
+   CUDA events with its peak memory and a profile; the flash trunk against
+   the dense one at [8, 12, 785, 64] f32 (logits within 1e-5 of the largest,
+   gradients within 1e-5 of the largest |grad|), K2, K3 and K4 launched 12
+   times each, counted around it (``launches_lora_flash``); both trunks
+   cast to bf16, the flash one (12 bf16 launches each) against the dense one
+   at the bf16 K2-K4 limits; a 2-layer trunk of that width on the card
+   against the CPU (with TF32 on as the control the float32 limit must
+   catch), and the trained and a seeded model's logits;
+22. the CLIP adapters (``[adapters]``): ``ClipAdapter``, ``TipAdapter``,
+   ``MoEClipAdapter`` (switch gate, balance loss), ``AMUAdapter`` and
+   ``zero_shot_pooled`` on a [16384, 512] bag, C = 2, top-j 10, forward and
+   backward on the card against the CPU (within 1e-5), K1's column entry
+   launched once a pooling, AMU twice (``launches_adapters``); each by CUDA
+   events, and K1 at [16384, 2] k=10;
+23. chunked-bag accumulation (``[accum]``): ``streaming_attention_pool`` on
+   [16384, 512] in chunks of 2048, with and without remat, card against CPU.
 
 The last lines are the card's name and power limit, one JSON object of
 kernel records, and ``{"ok": true, "device": {...}}``. No phase falls back
@@ -3288,6 +3318,637 @@ def phase_zeroshot_main_moc(root: str, ckpt: str) -> dict:
             "bags_write_s": write_s}
 
 
+
+# --------------------------------------------- ViLa, the adapters, LoRA, accum
+
+VILA_EPOCHS = 2
+VILA_ARGV = [*MIL_ARGV[:-2], "--max_epochs", str(VILA_EPOCHS), "--model_type", "vila"]
+VILA_RESULT_KEYS = ["val_auc", "test_auc", "test_acc", "stop_epoch", "model_type", "n_classes"]
+NARROW_LAYERS = 2  # the depth of the card-against-CPU runs, at the full width
+# LoRA: the JAX CLI's flags at CONCH's trunk (448 px, patch 16, 12 layers of 768, 12
+# heads: [8, 12, 785, 64] a minibatch), rank 4; 16 patches a slide keep every
+# minibatch's activations for the backward within the card's memory
+LORA_ARGV = ["--image_size", "448", "--patch_size", "16", "--dim", "768", "--layers", "12",
+             "--heads", "12", "--lora_rank", "4", "--epochs", "1", "--slides_per_class", "2",
+             "--val_per_class", "2", "--patches_per_slide", "16", "--minibatch", "8",
+             "--seed", "0"]
+LORA_EXPERTS = (1, 4)
+LORA_KEYS = ["best_val_auc", "lora_rank", "lora_experts", "balance_coef", "epochs"]
+ADAPTER_VALID, ADAPTER_TOPJ, ADAPTER_AUX = 12000, 10, 1024
+
+
+def _grad_err(card: list, cpu: list) -> tuple[float, float]:
+    """(max |card - cpu| over every gradient, the largest |cpu grad|)."""
+    scale = max(float(g.abs().max()) for g in cpu)
+    return max(float((a.cpu() - b).abs().max()) for a, b in zip(card, cpu)), scale
+
+
+# a first step's card-against-CPU check in float64: the same code on both
+# devices, free of f32's rounding order, so a wrong operation shows far
+# above it
+F64_GRAD_REL = 1e-9
+
+
+def _first_step_parity(model0: torch.nn.Module, loss_of, what: str) -> dict:
+    """One first step of ``model0`` on the card and the CPU:
+    ``loss_of(model, device, dtype)`` moves its inputs there, runs the
+    forward and returns the loss (freezing what it must first). In float64
+    the card's loss and gradients must be within ``F64_GRAD_REL`` of the
+    CPU's (relative to the largest |grad|). In float32 (TF32 off) the
+    card's gradients are held against the float64 CPU reference: within
+    1e-5 of the largest |grad|, or no farther from it than 4x the float32
+    CPU's own distance (a sum of cancelling terms, such as a bias feeding a
+    LayerNorm, keeps a relative rounding error of ~1e-4 on either device).
+    The control: the float32 step on the card once more with TF32 allowed,
+    which must land past that limit, else the limit cannot see a forward or
+    backward left in TF32."""
+    import copy
+
+    from moc_tpu_torch.models.layers import full_f32
+
+    runs = {}
+    for dtype in (torch.float64, torch.float32):
+        for dev in ("cuda", "cpu"):
+            m = copy.deepcopy(model0).to(device=dev, dtype=dtype)
+            with full_f32():
+                loss = loss_of(m, dev, dtype)
+                loss.backward()
+            runs[dev, dtype] = (float(loss.detach()),
+                                [p.grad.detach().cpu().double() for p in m.parameters()
+                                 if p.requires_grad])
+    f64_err, scale = _grad_err(runs["cuda", torch.float64][1], runs["cpu", torch.float64][1])
+    f64_loss = abs(runs["cuda", torch.float64][0] - runs["cpu", torch.float64][0])
+    ref = runs["cpu", torch.float64][1]
+    card32, _ = _grad_err(runs["cuda", torch.float32][1], ref)
+    cpu32, _ = _grad_err(runs["cpu", torch.float32][1], ref)
+    loss32 = abs(runs["cuda", torch.float32][0] - runs["cpu", torch.float32][0])
+    check(f64_err <= F64_GRAD_REL * scale and f64_loss <= F64_GRAD_REL * max(1.0, abs(
+        runs["cpu", torch.float64][0])), f"{what} first step in float64 card/CPU: gradients "
+          f"{f64_err:.3e} (largest {scale:.3e}), loss {f64_loss:.3e}")
+    m = copy.deepcopy(model0).to(device="cuda", dtype=torch.float32)
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        loss_of(m, "cuda", torch.float32).backward()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    tf32, _ = _grad_err([p.grad.detach().cpu().double() for p in m.parameters()
+                         if p.requires_grad], ref)
+    limit = max(1e-5 * scale, 4 * cpu32)
+    check(card32 <= limit,
+          f"{what} first step in float32: the card's gradients {card32:.3e} from the float64 "
+          f"reference, the CPU's {cpu32:.3e} (largest |grad| {scale:.3e})")
+    check(tf32 > limit, f"{what} first step with TF32 on: gradients {tf32:.3e} from the "
+          f"float64 reference, within the float32 limit {limit:.3e}, which then cannot see "
+          f"the precision")
+    return {"f64_grad_err": f64_err, "grad_scale": scale, "f64_loss_err": f64_loss,
+            "f32_card_err": card32, "f32_cpu_err": cpu32, "f32_loss_err": loss32,
+            "f32_limit": limit, "tf32_control_err": tf32}
+
+
+def _write_large_scale(root: str) -> tuple[str, int]:
+    """ViLa's second scale beside the MIL corpus: each slide's bag of its
+    small-scale rows in a seeded order, three quarters of them (at least
+    1500), plus noise of 0.05. Returns the dir and the bag count."""
+    from moc_tpu_torch.cli import main_moc
+    from moc_tpu_torch.data import SlideTable
+    from moc_tpu_torch.data.bags import read_bag_pt, write_bag_pt
+
+    corpus = main_moc._synthetic_setup(main_moc.get_args(
+        [*TRAIN_ARGV, "--result_dir", os.path.join(root, "moc_train")]))
+    table = SlideTable.from_csv(corpus["csv_path"], corpus["label_dict"])
+    out = os.path.join(root, "vila_large")
+    rng = np.random.default_rng(5)
+    for sid in table.slide_ids_:
+        f = read_bag_pt(os.path.join(corpus["data_dir"], "pt_files", f"{sid}.pt")).features
+        n = max(TRAIN_PATCHES[0], 3 * len(f) // 4)
+        rows = f[rng.permutation(len(f))[:n]] + 0.05 * rng.normal(size=(n, f.shape[1]))
+        write_bag_pt(os.path.join(out, "pt_files", f"{sid}.pt"), rows.astype(np.float32))
+    return out, len(table.slide_ids_)
+
+
+def phase_vila(root: str) -> dict:
+    """ViLa-MIL (``[vila]``): ``cli.train_mil.main --model_type vila`` on the
+    card over the MIL corpus at two scales (1500-4000-patch bags), with a
+    release-layout CONCH checkpoint fabricated from seed 4 (text tower at the
+    release width: 12 layers of 768, 12 heads, 128 tokens, vocabulary 32007;
+    its vision trunk narrowed, as ViLa reads only the text tower): JAX's file
+    names and keys, finite AUCs, no kernel of the port launched (ViLa is
+    dense, as in JAX); the step by CUDA events with a profile, the fold's
+    wall; the first step's loss and gradients at a 2-layer text tower of the
+    same width on the card against the CPU (within 1e-5 of the largest
+    |grad|), and the trained and the seeded model's logits on test bags."""
+    import copy
+    import dataclasses
+
+    from moc_tpu_torch.cli import train_mil
+    from moc_tpu_torch.convert import from_jax
+    from moc_tpu_torch.data.vila_data import DualScaleLoader
+    from moc_tpu_torch.models.layers import full_f32
+    from moc_tpu_torch.models.vila import (PromptTensors, ViLaMIL, VilaConfig,
+                                           build_prompt_constants)
+    from moc_tpu_torch.train.vila import graft_text_params, vila_loss
+    from moc_tpu_torch.utils.checkpoint import load_params
+    from moc_tpu_torch.zeroshot.convert import random_conch_state_dict
+    from moc_tpu_torch.zeroshot.text_tower import TextConfig
+    from moc_tpu_torch.zeroshot.tokenizer import ConchTokenizer
+    from moc_tpu_torch.zeroshot.vision_tower import VisionConfig
+
+    t_phase = time.perf_counter()
+    _mil_corpus(root)
+    data_l, n_bags = _write_large_scale(root)
+    ckpt = os.path.join(root, "conch_vila.bin")
+    torch.save(random_conch_state_dict(
+        VisionConfig(image_size=32, patch_size=16, width=64, layers=1, heads=1,
+                     embed_dim_contrast=512, embed_dim_caption=64, n_queries_caption=4),
+        seed=4, text=TextConfig()), ckpt)
+    argv = [*VILA_ARGV, "--data_dir_l", data_l, "--conch_checkpoint", ckpt, "--result_dir",
+            os.path.join(root, "moc_train"), "--device", "cuda"]
+    _reset_launches()
+    rc, stdout, wall = _run_train_mil(argv)
+    launches = _all_launches()
+    check(rc == 0, f"train_mil vila returned {rc}")
+    path = os.path.join(root, "moc_train", f"vila_shot_{TRAIN_SHOT}_fold_0.json")
+    with open(path) as f:
+        payload = json.load(f)
+    check(list(payload) == VILA_RESULT_KEYS, f"vila result keys {list(payload)}")
+    check(all(math.isfinite(payload[k]) for k in ("val_auc", "test_auc", "test_acc")),
+          f"vila: non-finite metrics {payload}")
+    msgpack = path[:-len(".json")] + ".msgpack"
+    check(os.path.exists(msgpack), "vila: no .msgpack")
+    check(not any(launches.values()), f"the ViLa path launched the port's kernels: {launches}")
+    val_aucs = [float(line.split("auc=")[1].split()[0]) for line in stdout.splitlines()
+                if line.startswith("epoch ")]
+    log(f"[vila] train_mil --model_type vila on cuda ({VILA_EPOCHS} epochs of {TRAIN_VISITS} "
+        f"steps, {n_bags} large-scale bags beside the small): fold wall {wall:.2f}s, val AUC by "
+        f"epoch {val_aucs}, test AUC at best val {payload['test_auc']:.4f}, test acc "
+        f"{payload['test_acc']:.4f}; K1-K4 launches {launches}")
+
+    args = train_mil.get_args(argv)
+    table, data_dir, split, n_classes = train_mil._resolve_dataset(args, TRAIN_SHOT, 0)
+    loader = DualScaleLoader(table, data_dir, data_l)
+    bags = {k: loader.read_all(getattr(split, k)[:4]) for k in ("train", "test")}
+    text_cfg, token_table, text_params = train_mil.vila_text_setup(args, DIM)
+    prompts = build_prompt_constants(token_table, ConchTokenizer(),
+                                     train_mil.vila_prompts(args, n_classes))
+    cfg = VilaConfig(n_classes=n_classes, input_size=DIM, text=text_cfg)
+    check(text_cfg.width == 768 and text_cfg.layers == 12 and text_cfg.heads == 12,
+          f"text config {text_cfg}")
+    prompts_card = PromptTensors.of(prompts, "cuda")
+
+    model = ViLaMIL(cfg, torch.Generator().manual_seed(1), draw_text=False)
+    graft_text_params(model, text_params)
+    seeded = copy.deepcopy(model)
+    model = model.cuda()
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-5)
+    bag = bags["train"][0].to("cuda")
+
+    def step():
+        with full_f32():
+            loss = vila_loss(model, bag, prompts_card)
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+        opt.step()
+
+    step_ms = _time_ms(step, iters=20, warmup=3)
+    prof = phase_profile(step, steps=5, what="step")
+    log(f"[vila] the slide step (text tower 12 x 768 on 4 prompts of 128 tokens, both scales "
+        f"of a {bag.feats_s.shape[0]}/{bag.feats_l.shape[0]}-row bag, AdamW) {step_ms:.2f} ms "
+        f"by CUDA events; busy {100 * prof.get('busy', float('nan')):.1f}%")
+
+    # the card against the CPU at a 2-layer text tower of the same width
+    narrow = VilaConfig(n_classes=n_classes, input_size=DIM,
+                        text=dataclasses.replace(text_cfg, layers=NARROW_LAYERS))
+    base = ViLaMIL(narrow, torch.Generator().manual_seed(2), draw_text=False)
+    graft_text_params(base, {k: v for k, v in text_params.items()
+                             if not k.startswith("transformer.resblocks.")
+                             or int(k.split(".")[2]) < NARROW_LAYERS})
+    train_bag = bags["train"][0]
+
+    def vila_first(m, dev, dtype):
+        pt = PromptTensors.of(prompts, dev)
+        pt.token_prefix, pt.token_suffix = pt.token_prefix.to(dtype), pt.token_suffix.to(dtype)
+        b = train_bag.to(dev)
+        b.feats_s, b.feats_l = b.feats_s.to(dtype), b.feats_l.to(dtype)
+        return vila_loss(m, b, pt)
+
+    first = _first_step_parity(base, vila_first, "vila")
+    logit_errs = {}
+    trained = from_jax(ViLaMIL(cfg), load_params(msgpack))
+    for name, m in (("trained", trained), ("seeded", seeded)):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            md = copy.deepcopy(m).to(dev).eval()
+            with torch.no_grad(), full_f32():
+                out[dev] = torch.stack([md(b.feats_s.to(dev), b.mask_s.to(dev),
+                                           b.feats_l.to(dev), b.mask_l.to(dev),
+                                           PromptTensors.of(prompts, dev))["logits"]
+                                        for b in bags["test"][:2]])
+        logit_errs[name] = _rel_err(out["cuda"], out["cpu"])
+        check(logit_errs[name] <= MIL_LOGIT_RTOL,
+              f"vila {name} logits card/CPU differ by {logit_errs[name]:.3e} of the largest")
+    log(f"[vila] card vs CPU, first step at {NARROW_LAYERS} text layers of 768: float64 "
+        f"gradients max |diff| {first['f64_grad_err']:.3e} (largest |grad| "
+        f"{first['grad_scale']:.3e}), loss {first['f64_loss_err']:.3e}; float32 gradients from "
+        f"the float64 reference: card {first['f32_card_err']:.3e}, CPU "
+        f"{first['f32_cpu_err']:.3e} (limit {first['f32_limit']:.3e}), TF32 on "
+        f"{first['tf32_control_err']:.3e}, loss card/CPU {first['f32_loss_err']:.3e}; "
+        f"logits of 2 test bags (12 layers), trained {logit_errs['trained']:.3e} and seeded "
+        f"{logit_errs['seeded']:.3e} of the largest |logit| (limit {MIL_LOGIT_RTOL})")
+    del model, opt, trained, seeded
+    torch.cuda.empty_cache()
+    res = {"wall_s": wall, "result": payload, "epoch_val_auc": val_aucs, "step_ms": step_ms,
+           "busy": prof.get("busy"), "kernels_a_step": prof.get("kernels"),
+           "first_step": first, "logit_err": logit_errs, "launches": launches,
+           "phase_s": time.perf_counter() - t_phase}
+    log(f"[vila] phase wall {res['phase_s']:.1f}s")
+    return res
+
+
+def _adapter_modules() -> dict:
+    """Each adapter at the serving point's width, drawn from seeded CPU
+    generators; ``zero_shot`` has no module."""
+    from moc_tpu_torch.models import adapters as ad
+
+    cfg = ad.AdapterConfig(c_in=DIM, n_classes=N_CLASSES, topj=ADAPTER_TOPJ)
+
+    def g(seed):
+        return torch.Generator().manual_seed(seed)
+
+    return {"clip": ad.ClipAdapter(cfg, g(1)), "tip": ad.TipAdapter(cfg, generator=g(2)),
+            "moe": ad.MoEClipAdapter(cfg, 5, use_switch_gate=True, use_balance_loss=True,
+                                     generator=g(3)),
+            "amu": ad.AMUAdapter(cfg, ADAPTER_AUX, 0.1, "entropy", generator=g(4)),
+            "zero_shot": None}
+
+
+def phase_adapters() -> dict:
+    """The CLIP adapters (``[adapters]``) at the serving point, one bag of
+    [16384, 512] (12000 valid), C = 2, top-j 10: each forward and backward
+    on the card against the CPU (pooled outputs within 1e-5 of the largest
+    |value|, gradients of the features and the parameters within 1e-5 of
+    the largest |grad|), K1's column entry launched once a pooling (AMU
+    twice), counted around the card's run; each forward + backward by CUDA
+    events; K1 at [16384, 2] k=10."""
+    import copy
+
+    from moc_tpu_torch.models import adapters as ad
+    from moc_tpu_torch.models.layers import full_f32
+
+    cpu = torch.Generator().manual_seed(6)
+    feats = torch.randn(N_PAD, DIM, generator=cpu)
+    valid = torch.arange(N_PAD) < ADAPTER_VALID
+    aux = torch.randn(N_PAD, ADAPTER_AUX, generator=cpu)
+    clf = torch.nn.functional.normalize(torch.randn(DIM, N_CLASSES, generator=cpu), dim=0)
+    on = {dev: (feats.to(dev), valid.to(dev), aux.to(dev), clf.to(dev)) for dev in ("cuda", "cpu")}
+
+    def run(name, module, dev):
+        f, v, a, c = on[dev]
+        x = f.clone().requires_grad_()
+        with full_f32():
+            if name == "zero_shot":
+                y = ad.zero_shot_pooled(x, v, c, ADAPTER_TOPJ)
+            elif name == "amu":
+                y = module(x, v, a, c)
+            else:
+                y = module(x, v, c)
+            ys = y if isinstance(y, tuple) else (y,)
+            sum((t * (i + 1)).sum() for i, t in enumerate(ys)).backward()
+        grads = [x.grad] + ([] if module is None else [p.grad for p in module.parameters()])
+        return [t.detach() for t in ys], grads
+
+    res = {"adapters": {}, "launches": {}}
+    for name, module in _adapter_modules().items():
+        card = None if module is None else copy.deepcopy(module).cuda()
+        _reset_launches()
+        ys, grads = run(name, card, "cuda")
+        torch.cuda.synchronize()
+        launches = _all_launches()
+        want = 2 if name == "amu" else 1
+        check(launches["cols"] == want and launches["rows"] == 0
+              and not any(launches[k] for k in ("K2", "K3", "K4")),
+              f"adapter {name} launched {launches}, not {want} K1 column launch(es)")
+        res["launches"][name] = launches["cols"]
+        ys_cpu, grads_cpu = run(name, module, "cpu")
+        out_err = max(_rel_err(a, b) for a, b in zip(ys, ys_cpu))
+        grad_err, scale = _grad_err(grads, grads_cpu)
+        check(out_err <= 1e-5 and grad_err <= 1e-5 * scale,
+              f"adapter {name} card/CPU: outputs {out_err:.3e}, gradients {grad_err:.3e} "
+              f"(largest {scale:.3e})")
+        if card is not None:
+            card.zero_grad(set_to_none=True)
+        ms = _time_ms(lambda: run(name, card, "cuda"), iters=20, warmup=3)
+        res["adapters"][name] = {"out_err": out_err, "grad_err": grad_err, "grad_scale": scale,
+                                 "fwd_bwd_ms": ms, "k1_launches": launches["cols"]}
+        log(f"[adapters] {name} at [{N_PAD}, {DIM}] ({ADAPTER_VALID} valid), C={N_CLASSES}, "
+            f"top-j {ADAPTER_TOPJ}: forward + backward {ms:.3f} ms by CUDA events; K1 column "
+            f"launches {launches['cols']}; card vs CPU outputs {out_err:.3e} of the largest, "
+            f"gradients {grad_err:.3e} (largest |grad| {scale:.3e})")
+    res["k1"] = _k1_at_shapes((("cols", (N_PAD, N_CLASSES), ADAPTER_TOPJ),), seed=6)["cols"][0]
+    return res
+
+
+def _lora_slide(args, seed: int):
+    from moc_tpu_torch.cli import lora_finetune
+
+    imgs, valid, label = lora_finetune.synthetic_bags(args, np.random.default_rng(seed), 1)[0]
+    return torch.from_numpy(imgs), torch.from_numpy(valid), label
+
+
+def _lora_randomized(model, seed: int):
+    """``model`` with its zero-initialised LoRA B matrices and router drawn
+    at random, so that the low-rank paths change the output."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            if n.rsplit(".", 1)[-1].startswith(("lora_b", "lora_moe_b", "lora_router")):
+                p.copy_(torch.randn(p.shape, generator=g) * 0.05)
+    return model
+
+
+def phase_lora(root: str) -> dict:
+    """(MoE-)LoRA fine-tuning (``[lora]``): ``cli.lora_finetune.main`` on the
+    card at CONCH's trunk width (448 px, patch 16, 12 layers of 768, 12
+    heads), rank 4 with 1 and with 4 experts, 1 epoch over 4 synthetic
+    slides of 16 patches (minibatch 8) and 4 val slides: JAX's file names
+    and keys, finite AUC; the slide step by CUDA events with a profile, its
+    peak memory; the flash trunk (K2 forward, K3/K4 backward at [8, 12, 785,
+    64] f32) against the dense trunk on the card at the f32 K2-K4 limits,
+    K2, K3 and K4 launched 12 times each, counted around it, and both cast to
+    bf16 at the bf16 limits; a 2-layer trunk of the same width on the card
+    against the CPU (first-step loss and gradients, with a TF32 control);
+    the trained and a seeded model's logits."""
+    import contextlib
+    import copy
+    import io
+
+    from moc_tpu_torch.cli import lora_finetune
+    from moc_tpu_torch.convert import from_jax
+    from moc_tpu_torch.models.layers import full_f32, softmax_cross_entropy
+    from moc_tpu_torch.models.lora import init_patch_classifier, lora_optimizer
+    from moc_tpu_torch.train.lora_finetune import (LoraFinetuneConfig, make_lora_train_step,
+                                                   streamed_slide_logits)
+    from moc_tpu_torch.utils.checkpoint import load_params
+
+    t_phase = time.perf_counter()
+    res = {"cli": {}, "step": {}, "parity": {}}
+    for e in LORA_EXPERTS:
+        out_dir = os.path.join(root, "lora")
+        argv = [*LORA_ARGV, "--lora_experts", str(e), "--result_dir", out_dir, "--device", "cuda"]
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = lora_finetune.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(rc == 0, f"lora_finetune e={e} returned {rc}")
+        launches = _all_launches()
+        check(not any(launches.values()), f"the dense LoRA CLI launched {launches}")
+        with open(os.path.join(out_dir, f"lora_r4_e{e}.json")) as f:
+            payload = json.load(f)
+        check(list(payload) == LORA_KEYS and math.isfinite(payload["best_val_auc"]),
+              f"lora e={e} result {payload}")
+        check(os.path.exists(os.path.join(out_dir, f"lora_r4_e{e}.msgpack")), "no .msgpack")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        res["cli"][e] = {"wall_s": wall, "best_val_auc": payload["best_val_auc"],
+                         "peak_gib": peak}
+        log(f"[lora] lora_finetune rank 4, {e} expert(s), on cuda: wall {wall:.2f}s, best val "
+            f"AUC {payload['best_val_auc']:.4f}, peak {peak:.2f} GiB allocated")
+
+        args = lora_finetune.get_args(argv)
+        model = init_patch_classifier(lora_finetune.build_model(args),
+                                      torch.Generator().manual_seed(0)).cuda()
+        coef = args.balance_coef if e > 1 else 0.0
+        cfg = LoraFinetuneConfig(minibatch=args.minibatch, learning_rate=args.lr,
+                                 balance_coef=coef)
+        step, _ = make_lora_train_step(lora_finetune.make_encode(model, coef), cfg, model)
+        x, v, y = _lora_slide(args, 11)
+        x, v = x.cuda(), v.cuda()
+
+        def train_step():
+            with full_f32():
+                step(x, v, y)
+
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = _time_ms(train_step, iters=5, warmup=1)
+        step_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        prof = phase_profile(train_step, steps=2, what="step")
+        res["step"][e] = {"ms": step_ms, "peak_gib": step_peak, "busy": prof.get("busy"),
+                          "kernels": prof.get("kernels")}
+        log(f"[lora] slide step ({args.patches_per_slide} patches, 2 minibatches of 8 at "
+            f"448 px, 12 layers of 768, {e} expert(s), TF32 off): {step_ms:.1f} ms by CUDA "
+            f"events, peak {step_peak:.2f} GiB, busy {100 * prof.get('busy', float('nan')):.1f}%")
+        del model, step
+        torch.cuda.empty_cache()
+
+    # the flash trunk against the dense trunk: one state, one minibatch of 8
+    args = lora_finetune.get_args([*LORA_ARGV, "--result_dir", root])
+    x8 = _lora_slide(args, 12)[0][:8].cuda()
+    base = _lora_randomized(init_patch_classifier(lora_finetune.build_model(args),
+                                                  torch.Generator().manual_seed(3)), 4)
+    runs = {}
+    for impl in ("dense", "flash"):
+        m = lora_finetune.build_model(args, attn_impl=impl)
+        m.load_state_dict(base.state_dict())
+        m = m.cuda()
+        lora_optimizer(m, 1e-3, ("head",))
+
+        def fwd_bwd(m=m):
+            with full_f32():
+                (m(x8) * torch.tensor([1.0, -1.5], device="cuda")).sum().backward()
+
+        _reset_launches()
+        with full_f32():
+            logits = m(x8)
+            (logits * torch.tensor([1.0, -1.5], device="cuda")).sum().backward()
+        torch.cuda.synchronize()
+        launches = _all_launches()
+        grads = [p.grad.detach().clone() for p in m.parameters() if p.requires_grad]
+        m.zero_grad(set_to_none=True)
+        runs[impl] = {"logits": logits.detach(), "grads": grads, "launches": launches,
+                      "ms": _time_ms(fwd_bwd, iters=5, warmup=1)}
+        del m
+        torch.cuda.empty_cache()
+    fl = runs["flash"]["launches"]
+    check(fl["K2"] == fl["K3"] == fl["K4"] == TRUNK_LAYERS and fl["rows"] == fl["cols"] == 0,
+          f"the flash LoRA trunk launched {fl}, not {TRUNK_LAYERS} of each of K2, K3, K4")
+    check(not any(runs["dense"]["launches"].values()), "the dense trunk launched kernels")
+    fwd_err = _rel_err(runs["flash"]["logits"], runs["dense"]["logits"])
+    dense_grads = [g.cpu() for g in runs["dense"]["grads"]]
+    bwd_err, bwd_scale = _grad_err(runs["flash"]["grads"], dense_grads)
+    check(fwd_err <= F32_FWD_MAX_REL and bwd_err <= F32_BWD_MAX_REL * bwd_scale,
+          f"flash LoRA trunk against dense: logits {fwd_err:.3e}, gradients {bwd_err:.3e} "
+          f"(largest {bwd_scale:.3e})")
+    res["flash"] = {"launches": fl, "fwd_err": fwd_err, "bwd_err": bwd_err,
+                    "bwd_scale": bwd_scale, "flash_ms": runs["flash"]["ms"],
+                    "dense_ms": runs["dense"]["ms"]}
+    log(f"[lora] flash trunk vs dense on the card (8 images, [8, {HEADS}, {TOKENS}, "
+        f"{HEAD_DIM}] f32, 12 layers, rank 4): logits {fwd_err:.3e} of the largest (limit "
+        f"{F32_FWD_MAX_REL}), gradients {bwd_err / bwd_scale:.3e} of the largest |grad| "
+        f"{bwd_scale:.3e} (limit {F32_BWD_MAX_REL}); K2/K3/K4 launches "
+        f"{fl['K2']}/{fl['K3']}/{fl['K4']}; forward + backward {runs['flash']['ms']:.1f} ms "
+        f"flash, {runs['dense']['ms']:.1f} ms dense (CUDA events)")
+    # both trunks cast to bf16 from the same state: K2, K3 and K4 in their bf16
+    # tier against the dense trunk in bf16, at the bf16 K2-K4 limits (largest
+    # and mean |flash - dense|); each one's distance from the f32 dense trunk
+    # is printed beside them
+    w16 = torch.tensor([1.0, -1.5], device="cuda")
+    runs16 = {}
+    for impl in ("dense", "flash"):
+        m = lora_finetune.build_model(args, attn_impl=impl)
+        m.load_state_dict(base.state_dict())
+        m = m.to("cuda", torch.bfloat16)
+        lora_optimizer(m, 1e-3, ("head",))
+
+        def fwd_bwd16(m=m):
+            (m(x8.bfloat16()).float() * w16).sum().backward()
+
+        _reset_launches()
+        logits16 = m(x8.bfloat16())
+        (logits16.float() * w16).sum().backward()
+        torch.cuda.synchronize()
+        launches = _all_launches()
+        grads16 = [p.grad.float() for p in m.parameters() if p.requires_grad]
+        m.zero_grad(set_to_none=True)
+        runs16[impl] = {"logits": logits16.detach().float(), "grads": grads16,
+                        "launches": launches, "ms": _time_ms(fwd_bwd16, iters=5, warmup=1)}
+        del m
+        torch.cuda.empty_cache()
+    l16 = runs16["flash"]["launches"]
+    check(l16["K2"] == l16["K3"] == l16["K4"] == TRUNK_LAYERS and l16["rows"] == l16["cols"] == 0,
+          f"the bf16 flash LoRA trunk launched {l16}")
+    check(not any(runs16["dense"]["launches"].values()), "the bf16 dense trunk launched kernels")
+    f16, d16 = runs16["flash"], runs16["dense"]
+    check(all(bool(torch.isfinite(t).all())
+              for r in (f16, d16) for t in [r["logits"], *r["grads"]]),
+          "a bf16 LoRA trunk gave non-finite logits or gradients")
+    g16_scale = max(float(g.abs().max()) for g in d16["grads"])
+    flat_f, flat_d = (torch.cat([g.flatten() for g in r["grads"]]) for r in (f16, d16))
+    bf = {"fwd_err": _rel_err(f16["logits"], d16["logits"]),
+          "fwd_mean_rel": _mean_rel(f16["logits"], d16["logits"], torch.bfloat16,
+                                    "bf16 flash LoRA trunk logits against the bf16 dense trunk"),
+          "bwd_err": max(float((a - b).abs().max()) for a, b in zip(f16["grads"], d16["grads"]))
+          / g16_scale,
+          "bwd_mean_rel": _mean_rel(flat_f, flat_d, torch.bfloat16,
+                                    "bf16 flash LoRA trunk gradients against the bf16 dense trunk"),
+          "bwd_scale": g16_scale}
+    check(bf["fwd_err"] <= K2_TOL[torch.bfloat16] and bf["bwd_err"] <= BWD_TOL[torch.bfloat16],
+          f"bf16 flash LoRA trunk against the bf16 dense trunk: logits {bf['fwd_err']:.3e} of "
+          f"the largest (limit {K2_TOL[torch.bfloat16]}), gradients {bf['bwd_err']:.3e} of the "
+          f"largest |grad| (limit {BWD_TOL[torch.bfloat16]})")
+    for name, r in (("flash", f16), ("dense", d16)):
+        bf[f"{name}_fwd_err_vs_f32"] = _rel_err(r["logits"], runs["dense"]["logits"])
+        bf[f"{name}_bwd_err_vs_f32"] = _grad_err(r["grads"], dense_grads)[0] / bwd_scale
+    res["flash_bf16"] = {"launches": l16, "ms": f16["ms"], "dense_ms": d16["ms"], **bf}
+    log(f"[lora] the trunks in bf16 (K2/K3/K4 launches {l16['K2']}/{l16['K3']}/{l16['K4']}): "
+        f"flash against dense, logits {bf['fwd_err']:.3e} of the largest (limit "
+        f"{K2_TOL[torch.bfloat16]}), mean {bf['fwd_mean_rel']:.3e} (limit {BF16_MEAN_REL}); "
+        f"gradients {bf['bwd_err']:.3e} of the largest |grad| {g16_scale:.3e} (limit "
+        f"{BWD_TOL[torch.bfloat16]}), mean {bf['bwd_mean_rel']:.3e}; from the f32 dense trunk: "
+        f"flash {bf['flash_fwd_err_vs_f32']:.3e} / {bf['flash_bwd_err_vs_f32']:.3e}, dense "
+        f"{bf['dense_fwd_err_vs_f32']:.3e} / {bf['dense_bwd_err_vs_f32']:.3e} (logits / "
+        f"gradients); forward + backward {f16['ms']:.1f} ms flash, {d16['ms']:.1f} ms dense")
+
+    # the card against the CPU: a 2-layer trunk of the same width, one slide
+    # of 4 patches (two minibatches of 2, so the queue merges twice)
+    x, v, y = _lora_slide(args, 13)
+    x, v = x[:4], v[:4]
+    for e in LORA_EXPERTS:
+        nargs = lora_finetune.get_args([*LORA_ARGV, "--layers", str(NARROW_LAYERS),
+                                        "--lora_experts", str(e), "--result_dir", root])
+        coef = nargs.balance_coef if e > 1 else 0.0
+        cfg = LoraFinetuneConfig(queue_size=3, minibatch=2, balance_coef=coef)
+        m0 = _lora_randomized(init_patch_classifier(lora_finetune.build_model(nargs),
+                                                    torch.Generator().manual_seed(5)), 6)
+
+        def lora_first(m, dev, dtype, coef=coef, cfg=cfg):
+            lora_optimizer(m, 1e-3, ("head",))
+            out = streamed_slide_logits(lora_finetune.make_encode(m, coef), x.to(dev, dtype),
+                                        v.to(dev), cfg, with_aux=coef > 0)
+            logits, bal = out if coef > 0 else (out, 0.0)
+            return softmax_cross_entropy(logits[None], torch.tensor([y], device=dev))[0] \
+                + coef * bal
+
+        res["parity"][e] = _first_step_parity(m0, lora_first, f"lora e={e}")
+        p = res["parity"][e]
+        log(f"[lora] card vs CPU, first step of {NARROW_LAYERS} layers of 768 at 448 px (4 "
+            f"patches), {e} expert(s): float64 gradients {p['f64_grad_err']:.3e} (largest |grad| "
+            f"{p['grad_scale']:.3e}), loss {p['f64_loss_err']:.3e}; float32 gradients from the "
+            f"float64 reference: card {p['f32_card_err']:.3e}, CPU {p['f32_cpu_err']:.3e} "
+            f"(limit {p['f32_limit']:.3e}), TF32 on {p['tf32_control_err']:.3e}")
+    # logits of the trained (the CLI's best, 1 expert) and a seeded model
+    trained = from_jax(lora_finetune.build_model(args),
+                       load_params(os.path.join(root, "lora", "lora_r4_e1.msgpack")))
+    seeded = init_patch_classifier(lora_finetune.build_model(args),
+                                   torch.Generator().manual_seed(8))
+    res["logit_err"] = {}
+    for name, m in (("trained", trained), ("seeded", seeded)):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            with torch.no_grad(), full_f32():
+                out[dev] = copy.deepcopy(m).to(dev)(x[:1].to(dev))
+        res["logit_err"][name] = _rel_err(out["cuda"], out["cpu"])
+        check(res["logit_err"][name] <= MIL_LOGIT_RTOL,
+              f"lora {name} logits card/CPU {res['logit_err'][name]:.3e} of the largest")
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"[lora] logits of one image (12 layers) card vs CPU: trained "
+        f"{res['logit_err']['trained']:.3e}, seeded {res['logit_err']['seeded']:.3e} of the "
+        f"largest |logit|; phase wall {res['phase_s']:.1f}s")
+    return res
+
+
+def phase_accum() -> dict:
+    """Chunked-bag accumulation (``[accum]``): ``streaming_attention_pool``
+    over a [16384, 512] bag (12000 valid) in chunks of 2048 through a
+    512-256-256 GELU encoder, with and without remat, on the card against
+    the CPU (pooled embedding, logsumexp and the encoder's gradients within
+    1e-5), and its forward + backward by CUDA events."""
+    import copy
+
+    from moc_tpu_torch.models.layers import full_f32
+    from moc_tpu_torch.train.accum import chunk_bag, streaming_attention_pool
+
+    cpu = torch.Generator().manual_seed(9)
+    feats = torch.randn(N_PAD, DIM, generator=cpu)
+    valid = torch.arange(N_PAD) < ADAPTER_VALID
+    enc = torch.nn.Sequential(torch.nn.Linear(DIM, 256), torch.nn.GELU(), torch.nn.Linear(256, 256))
+    score = torch.nn.Linear(256, 1)
+    with torch.no_grad():
+        for p in (*enc.parameters(), *score.parameters()):
+            p.copy_(torch.randn(p.shape, generator=cpu) * p.shape[-1] ** -0.5)
+    res = {}
+    for remat in (True, False):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            e, s = copy.deepcopy(enc).to(dev), copy.deepcopy(score).to(dev)
+
+            def run(e=e, s=s, dev=dev):
+                with full_f32():
+                    pooled, lse = streaming_attention_pool(
+                        e, s, *chunk_bag(feats.to(dev), valid.to(dev), 2048), remat=remat)
+                    (pooled.sum() + lse).backward()
+                return pooled, lse
+
+            pooled, lse = run()
+            out[dev] = ([pooled.detach(), lse.detach()],
+                        [p.grad.cpu() for p in (*e.parameters(), *s.parameters())])
+            if dev == "cuda":
+                ms = _time_ms(run, iters=10, warmup=2)
+        val_err = max(_rel_err(a, b) for a, b in zip(*(out[d][0] for d in ("cuda", "cpu"))))
+        grad_err, scale = _grad_err(out["cuda"][1], out["cpu"][1])
+        check(val_err <= 1e-5 and grad_err <= 1e-5 * scale,
+              f"accum remat={remat} card/CPU: values {val_err:.3e}, gradients {grad_err:.3e}")
+        res["remat" if remat else "plain"] = {"val_err": val_err, "grad_err": grad_err,
+                                              "grad_scale": scale, "ms": ms}
+        log(f"[accum] streaming_attention_pool [{N_PAD}, {DIM}] in chunks of 2048, remat "
+            f"{remat}: forward + backward {ms:.3f} ms by CUDA events; card vs CPU values "
+            f"{val_err:.3e}, gradients {grad_err:.3e} (largest |grad| {scale:.3e})")
+    return res
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py runs on a GPU only", file=sys.stderr)
@@ -3330,6 +3991,10 @@ def main() -> int:
         mil_parity = phase_mil_parity(root)
         mil_times = phase_mil_times(root)
         mil_pred = phase_mil_predict(root, mil_trained)
+        vila = phase_vila(root)
+        lora = phase_lora(root)
+    adapters = phase_adapters()
+    accum = phase_accum()
     with tempfile.TemporaryDirectory() as root:
         zs = phase_zeroshot_weights(root)
         mizero = phase_zeroshot_mizero(zs["weights"]["nsclc"])
@@ -3364,8 +4029,12 @@ def main() -> int:
                         "launches_train_nsclc": zs_main["runs"][0]["launches_steps"][entry],
                         "launches_mil": mil_trained["launches"][entry]
                         + mil_pred["launches"][entry],
-                        **({"launches_mizero": mizero["launches"], "shapes_mizero": mizero["k1"]}
+                        "launches_vila": vila["launches"][entry],
+                        **({"launches_mizero": mizero["launches"], "shapes_mizero": mizero["k1"],
+                            "launches_adapters": adapters["launches"],
+                            "shape_adapters": adapters["k1"]}
                            if entry == "cols" else {})})
+    lora_run = {"f32": "flash", "bf16": "flash_bf16"}  # the LoRA trunk's run of each tier
     for tier, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         t, tp = k2_times[tier]["extraction"], k2_times[tier]["pretraining"]
         musk_cells = {f"{key}_{cell}": k2_times[tier][cell][key]
@@ -3392,7 +4061,9 @@ def main() -> int:
                         "launches_musk_text": musk["text_launches"],
                         "launches_musk_extract": backbones["musk"]["launches"],
                         "launches_mil": mil_trained["launches"]["K2"]
-                        + mil_pred["launches"]["K2"], **musk_cells})
+                        + mil_pred["launches"]["K2"], "launches_vila": vila["launches"]["K2"],
+                        "launches_lora_flash": lora[lora_run[tier]]["launches"]["K2"],
+                        **musk_cells})
     for entry, kid, replaces in (("dq", "K3", K3_REPLACES), ("dkv", "K4", K4_REPLACES)):
         for tier, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
             t = bwd_times[tier][entry]
@@ -3405,7 +4076,9 @@ def main() -> int:
                             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                             "launches_mil": mil_trained["launches"][kid]
-                            + mil_pred["launches"][kid]})
+                            + mil_pred["launches"][kid],
+                            "launches_vila": vila["launches"][kid],
+                            "launches_lora_flash": lora[lora_run[tier]]["launches"][kid]})
     log("[tiers] summary " + json.dumps({k: {f: v for f, v in r.items() if f != "launches"}
                                          for k, r in tiers.items()}))
     log("[train] summary " + json.dumps({
@@ -3428,6 +4101,11 @@ def main() -> int:
         "predict": {k: {f: v for f, v in r.items() if f != "top"}
                     for k, r in mil_pred["heads"].items()},
         "serve_wall_s": mil_pred["serve_wall_s"], "launches": mil_pred["launches"]}))
+    log("[vila] summary " + json.dumps({k: v for k, v in vila.items()}))
+    log("[adapters] summary " + json.dumps({"adapters": adapters["adapters"],
+                                           "k1_shape": adapters["k1"]}))
+    log("[lora] summary " + json.dumps(lora))
+    log("[accum] summary " + json.dumps(accum))
     log("[musk] summary " + json.dumps({k: v for k, v in musk.items() if k != "ckpt"}))
     log("[resnet] summary " + json.dumps({k: v for k, v in resnet.items() if k != "ckpt"}))
     log("[extract] backbones summary " + json.dumps(backbones))

@@ -148,9 +148,9 @@ def resolve_model_config(args) -> None:
                 sidecar = json.load(f)
     if sidecar and "model_type" in sidecar:
         if sidecar["model_type"] == "vila":
-            raise SystemExit("this checkpoint is a ViLa model (dual-scale bags and prompt "
-                             "constants), which waits for ROADMAP queue 1 item 8b; it does "
-                             "not run on the single-scale predict path")
+            raise SystemExit("this checkpoint is a ViLa model (dual-scale bags + prompt "
+                             "constants) — serve it via train.vila.evaluate_vila, not the "
+                             "single-scale predict path")
         args.model_type = sidecar["model_type"]
         if sidecar.get("model_size"):
             args.model_size = sidecar["model_size"]

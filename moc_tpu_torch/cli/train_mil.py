@@ -7,8 +7,8 @@
   python -m moc_tpu_torch.cli.train_mil --model_type transmil --dataset synthetic \\
       --shot 8 --folds 0 1 2 3 4 --fused --result_dir R
 
-Heads: ``clam_sb``, ``clam_mb``, ``abmil``, ``mil``, ``transmil``, ``chief``
-and ``titan``. One fold at a time (``train.mil.train_fold``, the bags
+Heads: ``clam_sb``, ``clam_mb``, ``abmil``, ``mil``, ``transmil``, ``chief``,
+``titan`` and ``vila``. One fold at a time (``train.mil.train_fold``, the bags
 streamed and copied to the card two batches ahead), or with ``--fused`` all
 folds of a shot as one batched program (``train.mil_fused``) over one pool
 of their slides. Each (shot, fold) writes
@@ -21,11 +21,20 @@ pandas writes them. ``--dataset synthetic`` writes the separable corpus of
 and ``--synthetic_max_patches`` size it as there); ``nsclc`` and ``rcc`` read
 the ``.pt`` bags under ``--data_root``.
 
+``--model_type vila`` trains ViLa-MIL (``train.vila``) on dual-scale bags:
+the small scale from the dataset's feature dir, the large one from
+``--data_dir_l`` (the same dir when omitted); its prompts come from
+``--vila_prompt_csv`` (a synthetic two-scale set when omitted), tokenized by
+the hash vocabulary of ``zeroshot.ConchTokenizer`` as in the JAX CLI; with
+``--conch_checkpoint`` the CONCH text tower (``zeroshot.load_conch``) gives
+the token table and initialises the text encoder, without it a narrow text
+config and a numpy-seeded table stand in. It writes
+``vila_shot_<s>_fold_<f>.json`` and ``.msgpack``; ``--fused`` trains its
+folds one by one, as JAX does.
+
 Runs on ``--device cuda`` (the default) and raises without a GPU unless
-``--device cpu`` is given. ``--model_type vila`` (with its
-``--data_dir_l``, ``--vila_prompt_csv`` and ``--conch_checkpoint``) waits
-for ROADMAP queue 1 item 8b; ``--xprof`` and ``--platform`` belong to the
-JAX package. Each raises NotImplementedError by name.
+``--device cpu`` is given. ``--xprof`` and ``--platform`` belong to the
+JAX package and raise NotImplementedError by name.
 """
 
 from __future__ import annotations
@@ -79,24 +88,24 @@ def get_args(argv=None):
     p.add_argument("--synthetic_max_patches", type=int, default=2000)
     p.add_argument("--device", default="cuda",
                    help="torch device to train on (cuda, cuda:1, or cpu)")
+    # ViLa dual-scale options
+    p.add_argument("--data_dir_l", default=None,
+                   help="large-scale feature dir for --model_type vila "
+                        "(defaults to the small-scale dir)")
+    p.add_argument("--vila_prompt_csv", default=None,
+                   help="two-scale full-sentence prompt CSV; a synthetic "
+                        "prompt set is generated when omitted")
+    p.add_argument("--conch_checkpoint", default=None,
+                   help="CONCH checkpoint for the prompt token-embedding "
+                        "table and the text encoder (random table when omitted)")
     refused = p.add_argument_group("not in the GPU port (refused here)")
     refused.add_argument("--platform", default=None)
     refused.add_argument("--xprof", default=None, metavar="DIR")
-    refused.add_argument("--data_dir_l", default=None)
-    refused.add_argument("--vila_prompt_csv", default=None)
-    refused.add_argument("--conch_checkpoint", default=None)
     return p.parse_args(argv)
 
 
 def refuse_unported(args) -> None:
     """Raise NotImplementedError, naming the flag, on what the port lacks."""
-    if args.model_type == "vila":
-        raise NotImplementedError("--model_type vila (ViLa-MIL's dual-scale bags and prompt "
-                                  "constants) waits for ROADMAP queue 1 item 8b")
-    for flag in ("data_dir_l", "vila_prompt_csv", "conch_checkpoint"):
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag} belongs to --model_type vila, which waits "
-                                      "for ROADMAP queue 1 item 8b")
     for flag in ("platform", "xprof"):
         if getattr(args, flag):
             raise NotImplementedError(f"--{flag} belongs to the JAX package; this CLI runs "
@@ -141,7 +150,7 @@ def main(argv=None) -> int:
         raise SystemExit("--fused trains per-slide (batch_size 1); "
                          "drop --batch_size or drop --fused")
     for shot in shots:
-        if args.fused:
+        if args.fused and args.model_type != "vila":
             rows = _run_fused_grid(args, shot, folds, device)
         else:
             rows = [_run_single(argparse.Namespace(**{**vars(args), "shot": shot, "fold": fold}),
@@ -193,13 +202,13 @@ def _train_config(args, n_classes: int, steps_per_epoch: int):
 
 def _save(args, shot: int, fold: int, payload: dict, params) -> str:
     """The result JSON and the ``.msgpack`` beside it (flax's layout)."""
-    from moc_tpu_torch.convert import mil_to_jax
+    from moc_tpu_torch.convert import to_jax
     from moc_tpu_torch.utils.checkpoint import save_params
 
     out = os.path.join(args.result_dir, f"{args.model_type}_shot_{shot}_fold_{fold}.json")
     with open(out, "w") as f:
         json.dump(payload, f, indent=4)
-    save_params(out[:-len(".json")] + ".msgpack", mil_to_jax(params))
+    save_params(out[:-len(".json")] + ".msgpack", to_jax(params))
     return out
 
 
@@ -247,6 +256,8 @@ def _run_single(args, device: torch.device) -> dict:
 
     table, data_dir, split, n_classes = _resolve_dataset(args, args.shot, args.fold)
     parts = {"train": split.train, "val": split.val, "test": split.test}
+    if args.model_type == "vila":
+        return _train_vila(args, table, parts, data_dir, n_classes, device)
     bs = max(args.batch_size, 1)
     pin = device.type == "cuda"
     # streamed, memory-bounded reads; host-to-device copies on a side
@@ -273,6 +284,85 @@ def _run_single(args, device: torch.device) -> dict:
                "model_type": args.model_type, "model_size": args.model_size,
                "n_classes": n_classes}
     out = _save(args, args.shot, args.fold, payload, result.params)
+    print(f"test auc={result.test_auc:.4f} acc={result.test_acc:.4f} → {out}")
+    return payload
+
+
+# the synthetic two-scale prompt (the JAX CLI's words): the class word lands
+# past the soft-prompt window (positions 1..16 are replaced by the context)
+VILA_PROMPT = ("an image patch of tissue sampled from a surgical resection "
+               "specimen processed and stained with hematoxylin and eosin "
+               "at SCALE magnification showing morphology consistent with "
+               "subtype TYPE")
+
+
+def vila_prompts(args, n_classes: int) -> list[str]:
+    """The 2·C prompts: ``--vila_prompt_csv``'s, or the synthetic set."""
+    from moc_tpu_torch.models.vila import load_vila_prompts
+
+    if args.vila_prompt_csv:
+        return load_vila_prompts(args.vila_prompt_csv)
+    return [VILA_PROMPT.replace("SCALE", s).replace("TYPE", f"class{c}")
+            for s in ("low", "high") for c in range(n_classes)]
+
+
+def vila_text_setup(args, feat_dim: int):
+    """``(text_cfg, token_table, text_params)``: the CONCH checkpoint's text
+    tower (its config with ``output_dim`` the feature width, its token
+    table, its state dict), or without one the JAX CLI's narrow config and
+    its numpy-seeded table, and no text params."""
+    import dataclasses
+
+    from moc_tpu_torch.zeroshot.text_tower import TextConfig
+
+    if args.conch_checkpoint:
+        from moc_tpu_torch.zeroshot.convert import load_conch
+
+        text = load_conch(args.conch_checkpoint, device="cpu").text
+        return (dataclasses.replace(text.cfg, output_dim=feat_dim),
+                text.token_embedding.weight.detach().numpy(),
+                {k: v.detach() for k, v in text.state_dict().items()})
+    rng = np.random.default_rng(args.seed)
+    cfg = TextConfig(context_length=128, vocab_size=32007, width=64, heads=4, layers=2,
+                     output_dim=feat_dim)
+    table = rng.normal(size=(cfg.vocab_size, cfg.width)).astype(np.float32) * 0.02
+    return cfg, table, None
+
+
+def _train_vila(args, table, parts: dict, data_dir: str, n_classes: int,
+                device: torch.device) -> dict:
+    """ViLa fold training on dual-scale bags and CONCH prompt constants."""
+    from moc_tpu_torch.convert import to_jax
+    from moc_tpu_torch.data.vila_data import DualScaleLoader
+    from moc_tpu_torch.models.vila import VilaConfig, build_prompt_constants
+    from moc_tpu_torch.train.vila import VilaTrainConfig, train_vila_fold
+    from moc_tpu_torch.utils.checkpoint import save_params
+    from moc_tpu_torch.zeroshot.tokenizer import ConchTokenizer
+
+    # .pt bags where the small scale has them, as the port's other loaders
+    # read; .h5 (h5py) only where it has no pt_files
+    use_h5 = (not os.path.isdir(os.path.join(data_dir, "pt_files"))
+              and os.path.isdir(os.path.join(data_dir, "h5_files")))
+    loader = DualScaleLoader(table, data_dir, args.data_dir_l or data_dir, use_h5=use_h5)
+    splits = {name: loader.read_all(ids) for name, ids in parts.items()}
+    feat_dim = int(splits["train"][0].feats_s.shape[-1])
+    text_cfg, token_table, text_params = vila_text_setup(args, feat_dim)
+    prompts = build_prompt_constants(token_table, ConchTokenizer(),
+                                     vila_prompts(args, n_classes))
+    cfg = VilaTrainConfig(model=VilaConfig(n_classes=n_classes, input_size=feat_dim,
+                                           text=text_cfg),
+                          lr=args.lr, reg=args.reg, max_epochs=args.max_epochs,
+                          early_stopping=args.early_stopping, seed=args.seed)
+    result = train_vila_fold(splits, prompts, cfg, log=print, text_params=text_params,
+                             device=device)
+    payload = {"val_auc": result.val_auc, "test_auc": result.test_auc,
+               "test_acc": result.test_acc, "stop_epoch": result.stop_epoch,
+               # the model config sidecar beside the .msgpack
+               "model_type": "vila", "n_classes": n_classes}
+    out = os.path.join(args.result_dir, f"vila_shot_{args.shot}_fold_{args.fold}.json")
+    with open(out, "w") as f:
+        json.dump(payload, f, indent=4)
+    save_params(out[:-len(".json")] + ".msgpack", to_jax(result.params, torch_layouts=True))
     print(f"test auc={result.test_auc:.4f} acc={result.test_acc:.4f} → {out}")
     return payload
 

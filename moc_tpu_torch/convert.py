@@ -1,9 +1,12 @@
 """Carry weights across from the JAX package: flax params → torch modules
 (the SENet, the CONCH vision and text towers and the whole CoCa, the
-masked-token pretraining model, MUSK and the ResNet-50 trunk), and back
-for the SENet (``senet_to_jax``, the tree that ``utils.checkpoint`` writes
-as the JAX package's ``.msgpack``); an older ``.npz`` file format for SENet; SENet state dicts
-stacked into a ``SENetStack``.
+masked-token pretraining model, MUSK and the ResNet-50 trunk, the MIL
+heads, ViLa-MIL, the CLIP adapters and the LoRA patch classifier), and
+back for the SENet (``senet_to_jax``), and for the MIL heads, ViLa, the
+adapters and the LoRA classifier through one walk (``to_jax``): the trees
+that ``utils.checkpoint`` writes as the JAX package's ``.msgpack``; an
+older ``.npz`` file format for SENet; SENet state dicts stacked into a
+``SENetStack``.
 
 flax ``Dense.kernel`` is ``[in, out]``; torch ``Linear.weight`` is
 ``[out, in]``. A flax ``Conv`` kernel is ``[kh, kw, in, out]``; torch's is
@@ -201,18 +204,22 @@ def coca_from_jax(params: Mapping, cfg: CoCaConfig | None = None) -> CoCa:
 
 def _flax_state(tree: Mapping, prefix: str = "") -> dict[str, torch.Tensor]:
     """A flax parameter tree → torch state-dict entries under ``prefix``: names
-    map one to one (``layers_3`` → ``layers.3``); a Dense ``kernel [in, out]``
-    becomes ``weight [out, in]``, a LayerNorm ``scale`` and an
-    ``Embed.embedding`` become ``weight``; other leaves keep their names."""
+    map one to one (``layers_3`` → ``layers.3``, ``resblocks_3`` →
+    ``resblocks.3``); a Dense ``kernel [in, out]`` becomes ``weight [out,
+    in]``, a Conv ``kernel [kh, kw, in, out]`` ``weight [out, in, kh, kw]``,
+    a LayerNorm ``scale`` and an ``Embed.embedding`` become ``weight``; other
+    leaves (``bias``, raw parameters such as ``lora_a_q`` or ``ctx``) keep
+    their names and layouts."""
     state: dict[str, torch.Tensor] = {}
 
     def walk(tree: Mapping, prefix: str) -> None:
         for name, sub in tree.items():
-            path = prefix + re.sub(r"^layers_(\d+)$", r"layers.\1", name)
+            path = prefix + re.sub(r"^(layers|resblocks)_(\d+)$", r"\1.\2", name)
             if isinstance(sub, Mapping):
                 walk(sub, path + ".")
             elif name == "kernel":
-                state[prefix + "weight"] = _t(sub).T.contiguous()
+                state[prefix + "weight"] = (_conv_from_jax(sub) if np.ndim(sub) == 4
+                                            else _t(sub).T.contiguous())
             elif name in ("scale", "embedding"):
                 state[prefix + "weight"] = _t(sub)
             else:
@@ -328,23 +335,55 @@ def mil_from_jax(params: Mapping, cfg) -> torch.nn.Module:
     return model_from_params(cfg, params)[0]
 
 
-def mil_to_jax(model: torch.nn.Module | Mapping[str, torch.Tensor]) -> dict:
-    """The JAX package's parameter tree of a MIL head (module or state dict),
-    the inverse of ``mil_from_jax``: ``{"params": {...}}`` of f32 numpy
-    arrays with every level's keys sorted, the order a trained flax tree
-    has after ``jax.tree.map`` (``utils.checkpoint.save_params`` then writes
-    the bytes JAX's ``save_params`` writes)."""
+def to_jax(model: torch.nn.Module | Mapping[str, torch.Tensor], *,
+           torch_layouts: bool = False) -> dict:
+    """The JAX package's parameter tree of a port module (or state dict), the
+    inverse of ``mil_from_jax`` and ``from_jax``: ``{"params": {...}}`` of
+    f32 numpy arrays with every level's keys sorted, the order a trained
+    flax tree has after ``jax.tree.map`` (``utils.checkpoint.save_params``
+    then writes the bytes JAX's ``save_params`` writes).
+
+    ``torch_layouts=False``: the module holds flax's layouts under the
+    tree's paths (the MIL heads, the adapters). ``True``: an
+    ``nn.transformer``-built module (ViLa, the LoRA patch classifier), whose
+    state ``_flax_state`` gives: ``resblocks.3`` → ``resblocks_3``, and a
+    ``weight`` of rank 1 is a LayerNorm ``scale``, of rank 2 a Dense
+    ``kernel`` (transposed), of rank 4 a Conv ``kernel`` (such a module holds
+    no ``Embed``)."""
     state = model.state_dict() if isinstance(model, torch.nn.Module) else model
     tree: dict = {}
     for key, value in state.items():
+        arr = value.detach().cpu().float()
+        if torch_layouts:
+            key = re.sub(r"(^|\.)resblocks\.(\d+)\.", r"\1resblocks_\2.", key)
         *path, leaf = key.split(".")
         node = tree
         for part in path:
             node = node.setdefault(part, {})
-        node[leaf] = np.ascontiguousarray(value.detach().cpu().float().numpy())
+        if torch_layouts and leaf == "weight":
+            leaf = "scale" if arr.dim() == 1 else "kernel"
+            arr = arr.T if arr.dim() == 2 else arr.permute(2, 3, 1, 0) if arr.dim() == 4 else arr
+        node[leaf] = np.ascontiguousarray(arr.numpy())
 
     def ordered(node):
         return {k: ordered(node[k]) if isinstance(node[k], dict) else node[k]
                 for k in sorted(node)}
 
     return {"params": ordered(tree)}
+
+
+# ------------------------------------------- ViLa, the adapters and LoRA trunks
+
+def from_jax(model: torch.nn.Module, params: Mapping, *,
+             torch_layouts: bool = True) -> torch.nn.Module:
+    """Load a JAX module's parameters into ``model``, the port's module of the
+    same configuration, strictly, and return it. ``params`` is the tree as
+    ``jax.tree.map(np.asarray, ...)`` gives it (or as ``utils.checkpoint.
+    load_params`` reads a ``.msgpack``), with or without the top-level
+    ``"params"`` key. ``torch_layouts``: ``_flax_state``'s names and layouts
+    (ViLa with its text encoder; the LoRA patch classifier with its q/v,
+    mixture and block keys); ``False`` for a module that holds flax's
+    layouts under the tree's paths (the adapters of ``models.adapters``)."""
+    tree = params.get("params", params)
+    model.load_state_dict(_flax_state(tree) if torch_layouts else flax_tree_state(tree))
+    return model

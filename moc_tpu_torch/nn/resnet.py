@@ -7,14 +7,16 @@ the spatial grid: ``[B, 1024]`` features a patch. BatchNorm runs in eval
 mode (the running statistics). Module names are torchvision's
 (``layer2.0.downsample.1.running_mean`` ...), so a torchvision state dict
 loads by key (``models.convert_resnet``). Images are NHWC, as in the JAX
-package. The ViT-S / ViT-L factories wait for the MIL slice (ROADMAP queue
-1, item 8).
+package. ``vit_small`` and ``vit_large`` build the ViT-S/16 and ViT-L/16
+trunks of ``nn.vit.VisionTransformer`` (JAX :79-90).
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from moc_tpu_torch.nn.vit import VisionTransformer
 
 STAGES = (3, 4, 6)  # blocks of each stage kept (the reference's truncation)
 WIDTHS = (64, 128, 256)
@@ -70,3 +72,15 @@ class ResNet50Trunk(nn.Module):
         x = self.maxpool(self.relu(self.bn1(self.conv1(images.permute(0, 3, 1, 2)))))
         x = self.layer3(self.layer2(self.layer1(x)))
         return x.mean(dim=(2, 3))
+
+
+def vit_small(image_size: int = 224, **kw) -> VisionTransformer:
+    """ViT-S/16 (the Lunit-DINO class of backbone): 12 layers of 384, 6 heads."""
+    return VisionTransformer(image_size=image_size, patch_size=16, dim=384, num_layers=12,
+                             num_heads=6, **kw)
+
+
+def vit_large(image_size: int = 224, patch_size: int = 16, **kw) -> VisionTransformer:
+    """ViT-L/16 (the UNI / DeCUR class of backbone): 24 layers of 1024, 16 heads."""
+    return VisionTransformer(image_size=image_size, patch_size=patch_size, dim=1024,
+                             num_layers=24, num_heads=16, **kw)

@@ -4,6 +4,10 @@ The CONCH vision trunk: conv patchify, a prepended cls token, learned
 absolute position embeddings, pre-LN blocks and a final LayerNorm; the
 forward returns all tokens ``[B, 1 + HW, D]``. Images are NHWC, as in the
 JAX package; tokens are flattened row-major over the patch grid.
+
+The LoRA options (``lora_rank``, ``lora_last_n``, ``block_lora_rank``,
+``lora_experts``) and ``remat`` pass through to ``nn.transformer.Transformer``;
+a mixture-of-LoRA trunk appends its router gates to ``gates``.
 """
 
 from __future__ import annotations
@@ -18,26 +22,30 @@ from moc_tpu_torch.nn.transformer import LayerNorm, Transformer
 class VisionTransformer(nn.Module):
     def __init__(self, image_size: int = 448, patch_size: int = 16, dim: int = 768,
                  num_layers: int = 12, num_heads: int = 12, mlp_ratio: float = 4.0,
-                 attn_impl: str = "dense"):
+                 attn_impl: str = "dense", *, remat: bool = False, lora_rank: int = 0,
+                 lora_last_n: int | None = None, block_lora_rank: int = 0,
+                 lora_experts: int = 1):
         super().__init__()
         self.image_size, self.patch_size = image_size, patch_size
         self.patch_embed = nn.Conv2d(3, dim, patch_size, stride=patch_size)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, dim))
         self.pos_embed = nn.Parameter(torch.randn(1, self.grid ** 2 + 1, dim) * 0.02)
-        self.blocks = Transformer(dim, num_layers, num_heads, mlp_ratio, attn_impl)
+        self.blocks = Transformer(dim, num_layers, num_heads, mlp_ratio, attn_impl, remat=remat,
+                                  lora_rank=lora_rank, lora_last_n=lora_last_n,
+                                  block_lora_rank=block_lora_rank, lora_experts=lora_experts)
         self.norm = LayerNorm(dim)
 
     @property
     def grid(self) -> int:
         return self.image_size // self.patch_size
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
+    def forward(self, images: torch.Tensor, gates: list | None = None) -> torch.Tensor:
         """images ``[B, H, W, 3]`` (NHWC) → tokens ``[B, 1 + HW/p², D]``."""
         x = self.patch_embed(images.permute(0, 3, 1, 2))  # [B, D, H/p, W/p]
         x = x.flatten(2).transpose(1, 2)  # [B, HW, D], row-major over the grid
         x = torch.cat([self.cls_token.expand(x.shape[0], -1, -1), x], dim=1)
         x = x + self.pos_embed[:, : x.shape[1]]
-        return self.norm(self.blocks(x))
+        return self.norm(self.blocks(x, None, gates))
 
 
 def resample_pos_embed(pos_embed: torch.Tensor, new_grid: int,

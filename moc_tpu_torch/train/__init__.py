@@ -1,5 +1,11 @@
-"""moc_tpu_torch.train — trainers: masked-token encoder pretraining and the
-MIL baselines, one fold at a time or all folds of a shot fused."""
+"""moc_tpu_torch.train — trainers: masked-token encoder pretraining, the
+MIL baselines (one fold at a time or all folds of a shot fused), ViLa-MIL,
+LoRA fine-tuning and chunked-bag attention pooling."""
+
+from moc_tpu_torch.train.accum import chunk_bag, streaming_attention_pool
+from moc_tpu_torch.train.lora_finetune import (LoraFinetuneConfig, make_lora_train_step,
+                                               run_lora_finetune, streamed_slide_logits,
+                                               update_queue)
 
 from moc_tpu_torch.train.losses import bag_loss_fn, cross_entropy, smooth_top1_svm
 from moc_tpu_torch.train.mil import (AccuracyLogger, EarlyStopping, FoldResult, MilTrainConfig,
@@ -13,8 +19,21 @@ from moc_tpu_torch.train.pretrain import (
     masked_token_loss,
     run_pretrain,
 )
+from moc_tpu_torch.train.vila import (VilaFoldResult, VilaTrainConfig, evaluate_vila,
+                                      train_vila_fold)
 
 __all__ = [
+    "LoraFinetuneConfig",
+    "VilaFoldResult",
+    "VilaTrainConfig",
+    "chunk_bag",
+    "evaluate_vila",
+    "make_lora_train_step",
+    "run_lora_finetune",
+    "streamed_slide_logits",
+    "streaming_attention_pool",
+    "train_vila_fold",
+    "update_queue",
     "AccuracyLogger",
     "EarlyStopping",
     "FoldResult",

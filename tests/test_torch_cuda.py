@@ -1324,3 +1324,245 @@ def test_mil_fused_on_the_card_matches_the_cpu(gen):
     res = {dev: run_mil_folds_fused(ep, cfg, device=dev, dropout=False) for dev in ("cuda", "cpu")}
     torch.testing.assert_close(res["cuda"].losses.cpu(), res["cpu"].losses, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(res["cuda"].val_auc.cpu(), res["cpu"].val_auc)
+
+
+# ----------------------------------------- ViLa, the adapters, LoRA and accum
+
+def _rel_max(got, want) -> float:
+    return float((got.cpu() - want.cpu()).abs().max() / want.cpu().abs().max().clamp(min=1e-30))
+
+
+ADAPTERS = ("clip", "tip", "moe", "amu", "zero_shot")
+
+
+def _adapter(name: str, d: int, c: int, g: torch.Generator):
+    from moc_tpu_torch.models import adapters as ad
+
+    cfg = ad.AdapterConfig(c_in=d, n_classes=c, topj=10)
+    return {"clip": lambda: ad.ClipAdapter(cfg, g), "tip": lambda: ad.TipAdapter(cfg, generator=g),
+            "moe": lambda: ad.MoEClipAdapter(cfg, 4, True, True, generator=g),
+            "amu": lambda: ad.AMUAdapter(cfg, c_in_aux=d, aux_ratio=0.2,
+                                         uncertainty_type="entropy", generator=g),
+            "zero_shot": lambda: None}[name]()
+
+
+@pytest.mark.parametrize("name", ADAPTERS)
+def test_adapter_on_the_card_matches_the_cpu_through_k1(gen, name):
+    """Each adapter's pooled output and gradients on the card within 1e-5 of
+    the CPU, K1's column entry launched once a ``topj_pooling`` (twice for
+    AMU) in the forward; the backward launches nothing."""
+    from moc_tpu_torch.models import adapters as ad
+    from moc_tpu_torch.models.layers import full_f32
+
+    n, d, c = 4096, 128, 2
+    cpu = torch.Generator().manual_seed(1)
+    feats = torch.randn(n, d, generator=cpu)
+    valid = torch.arange(n) < 3000
+    clf = torch.nn.functional.normalize(torch.randn(d, c, generator=cpu), dim=0)
+    module = _adapter(name, d, c, torch.Generator().manual_seed(2))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        m = None if module is None else __import__("copy").deepcopy(module).to(dev)
+        x = feats.to(dev).detach().clone().requires_grad_()
+        before = topk_kernel.col_topk_threshold_mask_cuda.launches
+        with full_f32():
+            if name == "zero_shot":
+                y = ad.zero_shot_pooled(x, valid.to(dev), clf.to(dev))
+            elif name == "amu":
+                y = m(x, valid.to(dev), x * 0.5, clf.to(dev))
+            else:
+                y = m(x, valid.to(dev), clf.to(dev))
+            ys = y if isinstance(y, tuple) else (y,)
+            fwd = topk_kernel.col_topk_threshold_mask_cuda.launches - before
+            sum((t * (i + 1)).sum() for i, t in enumerate(ys)).backward()
+        assert topk_kernel.col_topk_threshold_mask_cuda.launches - before == fwd
+        params = [] if m is None else [p.grad for p in m.parameters()]
+        out[dev] = ([t.detach().cpu() for t in ys], [x.grad.cpu()] + [g.cpu() for g in params],
+                    fwd)
+    assert out["cuda"][2] == (2 if name == "amu" else 1) and out["cpu"][2] == 0
+    for got, want in zip(out["cuda"][0], out["cpu"][0]):
+        assert _rel_max(got, want) <= 1e-5
+    scale = max(float(g.abs().max()) for g in out["cpu"][1])
+    for got, want in zip(out["cuda"][1], out["cpu"][1]):
+        assert float((got - want).abs().max()) <= 1e-5 * scale
+
+
+def _lora_classifier(attn_impl: str, experts: int = 1, layers: int = 2, image: int = 64):
+    from moc_tpu_torch.models.lora import PatchClassifier, init_patch_classifier
+
+    m = PatchClassifier(image, 16, 128, layers, 2, 2, lora_rank=4, lora_experts=experts,
+                        attn_impl=attn_impl)
+    init_patch_classifier(m, torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():  # B and the router start at zero: draw them so LoRA matters
+        for n, p in m.named_parameters():
+            if n.rsplit(".", 1)[-1].startswith(("lora_b", "lora_moe_b", "lora_router")):
+                p.copy_(torch.randn(p.shape, generator=g) * 0.2)
+    return m
+
+
+def test_lora_flash_trunk_trains_through_k2_k3_k4(gen):
+    """The LoRA trunk with ``attn_impl="flash"`` against the dense trunk on
+    the card, one state: logits within 1e-5 of the largest |logit| and every
+    trainable gradient within 1e-5 of the largest |grad| (the f32 K2-K4
+    limits), with K2, K3 and K4 each launched once a layer."""
+    from moc_tpu_torch.models.layers import full_f32
+    from moc_tpu_torch.models.lora import lora_optimizer
+
+    images = torch.rand((4, 64, 64, 3), generator=torch.Generator().manual_seed(2)).cuda()
+    out = {}
+    for impl in ("dense", "flash"):
+        m = _lora_classifier(impl).cuda()
+        lora_optimizer(m, 1e-3, ("head",))
+        counts = [f.launches for f in (flash_fwd_cuda, flash_bwd_dq_cuda, flash_bwd_dkv_cuda)]
+        with full_f32():
+            y = m(images)
+            (y * torch.tensor([1.0, -2.0], device="cuda")).sum().backward()
+        counts = [f.launches - c for f, c in zip((flash_fwd_cuda, flash_bwd_dq_cuda,
+                                                   flash_bwd_dkv_cuda), counts)]
+        out[impl] = (y.detach(), [p.grad for p in m.parameters() if p.requires_grad], counts)
+    assert out["dense"][2] == [0, 0, 0] and out["flash"][2] == [2, 2, 2]
+    assert _rel_max(out["flash"][0], out["dense"][0]) <= F32_FWD_MAX_REL
+    scale = max(float(g.abs().max()) for g in out["dense"][1])
+    for got, want in zip(out["flash"][1], out["dense"][1]):
+        assert float((got - want).abs().max()) <= F32_BWD_MAX_REL * scale
+
+
+def test_lora_flash_trunk_in_bf16_trains_through_the_bf16_kernels(gen):
+    """Both trunks cast to bf16 from one state: the flash trunk's forward and
+    backward launch K2, K3 and K4 once a layer each, and its logits and
+    trainable gradients are held against the bf16 dense trunk's at the bf16
+    K2-K4 limits (largest |diff| within 2e-2 of the largest value, mean
+    |diff| within 1% of the mean)."""
+    from moc_tpu_torch.models.lora import lora_optimizer
+
+    images = torch.rand((4, 64, 64, 3), generator=torch.Generator().manual_seed(2))
+    out = {}
+    for impl in ("dense", "flash"):
+        m = _lora_classifier(impl).to("cuda", torch.bfloat16)
+        lora_optimizer(m, 1e-3, ("head",))
+        counts = [f.launches for f in (flash_fwd_cuda, flash_bwd_dq_cuda, flash_bwd_dkv_cuda)]
+        y = m(images.to("cuda", torch.bfloat16))
+        (y.float() * torch.tensor([1.0, -2.0], device="cuda")).sum().backward()
+        counts = [f.launches - c for f, c in zip((flash_fwd_cuda, flash_bwd_dq_cuda,
+                                                   flash_bwd_dkv_cuda), counts)]
+        grads = torch.cat([p.grad.float().flatten() for p in m.parameters() if p.requires_grad])
+        out[impl] = (y.detach().float(), grads, counts)
+    assert out["dense"][2] == [0, 0, 0] and out["flash"][2] == [2, 2, 2]
+    for i, tol in ((0, K2_TOL[torch.bfloat16]), (1, BWD_TOL[torch.bfloat16])):
+        got, want = out["flash"][i], out["dense"][i]
+        assert bool(torch.isfinite(got).all())
+        assert _rel_max(got, want) <= tol
+        assert float((got - want).abs().mean()) <= BF16_MEAN_REL * float(want.abs().mean())
+
+
+@pytest.mark.parametrize("experts", [1, 3])
+def test_lora_step_on_the_card_matches_the_cpu(gen, experts):
+    """One slide's streamed loss (queue pooling, router balance loss) and
+    its gradients on the card within 1e-5 of the CPU; at init the router's
+    top-1 is expert 0 on both."""
+    from moc_tpu_torch.cli.lora_finetune import make_encode
+    from moc_tpu_torch.models.layers import full_f32, softmax_cross_entropy
+    from moc_tpu_torch.models.lora import lora_optimizer
+    from moc_tpu_torch.train.lora_finetune import LoraFinetuneConfig, streamed_slide_logits
+
+    cfg = LoraFinetuneConfig(queue_size=4, minibatch=4, balance_coef=0.01 if experts > 1 else 0)
+    images = torch.rand((8, 64, 64, 3), generator=torch.Generator().manual_seed(3))
+    valid = torch.arange(8) < 7
+    base = _lora_classifier("dense", experts)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        m = __import__("copy").deepcopy(base).to(dev)
+        lora_optimizer(m, 1e-3, ("head",))
+        with full_f32():
+            res = streamed_slide_logits(make_encode(m, cfg.balance_coef), images.to(dev),
+                                        valid.to(dev), cfg, with_aux=cfg.balance_coef > 0)
+            logits, bal = res if cfg.balance_coef > 0 else (res, 0.0)
+            loss = softmax_cross_entropy(logits[None], torch.tensor([1], device=dev))[0] \
+                + cfg.balance_coef * bal
+            loss.backward()
+        out[dev] = (loss.detach().cpu(), [p.grad.cpu() for p in m.parameters() if p.requires_grad])
+    assert abs(float(out["cuda"][0] - out["cpu"][0])) <= 1e-5 * max(1.0, abs(float(out["cpu"][0])))
+    scale = max(float(g.abs().max()) for g in out["cpu"][1])
+    for got, want in zip(out["cuda"][1], out["cpu"][1]):
+        assert float((got - want).abs().max()) <= 1e-5 * scale
+    if experts > 1:
+        from moc_tpu_torch.models.lora import PatchClassifier, init_patch_classifier
+
+        m = init_patch_classifier(PatchClassifier(64, 16, 128, 2, 2, 2, 4, experts),
+                                  torch.Generator().manual_seed(0)).cuda()
+        gates: list = []
+        with torch.no_grad():
+            m(images[:4].cuda(), gates)
+        assert all(bool((torch.argmax(g, -1) == 0).all()) for g in gates)
+
+
+def test_vila_on_the_card_matches_the_cpu(gen):
+    """ViLa's first-step loss and gradients on the card against the CPU (a
+    narrow text tower, dual-scale bags with padding): in float64 within 1e-9
+    of the largest |grad|; in float32 no farther from the float64 reference
+    than 4x the CPU's float32, or within 1e-5."""
+    from moc_tpu_torch.models.layers import full_f32
+    from moc_tpu_torch.models.vila import PromptConstants, PromptTensors, ViLaMIL, VilaConfig
+    from moc_tpu_torch.train.vila import vila_loss
+    from moc_tpu_torch.data.vila_data import DualScaleBag
+    from moc_tpu_torch.zeroshot.text_tower import TextConfig
+
+    text = TextConfig(width=128, heads=2, layers=2, output_dim=64)
+    cfg = VilaConfig(n_classes=2, input_size=64, text=text)
+    rng = np.random.default_rng(0)
+    prompts = PromptConstants(rng.normal(size=(4, 1, 128)).astype(np.float32) * 0.02,
+                              rng.normal(size=(4, 111, 128)).astype(np.float32) * 0.02,
+                              np.array([20, 25, 21, 30]))
+    bag = DualScaleBag(torch.randn(512, 64), torch.arange(512) < 400, torch.randn(256, 64),
+                       torch.arange(256) < 256, torch.tensor(1))
+    base = ViLaMIL(cfg, torch.Generator().manual_seed(0))
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        for dev in ("cpu", "cuda"):
+            m = __import__("copy").deepcopy(base).to(device=dev, dtype=dtype)
+            pt = PromptTensors.of(prompts, dev)
+            pt.token_prefix, pt.token_suffix = (pt.token_prefix.to(dtype),
+                                                pt.token_suffix.to(dtype))
+            b = bag.to(dev)
+            b.feats_s, b.feats_l = b.feats_s.to(dtype), b.feats_l.to(dtype)
+            with full_f32():
+                loss = vila_loss(m, b, pt)
+                loss.backward()
+            out[dev, dtype] = (loss.detach().cpu().double(),
+                               [p.grad.cpu().double() for p in m.parameters()])
+    ref = out["cpu", torch.float64]
+    scale = max(float(g.abs().max()) for g in ref[1])
+
+    def err(run):
+        return max(float((a - b).abs().max()) for a, b in zip(run[1], ref[1]))
+
+    # float64: the same code on both devices agrees far past f32's rounding
+    assert abs(float(out["cuda", torch.float64][0] - ref[0])) <= 1e-9 * max(1.0, abs(float(ref[0])))
+    assert err(out["cuda", torch.float64]) <= 1e-9 * scale
+    # float32: the card no farther from the float64 reference than 4x the
+    # CPU's float32 (sums of cancelling terms keep ~1e-4 of rounding on either)
+    assert err(out["cuda", torch.float32]) <= max(1e-5 * scale, 4 * err(out["cpu", torch.float32]))
+
+
+@pytest.mark.parametrize("remat", [True, False])
+def test_streaming_attention_pool_on_the_card_matches_the_cpu(gen, remat):
+    from moc_tpu_torch.models.layers import full_f32
+    from moc_tpu_torch.train.accum import chunk_bag, streaming_attention_pool
+
+    cpu = torch.Generator().manual_seed(0)
+    x = torch.randn(5000, 64, generator=cpu)
+    valid = torch.arange(5000) < 4321
+    w0, v0 = torch.randn(64, 32, generator=cpu) * 0.2, torch.randn(32, generator=cpu)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        w = w0.to(dev).detach().clone().requires_grad_()
+        v = v0.to(dev).detach().clone().requires_grad_()
+        with full_f32():
+            pooled, lse = streaming_attention_pool(lambda t: torch.tanh(t @ w), lambda h: h @ v,
+                                                   *chunk_bag(x.to(dev), valid.to(dev), 512),
+                                                   remat=remat)
+            (pooled.sum() + lse).backward()
+        out[dev] = [t.detach().cpu() for t in (pooled, lse, w.grad, v.grad)]
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert _rel_max(got, want) <= 1e-5

@@ -17,7 +17,7 @@ import torch
 from moc_tpu.models import layers as jlayers
 from moc_tpu.models import transmil as jtransmil
 from moc_tpu.train import mil as jmil
-from moc_tpu_torch.convert import flax_tree_state, mil_from_jax, mil_to_jax
+from moc_tpu_torch.convert import flax_tree_state, mil_from_jax, to_jax
 from moc_tpu_torch.models import layers as players
 from moc_tpu_torch.models import transmil as ptransmil
 from moc_tpu_torch.train import mil as pmil
@@ -292,7 +292,7 @@ def test_first_step_gradients(name):
 
 @pytest.mark.parametrize("name", ["clam_sb", "abmil", "chief", "transmil", "titan"])
 def test_msgpack_bytes_and_jax_reads_them(name, tmp_path):
-    """``mil_to_jax`` + ``save_params`` write the bytes JAX's ``save_params``
+    """``to_jax`` + ``save_params`` write the bytes JAX's ``save_params``
     writes for a trained tree (keys sorted, as ``jax.tree.map`` leaves
     them), and JAX's ``load_params`` reads the port's file back."""
     from moc_tpu.utils.checkpoint import load_params as jload
@@ -302,7 +302,7 @@ def test_msgpack_bytes_and_jax_reads_them(name, tmp_path):
     _, _, params, model, _ = _heads(name)
     trained = jax.device_get(jax.tree.map(lambda x: x + 0.0, params))
     jsave(str(tmp_path / "jax.msgpack"), trained)
-    save_params(str(tmp_path / "port.msgpack"), mil_to_jax(model))
+    save_params(str(tmp_path / "port.msgpack"), to_jax(model))
     assert (tmp_path / "port.msgpack").read_bytes() == (tmp_path / "jax.msgpack").read_bytes()
     back = jload(str(tmp_path / "port.msgpack"), params)
     for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(params)):
