@@ -226,7 +226,28 @@ Phases, each of which makes the script exit non-zero when it fails:
    launched once a pooling, AMU twice (``launches_adapters``); each by CUDA
    events, and K1 at [16384, 2] k=10;
 23. chunked-bag accumulation (``[accum]``): ``streaming_attention_pool`` on
-   [16384, 512] in chunks of 2048, with and without remat, card against CPU.
+   [16384, 512] in chunks of 2048, with and without remat, card against CPU;
+24. MUSK's contrastive step (``[musk_contrastive]``, after 16, on its
+   checkpoint): ``make_musk_contrastive_step`` on MUSK-large, 8 images at 384
+   px and 8 padded texts of 100 tokens, 3 steps: finite losses, K2, K3 and K4
+   48 launches a step, peak memory; 2 layers against the CPU;
+25. MoE pretraining (``[moe]``): ``cli.pretrain.main --moe_experts 8
+   --moe_freq 2`` at the BEiT-3-base width, batch 8 x 1024, vocab 8192, in f32
+   and with bf16 compute and bf16 parameters: K2-K4 12 a step, step times,
+   tokens/s, peak memory, the dropped share of top-2 choices;
+26. dilated attention (``[dilated]``): [1, 8192, 12, 64] (segments
+   2048/4096/8192, ratios 1/2/4) and a pad-corrected case (L = 8000, ratios
+   1/2/6) on K2-K4 against the plain route, and a 12-layer dilated pretrain
+   step at 1 x 8192 with and without remat (launches counted);
+27. encoder options (``[encoder_options]``): 2-layer encoders of BEiT-3-base
+   width with xPos, the relative bias, remat and MoE, card against CPU, MoE
+   routing on the same gate logits bit for bit;
+28. K2-K4 at this slice's shapes (``[times]``, ``SLICE_SHAPES``) against
+   their plain versions, bounds and ``scaled_dot_product_attention``;
+29. the caption decoder and RetNet (``[decoder]``, after 14, on its CONCH
+   checkpoint): ``generate_caption`` greedy and beam 4 at CONCH's width over
+   the vision tower's caption tokens, 2 layers against the CPU, RetNet's
+   three forms at L = 2048.
 
 The last lines are the card's name and power limit, one JSON object of
 kernel records, and ``{"ok": true, "device": {...}}``. No phase falls back
@@ -3949,6 +3970,616 @@ def phase_accum() -> dict:
 
 
 
+# ------------------------------------------------ the encoder stack's model half
+# MoE pretraining: the MoE point of the JAX package's scripts/pretrain_mfu.py (BEiT-3-base
+# width, 8 experts every second layer, top-2 gather dispatch) at batch 8 x 1024, vocab 8192
+MOE_ARGV = ["--batch", "8", "--seq_len", "1024", "--layers", "12", "--embed_dim", "768",
+            "--ffn_dim", "3072", "--heads", "12", "--vocab", "8192", "--mask_prob", "0.15",
+            "--lr", "1e-3", "--mesh", "data=1", "--moe_experts", "8", "--moe_freq", "2"]
+MOE_STEPS, MOE_TIERS = 3, {"f32": [], "bf16_params": ["--compute_dtype", "bfloat16",
+                                                      "--param_dtype", "bfloat16"]}
+# dilated (LongNet) attention at one 8192-token sequence of BEiT-3-base heads
+DILATED_SEGMENTS, DILATED_RATIOS, DILATED_SHAPE = (2048, 4096, 8192), (1, 2, 4), (1, 8192, 12, 64)
+DILATED_PAD_LEN, DILATED_PAD_RATIOS = 8000, (1, 2, 6)
+# the encoder options card against CPU: 2 layers of BEiT-3-base width, batch 2 x 512
+OPTIONS_SHAPE = (2, 512)
+# MUSK-large's contrastive step: 8 images at 384 px and 8 texts of 100 tokens
+CONTRAST_BATCH, CONTRAST_STEPS, CONTRAST_LR = 8, 3, 1e-4
+# the caption decoder at CONCH's width over the vision tower's caption tokens
+CAPTION_IMAGES, CAPTION_LEN, CAPTION_BEAM = 16, 30, 4
+RETNET_LEN = 2048
+# RetNet's forms agree up to the per-head norm's eps: the JAX package's own limit
+# between them (rtol 2e-3, tests/test_encoder_retnet.py), of the largest |out|
+RETNET_FORMS_REL = 2e-3
+# K2-K4 at this slice's shapes: a dilated branch, MoE pretraining and MUSK's vision tower
+SLICE_SHAPES = {"dilated_branch": (4, 12, 2048, 64), "moe_pretrain": (8, 12, 1024, 64),
+                "musk_contrastive_vision": (CONTRAST_BATCH, MUSK_HEADS, MUSK_TOKENS, HEAD_DIM)}
+
+
+def _launches() -> dict:
+    return {k: fn.launches for k, fn in _counters().items()}
+
+
+def _zero_launches() -> None:
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def _moe_dropped_share(model, batch) -> float:
+    """Share of the top-2 choices that capacity dropped, over the MoE layers,
+    from one forward of ``batch`` (forward hooks rerun each layer's gate)."""
+    from moc_tpu_torch.parallel.moe import MoELayer, capacity_for, top2_gate
+
+    counts = [0, 0]
+
+    def hook(module, inputs, _out):
+        x, mask = inputs[0], inputs[1] if len(inputs) > 1 else None
+        cap = capacity_for(x.shape[0], module.cfg.n_experts, "top2")
+        (c1, c2), _ = top2_gate(module.gate_logits(x), cap, mask, compact=True)
+        counts[0] += int(c1[2].sum() + c2[2].sum())
+        counts[1] += 2 * x.shape[0]
+
+    handles = [m.register_forward_hook(hook) for m in model.modules() if isinstance(m, MoELayer)]
+    try:
+        with torch.no_grad():
+            model(*batch)
+    finally:
+        for h in handles:
+            h.remove()
+    return 1 - counts[0] / counts[1]
+
+
+def phase_moe() -> dict:
+    """``[moe]``: ``cli.pretrain.main --device cuda`` at the MoE point (12 x
+    768, 8 experts every second layer, batch 8 x 1024, vocab 8192) for
+    ``MOE_STEPS`` steps, in f32 and with bf16 compute and bf16 parameters:
+    finite losses and exactly 12 K2, K3 and K4 launches a step; then the
+    step by CUDA events (median of 5 after 2), tokens/s, peak memory, a
+    profile of one step and the share of top-2 choices that capacity drops."""
+    import contextlib
+    import io
+
+    from moc_tpu_torch.cli import pretrain
+    from moc_tpu_torch.train.pretrain import batch_to, make_pretrain_state, make_train_step
+
+    records = {}
+    for tier, flags in MOE_TIERS.items():
+        argv = [*MOE_ARGV, *flags]
+        err, out = io.StringIO(), io.StringIO()
+        _zero_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err), contextlib.redirect_stdout(out):
+            rc = pretrain.main([*argv, "--steps", str(MOE_STEPS), "--log_every", "1",
+                                "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _launches()
+        check(rc == 0, f"[moe] {tier}: cli.pretrain.main returned {rc}")
+        losses = [float(line.split("loss=")[1].split()[0]) for line in err.getvalue().splitlines()
+                  if line.startswith("step ")]
+        auxes = [float(line.split("aux=")[1].split()[0]) for line in err.getvalue().splitlines()
+                 if line.startswith("step ")]
+        check(len(losses) == MOE_STEPS and all(math.isfinite(x) for x in losses + auxes),
+              f"[moe] {tier}: losses {losses}, aux {auxes}")
+        want = PRETRAIN_LAYERS * MOE_STEPS
+        check(launches == {"K2": want, "K3": want, "K4": want},
+              f"[moe] {tier}: launched {launches}, want {want} of each")
+        args = pretrain.get_args(argv)
+        cfg = pretrain.build_config(args)
+        model, optimizer = make_pretrain_state(cfg, seed=0, device="cuda")
+        n_params = sum(p.numel() for p in model.parameters())
+        step = make_train_step(cfg, model, optimizer)
+        batch = batch_to(torch.device("cuda"), *pretrain.make_data_fn(args)(0))
+        torch.cuda.reset_peak_memory_stats()
+        ms = _time_ms(lambda: step(*batch), iters=5, warmup=2)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"[profile] MoE pretrain step {tier}:")
+        prof = phase_profile(lambda: step(*batch), steps=1, what="step")
+        masked = torch.where(batch[1], cfg.vocab_size - 1, batch[0])
+        dropped = _moe_dropped_share(model, (masked,))
+        tokens = args.batch * args.seq_len
+        records[tier] = {"launches": launches, "losses": losses, "aux": auxes, "wall_s": wall,
+                         "step_ms": ms, "tokens_per_s": tokens / ms * 1e3, "peak_gib": peak,
+                         "dropped_share": dropped, "params": n_params,
+                         "busy": prof.get("busy"), "top": prof.get("top")}
+        log(f"[moe] {tier}: cli.pretrain.main {MOE_STEPS} steps, losses {losses}, aux {auxes}, "
+            f"{wall:.2f}s host wall (set-up included), launches {launches}; step {ms:.3f} ms "
+            f"by CUDA events (median of 5), {tokens / ms * 1e3:.0f} tokens/s, peak "
+            f"{peak:.2f} GiB, {n_params / 1e6:.1f}M parameters, {100 * dropped:.2f}% of top-2 "
+            "choices dropped by capacity")
+        del model, optimizer, step, batch
+        torch.cuda.empty_cache()
+    return records
+
+
+def _dilated_run(q, k, v, do, cfg, use_flash):
+    """Output and (dq, dk, dv) of dilated attention, and the launches it made."""
+    import dataclasses
+
+    from moc_tpu_torch.parallel.dilated import dilated_attention
+
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    _zero_launches()
+    out = dilated_attention(*leaves, dataclasses.replace(cfg, use_flash=use_flash))
+    out.backward(do)
+    torch.cuda.synchronize()
+    return out.detach(), [t.grad for t in leaves], _launches()
+
+
+def _rel_to_largest(got, want) -> float:
+    return max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want)) / max(
+        float(w.float().abs().max()) for w in want)
+
+
+def phase_dilated() -> dict:
+    """``[dilated]``: ``dilated_attention`` forward and backward at [1, 8192,
+    12, 64] (segments 2048/4096/8192, ratios 1/2/4) on the flash route
+    against the plain route (``use_flash=False``) on the card, f32 and bf16
+    (f32: within 1e-5 of the largest |out| and |grad|; bf16 against the plain
+    route in f32 on the same inputs: 2e-2 and a 1% mean); K2 three launches a call, K3/K4 three a backward. The pad
+    correction's case (L = 8000, ratios 1/2/6): the same limits, K3/K4
+    none (its branches take the dense backward of the lse). Then a 12-layer
+    pretrain step with dilated attention at 1 x 8192, with and without
+    remat: launches (K2 36, 72 with remat; K3 and K4 36), first-step
+    gradients of the two within 1e-6 of the largest, step times, peak."""
+    from moc_tpu_torch.models.layers import full_f32
+    from moc_tpu_torch.parallel.dilated import DilatedConfig
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    records = {}
+    cases = (("f32", torch.float32, DILATED_SHAPE, DILATED_RATIOS),
+             ("bf16", torch.bfloat16, DILATED_SHAPE, DILATED_RATIOS),
+             ("pad_f32", torch.float32, (1, DILATED_PAD_LEN, 12, 64), DILATED_PAD_RATIOS))
+    for name, dtype, shape, ratios in cases:
+        cfg = DilatedConfig(DILATED_SEGMENTS, ratios)
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(3))
+        # the branches' lse weights are f32, so the output is f32 in either tier
+        do = torch.randn(shape[0], shape[1], shape[2] * shape[3], generator=gen, device="cuda")
+        with full_f32():
+            out, grads, launches = _dilated_run(q, k, v, do, cfg, True)
+            # the plain route in f32 on the same (bf16-valued) inputs: the bf16
+            # plain route rounds elsewhere than K2-K4 and sits farther from it
+            ref, ref_grads, ref_launches = _dilated_run(q.float(), k.float(), v.float(), do,
+                                                        cfg, False)
+        padded = name.startswith("pad")
+        want = {"K2": 3, "K3": 0 if padded else 3, "K4": 0 if padded else 3}
+        check(launches == want and ref_launches == {"K2": 0, "K3": 0, "K4": 0},
+              f"[dilated] {name}: flash route launched {launches} (want {want}), plain route "
+              f"{ref_launches}")
+        fwd = _rel_to_largest([out], [ref])
+        bwd = _rel_to_largest(grads, ref_grads)
+        if dtype == torch.float32:
+            check(fwd <= F32_FWD_MAX_REL and bwd <= F32_BWD_MAX_REL,
+                  f"[dilated] {name}: flash against plain {fwd:.3e} (out), {bwd:.3e} (grads) "
+                  "of the largest")
+        else:
+            check(fwd <= K2_TOL[dtype] and bwd <= BWD_TOL[dtype],
+                  f"[dilated] {name}: bf16 flash against plain {fwd:.3e}, {bwd:.3e}")
+            _mean_rel(out, ref, dtype, "[dilated] bf16 out")
+            for g, w in zip(grads, ref_grads):
+                _mean_rel(g, w, dtype, "[dilated] bf16 grads")
+        ms = _time_ms(lambda: _dilated_run(q, k, v, do, cfg, True), iters=10, warmup=2)
+        plain_ms = _time_ms(lambda: _dilated_run(q, k, v, do, cfg, False), iters=5, warmup=1)
+        records[name] = {"shape": list(shape), "ratios": list(ratios), "launches": launches,
+                         "out_rel_err": fwd, "grad_rel_err": bwd, "fwd_bwd_ms": ms,
+                         "plain_fwd_bwd_ms": plain_ms}
+        log(f"[dilated] {name} {list(shape)} ratios {list(ratios)}: flash route against the "
+            f"plain route on the card: out {fwd:.3e}, grads {bwd:.3e} of the largest; launches "
+            f"{launches}; forward + backward {ms:.3f} ms (plain route {plain_ms:.3f} ms) by "
+            "CUDA events")
+        del q, k, v, do, out, grads, ref, ref_grads
+        torch.cuda.empty_cache()
+    records["pretrain"] = _dilated_pretrain()
+    return records
+
+
+def _dilated_pretrain() -> dict:
+    import dataclasses
+
+    from moc_tpu_torch.cli import pretrain
+    from moc_tpu_torch.models.layers import full_f32
+    from moc_tpu_torch.parallel.dilated import DilatedConfig
+    from moc_tpu_torch.train.pretrain import (MaskedTokenModel, batch_to, make_pretrain_state,
+                                              make_train_step, masked_token_loss)
+
+    args = pretrain.get_args(["--batch", "1", "--seq_len", str(DILATED_SHAPE[1]), "--layers",
+                              "12", "--embed_dim", "768", "--ffn_dim", "3072", "--heads", "12",
+                              "--vocab", "8192"])
+    base = pretrain.build_config(args)
+    dil = DilatedConfig(DILATED_SEGMENTS, DILATED_RATIOS)
+    state = MaskedTokenModel(base).init_parameters(torch.Generator().manual_seed(0)).state_dict()
+    batch = batch_to(torch.device("cuda"), *pretrain.make_data_fn(args)(0))
+    out, grads = {}, {}
+    for remat in (False, True):
+        cfg = dataclasses.replace(base, encoder=dataclasses.replace(base.encoder, dilated=dil,
+                                                                    remat=remat))
+        model, optimizer = make_pretrain_state(cfg, device="cuda", state_dict=state)
+        with full_f32():
+            _zero_launches()
+            total, loss, _ = masked_token_loss(cfg, model, *batch)
+            total.backward()
+            torch.cuda.synchronize()
+            launches = _launches()
+        grads[remat] = [p.grad.detach().clone() for p in model.parameters()]
+        want = {"K2": 72 if remat else 36, "K3": 36, "K4": 36}
+        check(launches == want and math.isfinite(float(loss.detach())),
+              f"[dilated] pretrain step (remat {remat}): launched {launches}, want {want}; "
+              f"loss {float(loss.detach())}")
+        step = make_train_step(cfg, model, optimizer)
+        torch.cuda.reset_peak_memory_stats()
+        ms = _time_ms(lambda: step(*batch), iters=3, warmup=1)
+        out["remat" if remat else "plain"] = {
+            "launches": launches, "loss": float(loss.detach()), "step_ms": ms,
+            "tokens_per_s": DILATED_SHAPE[1] / ms * 1e3,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        del model, optimizer, step
+        torch.cuda.empty_cache()
+    err = _rel_to_largest(grads[True], grads[False])
+    check(err <= 1e-6, f"[dilated] remat gradients differ from the plain step's by {err:.3e}")
+    out["remat_grad_rel_err"] = err
+    log(f"[dilated] 12-layer pretrain step (12 x 768, 1 x 8192, f32): plain "
+        f"{out['plain']['step_ms']:.3f} ms, peak {out['plain']['peak_gib']:.2f} GiB, launches "
+        f"{out['plain']['launches']}; remat {out['remat']['step_ms']:.3f} ms, peak "
+        f"{out['remat']['peak_gib']:.2f} GiB, launches {out['remat']['launches']}; first-step "
+        f"gradients with and without remat within {err:.3e} of the largest")
+    return out
+
+
+def _card_cpu(model_cpu, forward, what: str, skip=("k_proj.bias", "k_proj.A.bias",
+                                                    "k_proj.B.bias")) -> dict:
+    """``forward(model, device) -> (out, loss)`` on a copy of ``model_cpu`` on
+    the card and on the CPU, TF32 off: the outputs within 1e-5 of the
+    largest |out|, the gradients within 1e-5 of the largest |grad| (but a
+    key bias's, 0 save for rounding under a softmax)."""
+    import copy
+
+    from moc_tpu_torch.models.layers import full_f32
+
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        m = copy.deepcopy(model_cpu).to(dev)
+        with full_f32():
+            out, loss = forward(m, dev)
+            loss.backward()
+        runs[dev] = (out.detach().float().cpu(), {n: p.grad.detach().cpu()
+                                                  for n, p in m.named_parameters()
+                                                  if p.grad is not None})
+    out_err = _rel_to_largest([runs["cuda"][0]], [runs["cpu"][0]])
+    names = [n for n in runs["cpu"][1] if not n.endswith(skip)]
+    grad_err = _rel_to_largest([runs["cuda"][1][n] for n in names],
+                               [runs["cpu"][1][n] for n in names])
+    check(out_err <= 1e-5 and grad_err <= 1e-5,
+          f"{what}: card against CPU {out_err:.3e} (out), {grad_err:.3e} (grads) of the largest")
+    return {"out_rel_err": out_err, "grad_rel_err": grad_err}
+
+
+def phase_encoder_options() -> dict:
+    """``[encoder_options]``: 2-layer encoders of BEiT-3-base width (batch 2 x
+    512, a padding mask where the option takes one) with xPos, the relative
+    bias (32 buckets, distance 128), remat and MoE (8 experts on layer 2):
+    the card against the CPU from one state dict, forward and gradients
+    (``_card_cpu``). MoE routing: the records of ``top2_gate`` on the card's
+    gate logits, computed on the card and on the CPU, bit for bit; the
+    tokens each device's own logits route differently are counted. K2-K4
+    launch 2 a layer's forward and backward (none with the relative bias)."""
+    import dataclasses
+
+    from moc_tpu_torch.nn.encoder import Encoder, EncoderConfig, init_like_flax
+    from moc_tpu_torch.parallel.moe import MoEConfig, MoELayer, capacity_for, top2_gate
+
+    b, l = OPTIONS_SHAPE
+    base = EncoderConfig(embed_dim=768, ffn_dim=3072, layers=2, heads=12)
+    variants = {"xpos": dict(xpos=True), "rel_pos": dict(rel_pos_buckets=32, max_rel_pos=128),
+                "remat": dict(remat=True), "moe": dict(moe_freq=2, moe=MoEConfig(n_experts=8))}
+    gen = torch.Generator().manual_seed(12)
+    x = torch.randn(b, l, 768, generator=gen)
+    pad = torch.zeros(b, l, dtype=torch.bool)
+    pad[1, l - 100:] = True
+    r = torch.randn(b, l, 768, generator=gen)
+    records = {}
+    for name, kw in variants.items():
+        cfg = dataclasses.replace(base, **kw)
+        model = init_like_flax(Encoder(cfg), torch.Generator().manual_seed(13))
+        mask = pad if name in ("rel_pos", "moe") else None
+        logits = {}
+
+        def forward(m, dev):
+            hooks = []
+            if name == "moe":
+                def grab(mod, inputs, _out):
+                    logits[dev] = (mod.gate_logits(inputs[0]).detach(), inputs[1])
+                hooks = [mod.register_forward_hook(grab) for mod in m.modules()
+                         if isinstance(mod, MoELayer)]
+            out, aux = m(x.to(dev), None if mask is None else mask.to(dev))
+            for h in hooks:
+                h.remove()
+            keep = 1.0 if mask is None else (~mask.to(dev))[..., None].float()
+            return out * keep, torch.sum(out * r.to(dev) * keep) + aux
+
+        _zero_launches()
+        rec = _card_cpu(model, forward, f"[encoder_options] {name}")
+        rec["launches"] = _launches()
+        dense = name == "rel_pos"
+        want = (0 if dense else 2 * (2 if name == "remat" else 1)), (0 if dense else 2)
+        check(rec["launches"] == {"K2": want[0], "K3": want[1], "K4": want[1]},
+              f"[encoder_options] {name}: card launches {rec['launches']}")
+        if name == "moe":
+            (lg, mk), (lc, _) = logits["cuda"], logits["cpu"]
+            cap = capacity_for(lg.shape[0], 8, "top2")
+            on_card, _ = top2_gate(lg, cap, mk, compact=True)
+            on_cpu, _ = top2_gate(lg.cpu(), cap, mk.cpu(), compact=True)
+            for cc, cp in zip(on_card, on_cpu):
+                for a, c in zip(cc[:3], cp[:3]):
+                    check(torch.equal(a.cpu(), c), "[encoder_options] moe: top2_gate on the "
+                          "same logits routes differently on the card and the CPU")
+            own, _ = top2_gate(lc, cap, mk.cpu(), compact=True)
+            moved = sum(int(((a[0].cpu() != c[0]) | (a[2].cpu() != c[2])).sum())
+                        for a, c in zip(on_card, own))
+            check(moved == 0, f"[encoder_options] moe: {moved} choices route differently on "
+                  "each device's own logits")
+            rec["routed_differently"] = moved
+        records[name] = rec
+        log(f"[encoder_options] {name} (2 x 768, batch {b} x {l}): card against CPU out "
+            f"{rec['out_rel_err']:.3e}, grads {rec['grad_rel_err']:.3e} of the largest; "
+            f"launches {rec['launches']}"
+            + (f"; routing on the same logits bit-equal, {rec['routed_differently']} choices "
+               "moved on each device's own" if name == "moe" else ""))
+    return records
+
+
+def phase_musk_contrastive(ckpt: str) -> dict:
+    """``[musk_contrastive]``: ``make_musk_contrastive_step`` on MUSK-large
+    (``load_musk`` of the fabricated checkpoint, f32, Adam) for
+    ``CONTRAST_STEPS`` steps of 8 images at 384 px and 8 texts of 100
+    tokens with padding: finite losses, K2, K3 and K4 48 launches a step (24
+    vision, 24 text), step times, peak memory. Then its first two layers
+    on the card against the CPU (2 images, 2 padded texts): the loss and the
+    first-step gradients within 1e-5 of the largest."""
+    import dataclasses
+
+    from moc_tpu_torch.models.musk import MUSK
+    from moc_tpu_torch.train.pretrain import clip_contrastive_loss, make_musk_contrastive_step
+    from moc_tpu_torch.zeroshot.convert_musk import load_musk
+
+    model = load_musk(ckpt, device="cuda").train()
+    cfg = model.cfg
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    n = CONTRAST_BATCH
+    images = torch.randn(n, cfg.image_size, cfg.image_size, 3, generator=gen, device="cuda")
+    ids = torch.randint(0, cfg.vocab_size, (n, MUSK_TEXT_LEN), generator=gen, device="cuda")
+    lengths = torch.tensor([MUSK_TEXT_LEN - 11 * i for i in range(n)], device="cuda")
+    pad = torch.arange(MUSK_TEXT_LEN, device="cuda")[None, :] >= lengths[:, None]
+    step = make_musk_contrastive_step(model, torch.optim.Adam(model.parameters(),
+                                                              lr=CONTRAST_LR))
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    losses, times = [], []
+    for _ in range(CONTRAST_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses.append(float(step(images, ids, pad)))
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    launches = _launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = 2 * MUSK_LAYERS * CONTRAST_STEPS
+    check(all(math.isfinite(x) for x in losses) and launches == {"K2": want, "K3": want,
+                                                                 "K4": want},
+          f"[musk_contrastive] losses {losses}, launches {launches} (want {want} of each)")
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()
+             if not k.startswith("beit3.encoder.layers.") or int(k.split(".")[3]) < 2}
+    del model, step
+    torch.cuda.empty_cache()
+    small = MUSK(dataclasses.replace(cfg, encoder=dataclasses.replace(cfg.encoder, layers=2)))
+    small.load_state_dict(state)
+    sub = (images[:2].cpu(), ids[:2].cpu(), pad[[0, n - 1]].cpu())
+
+    def forward(m, dev):
+        v, t, s = m(sub[0].to(dev), sub[1].to(dev), text_padding_mask=sub[2].to(dev))
+        return torch.cat([v, t]), clip_contrastive_loss(v, t, s)
+
+    parity = _card_cpu(small, forward, "[musk_contrastive] 2-layer first step")
+    rec = {"losses": losses, "step_ms": statistics.median(times), "step_ms_all": times,
+           "launches": launches, "peak_gib": peak, **parity}
+    log(f"[musk_contrastive] MUSK-large ({n} images at {cfg.image_size} px, {n} texts of "
+        f"{MUSK_TEXT_LEN} tokens, {int(pad.sum())} pad): {CONTRAST_STEPS} steps, losses "
+        f"{losses}, step {rec['step_ms']:.3f} ms by CUDA events (median; all {times}), peak "
+        f"{peak:.2f} GiB, launches {launches}; 2 layers card against CPU: embeddings "
+        f"{parity['out_rel_err']:.3e}, first-step gradients {parity['grad_rel_err']:.3e} of the "
+        "largest")
+    return rec
+
+
+def phase_decoder(ckpt: str) -> dict:
+    """``[decoder]``: ``generate_caption`` at CONCH's width (12 x 768, 12
+    heads, vocabulary 32007, context 128, weights drawn from a seed) over the
+    caption tokens of the fabricated CONCH checkpoint's vision tower (16
+    images): greedy and beam 4, 30 tokens, ids in range, no K2-K4 launch,
+    times. Its first 2 layers on the card against the CPU on the same
+    caption tokens: greedy and beam ids equal, teacher-forced logits within
+    1e-5 of the largest. RetNet at its defaults, L = 2048: the three forms
+    on the card against each other (the per-head norm makes them one
+    function up to its eps: within ``RETNET_FORMS_REL`` of the largest) and
+    the parallel form against the CPU within 1e-5."""
+    import dataclasses
+
+    from moc_tpu_torch.models.layers import full_f32
+    from moc_tpu_torch.nn.encoder import init_like_flax
+    from moc_tpu_torch.nn.retnet import RetNetConfig, RetNetDecoder
+    from moc_tpu_torch.zeroshot.captioner import CaptionerConfig, CoCaCaptioner, generate_caption
+    from moc_tpu_torch.zeroshot.convert import load_conch
+
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    coca = load_conch(ckpt, device="cuda")
+    images = torch.randn(CAPTION_IMAGES, 448, 448, 3, generator=gen, device="cuda")
+    with torch.inference_mode(), full_f32():
+        caption = coca.visual(images)[1].clone()
+    del coca
+    cfg = CaptionerConfig()
+    cap = CoCaCaptioner(cfg)
+    g = torch.Generator().manual_seed(16)
+    init_like_flax(cap, g)
+    with torch.no_grad():
+        torch.nn.init.normal_(cap.token_embedding.weight, std=(1 / cfg.width) ** 0.5, generator=g)
+        torch.nn.init.normal_(cap.positional_embedding, std=0.01, generator=g)
+    card = cap.to("cuda")
+    records = {}
+    _zero_launches()
+    for mode in ("greedy", "beam"):
+        with full_f32():
+            t0 = time.perf_counter()
+            ids = generate_caption(card, caption, seq_len=CAPTION_LEN, mode=mode,
+                                   beam_size=CAPTION_BEAM)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        check(ids.shape == (CAPTION_IMAGES, CAPTION_LEN) and bool(((ids >= 0)
+              & (ids < cfg.vocab_size)).all()), f"[decoder] {mode} ids {tuple(ids.shape)}")
+        records[mode] = {"wall_s": wall, "distinct_tokens": int(ids.unique().numel())}
+    launches = _launches()
+    check(launches == {"K2": 0, "K3": 0, "K4": 0}, f"[decoder] launched {launches}")
+    small_cfg = dataclasses.replace(cfg, layers=2)
+    small = CoCaCaptioner(small_cfg)
+    small.load_state_dict({k: v for k, v in card.state_dict().items()
+                           if not k.startswith("decoder.layers.") or int(k.split(".")[2]) < 2})
+    del card, cap
+    torch.cuda.empty_cache()
+    parity = {}
+    for mode in ("greedy", "beam"):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            with full_f32():
+                out[dev] = generate_caption(small.to(dev), caption.to(dev), seq_len=CAPTION_LEN,
+                                            mode=mode, beam_size=CAPTION_BEAM).cpu()
+        check(torch.equal(out["cuda"], out["cpu"]),
+              f"[decoder] 2-layer {mode} ids differ between card and CPU")
+        parity[mode] = out["cpu"]
+    with torch.no_grad(), full_f32():
+        logits = {dev: small.to(dev)(parity["greedy"].to(dev), caption.to(dev)).cpu()
+                  for dev in ("cuda", "cpu")}
+    logit_err = _rel_to_largest([logits["cuda"]], [logits["cpu"]])
+    check(logit_err <= 1e-5, f"[decoder] 2-layer logits: card against CPU {logit_err:.3e}")
+    records["logit_rel_err"] = logit_err
+    # RetNet at its defaults
+    ret = init_like_flax(RetNetDecoder(RetNetConfig()), torch.Generator().manual_seed(17))
+    x = torch.randn(1, RETNET_LEN, 512, generator=torch.Generator().manual_seed(18))
+    forms = {}
+    with torch.no_grad(), full_f32():
+        ret_card = ret.to("cuda")
+        for mode in ("parallel", "recurrent", "chunkwise"):
+            t0 = time.perf_counter()
+            forms[mode] = ret_card(x.cuda(), mode=mode)[0].cpu()
+            forms[mode + "_s"] = time.perf_counter() - t0
+        ret_cpu = ret.to("cpu")
+        want = ret_cpu(x, mode="parallel")[0]
+    chunk_err = _rel_to_largest([forms["chunkwise"]], [forms["recurrent"]])
+    par_err = _rel_to_largest([forms["parallel"]], [forms["recurrent"]])
+    cpu_err = _rel_to_largest([forms["parallel"]], [want])
+    check(chunk_err <= RETNET_FORMS_REL and par_err <= RETNET_FORMS_REL and cpu_err <= 1e-5,
+          f"[decoder] RetNet: chunkwise {chunk_err:.3e}, parallel {par_err:.3e} from "
+          f"recurrent; parallel card against CPU {cpu_err:.3e}")
+    records["retnet"] = {"chunkwise_vs_recurrent": chunk_err, "parallel_vs_recurrent": par_err,
+                         "card_vs_cpu": cpu_err,
+                         **{m + "_s": forms[m + "_s"] for m in ("parallel", "recurrent",
+                                                                "chunkwise")}}
+    log(f"[decoder] captioner 12 x 768 over {CAPTION_IMAGES} images' caption tokens: greedy "
+        f"{records['greedy']['wall_s']:.2f}s, beam {CAPTION_BEAM} {records['beam']['wall_s']:.2f}s "
+        f"host wall for {CAPTION_LEN} tokens; launches {launches}; 2 layers card against CPU: "
+        f"greedy and beam ids equal, logits {logit_err:.3e} of the largest; RetNet L "
+        f"{RETNET_LEN}: chunkwise/recurrent {chunk_err:.3e}, parallel/recurrent {par_err:.3e}, "
+        f"card/CPU {cpu_err:.3e}; host wall parallel {forms['parallel_s']:.3f}s, recurrent "
+        f"{forms['recurrent_s']:.2f}s, chunkwise {forms['chunkwise_s']:.3f}s")
+    return records
+
+
+def phase_slice_kernel_times() -> dict:
+    """K2, K3 and K4 at this slice's shapes (``SLICE_SHAPES``), f32 and bf16:
+    each held against its plain version on the same tensors (the limits of
+    the parity phases), then timed per call by CUDA events (median) beside
+    its bound, the plain version and ``scaled_dot_product_attention``
+    (forward; its backward for K3 + K4 together), timed only."""
+    import torch.nn.functional as F
+
+    from moc_tpu_torch.ops.flash_attention import flash_bwd_reference, mha_reference
+    from moc_tpu_torch.ops.flash_kernel import (flash_bwd_dkv_cuda, flash_bwd_dq_cuda,
+                                                flash_fwd_cuda)
+
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    records = {}
+    for cell, shape in SLICE_SHAPES.items():
+        b, h, length, d = shape
+        n = b * h * length * length * d
+        for dtype, tier, peak in ((torch.float32, "f32", F32_ACCURATE_OPS_PER_S),
+                                  (torch.bfloat16, "bf16", BF16_OPS_PER_S)):
+            q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                       for _ in range(3))
+            with torch.no_grad():
+                o, lse, do, delta = _bwd_inputs(q, k, v, None, None, False, gen)
+                ro, rlse = mha_reference(q, k, v)
+                k2 = _k2_errors(o, lse, ro, rlse, dtype, f"{tier} {cell} {list(shape)}")
+                dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta)
+                dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta)
+                bwd = _bwd_errors((dq, dk, dv), flash_bwd_reference(q, k, v, o, lse, do), dtype)
+                el, stats = q.element_size(), b * h * length * 4
+                rec = {"shape": list(shape)}
+                for kid, fn, plain, ops, tensors, err in (
+                        ("K2", lambda: flash_fwd_cuda(q, k, v), lambda: mha_reference(q, k, v),
+                         4 * n, 4, max(k2["o"], k2["lse"])),
+                        ("K3", lambda: flash_bwd_dq_cuda(q, k, v, do, lse, delta),
+                         lambda: flash_bwd_reference(q, k, v, o, lse, do), 6 * n, 5, bwd["dq"]),
+                        ("K4", lambda: flash_bwd_dkv_cuda(q, k, v, do, lse, delta),
+                         lambda: flash_bwd_reference(q, k, v, o, lse, do), 8 * n, 6,
+                         bwd["dkv"])):
+                    bytes_s = (tensors * q.numel() * el + (1 if kid == "K2" else 2) * stats
+                               ) / HBM_BYTES_PER_S
+                    ops_s = ops / peak
+                    rec[kid] = {"ms": _time_ms(fn, iters=30, warmup=3),
+                                "plain_ms": _time_ms(plain, iters=5, warmup=1),
+                                "bound_ms": max(bytes_s, ops_s) * 1e3,
+                                "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+                                "max_abs_err": err}
+                rec["K2"]["library_ms"] = _time_ms(lambda: F.scaled_dot_product_attention(q, k, v),
+                                                   iters=30, warmup=3)
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            out = F.scaled_dot_product_attention(*leaves)
+            lib = _time_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
+                           iters=20, warmup=3)
+            rec["K3"]["library_ms"] = rec["K4"]["library_ms"] = lib
+            records[f"{cell}_{tier}"] = rec
+            log(f"[times] {tier} {cell} {list(shape)}: " + "; ".join(
+                f"{kid} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} by {r['bound_by']}, plain "
+                f"{r['plain_ms']:.3f}, library {r['library_ms']:.4f}, max |err| "
+                f"{r['max_abs_err']:.2e})" for kid, r in rec.items() if kid != "shape"))
+            del q, k, v, o, lse, do, delta, out, leaves
+            torch.cuda.empty_cache()
+    return records
+
+
+def _slice_cells(tier: str, kid: str, moe, dilated, contrastive, options, slice_times) -> dict:
+    """A K2/K3/K4 record's fields from this slice's paths: launches on the
+    MoE, bf16-parameter, dilated, encoder-option and MUSK contrastive runs
+    (each of a tier: MoE and the contrastive step in f32, bf16 parameters
+    with bf16 compute, dilated in f32), and the kernel's time, bound, plain
+    and library times at ``SLICE_SHAPES`` in this tier."""
+    cells = {f"{k}_{cell.rsplit('_', 1)[0]}": v
+             for cell, rec in slice_times.items() if cell.endswith("_" + tier)
+             for k, v in rec[kid].items()}
+    cells.update({f"shape_{cell.rsplit('_', 1)[0]}": rec["shape"]
+                  for cell, rec in slice_times.items() if cell.endswith("_" + tier)})
+    if tier == "f32":
+        cells.update({"launches_moe": moe["f32"]["launches"][kid],
+                      "launches_dilated_step": dilated["pretrain"]["plain"]["launches"][kid],
+                      "launches_dilated_remat_step": dilated["pretrain"]["remat"]["launches"][kid],
+                      "launches_dilated_attention": dilated["f32"]["launches"][kid],
+                      "launches_encoder_options": {k: r["launches"][kid]
+                                                   for k, r in options.items()},
+                      "launches_musk_contrastive": contrastive["launches"][kid]})
+    else:
+        cells.update({"launches_moe_bf16_params": moe["bf16_params"]["launches"][kid],
+                      "launches_dilated_attention": dilated["bf16"]["launches"][kid]})
+    return cells
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py runs on a GPU only", file=sys.stderr)
@@ -3975,11 +4606,16 @@ def main() -> int:
         musk = phase_musk(root)
         resnet = phase_resnet(root)
         backbones = phase_extract_backbones(root, musk["ckpt"], resnet["ckpt"])
+        contrastive = phase_musk_contrastive(musk["ckpt"])
     bwd_err = phase_flash_bwd_parity()
     pretrained = {tier: run_pretrain_cli(tier) for tier in ("f32", "bf16")}
     phase_pretrain_narrow()
     bwd_times = phase_flash_bwd_times()
     phase_pretrain_step_times()
+    moe = phase_moe()
+    dilated = phase_dilated()
+    options = phase_encoder_options()
+    slice_times = phase_slice_kernel_times()
     with tempfile.TemporaryDirectory() as root:
         trained = phase_train(root)
         phase_train_parity(root)
@@ -3999,6 +4635,7 @@ def main() -> int:
         zs = phase_zeroshot_weights(root)
         mizero = phase_zeroshot_mizero(zs["weights"]["nsclc"])
         zs_main = phase_zeroshot_main_moc(root, zs["ckpt"])
+        decoder = phase_decoder(zs["ckpt"])
     smi =subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip().splitlines()[0]
@@ -4063,6 +4700,8 @@ def main() -> int:
                         "launches_mil": mil_trained["launches"]["K2"]
                         + mil_pred["launches"]["K2"], "launches_vila": vila["launches"]["K2"],
                         "launches_lora_flash": lora[lora_run[tier]]["launches"]["K2"],
+                        **_slice_cells(tier, "K2", moe, dilated, contrastive, options,
+                                       slice_times),
                         **musk_cells})
     for entry, kid, replaces in (("dq", "K3", K3_REPLACES), ("dkv", "K4", K4_REPLACES)):
         for tier, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
@@ -4078,7 +4717,9 @@ def main() -> int:
                             "launches_mil": mil_trained["launches"][kid]
                             + mil_pred["launches"][kid],
                             "launches_vila": vila["launches"][kid],
-                            "launches_lora_flash": lora[lora_run[tier]]["launches"][kid]})
+                            "launches_lora_flash": lora[lora_run[tier]]["launches"][kid],
+                            **_slice_cells(tier, kid, moe, dilated, contrastive, options,
+                                           slice_times)})
     log("[tiers] summary " + json.dumps({k: {f: v for f, v in r.items() if f != "launches"}
                                          for k, r in tiers.items()}))
     log("[train] summary " + json.dumps({
@@ -4106,6 +4747,11 @@ def main() -> int:
                                            "k1_shape": adapters["k1"]}))
     log("[lora] summary " + json.dumps(lora))
     log("[accum] summary " + json.dumps(accum))
+    log("[moe] summary " + json.dumps(moe))
+    log("[dilated] summary " + json.dumps(dilated))
+    log("[encoder_options] summary " + json.dumps(options))
+    log("[musk_contrastive] summary " + json.dumps(contrastive))
+    log("[decoder] summary " + json.dumps(decoder))
     log("[musk] summary " + json.dumps({k: v for k, v in musk.items() if k != "ckpt"}))
     log("[resnet] summary " + json.dumps({k: v for k, v in resnet.items() if k != "ckpt"}))
     log("[extract] backbones summary " + json.dumps(backbones))

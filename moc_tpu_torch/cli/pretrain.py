@@ -9,8 +9,17 @@ The BEiT-3-base width on one card:
       --layers 12 --embed_dim 768 --ffn_dim 3072 --heads 12 --mesh data=1
 
 ``--compute_dtype bfloat16`` runs the projections and the attention kernels
-in bf16 with f32 parameters. Runs on ``--device cuda`` (the default) and
-raises without a GPU unless ``--device cpu`` is given.
+in bf16 with f32 parameters; ``--param_dtype bfloat16`` stores the
+parameters of two or more dimensions in bf16 beside f32 masters that Adam
+updates (the bf16-parameter recipe). ``--moe_experts E`` swaps the FFN of
+every ``--moe_freq``-th layer for a top-2 GShard MoE of E experts:
+
+  python -m moc_tpu_torch.cli.pretrain --steps 1000 --batch 8 --seq_len 1024 \\
+      --layers 12 --embed_dim 768 --ffn_dim 3072 --heads 12 --vocab 8192 \\
+      --moe_experts 8 --moe_freq 2 --compute_dtype bfloat16 --param_dtype bfloat16
+
+Runs on ``--device cuda`` (the default) and raises without a GPU unless
+``--device cpu`` is given.
 
 Data: a deterministic synthetic token stream by default (``data_fn`` is a
 pure function of the step index, with numpy's generator, so its batches are
@@ -18,8 +27,8 @@ bit-identical to the JAX CLI's), or windows of a real token corpus via
 ``--corpus tokens.npy`` (1-D int array).
 
 Not ported yet, and refused: meshes over more than one device and
-``pipe=`` stages, multi-process runs, ``--moe_experts``, ``--param_dtype``
-and ``--ckpt_dir`` (ROADMAP queue 1, items 9 and 10). The JAX-only
+``pipe=`` stages, multi-process runs (ROADMAP queue 1, item 9: its
+multi-device half) and ``--ckpt_dir`` (item 10). The JAX-only
 ``--platform`` and ``--xprof`` have no counterpart.
 """
 
@@ -53,7 +62,7 @@ def get_args(argv=None):
                    help="deepnorm residual scaling (torchscale consistency "
                         "rules apply: post-LN, no subln)")
     p.add_argument("--moe_experts", type=int, default=0,
-                   help="MoE layers: not ported yet (must stay 0)")
+                   help=">0 swaps FFNs for a GShard MoE (top-2) every --moe_freq layers")
     p.add_argument("--moe_freq", type=int, default=2)
     p.add_argument("--lr", type=float, default=1e-3)
     p.add_argument("--mesh", default="data=-1",
@@ -62,7 +71,8 @@ def get_args(argv=None):
     p.add_argument("--microbatches", type=int, default=4,
                    help="GPipe microbatches (pipe meshes, not ported yet)")
     p.add_argument("--param_dtype", default=None, choices=[None, "bfloat16"],
-                   help="parameter storage dtype: not ported yet")
+                   help="parameter storage dtype: bfloat16 stores 2-D and wider parameters "
+                        "in bf16 beside f32 masters (Adam in f32)")
     p.add_argument("--corpus", default=None,
                    help="1-D .npy int token array; batches are "
                         "deterministically sampled windows (default: "
@@ -107,11 +117,6 @@ def check_single_device(mesh: dict[str, int]) -> None:
 
 def check_ported_flags(args) -> None:
     check_single_device(parse_mesh_arg(args.mesh))
-    refused = {"--moe_experts > 0 (MoE layers)": args.moe_experts > 0,
-               "--param_dtype (the bf16-parameter recipe)": args.param_dtype is not None}
-    for what, on in refused.items():
-        if on:
-            raise NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, item 9)")
     if args.ckpt_dir is not None:
         raise NotImplementedError("--ckpt_dir (checkpoint and resume) is not ported yet "
                                   "(ROADMAP queue 1, item 10)")
@@ -167,13 +172,17 @@ def log_factory(args):
 
 def build_config(args):
     from moc_tpu_torch.nn.encoder import EncoderConfig
+    from moc_tpu_torch.parallel.moe import MoEConfig
     from moc_tpu_torch.train.pretrain import PretrainConfig
 
     enc = EncoderConfig(embed_dim=args.embed_dim, ffn_dim=args.ffn_dim, layers=args.layers,
                         heads=args.heads, deepnorm=args.deepnorm,
-                        compute_dtype=args.compute_dtype)
+                        compute_dtype=args.compute_dtype,
+                        moe_freq=args.moe_freq if args.moe_experts else 0,
+                        moe=MoEConfig(n_experts=max(args.moe_experts, 1)))
     return PretrainConfig(vocab_size=args.vocab, max_len=args.seq_len,
-                          mask_prob=args.mask_prob, encoder=enc, learning_rate=args.lr)
+                          mask_prob=args.mask_prob, encoder=enc, learning_rate=args.lr,
+                          param_dtype=args.param_dtype)
 
 
 def main(argv=None) -> int:

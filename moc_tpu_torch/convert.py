@@ -1,9 +1,12 @@
 """Carry weights across from the JAX package: flax params → torch modules
 (the SENet, the CONCH vision and text towers and the whole CoCa, the
-masked-token pretraining model, MUSK and the ResNet-50 trunk, the MIL
-heads, ViLa-MIL, the CLIP adapters and the LoRA patch classifier), and
-back for the SENet (``senet_to_jax``), and for the MIL heads, ViLa, the
-adapters and the LoRA classifier through one walk (``to_jax``): the trees
+masked-token pretraining model with its MoE layers and relative bias, MUSK
+and the ResNet-50 trunk, the MIL heads, ViLa-MIL, the CLIP adapters, the
+LoRA patch classifier, and through ``from_jax`` the decoder, the
+encoder-decoder, RetNet and the CoCa captioner), and back for the SENet
+(``senet_to_jax``), and for the MIL heads, ViLa, the adapters, the LoRA
+classifier, the pretraining model, the decoder, the encoder-decoder, RetNet
+and the captioner through one walk (``to_jax``): the trees
 that ``utils.checkpoint`` writes as the JAX package's ``.msgpack``; an
 older ``.npz`` file format for SENet; SENet state dicts stacked into a
 ``SENetStack``.
@@ -344,23 +347,32 @@ def to_jax(model: torch.nn.Module | Mapping[str, torch.Tensor], *,
     then writes the bytes JAX's ``save_params`` writes).
 
     ``torch_layouts=False``: the module holds flax's layouts under the
-    tree's paths (the MIL heads, the adapters). ``True``: an
-    ``nn.transformer``-built module (ViLa, the LoRA patch classifier), whose
-    state ``_flax_state`` gives: ``resblocks.3`` → ``resblocks_3``, and a
-    ``weight`` of rank 1 is a LayerNorm ``scale``, of rank 2 a Dense
-    ``kernel`` (transposed), of rank 4 a Conv ``kernel`` (such a module holds
-    no ``Embed``)."""
+    tree's paths (the MIL heads, the adapters). ``True``: a module whose
+    state ``_flax_state`` gives (ViLa, the LoRA patch classifier, the
+    pretraining model, the decoder, the encoder-decoder, RetNet, the
+    captioner): ``resblocks.3`` → ``resblocks_3`` and ``layers.3`` →
+    ``layers_3``, and a ``weight`` of rank 1 is a LayerNorm (or RMSNorm)
+    ``scale``, of rank 2 a Dense ``kernel`` (transposed) or, for an
+    ``nn.Embedding`` of a module given as such, an ``embedding``, of rank 4
+    a Conv ``kernel``."""
+    embeds = set()
+    if isinstance(model, torch.nn.Module):
+        embeds = {f"{name}.weight" for name, m in model.named_modules()
+                  if isinstance(m, torch.nn.Embedding)}
     state = model.state_dict() if isinstance(model, torch.nn.Module) else model
     tree: dict = {}
-    for key, value in state.items():
+    for name, value in state.items():
         arr = value.detach().cpu().float()
+        key = name
         if torch_layouts:
-            key = re.sub(r"(^|\.)resblocks\.(\d+)\.", r"\1resblocks_\2.", key)
+            key = re.sub(r"(^|\.)(resblocks|layers)\.(\d+)(?=\.)", r"\1\2_\3", key)
         *path, leaf = key.split(".")
         node = tree
         for part in path:
             node = node.setdefault(part, {})
-        if torch_layouts and leaf == "weight":
+        if torch_layouts and leaf == "weight" and name in embeds:
+            leaf = "embedding"
+        elif torch_layouts and leaf == "weight":
             leaf = "scale" if arr.dim() == 1 else "kernel"
             arr = arr.T if arr.dim() == 2 else arr.permute(2, 3, 1, 0) if arr.dim() == 4 else arr
         node[leaf] = np.ascontiguousarray(arr.numpy())

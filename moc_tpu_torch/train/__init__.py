@@ -1,5 +1,5 @@
-"""moc_tpu_torch.train — trainers: masked-token encoder pretraining, the
-MIL baselines (one fold at a time or all folds of a shot fused), ViLa-MIL,
+"""moc_tpu_torch.train — trainers: masked-token encoder pretraining (with
+the bf16-parameter recipe) and MUSK's contrastive step, the MIL baselines (one fold at a time or all folds of a shot fused), ViLa-MIL,
 LoRA fine-tuning and chunked-bag attention pooling."""
 
 from moc_tpu_torch.train.accum import chunk_bag, streaming_attention_pool
@@ -13,7 +13,11 @@ from moc_tpu_torch.train.mil import (AccuracyLogger, EarlyStopping, FoldResult, 
                                      make_optimizer, train_fold, weighted_order)
 from moc_tpu_torch.train.pretrain import (
     MaskedTokenModel,
+    MasterAdam,
     PretrainConfig,
+    cast_params_for_storage,
+    clip_contrastive_loss,
+    make_musk_contrastive_step,
     make_pretrain_state,
     make_train_step,
     masked_token_loss,
@@ -38,6 +42,10 @@ __all__ = [
     "EarlyStopping",
     "FoldResult",
     "MaskedTokenModel",
+    "MasterAdam",
+    "cast_params_for_storage",
+    "clip_contrastive_loss",
+    "make_musk_contrastive_step",
     "MilTrainConfig",
     "PretrainConfig",
     "bag_loss_fn",

@@ -6,7 +6,8 @@ make room for the CLS slot and L2-normalises; ``encode_image`` returns the
 L2-normalised contrastive embedding. ``encode_image`` runs the trunk and the
 contrast pooler only: the JAX package also runs the 256-query caption pooler
 and drops its tokens, and skipping it leaves the embedding the same. The
-caption decoder is not part of the model (no MOC workload runs it).
+caption decoder is a module of its own, ``zeroshot.captioner``, fed the
+vision tower's caption tokens (no MOC workload runs it).
 """
 
 from __future__ import annotations

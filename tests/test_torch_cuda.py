@@ -1566,3 +1566,203 @@ def test_streaming_attention_pool_on_the_card_matches_the_cpu(gen, remat):
         out[dev] = [t.detach().cpu() for t in (pooled, lse, w.grad, v.grad)]
     for got, want in zip(out["cuda"], out["cpu"]):
         assert _rel_max(got, want) <= 1e-5
+
+
+# ---------------------------------------- the encoder stack's model half (MoE,
+# dilated attention, xPos, the relative bias, remat, the bf16-parameter recipe,
+# MUSK's contrastive step, the decoder, the captioner and RetNet)
+
+def _card_and_cpu(model, forward):
+    """``forward(model, device) -> (out, loss)`` on copies of ``model`` on the
+    card and the CPU, TF32 off: (out, grads) of each."""
+    import copy
+
+    from moc_tpu_torch.models.layers import full_f32
+
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        m = copy.deepcopy(model).to(dev)
+        with full_f32():
+            out, loss = forward(m, dev)
+            loss.backward()
+        runs[dev] = (out.detach().float().cpu(),
+                     {n: p.grad.cpu() for n, p in m.named_parameters() if p.grad is not None})
+    return runs["cuda"], runs["cpu"]
+
+
+def _hold(card, cpu, skip=("k_proj.bias",)):
+    """Outputs within 1e-5 of the largest |out|, gradients within 1e-5 of the
+    largest |grad| (a key bias's, rounding noise under a softmax, left out)."""
+    assert _rel_max(card[0], cpu[0]) <= 1e-5
+    names = [n for n in cpu[1] if not n.endswith(skip)]
+    scale = max(float(cpu[1][n].abs().max()) for n in names)
+    for n in names:
+        assert float((card[1][n] - cpu[1][n]).abs().max()) <= 1e-5 * scale, n
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["aligned", "pad_correction"])
+def test_dilated_flash_route_matches_plain_route(gen, dtype, case):
+    """``dilated_attention`` on K2-K4 against ``use_flash=False`` in f32 on
+    the same inputs: f32 within 1e-5 of the largest |out| and |grad|, bf16
+    within 2e-2 and a 1% mean; K2 once a branch, K3/K4 once a branch
+    without a pad correction."""
+    import dataclasses
+
+    from moc_tpu_torch.models.layers import full_f32
+    from moc_tpu_torch.parallel.dilated import DilatedConfig, dilated_attention
+
+    length, ratios = (1024, (1, 2, 4)) if case == "aligned" else (1000, (1, 2, 6))
+    cfg = DilatedConfig((256, 512, 1024), ratios)
+    q, k, v = (torch.randn((2, length, 12, 64), generator=gen, device="cuda").to(dtype)
+               for _ in range(3))
+    do = torch.randn((2, length, 768), generator=gen, device="cuda")
+    runs = {}
+    for flash in (True, False):
+        leaves = [(t if flash else t.float()).detach().clone().requires_grad_(True)
+                  for t in (q, k, v)]
+        counts = [f.launches for f in (flash_fwd_cuda, flash_bwd_dq_cuda, flash_bwd_dkv_cuda)]
+        with full_f32():
+            out = dilated_attention(*leaves, dataclasses.replace(cfg, use_flash=flash))
+            out.backward(do)
+        counts = [f.launches - c for f, c in zip((flash_fwd_cuda, flash_bwd_dq_cuda,
+                                                   flash_bwd_dkv_cuda), counts)]
+        runs[flash] = (out.detach(), [t.grad.float() for t in leaves], counts)
+    bwd = 3 if case == "aligned" else 0
+    assert runs[True][2] == [3, bwd, bwd] and runs[False][2] == [0, 0, 0]
+    lim = (F32_FWD_MAX_REL, F32_BWD_MAX_REL) if dtype == torch.float32 else (2e-2, 2e-2)
+    assert _rel_max(runs[True][0], runs[False][0]) <= lim[0]
+    scale = max(float(g.abs().max()) for g in runs[False][1])
+    for got, want in zip(runs[True][1], runs[False][1]):
+        assert float((got - want).abs().max()) <= lim[1] * scale
+    _assert_mean_close(runs[True][1], runs[False][1], dtype)
+
+
+@pytest.mark.parametrize("variant", ["xpos", "rel_pos", "remat", "moe", "dilated"])
+def test_encoder_option_on_the_card_matches_the_cpu(gen, variant):
+    """A 2-layer encoder with each option, the card against the CPU from one
+    state dict: forward and gradients within 1e-5 of the largest."""
+    import dataclasses
+
+    from moc_tpu_torch.nn.encoder import Encoder, EncoderConfig, init_like_flax
+    from moc_tpu_torch.parallel.dilated import DilatedConfig
+    from moc_tpu_torch.parallel.moe import MoEConfig
+
+    kw = {"xpos": dict(xpos=True), "rel_pos": dict(rel_pos_buckets=32, max_rel_pos=64),
+          "remat": dict(remat=True), "moe": dict(moe_freq=2, moe=MoEConfig(n_experts=4)),
+          "dilated": dict(dilated=DilatedConfig((64, 128, 256), (1, 2, 4)))}[variant]
+    cfg = dataclasses.replace(EncoderConfig(embed_dim=128, ffn_dim=256, layers=2, heads=2), **kw)
+    model = init_like_flax(Encoder(cfg), torch.Generator().manual_seed(1))
+    x = torch.randn((2, 256, 128), generator=torch.Generator().manual_seed(2))
+    mask = None
+    if variant in ("rel_pos", "moe"):
+        mask = torch.zeros((2, 256), dtype=torch.bool)
+        mask[1, 200:] = True
+    keep = 1.0 if mask is None else (~mask)[..., None].float()
+
+    def forward(m, dev):
+        out, aux = m(x.to(dev), None if mask is None else mask.to(dev))
+        out = out * (keep if isinstance(keep, float) else keep.to(dev))
+        return out, out.square().mean() + aux
+
+    _hold(*_card_and_cpu(model, forward))
+
+
+@pytest.mark.parametrize("tier", ["f32", "bf16_compute"])
+def test_bf16_parameter_step_on_the_card_matches_the_cpu(gen, tier):
+    """Two steps of the bf16-parameter recipe with MoE from one state on the
+    card and the CPU: losses within 1e-4 (f32 compute) or 5e-3 (bf16), the
+    storage copy its master rounded to nearest, bit for bit."""
+    from moc_tpu_torch.cli import pretrain
+    from moc_tpu_torch.train.pretrain import MaskedTokenModel, run_pretrain
+
+    argv = ["--batch", "2", "--seq_len", "128", "--layers", "2", "--embed_dim", "128",
+            "--ffn_dim", "256", "--heads", "2", "--vocab", "256", "--moe_experts", "4",
+            "--param_dtype", "bfloat16"]
+    if tier == "bf16_compute":
+        argv += ["--compute_dtype", "bfloat16"]
+    args = pretrain.get_args(argv)
+    cfg = pretrain.build_config(args)
+    state = MaskedTokenModel(cfg).init_parameters(torch.Generator().manual_seed(0)).state_dict()
+    losses = {}
+    for dev in ("cuda", "cpu"):
+        model, opt, losses[dev] = run_pretrain(cfg, pretrain.make_data_fn(args), total_steps=2,
+                                               device=dev, state_dict=state)
+        masters = opt.master_state_dict(model)
+        for name, p in model.state_dict().items():
+            assert torch.equal(p, masters[name].to(p.dtype)), name
+    tol = 1e-4 if tier == "f32" else 5e-3
+    assert max(abs(a - b) for a, b in zip(losses["cuda"], losses["cpu"])) <= tol
+
+
+def test_musk_contrastive_step_on_the_card_matches_the_cpu(gen):
+    """A 2-layer MUSK of width 128: the contrastive loss and its gradients on
+    the card against the CPU (padded texts as segments into K2-K4), and one
+    ``make_musk_contrastive_step`` launching K2, K3 and K4 once a layer and
+    tower."""
+    from moc_tpu_torch.models.musk import MUSK, MuskConfig
+    from moc_tpu_torch.nn.encoder import EncoderConfig
+    from moc_tpu_torch.train.pretrain import clip_contrastive_loss, make_musk_contrastive_step
+
+    cfg = MuskConfig(image_size=32, patch_size=16, vocab_size=120, embed_dim=128, out_dim=64,
+                     encoder=EncoderConfig(embed_dim=128, ffn_dim=256, layers=2, heads=2,
+                                           multiway=True))
+    torch.manual_seed(0)
+    model = MUSK(cfg)
+    g = torch.Generator().manual_seed(3)
+    images = torch.randn((4, 32, 32, 3), generator=g)
+    ids = torch.randint(0, 120, (4, 12), generator=g)
+    pad = torch.zeros((4, 12), dtype=torch.bool)
+    pad[1, 7:] = pad[3, 4:] = True
+
+    def forward(m, dev):
+        v, t, s = m(images.to(dev), ids.to(dev), text_padding_mask=pad.to(dev))
+        return torch.cat([v, t]), clip_contrastive_loss(v, t, s)
+
+    _hold(*_card_and_cpu(model, forward), skip=("k_proj.A.bias", "k_proj.B.bias"))
+    card = model.cuda()
+    step = make_musk_contrastive_step(card, torch.optim.Adam(card.parameters(), lr=1e-4))
+    counts = [f.launches for f in (flash_fwd_cuda, flash_bwd_dq_cuda, flash_bwd_dkv_cuda)]
+    loss = step(images.cuda(), ids.cuda(), pad.cuda())
+    counts = [f.launches - c for f, c in zip((flash_fwd_cuda, flash_bwd_dq_cuda,
+                                               flash_bwd_dkv_cuda), counts)]
+    assert counts == [4, 4, 4] and bool(torch.isfinite(loss))
+
+
+def test_captioner_and_retnet_on_the_card_match_the_cpu(gen):
+    """A 2-layer captioner: greedy and beam ids equal on the card and the CPU,
+    teacher-forced logits within 1e-5 of the largest, no K2-K4 launch;
+    RetNet's parallel form on the card against the CPU within 1e-5 and its
+    chunkwise form against the recurrent within the JAX package's 2e-3."""
+    from moc_tpu_torch.models.layers import full_f32
+    from moc_tpu_torch.nn.encoder import init_like_flax
+    from moc_tpu_torch.nn.retnet import RetNetConfig, RetNetDecoder
+    from moc_tpu_torch.zeroshot.captioner import CaptionerConfig, CoCaCaptioner, generate_caption
+
+    cap = init_like_flax(CoCaCaptioner(CaptionerConfig(vocab_size=300, width=64, layers=2,
+                                                       heads=4, eot_id=299)),
+                         torch.Generator().manual_seed(4))
+    caption = torch.randn((3, 16, 64), generator=torch.Generator().manual_seed(5))
+    counts = [f.launches for f in (flash_fwd_cuda, flash_bwd_dq_cuda, flash_bwd_dkv_cuda)]
+    ids = {}
+    with full_f32():
+        for dev in ("cuda", "cpu"):
+            cap.to(dev)
+            ids[dev] = [generate_caption(cap, caption.to(dev), seq_len=12, mode=m).cpu()
+                        for m in ("greedy", "beam")]
+            with torch.no_grad():
+                ids[dev].append(cap(ids[dev][0].to(dev), caption.to(dev)).cpu())
+    assert [f.launches for f in (flash_fwd_cuda, flash_bwd_dq_cuda, flash_bwd_dkv_cuda)] == counts
+    assert torch.equal(ids["cuda"][0], ids["cpu"][0]) and torch.equal(ids["cuda"][1],
+                                                                      ids["cpu"][1])
+    assert _rel_max(ids["cuda"][2], ids["cpu"][2]) <= 1e-5
+    ret = init_like_flax(RetNetDecoder(RetNetConfig(embed_dim=64, value_dim=128, heads=4,
+                                                    ffn_dim=128, layers=2)),
+                         torch.Generator().manual_seed(6))
+    x = torch.randn((2, 128, 64), generator=torch.Generator().manual_seed(7))
+    with torch.no_grad(), full_f32():
+        want = ret(x)[0]
+        ret.cuda()
+        par, rec, chunk = (ret(x.cuda(), mode=m, chunk_size=32)[0].cpu()
+                           for m in ("parallel", "recurrent", "chunkwise"))
+    assert _rel_max(par, want) <= 1e-5 and _rel_max(chunk, rec) <= 2e-3

@@ -5,7 +5,9 @@ CLI's synthetic batches bit for bit, three ``run_pretrain`` steps from the
 same initial parameters on the same batches (f32: losses within 1e-5,
 parameters within 5e-5 but the key biases, whose gradient is 0 but for
 rounding; bf16 compute: losses within 5e-3, parameters within 1e-2), the
-CLI on the CPU and its refusals. JAX runs its Pallas flash kernels in
+CLI on the CPU and its refusals (the options ported since, MoE, the
+bf16-parameter recipe and the encoder's dilated, xPos, relative-bias and
+remat options, run in their cases instead). JAX runs its Pallas flash kernels in
 interpret mode at the lane-aligned lengths, as its own tests do."""
 
 import argparse
@@ -24,6 +26,7 @@ from moc_tpu.train import pretrain as jpre
 from moc_tpu_torch.cli import pretrain as tcli
 from moc_tpu_torch.convert import masked_token_model_from_jax
 from moc_tpu_torch.nn import encoder as tenc
+from moc_tpu_torch.parallel.dilated import DilatedConfig
 from moc_tpu_torch.train import pretrain as tpre
 
 SMALL = dict(embed_dim=128, ffn_dim=256, layers=2, heads=2)
@@ -177,12 +180,25 @@ def test_cli_main_on_cpu(capsys):
     assert np.isfinite(float(out[-1].split()[2]))
 
 
-@pytest.mark.parametrize("flags", [["--moe_experts", "4"], ["--param_dtype", "bfloat16"],
-                                   ["--ckpt_dir", "ckpt"], ["--mesh", "data=2"],
+# the first two options are ported since the encoder's model half of ROADMAP
+# queue 1, item 9: their cases run them on the CPU (``test_torch_pretrain_
+# recipes`` holds them against JAX); the rest are still refused
+CLI_PORTED = (["--moe_experts", "4"], ["--param_dtype", "bfloat16"])
+
+
+@pytest.mark.parametrize("flags", [*CLI_PORTED, ["--ckpt_dir", "ckpt"], ["--mesh", "data=2"],
                                    ["--mesh", "data=1,pipe=2"], ["--mesh", "data=-1,tensor=2"]])
-def test_cli_refuses_what_is_not_ported(flags):
+def test_cli_refuses_what_is_not_ported(flags, capsys):
+    argv = ["--device", "cpu", "--steps", "1", *flags]
+    if flags in CLI_PORTED:
+        assert tcli.main([*argv, "--batch", "2", "--seq_len", "64", "--layers", "2",
+                          "--embed_dim", "64", "--ffn_dim", "128", "--heads", "2",
+                          "--vocab", "128", "--moe_freq", "2"]) == 0
+        last = capsys.readouterr().out.strip().splitlines()[-1]
+        assert last.startswith("final loss ") and np.isfinite(float(last.split()[2]))
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        tcli.main(["--device", "cpu", "--steps", "1", *flags])
+        tcli.main(argv)
 
 
 def test_cli_refuses_multi_process_and_unknown_axes(monkeypatch):
@@ -193,13 +209,30 @@ def test_cli_refuses_multi_process_and_unknown_axes(monkeypatch):
         tcli.main(["--device", "cpu", "--steps", "1"])
 
 
-@pytest.mark.parametrize("field,value", [("moe_freq", 2), ("dilated", object()),
+# every option but ring_axis is ported since the encoder's model half of
+# ROADMAP queue 1, item 9: those cases build and run a 2-layer encoder with it
+# (``test_torch_encoder_stack`` holds each against JAX); ring_axis is refused
+@pytest.mark.parametrize("field,value", [("moe_freq", 2),
+                                         ("dilated", DilatedConfig((32, 64), (1, 2))),
                                          ("ring_axis", "seq"), ("xpos", True),
                                          ("rel_pos_buckets", 32), ("remat", True)])
 def test_encoder_refuses_what_is_not_ported(field, value):
-    cfg = dataclasses.replace(tenc.EncoderConfig(**SMALL), **{field: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        tenc.Encoder(cfg)
+    extra = {"max_rel_pos": 64} if field == "rel_pos_buckets" else {}
+    cfg = dataclasses.replace(tenc.EncoderConfig(**SMALL), **{field: value}, **extra)
+    if field == "ring_axis":
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+            tenc.Encoder(cfg)
+        return
+    model = tenc.init_like_flax(tenc.Encoder(cfg), torch.Generator().manual_seed(0))
+    x = torch.randn(2, 64, SMALL["embed_dim"], generator=torch.Generator().manual_seed(1),
+                    requires_grad=True)
+    out, aux = model(x)
+    (out.sum() + aux).backward()
+    assert out.shape == x.shape and bool(torch.isfinite(out).all())
+    assert bool(torch.isfinite(x.grad).all())
+    assert (float(aux.detach()) > 0) == (field == "moe_freq")
+    if field == "rel_pos_buckets":
+        assert model.relative_position is not None
 
 
 def test_multiway_runs_branch_a_and_refuses_a_split():
