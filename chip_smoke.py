@@ -247,7 +247,35 @@ Phases, each of which makes the script exit non-zero when it fails:
 29. the caption decoder and RetNet (``[decoder]``, after 14, on its CONCH
    checkpoint): ``generate_caption`` greedy and beam 4 at CONCH's width over
    the vision tower's caption tokens, 2 layers against the CPU, RetNet's
-   three forms at L = 2048.
+   three forms at L = 2048;
+30. the slide front end (``[create_patches]``, after 6, on 5's CONCH
+   checkpoint): four synthetic 4096 x 3072 PNG slides (two tissue
+   blobs, a hole, specks) through ``cli.create_patches.main`` on the host
+   (``.npz`` grids without h5py), each grid equal to the module functions'
+   own on the CPU, then ``cli.extract_features.main --backbone conch
+   --flash --wsi_dir`` on the card: unit-norm 512-d rows, K2 launched 12
+   times a batch (``launches_create_patches_chain``);
+31. ``[visualize]``: in-memory bags at the serving point (N = 16384, D =
+   512, C = 2, C_ext = 6, topj 400, topk 10) with coordinates through
+   ``visualize_slide_moc`` (a seeded SENet; K1 once a slide on the row
+   entry, ``launches_visualize``; the union bit-equal to the plain version
+   on the card's own logits, the fused and view-weight maps within 1e-5 of
+   the largest |value| of the CPU's), ``visualize_slide_model`` (CLAM-SB,
+   CHIEF) and the zero-shot ``visualize_slide``, each slide's wall;
+32. ``[export]``: ``save_serving_program`` on the card at batch 8, n >=
+   1024 for the exact and int8 tiers and a CLAM-SB head, reloaded and run
+   at the 4096 and 16384 buckets: logits within 1e-6 of the largest (bit
+   equality reported), ``score_bags``' rows equal, K1 launched by the
+   loaded program once on the rows and once on the columns a batch
+   (``launches_export``); the artifact's size, export and load seconds,
+   first and steady times a batch beside the live forward's;
+33. ``[xprof]``: ``cli.predict --xprof DIR`` on the card in a fresh process:
+   one trace file that names ``topk_cluster_kernel``, rows equal to a run
+   without the flag;
+34. ``[ckpt]``: ``cli.pretrain --ckpt_dir`` at the BEiT-3-base width, batch
+   32 x 512, f32: 3 steps, then a fresh process resumes for 3 more; the six
+   losses within 1e-5 of an uninterrupted 6-step run (bit equality
+   reported), K2-K4 12 a step (``launches_pretrain_resume``).
 
 The last lines are the card's name and power limit, one JSON object of
 kernel records, and ``{"ok": true, "device": {...}}``. No phase falls back
@@ -4580,6 +4608,444 @@ def _slice_cells(tier: str, kid: str, moe, dilated, contrastive, options, slice_
     return cells
 
 
+
+# ---------------------------------------------------------------------------
+# The slide front end and the tooling tail: create_patches, visualize,
+# serving programs, --xprof and pretrain --ckpt_dir.
+
+CP_SLIDES, CP_SIZE = 4, (4096, 3072)  # synthetic slides, width x height
+# CLAM's area units (512 x 512 level-0 patches) at this slide size: a region
+# of 4 units (~1M px) is tissue, a hole of 1 unit stays excluded, the specks
+# (80 x 80 px) are dropped; segmentation on a 1024 px thumbnail
+CP_PATCH, CP_THUMB, CP_A_T, CP_A_H = 256, 1024, 4.0, 1.0
+VIZ_SLIDES, VIZ_TEMPERATURE = 2, 56.3477
+VIZ_HEADS = ("clam_sb", "chief")
+EXPORT_MIN_PAD = 1024
+EXPORT_BUCKETS = {4096: (3000, 4096), N_PAD: (MIN_PATCHES, MAX_PATCHES)}
+XPROF_SLIDES = 8
+CKPT_STEPS = 3  # then a fresh process resumes for CKPT_STEPS more
+
+
+def _unit_rows(rng, n: int, d: int = DIM) -> np.ndarray:
+    f = rng.standard_normal((n, d)).astype(np.float32)
+    return f / np.linalg.norm(f, axis=1, keepdims=True)
+
+
+def _unit_cols(gen: torch.Generator, d: int, c: int) -> torch.Tensor:
+    return torch.nn.functional.normalize(torch.randn(d, c, generator=gen), dim=0)
+
+
+def _synthetic_slide(rng) -> np.ndarray:
+    """White glass, two tissue blobs (one with a hole) and specks, placed
+    in proportion to ``CP_SIZE``."""
+    w, h = CP_SIZE
+    img = np.full((h, w, 3), 255, np.uint8)
+    yy, xx = np.mgrid[0:h, 0:w]
+    for cx, cy, rx, ry in ((0.32, 0.42, 0.22, 0.21), (0.76, 0.62, 0.16, 0.17)):
+        cx, cy = (cx + rng.uniform(-0.02, 0.02)) * w, (cy + rng.uniform(-0.02, 0.02)) * h
+        blob = ((xx - cx) / (rx * w)) ** 2 + ((yy - cy) / (ry * h)) ** 2 < 1
+        img[blob] = (rng.integers(140, 200), rng.integers(60, 110), rng.integers(170, 220))
+    hole = ((xx - 0.32 * w) / (0.073 * w)) ** 2 + ((yy - 0.42 * h) / (0.081 * h)) ** 2 < 1
+    img[hole] = 255
+    s = w // 50
+    for _ in range(6):
+        x, y = int(rng.integers(0, w - s)), int(rng.integers(0, h // 15))
+        img[y:y + s, x:x + s] = (150, 80, 190)
+    noise = rng.integers(-12, 13, img.shape, dtype=np.int16)
+    return np.clip(img.astype(np.int16) + noise, 0, 255).astype(np.uint8)
+
+
+def phase_create_patches(root: str, ckpt: str) -> dict:
+    """Raw slides → ``cli.create_patches`` (host, ``.npz`` grids) →
+    ``cli.extract_features --backbone conch --flash --wsi_dir`` on the card."""
+    from PIL import Image
+
+    from moc_tpu_torch.cli import create_patches, extract_features
+    from moc_tpu_torch.data.bags import read_bag_pt
+    from moc_tpu_torch.data.patches import open_slide
+    from moc_tpu_torch.data.segment import (coords_ext, read_patch_coords, segment_tissue,
+                                            segmented_grid)
+    from moc_tpu_torch.ops.flash_kernel import flash_fwd_cuda
+
+    wsi, proc, feats = (os.path.join(root, d) for d in ("cp_wsi", "cp_proc", "cp_feats"))
+    os.makedirs(wsi)
+    rng = np.random.default_rng(18)
+    t0 = time.perf_counter()
+    for i in range(CP_SLIDES):
+        Image.fromarray(_synthetic_slide(rng)).save(os.path.join(wsi, f"slide_{i}.png"),
+                                                    compress_level=1)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    check(create_patches.main(["--wsi_dir", wsi, "--out_dir", proc, "--patch_size",
+                               str(CP_PATCH), "--step_size", str(CP_PATCH), "--thumb_max",
+                               str(CP_THUMB), "--a_t", str(CP_A_T), "--a_h", str(CP_A_H)]) == 0,
+          "cli.create_patches.main failed")
+    t_cp = time.perf_counter() - t0
+    ext = coords_ext()
+    with open(os.path.join(proc, "process_list.csv"), newline="") as f:
+        plist = list(csv.DictReader(f))
+    check(len(plist) == CP_SLIDES and all(r["status"] == "processed" for r in plist),
+          f"process_list.csv: {plist}")
+    counts = {}
+    for i in range(CP_SLIDES):
+        sid = f"slide_{i}"
+        coords, attrs = read_patch_coords(os.path.join(proc, "patches", sid + ext))
+        # the grid again, straight from the module functions on the CPU
+        thumb, scale = open_slide(os.path.join(wsi, sid + ".png")).thumbnail(CP_THUMB)
+        seg = segment_tissue(thumb, scale, a_t=CP_A_T, a_h=CP_A_H)
+        want = segmented_grid(seg, CP_PATCH, CP_PATCH)
+        check(np.array_equal(coords, want), f"{sid}: the CLI's grid differs from the CPU's")
+        check(len(coords) > 0 and int(attrs["patch_size"]) == CP_PATCH and seg.n_regions == 2,
+              f"{sid}: {len(coords)} patches, {seg.n_regions} regions, attrs {attrs}")
+        check(os.path.exists(os.path.join(proc, "masks", sid + ".png")), f"{sid}: no mask")
+        counts[sid] = len(coords)
+    flash_fwd_cuda.launches = 0
+    t0 = time.perf_counter()
+    check(extract_features.main(["--patch_dir", os.path.join(proc, "patches"), "--out_dir",
+                                 feats, "--checkpoint", ckpt, "--backbone", "conch", "--flash",
+                                 "--wsi_dir", wsi, "--wsi_ext", ".png", "--patch_size",
+                                 str(CP_PATCH),
+                                 "--batch_size", str(EXTRACT_BATCH), "--out_format", "pt",
+                                 "--device", "cuda"]) == 0, "cli.extract_features.main failed")
+    torch.cuda.synchronize()
+    t_ex = time.perf_counter() - t0
+    launches = flash_fwd_cuda.launches
+    batches = sum(math.ceil(n / EXTRACT_BATCH) for n in counts.values())
+    check(launches == TRUNK_LAYERS * batches,
+          f"K2 launched {launches} times over {batches} batches, want {TRUNK_LAYERS} a batch")
+    for sid, n in counts.items():
+        f = read_bag_pt(os.path.join(feats, "pt_files", sid + ".pt")).features
+        err = float(np.abs(np.linalg.norm(f, axis=1) - 1).max())
+        check(f.shape == (n, 512) and bool(np.isfinite(f).all()) and err < 1e-4,
+              f"{sid}: bag {f.shape}, norm error {err}")
+    n = sum(counts.values())
+    log(f"[create_patches] {CP_SLIDES} slides of {CP_SIZE[0]} x {CP_SIZE[1]} px written in "
+        f"{t_write:.1f}s; create_patches {t_cp:.1f}s ({ext} grids, equal to the CPU's); "
+        f"patches {counts}; extraction of {n} patches {t_ex:.1f}s host wall "
+        f"({n / t_ex:.1f} images/s, checkpoint load included); K2 launches {launches} "
+        f"({TRUNK_LAYERS} x {batches} batches)")
+    return {"launches": launches, "patches": counts, "create_patches_s": t_cp,
+            "extract_s": t_ex, "grid_ext": ext}
+
+
+def phase_visualize(root: str) -> dict:
+    """``visualize_slide_moc``, ``visualize_slide_model`` (CLAM-SB, CHIEF)
+    and the zero-shot ``visualize_slide`` over in-memory bags at the
+    reference operating point, on the card."""
+    from moc_tpu_torch.cli import visualize as viz
+    from moc_tpu_torch.data.bags import Bag
+    from moc_tpu_torch.models.layers import full_f32
+    from moc_tpu_torch.models.senet import SENet
+    from moc_tpu_torch.moc import MOCConfig
+    from moc_tpu_torch.moc.core import _dense_views_weights
+    from moc_tpu_torch.ops import union_selection_threshold
+    from moc_tpu_torch.train.mil import MilTrainConfig, build_model
+    from moc_tpu_torch.viz.model_maps import moc_patch_maps
+
+    rng = np.random.default_rng(7)
+    gen = torch.Generator().manual_seed(7)
+    side = int(math.isqrt(N_PAD))
+    grid = np.stack(np.meshgrid(np.arange(side), np.arange(side), indexing="xy"), -1)
+    coords = (grid.reshape(-1, 2) * 256).astype(np.int32)
+    bags = [Bag(slide_id=f"viz_{i}", features=_unit_rows(rng, N_PAD), coords=coords)
+            for i in range(VIZ_SLIDES)]
+    w, w_ext = _unit_cols(gen, DIM, N_CLASSES), _unit_cols(gen, DIM, N_EXT)
+    senet = SENet(DIM, generator=gen)
+    cfg = MOCConfig(n_classes=N_CLASSES, n_ext_classes=N_EXT, topj=TOPJ, topk=TOPK,
+                    feature_dim=DIM)
+    out = os.path.join(root, "viz")
+    os.makedirs(out)
+    kw = dict(topk=TOPK, patch_size=256, downsample=32)
+    res = {"wall_s": {}, "files": {}}
+
+    def run(mode, fn, bag, **extra):
+        t0 = time.perf_counter()
+        files = fn(bag, out, **kw, **extra)
+        torch.cuda.synchronize()
+        res["wall_s"].setdefault(mode, []).append(time.perf_counter() - t0)
+        res["files"].setdefault(mode, []).extend(os.path.basename(p) for p in files)
+
+    _reset_launches()
+    for bag in bags:
+        run("moc", viz.visualize_slide_moc, bag, moc_cfg=cfg, senet=senet, w=w.numpy(),
+            w_ext=w_ext.numpy(), temperature=VIZ_TEMPERATURE, device="cuda")
+    res["launches"] = _all_launches()
+    check(res["launches"]["rows"] == VIZ_SLIDES and res["launches"]["cols"] == 0,
+          f"visualize_slide_moc launched K1 {res['launches']}, want {VIZ_SLIDES} row launches")
+    # the union against the plain version fed the card's own logits; the
+    # fused map and the view weights against the same call on the CPU
+    bag = bags[0]
+    valid = np.ones(N_PAD, bool)
+    maps_g, fused_g = moc_patch_maps(senet, bag.features, valid, w.numpy(), w_ext.numpy(),
+                                     cfg, device="cuda")
+    with torch.no_grad(), full_f32():
+        _, _, lg, lge = _dense_views_weights(senet.cuda(),
+                                             torch.from_numpy(bag.features).cuda()[None],
+                                             w.cuda(), w_ext.cuda(), cfg)
+    plain = union_selection_threshold(lg.cpu(), lge.cpu(), torch.ones(1, N_PAD, dtype=torch.bool),
+                                      TOPJ, N_CLASSES)
+    check(np.array_equal(maps_g["union"], plain[0].float().numpy()),
+          "the card's union map differs from the plain version on the card's logits")
+    maps_c, fused_c = moc_patch_maps(senet, bag.features, valid, w.numpy(), w_ext.numpy(), cfg,
+                                     device="cpu")
+    errs = {"fused": _rel_err(torch.from_numpy(fused_g), torch.from_numpy(fused_c))}
+    errs.update({k: _rel_err(torch.from_numpy(maps_g[k]), torch.from_numpy(maps_c[k]))
+                 for k in maps_g if k != "union"})
+    check(max(errs.values()) <= 1e-5, f"card maps against the CPU: {errs} (1e-5 of largest)")
+    res["map_rel_err"] = errs
+    res["union_rows"] = int(maps_g["union"].sum())
+    for head in VIZ_HEADS:
+        mcfg = MilTrainConfig(model_type=head, model_size="conch", n_classes=N_CLASSES)
+        _, _, init = build_model(mcfg, in_dim=DIM)
+        params = init(torch.Generator().manual_seed(0))
+        for bag in bags:
+            run(head, viz.visualize_slide_model, bag, cfg=mcfg, params=params, device="cuda")
+    for bag in bags:
+        run("zero_shot", viz.visualize_slide, bag, weights=w.numpy(),
+            temperature=VIZ_TEMPERATURE)
+    for mode, walls in res["wall_s"].items():
+        log(f"[visualize] {mode}: {', '.join(f'{t:.3f}' for t in walls)}s a slide (the first "
+            f"call first; {N_PAD} patches, rendering included); files "
+            f"{sorted(set(f.split('_', 2)[-1] for f in res['files'][mode]))}")
+    log(f"[visualize] K1 {res['launches']} over {VIZ_SLIDES} MOC slides; union {res['union_rows']}"
+        f" rows, bit-equal to plain on the card's logits; maps against the CPU {errs}")
+    return res
+
+
+def _export_bags(rng) -> dict:
+    """A batch of bags in each of ``EXPORT_BUCKETS``."""
+    from moc_tpu_torch.data.bags import Bag
+
+    return {n_pad: [Bag(slide_id=f"e{n_pad}_{i}", label=0,
+                        features=_unit_rows(rng, int(rng.integers(lo, hi + 1))))
+                    for i in range(BATCH)] for n_pad, (lo, hi) in EXPORT_BUCKETS.items()}
+
+
+def phase_export(root: str) -> dict:
+    """``save_serving_program`` on the card for the exact and int8 tiers and
+    a CLAM-SB head at batch 8, ``min_pad`` 1024; each reloaded and run at
+    the 4096 and 16384 buckets against the live forward."""
+    from moc_tpu_torch.cli.predict import score_bags
+    from moc_tpu_torch.data.batching import pack_bags
+    from moc_tpu_torch.models.layers import full_f32
+    from moc_tpu_torch.models.senet import SENet
+    from moc_tpu_torch.moc import MOCConfig, eval_batch
+    from moc_tpu_torch.train.mil import MilTrainConfig, build_model
+    from moc_tpu_torch.utils.export import load_serving_program, save_serving_program
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(8)
+    w, w_ext = _unit_cols(gen, DIM, N_CLASSES).cuda(), _unit_cols(gen, DIM, N_EXT).cuda()
+    senet = SENet(DIM, generator=gen).cuda()
+    cfg = MOCConfig(n_classes=N_CLASSES, n_ext_classes=N_EXT, topj=TOPJ, topk=TOPK,
+                    feature_dim=DIM)
+    mcfg = MilTrainConfig(model_type="clam_sb", model_size="conch", n_classes=N_CLASSES)
+    mil, forward, _ = build_model(mcfg, in_dim=DIM)
+    mil.cuda().eval()
+
+    @torch.no_grad()
+    def mil_logits(batch):
+        with full_f32():
+            return forward(None, batch.features.float(), batch.mask)[0]
+
+    def moc_logits(batch):
+        return eval_batch(senet, batch, w, w_ext, cfg)
+
+    bags = _export_bags(np.random.default_rng(8))
+    res = {}
+    for name, live, dtype, k1 in (("exact", moc_logits, torch.float32, (1, 1)),
+                                  ("int8", moc_logits, torch.int8, (1, 1)),
+                                  ("clam_sb", mil_logits, torch.float32, (0, 0))):
+        path = os.path.join(root, f"{name}.pt2")
+        t0 = time.perf_counter()
+        save_serving_program(path, live, batch_size=BATCH, feature_dim=DIM,
+                             min_pad=EXPORT_MIN_PAD, dtype=dtype, device=dev,
+                             meta={"n_classes": N_CLASSES, "temperature": 1.0})
+        t_export = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        program = load_serving_program(path)
+        t_load = time.perf_counter() - t0
+        rec = {"export_s": t_export, "load_s": t_load, "bytes": os.path.getsize(path),
+               "buckets": {}}
+        for n_pad, group in bags.items():
+            batch = pack_bags(group, n_pad=n_pad, device=dev, dtype=dtype)
+            _reset_launches()
+            t0 = time.perf_counter()
+            got = program.batch_logits(batch)
+            torch.cuda.synchronize()
+            first_ms = (time.perf_counter() - t0) * 1e3
+            launches = _all_launches()
+            check((launches["rows"], launches["cols"]) == k1,
+                  f"{name} program at {n_pad}: K1 launches {launches}, want {k1}")
+            want = live(batch)
+            diff = float((got - want).abs().max())
+            rel = diff / max(float(want.abs().max()), 1e-30)
+            check(rel <= 1e-6, f"{name} program at {n_pad}: logits differ from the live "
+                               f"forward by {diff} ({rel:.2e} of the largest)")
+            rows, want_rows = (score_bags(fn, group, batch_size=BATCH, n_classes=N_CLASSES,
+                                          temperature=1.0, device=dev, dtype=dtype,
+                                          min_pad=EXPORT_MIN_PAD)
+                               for fn in (program.batch_logits, live))
+            check([(r["slide_id"], r["pred"]) for r in rows]
+                  == [(r["slide_id"], r["pred"]) for r in want_rows]
+                  and max(abs(r[f"prob_{c}"] - q[f"prob_{c}"]) for r, q in zip(rows, want_rows)
+                          for c in range(N_CLASSES)) <= 1e-6,
+                  f"{name} at {n_pad}: score_bags rows differ from the live server's")
+            rec["buckets"][n_pad] = {
+                "bit_equal": diff == 0.0, "max_abs_diff": diff, "first_ms": first_ms,
+                "steady_ms": _time_ms(lambda: program.batch_logits(batch), iters=20, warmup=3),
+                "live_ms": _time_ms(lambda: live(batch), iters=20, warmup=3),
+                "k1_launches": [launches["rows"], launches["cols"]]}
+        res[name] = rec
+        log(f"[export] {name}: {rec['bytes'] / 1e6:.2f} MB, export {t_export:.1f}s, load "
+            f"{t_load:.2f}s; " + "; ".join(
+                f"n={n}: first {b['first_ms']:.1f} ms, steady {b['steady_ms']:.3f} ms a batch "
+                f"(live {b['live_ms']:.3f} ms), K1 {b['k1_launches']}, bit-equal "
+                f"{b['bit_equal']} (max |diff| {b['max_abs_diff']:.3e})"
+                for n, b in rec["buckets"].items()))
+    res["launches"] = {"rows": sum(r["buckets"][n]["k1_launches"][0]
+                                   for r in res.values() for n in r["buckets"]),
+                       "cols": sum(r["buckets"][n]["k1_launches"][1]
+                                   for r in res.values() for n in r["buckets"])}
+    return res
+
+
+def _repo_root() -> str:
+    return os.path.dirname(os.path.abspath(__file__))
+
+
+def phase_xprof(root: str) -> dict:
+    """``cli.predict --xprof DIR`` on the card in a fresh process: the trace
+    exists and names K1's kernel, and the rows equal a run without it."""
+    from moc_tpu_torch.cli import predict
+    from moc_tpu_torch.data.bags import write_bag_pt
+    from moc_tpu_torch.models.senet import SENet
+
+    rng = np.random.default_rng(9)
+    gen = torch.Generator().manual_seed(9)
+    feats = os.path.join(root, "xprof_feats")
+    ids = []
+    for i in range(XPROF_SLIDES):
+        ids.append(f"x{i}")
+        write_bag_pt(os.path.join(feats, "pt_files", f"x{i}.pt"),
+                     _unit_rows(rng, int(rng.integers(3000, 4097))))
+    with open(os.path.join(root, "xprof.csv"), "w", newline="") as f:
+        csv.writer(f, lineterminator="\n").writerows(
+            [("slide_id", "label"), *((s, "LUAD" if i % 2 else "LUSC")
+                                      for i, s in enumerate(ids))])
+    np.savez(os.path.join(root, "xw.npz"), weights=_unit_cols(gen, DIM, N_CLASSES).numpy())
+    np.savez(os.path.join(root, "xwe.npz"), weights=_unit_cols(gen, DIM, N_EXT).numpy())
+    torch.save(SENet(DIM, generator=gen).state_dict(), os.path.join(root, "xsenet.pt"))
+    argv = ["--dataset", "nsclc", "--model", os.path.join(root, "xsenet.pt"), "--feature_dir",
+            feats, "--csv", os.path.join(root, "xprof.csv"), "--weights_npz",
+            os.path.join(root, "xw.npz"), "--weights_ext_npz", os.path.join(root, "xwe.npz"),
+            "--device", "cuda"]
+    plain_csv, traced_csv = os.path.join(root, "x_plain.csv"), os.path.join(root, "x_traced.csv")
+    check(predict.main([*argv, "--out", plain_csv]) == 0, "predict without --xprof failed")
+    trace_dir = os.path.join(root, "xprof_trace")
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "moc_tpu_torch.cli.predict", *argv, "--out",
+                          traced_csv, "--xprof", trace_dir], cwd=_repo_root(),
+                         capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(run.returncode == 0, f"predict --xprof failed: {run.stderr[-2000:]}")
+    traces = [f for f in os.listdir(trace_dir) if f.endswith(".pt.trace.json")]
+    check(len(traces) == 1, f"--xprof wrote {traces}")
+    text = open(os.path.join(trace_dir, traces[0])).read()
+    events = json.loads(text)["traceEvents"]
+    k1 = [e for e in events if "topk_cluster_kernel" in str(e.get("name", ""))]
+    check(len(k1) > 0, "the --xprof trace names no topk_cluster_kernel")
+    with open(plain_csv, "rb") as a, open(traced_csv, "rb") as b:
+        check(a.read() == b.read(), "predict --xprof wrote other rows than predict")
+    size = os.path.getsize(os.path.join(trace_dir, traces[0]))
+    log(f"[xprof] predict --xprof in a fresh process: {wall:.1f}s wall (start-up included), "
+        f"trace {size / 1e6:.2f} MB with {len(events)} events, {len(k1)} of "
+        f"topk_cluster_kernel; rows equal to the untraced run")
+    return {"wall_s": wall, "trace_bytes": size, "events": len(events), "k1_events": len(k1)}
+
+
+_RECORD_LOSSES = (
+    "import json, sys\n"
+    "from moc_tpu_torch.cli import pretrain as cli\n"
+    "from moc_tpu_torch.train import pretrain as tp\n"
+    "run = tp.run_pretrain\n"
+    "def record(*a, **k):\n"
+    "    out = run(*a, **k)\n"
+    "    json.dump(out[2], open(sys.argv[1], 'w'))\n"
+    "    return out\n"
+    "tp.run_pretrain = record\n"
+    "sys.exit(cli.main(sys.argv[2:]))\n")
+
+
+def _pretrain_losses(argv: list[str]) -> list[float]:
+    """``cli.pretrain.main(argv)`` in this process, its losses at full
+    precision (the log prints four decimals)."""
+    from moc_tpu_torch.cli import pretrain
+    from moc_tpu_torch.train import pretrain as tp
+
+    run, got = tp.run_pretrain, []
+
+    def record(*a, **k):
+        out = run(*a, **k)
+        got.extend(out[2])
+        return out
+
+    tp.run_pretrain = record
+    try:
+        check(pretrain.main(argv) == 0, f"cli.pretrain.main({argv}) failed")
+    finally:
+        tp.run_pretrain = run
+    torch.cuda.synchronize()
+    return got
+
+
+def phase_ckpt(root: str) -> dict:
+    """``cli.pretrain --ckpt_dir`` at the BEiT-3-base width, f32: 3 steps,
+    then a fresh process resumes for 3 more, against an uninterrupted 6."""
+    argv = [*PRETRAIN_ARGV, "--log_every", "100", "--device", "cuda"]
+    ckpt = os.path.join(root, "ckpt")
+    total = 2 * CKPT_STEPS
+    _reset_launches()
+    t0 = time.perf_counter()
+    full = _pretrain_losses([*argv, "--steps", str(total)])
+    t_full = time.perf_counter() - t0
+    launches_full = _all_launches()
+    _reset_launches()
+    first = _pretrain_losses([*argv, "--steps", str(CKPT_STEPS), "--ckpt_dir", ckpt,
+                              "--ckpt_every", "2"])
+    launches_first = _all_launches()
+    check(sorted(os.listdir(ckpt)) == ["2", "3"], f"checkpoints {os.listdir(ckpt)}")
+    t0 = time.perf_counter()
+    path = os.path.join(root, "rest.json")
+    run = subprocess.run([sys.executable, "-c", _RECORD_LOSSES, path, *argv, "--steps",
+                          str(total), "--ckpt_dir", ckpt, "--ckpt_every", "2"],
+                         cwd=_repo_root(), capture_output=True, text=True, timeout=900)
+    t_resume = time.perf_counter() - t0
+    check(run.returncode == 0, f"the resumed pretrain failed: {run.stderr[-2000:]}")
+    check("resumed from step 3" in run.stderr, "the fresh process did not resume from step 3")
+    with open(path) as f:
+        rest = json.load(f)
+    resumed = first + rest
+    diff = max(abs(a - b) for a, b in zip(resumed, full))
+    check(len(resumed) == len(full) == total and all(math.isfinite(x) for x in resumed),
+          f"losses {resumed} against {full}")
+    check(diff <= 1e-5, f"the resumed run's losses differ from the uninterrupted run's by "
+                        f"{diff}: {resumed} against {full}")
+    want = PRETRAIN_LAYERS * CKPT_STEPS
+    check(launches_first == {"rows": 0, "cols": 0, "K2": want, "K3": want, "K4": want},
+          f"the first {CKPT_STEPS} steps launched {launches_first}")
+    size = sum(os.path.getsize(os.path.join(ckpt, "3", f)) for f in os.listdir(
+        os.path.join(ckpt, "3")))
+    log(f"[ckpt] {total} uninterrupted steps {t_full:.1f}s; {CKPT_STEPS} steps then a fresh "
+        f"process resumed from step 3 ({t_resume:.1f}s wall, start-up included); losses "
+        f"{resumed} against {full}: bit-equal {resumed == full}, max |diff| {diff:.3e}; "
+        f"checkpoint {size / 1e6:.1f} MB a step; launches {launches_full} (uninterrupted), "
+        f"{launches_first} (first {CKPT_STEPS})")
+    return {"losses_resumed": resumed, "losses_full": full, "bit_equal": resumed == full,
+            "max_abs_diff": diff, "launches": launches_first, "launches_full": launches_full,
+            "checkpoint_bytes": size}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py runs on a GPU only", file=sys.stderr)
@@ -4601,6 +5067,7 @@ def main() -> int:
         out_dir = os.path.join(root, "features")
         extracted = phase_extract(ckpt, patch_dir, paths, out_dir)
         phase_serve_extracted(root, out_dir)
+        chain = phase_create_patches(root, ckpt)
         k2_times = phase_flash_times()
         phase_encode_tiers(ckpt)
         musk = phase_musk(root)
@@ -4636,6 +5103,11 @@ def main() -> int:
         mizero = phase_zeroshot_mizero(zs["weights"]["nsclc"])
         zs_main = phase_zeroshot_main_moc(root, zs["ckpt"])
         decoder = phase_decoder(zs["ckpt"])
+    with tempfile.TemporaryDirectory() as root:
+        visualized = phase_visualize(root)
+        exported = phase_export(root)
+        xprof = phase_xprof(root)
+        resumed = phase_ckpt(root)
     smi =subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip().splitlines()[0]
@@ -4667,6 +5139,8 @@ def main() -> int:
                         "launches_mil": mil_trained["launches"][entry]
                         + mil_pred["launches"][entry],
                         "launches_vila": vila["launches"][entry],
+                        "launches_visualize": visualized["launches"][entry],
+                        "launches_export": exported["launches"][entry],
                         **({"launches_mizero": mizero["launches"], "shapes_mizero": mizero["k1"],
                             "launches_adapters": adapters["launches"],
                             "shape_adapters": adapters["k1"]}
@@ -4700,6 +5174,9 @@ def main() -> int:
                         "launches_mil": mil_trained["launches"]["K2"]
                         + mil_pred["launches"]["K2"], "launches_vila": vila["launches"]["K2"],
                         "launches_lora_flash": lora[lora_run[tier]]["launches"]["K2"],
+                        **({"launches_create_patches_chain": chain["launches"],
+                            "launches_pretrain_resume": resumed["launches"]["K2"]}
+                           if tier == "f32" else {}),
                         **_slice_cells(tier, "K2", moe, dilated, contrastive, options,
                                        slice_times),
                         **musk_cells})
@@ -4718,6 +5195,8 @@ def main() -> int:
                             + mil_pred["launches"][kid],
                             "launches_vila": vila["launches"][kid],
                             "launches_lora_flash": lora[lora_run[tier]]["launches"][kid],
+                            **({"launches_pretrain_resume": resumed["launches"][kid]}
+                               if tier == "f32" else {}),
                             **_slice_cells(tier, kid, moe, dilated, contrastive, options,
                                            slice_times)})
     log("[tiers] summary " + json.dumps({k: {f: v for f, v in r.items() if f != "launches"}
@@ -4759,6 +5238,10 @@ def main() -> int:
         "w_max_abs_err": zs["max_abs_err"], "banks": zs["banks"], "load_conch_s": zs["load_s"],
         "mizero_logit_err": mizero["logit_err"], "mizero_wall_s": mizero["wall_s"],
         "main_moc_nsclc": zs_main["runs"], "bags_write_s": zs_main["bags_write_s"]}))
+    log("[slide_front_end] summary " + json.dumps({
+        "create_patches": chain, "visualize": {k: v for k, v in visualized.items()
+                                               if k != "files"},
+        "export": exported, "xprof": xprof, "ckpt": resumed}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,48 @@
-"""Command-line flags shared by the port's entry points: the performance
-tiers of ``MOCConfig`` (the ported part of ``moc_tpu/cli/common.py``; its
-``setup_runtime`` and device meshes belong to the JAX runtime)."""
+"""Command-line plumbing shared by the port's entry points (PyTorch port of
+``moc_tpu/cli/common.py``): the ``--xprof`` trace of a whole invocation and
+the performance tiers of ``MOCConfig``. The JAX runtime's device meshes wait
+for the multi-device runtime (ROADMAP queue 1, item 9); its persistent
+compilation cache has no counterpart (the port compiles only its nvcc
+kernels, which ``ops.cuda_build`` caches by source hash)."""
 
 from __future__ import annotations
 
 import argparse
+import atexit
+
+_trace = None  # the running --xprof profiler, if any
+
+
+def add_xprof_flag(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--xprof", default=None, metavar="DIR",
+                   help="write a torch.profiler trace of the whole run (CPU and CUDA "
+                        "activity) into DIR; TensorBoard and Perfetto open it")
+
+
+def setup_runtime(args: argparse.Namespace) -> None:
+    """Per-invocation runtime setup: with ``--xprof DIR``, start a
+    ``torch.profiler`` trace (``utils.profiling``) of the whole invocation,
+    written into DIR by ``stop_trace``, which runs at interpreter exit (a
+    caller that runs a CLI's ``main`` in its own process may call it
+    sooner). A trace left running by an earlier call is stopped first: a
+    process holds one profiler at a time."""
+    global _trace
+    if not getattr(args, "xprof", None):
+        return
+    from moc_tpu_torch.utils.profiling import profiler
+
+    stop_trace()
+    _trace = profiler(args.xprof)
+    _trace.start()
+
+
+@atexit.register
+def stop_trace() -> None:
+    """Stop the ``--xprof`` trace, if one runs, and write it."""
+    global _trace
+    if _trace is not None:
+        prof, _trace = _trace, None
+        prof.stop()
 
 
 def add_perf_flags(p: argparse.ArgumentParser) -> None:

@@ -34,6 +34,7 @@ import time
 import numpy as np
 import torch
 
+from moc_tpu_torch.cli.common import add_xprof_flag, setup_runtime
 from moc_tpu_torch.data.bags import append_hdf5, write_bag_h5, write_bag_pt
 from moc_tpu_torch.data.patches import (CoordPatchReader, PatchBagReader, bag_path,
                                         list_bags)
@@ -86,6 +87,7 @@ def get_args(argv=None):
                         "pt: pt_files/<slide>.pt")
     p.add_argument("--device", default="cuda",
                    help="torch device to encode on (cuda, cuda:1, or cpu)")
+    add_xprof_flag(p)
     return p.parse_args(argv)
 
 
@@ -245,6 +247,7 @@ def _refuse_unported(args) -> None:
 def main(argv=None) -> int:
     args = get_args(argv)
     _refuse_unported(args)
+    setup_runtime(args)
     if args.out_format == "h5":
         try:
             import h5py  # noqa: F401

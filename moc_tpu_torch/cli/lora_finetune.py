@@ -24,8 +24,9 @@ parameters in flax's layout, the JAX package's tree) and
 Runs on ``--device cuda`` (the default) and raises without a GPU unless
 ``--device cpu`` is given. The parameters are drawn from a torch generator
 seeded with ``--seed`` (the JAX CLI draws them from ``jax.random``).
-``--xprof`` and ``--platform`` belong to the JAX package and are refused by
-name. The trunk's attention is dense, as the JAX CLI's.
+``--xprof DIR`` writes a ``torch.profiler`` trace of the run
+(``cli.common.setup_runtime``); ``--platform`` belongs to the JAX package
+and is refused by name. The trunk's attention is dense, as the JAX CLI's.
 """
 
 from __future__ import annotations
@@ -38,6 +39,8 @@ import sys
 
 import numpy as np
 import torch
+
+from moc_tpu_torch.cli.common import add_xprof_flag, setup_runtime
 
 
 def get_args(argv=None):
@@ -73,7 +76,7 @@ def get_args(argv=None):
                    help="torch device to train on (cuda, cuda:1, or cpu)")
     refused = p.add_argument_group("not in the GPU port (refused here)")
     refused.add_argument("--platform", default=None)
-    refused.add_argument("--xprof", default=None, metavar="DIR")
+    add_xprof_flag(p)
     return p.parse_args(argv)
 
 
@@ -163,10 +166,10 @@ def main(argv=None, *, init_state: dict | None = None) -> int:
     """``init_state``: a state dict to start from instead of the seeded init
     (parity runs load the JAX CLI's initial parameters)."""
     args = get_args(argv)
-    for flag in ("platform", "xprof"):
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag} belongs to the JAX package; this CLI runs "
-                                      "PyTorch (use --device, and torch.profiler for traces)")
+    if args.platform:
+        raise NotImplementedError("--platform belongs to the JAX package; this CLI runs "
+                                  "PyTorch (use --device)")
+    setup_runtime(args)
     from moc_tpu_torch.convert import to_jax
     from moc_tpu_torch.device import resolve_device
     from moc_tpu_torch.models.layers import full_f32

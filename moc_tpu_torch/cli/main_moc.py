@@ -35,7 +35,8 @@ import sys
 
 import numpy as np
 
-from moc_tpu_torch.cli.common import add_perf_flags, perf_cfg_kwargs
+from moc_tpu_torch.cli.common import (add_perf_flags, add_xprof_flag, perf_cfg_kwargs,
+                                      setup_runtime)
 from moc_tpu_torch.config import DEFAULT_PROMPT_ROOT, PRESETS
 
 
@@ -74,7 +75,7 @@ def get_args(argv=None):
     add_perf_flags(p)
     jax_only = p.add_argument_group("JAX package only (refused here)")
     jax_only.add_argument("--platform", type=str, default=None)
-    jax_only.add_argument("--xprof", default=None, metavar="DIR")
+    add_xprof_flag(p)
     return p.parse_args(argv)
 
 
@@ -141,15 +142,15 @@ def refuse_jax_only(args) -> None:
     if args.approx_topk:
         raise SystemExit("--approx_topk is the TPU's approximate top-k and belongs to the JAX "
                          "package; the GPU port has none (use the exact --select_method)")
-    for flag, given in (("--platform", args.platform), ("--xprof", args.xprof)):
-        if given:
-            raise SystemExit(f"{flag} belongs to the JAX package; this CLI runs PyTorch "
-                             "(use --device, and torch.profiler for traces)")
+    if args.platform:
+        raise SystemExit("--platform belongs to the JAX package; this CLI runs PyTorch "
+                         "(use --device)")
 
 
 def main(argv=None) -> int:
     args = get_args(argv)
     refuse_jax_only(args)
+    setup_runtime(args)
 
     if args.summary:
         from moc_tpu_torch.moc.results import summarize

@@ -30,10 +30,18 @@ the architecture from ``--model_type``/``--model_size`` or else from the
 JSON beside the checkpoint (a ViLa checkpoint is refused). MIL heads take
 float bags: ``--storage_dtype bfloat16`` (upcast on the card) but not int8.
 
+``--export_program PATH`` writes the scoring forward, its parameters and
+weight matrices baked in, as a ``torch.export`` program
+(``utils.export``: batch size and D fixed, the padded patch axis symbolic
+with ``n >= --export_min_pad``) and exits; ``--from_program PATH`` scores
+with such a program instead of ``--model`` (its batch size, storage tier
+and temperature come from the artifact; buckets below its floor are padded
+up to it). ``--xprof DIR`` writes a ``torch.profiler`` trace of the run.
+
 Runs on ``--device cuda`` (the default) and raises without a GPU unless
 ``--device cpu`` is given. Data parallelism (``--data_parallel``) waits for
-the multi-device runtime; ``--export_program``, ``--from_program``,
-``--xprof`` and ``--platform`` are JAX's own. Each is refused by name.
+the multi-device runtime; ``--platform`` is JAX's own. Each is refused by
+name.
 """
 
 from __future__ import annotations
@@ -48,7 +56,8 @@ import sys
 import numpy as np
 import torch
 
-from moc_tpu_torch.cli.common import add_perf_flags, perf_cfg_kwargs
+from moc_tpu_torch.cli.common import (add_perf_flags, add_xprof_flag, perf_cfg_kwargs,
+                                      setup_runtime)
 from moc_tpu_torch.config import PRESETS
 from moc_tpu_torch.convert import (senet_from_jax, senet_from_state_dict,
                                    senet_state_dict_from_npz)
@@ -91,13 +100,17 @@ def get_args(argv=None):
     p.add_argument("--tokenizer_file", default=None)
     p.add_argument("--device", default="cuda",
                    help="torch device to score on (cuda, cuda:1, or cpu)")
+    p.add_argument("--export_program", default=None, metavar="PATH",
+                   help="write the scoring forward as a torch.export program (parameters "
+                        "and weights baked in) and exit")
+    p.add_argument("--export_min_pad", type=int, default=1024,
+                   help="the exported program's floor on the padded patch count")
+    p.add_argument("--from_program", default=None, metavar="PATH",
+                   help="score with an exported program instead of --model")
+    add_xprof_flag(p)
     refused = p.add_argument_group("not in the GPU port (refused here)")
     refused.add_argument("--data_parallel", action="store_true")
-    refused.add_argument("--export_program", default=None, metavar="PATH")
-    refused.add_argument("--export_min_pad", type=int, default=1024)
-    refused.add_argument("--from_program", default=None, metavar="PATH")
     refused.add_argument("--platform", default=None)
-    refused.add_argument("--xprof", default=None, metavar="DIR")
     add_perf_flags(p)
     return p.parse_args(argv)
 
@@ -106,12 +119,6 @@ def get_args(argv=None):
 _REFUSED = {
     "data_parallel": "--data_parallel shards batches over devices, which waits for the "
                      "multi-device runtime (ROADMAP queue 1 item 9)",
-    "export_program": "--export_program writes a jax.export artifact and belongs to the JAX "
-                      "package",
-    "from_program": "--from_program serves a jax.export artifact and belongs to the JAX "
-                    "package",
-    "xprof": "--xprof traces with jax.profiler and belongs to the JAX package (use "
-             "torch.profiler)",
     "platform": "--platform picks a JAX backend and belongs to the JAX package (use --device)",
 }
 
@@ -135,14 +142,16 @@ def _storage_dtype(args) -> torch.dtype:
 
 
 def resolve_model_config(args) -> None:
-    """Fill ``--model_type``/``--model_size`` from the checkpoint's sidecar
-    JSON (``train_mil`` writes the model config beside every ``.msgpack``)
-    when they were not given. No-op for the MOC kind."""
+    """Fill ``--model_type``/``--model_size`` from the sidecar JSON of the
+    checkpoint (``--model``, or visualize's ``--model_msgpack``;
+    ``train_mil`` writes the model config beside every ``.msgpack``) when
+    they were not given. No-op for the MOC kind."""
     if getattr(args, "model_kind", "moc") != "mil" or args.model_type is not None:
         return
     sidecar, cand = None, None
-    if args.model and args.model.endswith(".msgpack"):
-        cand = args.model[:-len(".msgpack")] + ".json"
+    model = getattr(args, "model", None) or getattr(args, "model_msgpack", None)
+    if model and model.endswith(".msgpack"):
+        cand = model[:-len(".msgpack")] + ".json"
         if os.path.exists(cand):
             with open(cand) as f:
                 sidecar = json.load(f)
@@ -234,7 +243,8 @@ def build_predictor(args, preset, device: torch.device):
     ``MOCConfig`` it runs, or a ``MilServing`` (temperature 1)."""
     refuse_unported(args)
     if not args.model:
-        raise SystemExit("--model is required")
+        raise SystemExit("--model is required (or score from an artifact with "
+                         "--from_program)")
     if args.model_kind == "mil":
         return _mil_predictor(args, preset, device)
     w, w_ext = _load_weights(args, preset, device)
@@ -256,14 +266,19 @@ def build_predictor(args, preset, device: torch.device):
 
 def score_bags(batch_logits, bags, *, batch_size: int, n_classes: int,
                temperature: float, device: torch.device, with_labels: bool = False,
-               dtype: str | torch.dtype | None = None):
+               dtype: str | torch.dtype | None = None, min_pad: int = 0):
     """Bucketize + pad + score a list of bags → per-slide result rows
     ``{slide_id, pred, [label,] prob_0..prob_{C-1}}``, the bags packed in
     the storage tier ``dtype`` (default float32). Each bucket is scored in
     batches of ``batch_size``; a short last batch is filled with copies of
-    its first bag labelled -1, whose rows are dropped."""
+    its first bag labelled -1, whose rows are dropped. ``min_pad`` raises
+    every bucket's padded length to at least that (an exported program's
+    floor) before grouping, so buckets that meet there share batches."""
+    buckets: dict[int, list] = {}
+    for n_pad, group in bucketize(bags).items():
+        buckets.setdefault(max(n_pad, min_pad), []).extend(group)
     rows = []
-    for n_pad, group in sorted(bucketize(bags).items()):
+    for n_pad, group in sorted(buckets.items()):
         for i in range(0, len(group), batch_size):
             chunk = group[i : i + batch_size]
             real = len(chunk)
@@ -297,9 +312,30 @@ def read_slide_table(csv_path: str, label_dict):
     return SlideTable.from_rows([{**r, "label": "?"} for r in rows], {"?": -1}), False
 
 
+def load_program(args, preset, device: torch.device):
+    """``(program, dtype)`` of ``--from_program``, checked against the
+    dataset, the device and ``--storage_dtype``."""
+    from moc_tpu_torch.utils.export import load_serving_program
+
+    program = load_serving_program(args.from_program)
+    meta = program.meta
+    if meta["n_classes"] != preset.n_classes:
+        raise SystemExit(f"program was exported for {meta['n_classes']} classes (dataset "
+                         f"{meta.get('dataset')!r}); --dataset {preset.name} has "
+                         f"{preset.n_classes}")
+    if meta["device"] != device.type:
+        raise SystemExit(f"program was exported on {meta['device']} and runs there; "
+                         f"--device {args.device} cannot apply")
+    if args.storage_dtype not in ("float32", meta["dtype"]):
+        raise SystemExit(f"program was exported at storage dtype {meta['dtype']}; "
+                         f"--storage_dtype {args.storage_dtype} cannot apply")
+    return program, STORAGE_DTYPES[meta["dtype"]]
+
+
 def main(argv=None) -> int:
     args = get_args(argv)
     refuse_unported(args)
+    setup_runtime(args)
 
     from moc_tpu_torch.data.loader import BagLoader
     from moc_tpu_torch.device import resolve_device
@@ -307,10 +343,22 @@ def main(argv=None) -> int:
 
     preset = PRESETS[args.dataset]
     device = resolve_device(args.device)
-    dtype = _storage_dtype(args)  # check the tier before building anything
     table, labelled = read_slide_table(args.csv or preset.csv_path("/nonexistent"),
                                        preset.label_dict)
-    batch_logits, cfg = build_predictor(args, preset, device)
+    min_pad = 0
+    if args.from_program:
+        if args.export_program:
+            raise SystemExit("--export_program needs the live model, not --from_program")
+        program, dtype = load_program(args, preset, device)
+        batch_logits, min_pad = program.batch_logits, program.meta["min_pad"]
+        batch_size, temperature = program.meta["batch_size"], program.meta["temperature"]
+        if args.batch_size != batch_size:
+            print(f"batch_size {batch_size} is baked into the program; ignoring "
+                  f"--batch_size {args.batch_size}", file=sys.stderr)
+    else:
+        dtype = _storage_dtype(args)  # check the tier before building anything
+        batch_logits, cfg = build_predictor(args, preset, device)
+        batch_size, temperature = args.batch_size, cfg.temperature
     if not len(table):
         raise SystemExit("the slide CSV parsed to zero rows — check its "
                          "slide_id/label columns and the label dict")
@@ -327,9 +375,25 @@ def main(argv=None) -> int:
             f"no feature bags found for {len(table)} slide ids under "
             f"{args.feature_dir!r} — check --feature_dir matches the CSV's "
             f"slide_id column (expected <slide_id>.h5/.pt files)")
-    rows = score_bags(batch_logits, bags, batch_size=args.batch_size,
-                      n_classes=preset.n_classes, temperature=cfg.temperature, device=device,
-                      with_labels=labelled, dtype=dtype)
+    if args.export_program:
+        from moc_tpu_torch.utils.export import save_serving_program
+
+        try:
+            meta = save_serving_program(
+                args.export_program, batch_logits, batch_size=batch_size,
+                feature_dim=bags[0].dim, min_pad=args.export_min_pad, dtype=dtype,
+                device=device, meta=dict(temperature=temperature, n_classes=preset.n_classes,
+                                         dataset=args.dataset, model_kind=args.model_kind,
+                                         topj=args.topj, topk=args.topk))
+        except ValueError as e:
+            raise SystemExit(str(e)) from e
+        print(f"exported serving program → {args.export_program} (batch "
+              f"{meta['batch_size']}, n >= {meta['min_pad']}, {meta['dtype']}, "
+              f"{meta['device']})")
+        return 0
+    rows = score_bags(batch_logits, bags, batch_size=batch_size,
+                      n_classes=preset.n_classes, temperature=temperature, device=device,
+                      with_labels=labelled, dtype=dtype, min_pad=min_pad)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w", newline="") as f:
         writer = csv.DictWriter(f, fieldnames=list(rows[0]), lineterminator="\n")

@@ -26,10 +26,14 @@ pure function of the step index, with numpy's generator, so its batches are
 bit-identical to the JAX CLI's), or windows of a real token corpus via
 ``--corpus tokens.npy`` (1-D int array).
 
+``--ckpt_dir D`` checkpoints the model and the optimizer every
+``--ckpt_every`` steps and at the end (``utils.checkpoint``); a later run
+with the same ``D`` resumes from the newest step and trains on to
+``--steps``. ``--xprof DIR`` writes a ``torch.profiler`` trace of the run.
+
 Not ported yet, and refused: meshes over more than one device and
-``pipe=`` stages, multi-process runs (ROADMAP queue 1, item 9: its
-multi-device half) and ``--ckpt_dir`` (item 10). The JAX-only
-``--platform`` and ``--xprof`` have no counterpart.
+``pipe=`` stages and multi-process runs (ROADMAP queue 1, item 9: its
+multi-device half). The JAX-only ``--platform`` has no counterpart.
 """
 
 from __future__ import annotations
@@ -39,6 +43,8 @@ import os
 import sys
 
 import numpy as np
+
+from moc_tpu_torch.cli.common import add_xprof_flag, setup_runtime
 
 MESH_AXES = ("data", "seq", "tensor", "expert", "pipe")
 
@@ -77,12 +83,14 @@ def get_args(argv=None):
                    help="1-D .npy int token array; batches are "
                         "deterministically sampled windows (default: "
                         "synthetic uniform tokens)")
-    p.add_argument("--ckpt_dir", default=None, help="checkpoint dir: not ported yet")
+    p.add_argument("--ckpt_dir", default=None,
+                   help="checkpoint dir: save every --ckpt_every steps, resume from the newest")
     p.add_argument("--ckpt_every", type=int, default=1000)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--log_every", type=int, default=10)
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' (default) raises without a GPU")
+    add_xprof_flag(p)
     return p.parse_args(argv)
 
 
@@ -117,9 +125,6 @@ def check_single_device(mesh: dict[str, int]) -> None:
 
 def check_ported_flags(args) -> None:
     check_single_device(parse_mesh_arg(args.mesh))
-    if args.ckpt_dir is not None:
-        raise NotImplementedError("--ckpt_dir (checkpoint and resume) is not ported yet "
-                                  "(ROADMAP queue 1, item 10)")
     for var in ("MOC_TPU_NUM_PROCESSES", "WORLD_SIZE"):
         if int(os.environ.get(var, "1")) > 1:
             raise NotImplementedError(f"multi-process runs ({var}={os.environ[var]}) are not "
@@ -188,6 +193,7 @@ def build_config(args):
 def main(argv=None) -> int:
     args = get_args(argv)
     check_ported_flags(args)
+    setup_runtime(args)
     from moc_tpu_torch.device import resolve_device
     from moc_tpu_torch.train.pretrain import run_pretrain
 
@@ -195,11 +201,12 @@ def main(argv=None) -> int:
     cfg = build_config(args)
     print(f"device {device} · one process", file=sys.stderr)
     _, _, losses = run_pretrain(cfg, make_data_fn(args), total_steps=args.steps,
-                                seed=args.seed, log=log_factory(args), device=device)
+                                seed=args.seed, log=log_factory(args), device=device,
+                                ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every)
     if losses:
         print(f"final loss {losses[-1]:.4f} over {len(losses)} steps")
     else:
-        print("nothing to do (--steps 0)")
+        print("nothing to do (already at --steps; checkpoint is current)")
     return 0
 
 

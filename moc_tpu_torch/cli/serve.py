@@ -33,9 +33,15 @@ JSON beside it), as ``cli.predict`` scores it: temperature 1, float bags
 only (``--storage_dtype int8`` is refused), ``--warmup`` sized by the
 head's input width.
 
+``--from_program PATH`` serves a program that ``cli.predict
+--export_program`` wrote instead of ``--model`` (its batch size, storage
+tier and temperature come from the artifact, and ``--warmup`` sizes its
+bags by the artifact's D). ``--xprof DIR`` writes a ``torch.profiler``
+trace of the run.
+
 Runs on ``--device cuda`` (the default) and raises without a GPU unless
-``--device cpu`` is given. ``--from_program``, ``--xprof`` and
-``--platform`` are refused by name, as in ``cli.predict``.
+``--device cpu`` is given. ``--platform`` is refused by name, as in
+``cli.predict``.
 """
 
 from __future__ import annotations
@@ -51,9 +57,9 @@ import time
 
 import numpy as np
 
-from moc_tpu_torch.cli.common import add_perf_flags
-from moc_tpu_torch.cli.predict import (_storage_dtype, build_predictor, refuse_unported,
-                                       score_bags)
+from moc_tpu_torch.cli.common import add_perf_flags, add_xprof_flag, setup_runtime
+from moc_tpu_torch.cli.predict import (_storage_dtype, build_predictor, load_program,
+                                       refuse_unported, score_bags)
 from moc_tpu_torch.config import PRESETS
 from moc_tpu_torch.data.bags import Bag, read_bag_h5, read_bag_pt
 from moc_tpu_torch.device import resolve_device
@@ -105,10 +111,12 @@ def get_args(argv=None):
     p.add_argument("--tokenizer_file", default=None)
     p.add_argument("--device", default="cuda",
                    help="torch device to serve on (cuda, cuda:1, or cpu)")
+    p.add_argument("--from_program", default=None, metavar="PATH",
+                   help="serve a program written by cli.predict --export_program instead "
+                        "of --model")
+    add_xprof_flag(p)
     refused = p.add_argument_group("not in the GPU port (refused here)")
-    refused.add_argument("--from_program", default=None, metavar="PATH")
     refused.add_argument("--platform", default=None)
-    refused.add_argument("--xprof", default=None, metavar="DIR")
     add_perf_flags(p)
     return p.parse_args(argv)
 
@@ -143,13 +151,22 @@ class Server:
         self.args = args
         self.preset = PRESETS[args.dataset]
         self.device = resolve_device(args.device)
+        self.min_pad = 0
+        if args.from_program:
+            program, self.dtype = load_program(args, self.preset, self.device)
+            meta = program.meta
+            self.batch_logits, self.min_pad = program.batch_logits, meta["min_pad"]
+            self.temperature, self.feature_dim = meta["temperature"], meta["feature_dim"]
+            args.batch_size = meta["batch_size"]  # baked into the program
+            return
         self.dtype = _storage_dtype(args)  # check the tier before building anything
         self.batch_logits, self.cfg = build_predictor(args, self.preset, self.device)
+        self.temperature, self.feature_dim = self.cfg.temperature, self.cfg.feature_dim
 
     def warmup(self, pads, dim=None):
         """Score a zero bag of exactly ``n`` rows for each padded size ``n``
         before any real request arrives, packed at the storage tier."""
-        dim = dim or self.cfg.feature_dim
+        dim = dim or self.feature_dim
         for n in sorted(set(int(p) for p in pads)):
             t0 = time.time()
             self.score([Bag(slide_id="__warmup__", label=-1,
@@ -160,11 +177,13 @@ class Server:
         """Bags → result rows (see ``cli.predict.score_bags``)."""
         if not bags:
             return []
+        if self.min_pad:
+            batch_size = self.args.batch_size  # shape baked into the program
         return score_bags(self.batch_logits, bags,
                           batch_size=batch_size or self.args.batch_size,
                           n_classes=self.preset.n_classes,
-                          temperature=self.cfg.temperature, device=self.device,
-                          dtype=self.dtype)
+                          temperature=self.temperature, device=self.device,
+                          dtype=self.dtype, min_pad=self.min_pad)
 
 
 def serve_stream(server: Server, lines, resolve_dir: str | None = None):
@@ -289,6 +308,7 @@ def _seen_from_csv(out_csv: str) -> set[str]:
 
 def main(argv=None) -> int:
     args = get_args(argv)
+    setup_runtime(args)
     server = Server(args)
     if args.warmup:
         server.warmup(_parse_warmup(args.warmup), dim=args.warmup_dim)

@@ -29,7 +29,8 @@ import time
 
 import torch
 
-from moc_tpu_torch.cli.common import add_perf_flags, perf_cfg_kwargs
+from moc_tpu_torch.cli.common import (add_perf_flags, add_xprof_flag, perf_cfg_kwargs,
+                                      setup_runtime)
 from moc_tpu_torch.cli.main_moc import _build_weights, _synthetic_setup, refuse_jax_only
 from moc_tpu_torch.config import DEFAULT_PROMPT_ROOT, PRESETS
 
@@ -73,7 +74,7 @@ def get_args(argv=None):
     add_perf_flags(p)
     jax_only = p.add_argument_group("JAX package only (refused here)")
     jax_only.add_argument("--platform", default=None)
-    jax_only.add_argument("--xprof", default=None, metavar="DIR")
+    add_xprof_flag(p)
     return p.parse_args(argv)
 
 
@@ -206,6 +207,7 @@ def _dataset(args, device):
 def main(argv=None) -> int:
     args = get_args(argv)
     refuse_jax_only(args)
+    setup_runtime(args)
 
     from moc_tpu_torch.data.loader import BagLoader, EpisodeBags
     from moc_tpu_torch.data.splits import read_split_csv

@@ -33,8 +33,9 @@ config and a numpy-seeded table stand in. It writes
 folds one by one, as JAX does.
 
 Runs on ``--device cuda`` (the default) and raises without a GPU unless
-``--device cpu`` is given. ``--xprof`` and ``--platform`` belong to the
-JAX package and raise NotImplementedError by name.
+``--device cpu`` is given. ``--xprof DIR`` writes a ``torch.profiler``
+trace of the run (``cli.common.setup_runtime``); ``--platform`` belongs to
+the JAX package and raises NotImplementedError by name.
 """
 
 from __future__ import annotations
@@ -48,6 +49,8 @@ import sys
 
 import numpy as np
 import torch
+
+from moc_tpu_torch.cli.common import add_xprof_flag, setup_runtime
 
 
 def get_args(argv=None):
@@ -100,16 +103,15 @@ def get_args(argv=None):
                         "table and the text encoder (random table when omitted)")
     refused = p.add_argument_group("not in the GPU port (refused here)")
     refused.add_argument("--platform", default=None)
-    refused.add_argument("--xprof", default=None, metavar="DIR")
+    add_xprof_flag(p)
     return p.parse_args(argv)
 
 
 def refuse_unported(args) -> None:
     """Raise NotImplementedError, naming the flag, on what the port lacks."""
-    for flag in ("platform", "xprof"):
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag} belongs to the JAX package; this CLI runs "
-                                      "PyTorch (use --device, and torch.profiler for traces)")
+    if args.platform:
+        raise NotImplementedError("--platform belongs to the JAX package; this CLI runs "
+                                  "PyTorch (use --device)")
 
 
 def _csv_value(v) -> str:
@@ -138,6 +140,7 @@ def write_summary(path: str, folds, rows: list[dict]) -> None:
 def main(argv=None) -> int:
     args = get_args(argv)
     refuse_unported(args)
+    setup_runtime(args)
     from moc_tpu_torch.device import resolve_device
 
     device = resolve_device(args.device)
@@ -212,6 +215,15 @@ def _save(args, shot: int, fold: int, payload: dict, params) -> str:
     return out
 
 
+def _use_h5(data_dir: str) -> bool:
+    """``.pt`` bags where the feature dir has them, as the port's other
+    loaders read; ``.h5`` (h5py) where it has only ``h5_files``, as
+    ``create_patches`` → ``extract_features`` leaves it (the JAX CLI reads
+    those too)."""
+    return (not os.path.isdir(os.path.join(data_dir, "pt_files"))
+            and os.path.isdir(os.path.join(data_dir, "h5_files")))
+
+
 def _run_fused_grid(args, shot: int, folds, device: torch.device) -> list[dict]:
     """All folds of one shot as one batched program
     (``train.mil_fused.run_mil_folds_fused_pooled``)."""
@@ -223,7 +235,7 @@ def _run_fused_grid(args, shot: int, folds, device: torch.device) -> list[dict]:
     for fold in folds:
         table, data_dir, split, n_classes = _resolve_dataset(args, shot, fold)
         if loader is None:  # table and data dir are the same for every fold
-            loader = BagLoader(table, data_dir, cache=True)
+            loader = BagLoader(table, data_dir, use_h5=_use_h5(data_dir), cache=True)
         splits.append(split)
     # each unique slide is read and sent to the card once; the folds' bags
     # are gathered from the pool there
@@ -263,7 +275,8 @@ def _run_single(args, device: torch.device) -> dict:
     # streamed, memory-bounded reads; host-to-device copies on a side
     # stream two batches ahead of the step
     loaders = {name: (lambda ids=ids: prefetch_to_device(
-        BagLoader(table.subset_by_slide_ids(ids), data_dir).stream_batches(
+        BagLoader(table.subset_by_slide_ids(ids), data_dir,
+                  use_h5=_use_h5(data_dir)).stream_batches(
             batch_size=bs, pin_memory=pin), device))
         for name, ids in parts.items()}
     cfg = _train_config(args, n_classes, -(-len(split.train) // bs))
@@ -339,11 +352,8 @@ def _train_vila(args, table, parts: dict, data_dir: str, n_classes: int,
     from moc_tpu_torch.utils.checkpoint import save_params
     from moc_tpu_torch.zeroshot.tokenizer import ConchTokenizer
 
-    # .pt bags where the small scale has them, as the port's other loaders
-    # read; .h5 (h5py) only where it has no pt_files
-    use_h5 = (not os.path.isdir(os.path.join(data_dir, "pt_files"))
-              and os.path.isdir(os.path.join(data_dir, "h5_files")))
-    loader = DualScaleLoader(table, data_dir, args.data_dir_l or data_dir, use_h5=use_h5)
+    loader = DualScaleLoader(table, data_dir, args.data_dir_l or data_dir,
+                             use_h5=_use_h5(data_dir))
     splits = {name: loader.read_all(ids) for name, ids in parts.items()}
     feat_dim = int(splits["train"][0].feats_s.shape[-1])
     text_cfg, token_table, text_params = vila_text_setup(args, feat_dim)

@@ -87,7 +87,21 @@ class PatchBagReader:
                 yield chunk, (None if coords is None else np.asarray(coords[i: i + batch_size]))
 
 
-class _PILSlide:
+class _Thumbnails:
+    """``thumbnail`` over a slide's ``dimensions`` and ``_thumb(size)``."""
+
+    def thumbnail(self, max_px: int) -> tuple[np.ndarray, float]:
+        """``(rgb, scale)``: the slide resized to ``max_px`` on its long side
+        (never enlarged) and the level-0 pixels per thumbnail pixel."""
+        w, h = self.dimensions
+        scale = max(1.0, max(w, h) / float(max_px))
+        tw = max(1, int(round(w / scale)))
+        th = max(1, int(round(h / scale)))
+        thumb = self._thumb((tw, th))
+        return np.asarray(thumb), w / float(thumb.size[0])
+
+
+class _PILSlide(_Thumbnails):
     """A plain image (PNG, JPEG, simple TIFF) read as a slide through PIL:
     level 0 only; a crop past the edge is zero-filled."""
 
@@ -97,18 +111,33 @@ class _PILSlide:
         with Image.open(path) as im:
             self._im = im.convert("RGB")
 
+    @property
+    def dimensions(self) -> tuple[int, int]:
+        """``(width, height)`` at level 0."""
+        return self._im.size
+
+    def _thumb(self, size):
+        return self._im.resize(size)
+
     def read(self, coord: tuple[int, int], size: int) -> np.ndarray:
         x, y = int(coord[0]), int(coord[1])
         return np.asarray(self._im.crop((x, y, x + size, y + size)))
 
 
-class _OpenSlide:
+class _OpenSlide(_Thumbnails):
     """An OpenSlide slide with :class:`_PILSlide`'s surface."""
 
     def __init__(self, path: str):
         import openslide
 
         self._s = openslide.OpenSlide(path)
+
+    @property
+    def dimensions(self) -> tuple[int, int]:
+        return self._s.dimensions
+
+    def _thumb(self, size):
+        return self._s.get_thumbnail(size).convert("RGB")
 
     def read(self, coord: tuple[int, int], size: int, level: int = 0) -> np.ndarray:
         region = self._s.read_region((int(coord[0]), int(coord[1])), level, (size, size))
@@ -118,7 +147,8 @@ class _OpenSlide:
 def open_slide(path: str):
     """A slide for pixel reads: OpenSlide where it imports and reads the
     file, else PIL. Both give ``read((x, y), size) -> [size, size, 3]``
-    uint8 at level 0."""
+    uint8 at level 0, ``dimensions`` ``(w, h)`` and ``thumbnail(max_px) ->
+    (rgb, scale)``."""
     try:
         import openslide
     except ImportError:
@@ -127,6 +157,23 @@ def open_slide(path: str):
         return _OpenSlide(path)
     except openslide.OpenSlideError:  # a plain image OpenSlide does not read
         return _PILSlide(path)
+
+
+def slide_reader(wsi_path: str, level: int = 0):
+    """``read((x, y), size) -> [size, size, 3]`` uint8 of a slide at
+    ``level``: ``open_slide``'s at level 0; a level above 0 is a pyramid
+    level of a whole-slide format and needs OpenSlide, without which this
+    raises ImportError naming it."""
+    if level == 0:
+        return open_slide(wsi_path).read
+    try:
+        import openslide  # noqa: F401
+    except ImportError as e:
+        raise ImportError(f"--level {level} reads a pyramid level, which needs "
+                          "OpenSlide (openslide-python); it does not import on this "
+                          "host, which reads level 0 only") from e
+    slide = _OpenSlide(wsi_path)
+    return lambda c, s: slide.read(c, s, level)
 
 
 @dataclasses.dataclass
@@ -147,20 +194,8 @@ class CoordPatchReader:
         with _open_bag(self.path) as f:
             return np.asarray(f["coords"][:])
 
-    def _reader(self):
-        if self.level == 0:
-            return open_slide(self.wsi_path).read
-        try:
-            import openslide  # noqa: F401
-        except ImportError as e:
-            raise ImportError(f"--level {self.level} reads a pyramid level, which needs "
-                              "OpenSlide (openslide-python); it does not import on this "
-                              "host, which reads level 0 only") from e
-        slide = _OpenSlide(self.wsi_path)
-        return lambda c, s: slide.read(c, s, self.level)
-
     def batches(self, batch_size: int = 64) -> Iterator[tuple[np.ndarray, np.ndarray]]:
-        read = self._reader()
+        read = slide_reader(self.wsi_path, self.level)
         coords = self.coords()
         tf = _make_transform(self.transform, self.image_size)
         for i in range(0, len(coords), batch_size):

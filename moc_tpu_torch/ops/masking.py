@@ -161,10 +161,7 @@ def masked_col_topk_mask(scores: torch.Tensor, valid: torch.Tensor,
     ``scores [..., N, C]`` — the set ``masked_col_topk`` selects (ties →
     lowest row). Bool ``[..., N, C]``, exactly ``k`` True per column (padded
     rows included when fewer than ``k`` are valid — AND with ``valid`` to
-    drop). CPU tensors take the plain version; any other device goes to
-    kernel K1, which raises unless it is CUDA."""
-    m = masked_logits(scores, valid)
-    if m.device.type == "cpu":
-        return threshold_topk_mask(m, k, axis=-2)
-    return topk_kernel.col_topk_threshold_mask_cuda(m, k)
+    drop). Through the registered operator ``moc_tpu_torch::topk_cols``: CPU
+    tensors take the plain version, CUDA tensors kernel K1."""
+    return topk_kernel.topk_cols(masked_logits(scores, valid), k)
 

@@ -23,7 +23,7 @@ import torch
 from moc_tpu_torch.ops import topk_kernel
 from moc_tpu_torch.ops.masking import (NEG_INF, bottomk_bg_key, bottomk_stage1,
                                        bottomk_stage_valid, gather_rows, masked_col_topk,
-                                       masked_row_margin, softmax, threshold_topk_mask,
+                                       masked_row_margin, softmax,
                                        top_k, topk_fn)
 
 
@@ -150,13 +150,11 @@ def _policy_candidates(logits: torch.Tensor, logits_ext: torch.Tensor,
 
 def topk_threshold_mask(keys: torch.Tensor, k: int) -> torch.Tensor:
     """Exact top-k membership mask per row of ``keys [..., N]`` (ties →
-    lowest index). CPU tensors take the plain version
-    (``masking.threshold_topk_mask``); any other device goes to kernel K1 in
-    one launch over all rows, which raises unless it is CUDA."""
-    if keys.device.type == "cpu":
-        return threshold_topk_mask(keys, k, axis=-1)
-    rows = keys.reshape(-1, keys.shape[-1]).contiguous()
-    return topk_kernel.topk_threshold_mask_cuda(rows, k).view(keys.shape)
+    lowest index), through the registered operator
+    ``moc_tpu_torch::topk_rows``: CPU tensors take the plain version
+    (``masking.threshold_topk_mask``), CUDA tensors kernel K1 in one launch
+    over all rows."""
+    return topk_kernel.topk_rows(keys, k)
 
 
 def union_selection_threshold(logits: torch.Tensor, logits_ext: torch.Tensor,

@@ -26,9 +26,20 @@ a multiple of 128, unlike the Pallas kernel. The column entry reads the
 ``[..., N, C]`` scores in place by stride and writes the ``[..., N, C]`` mask
 directly: one launch, no copies.
 
-The wrappers take CUDA tensors only and raise on anything else; callers send
-CPU tensors to the plain version instead. Each wrapper counts its launches
-in a plain integer attribute, ``<wrapper>.launches``.
+The wrappers take CUDA tensors only and raise on anything else. Each
+wrapper counts its launches in a plain integer attribute,
+``<wrapper>.launches``.
+
+Callers reach K1 through two operators registered with
+``torch.library.custom_op`` in the ``moc_tpu_torch`` namespace, which
+``torch.export`` records in a graph (``utils.export``):
+``torch.ops.moc_tpu_torch.topk_rows(keys [..., N], k)`` and
+``torch.ops.moc_tpu_torch.topk_cols(scores [..., N, C], k)``. Each
+dispatches on the device of its tensor: a CUDA tensor launches the kernel
+through the wrapper (and its count), a CPU tensor takes the plain version
+``ops.masking.threshold_topk_mask``; under a fake tensor (tracing) the
+output is a bool tensor of the input's shape. Importing this module
+registers them.
 """
 
 from __future__ import annotations
@@ -154,3 +165,45 @@ def col_topk_threshold_mask_cuda(scores: torch.Tensor, k: int) -> torch.Tensor:
 
 
 col_topk_threshold_mask_cuda.launches = 0
+
+
+# ----------------------------------------------------- the registered operators
+
+@torch.library.custom_op("moc_tpu_torch::topk_rows", mutates_args=(), device_types="cuda")
+def topk_rows(keys: torch.Tensor, k: int) -> torch.Tensor:
+    """Exact top-``k`` membership of each row of f32 ``keys [..., N]`` → bool
+    ``[..., N]``: on the GPU one launch of the row entry over every row."""
+    rows = keys.reshape(-1, keys.shape[-1]).contiguous()
+    return topk_threshold_mask_cuda(rows, k).view(keys.shape)
+
+
+@topk_rows.register_kernel("cpu")
+def _topk_rows_cpu(keys: torch.Tensor, k: int) -> torch.Tensor:
+    from moc_tpu_torch.ops.masking import threshold_topk_mask
+
+    return threshold_topk_mask(keys, k, axis=-1)
+
+
+@topk_rows.register_fake
+def _topk_rows_fake(keys: torch.Tensor, k: int) -> torch.Tensor:
+    return torch.empty(keys.shape, dtype=torch.bool, device=keys.device)
+
+
+@torch.library.custom_op("moc_tpu_torch::topk_cols", mutates_args=(), device_types="cuda")
+def topk_cols(scores: torch.Tensor, k: int) -> torch.Tensor:
+    """Exact top-``k`` membership of each column of f32 ``scores [..., N, C]``
+    → contiguous bool ``[..., N, C]``: on the GPU one launch of the column
+    entry, which reads the columns in place."""
+    return col_topk_threshold_mask_cuda(scores, k)
+
+
+@topk_cols.register_kernel("cpu")
+def _topk_cols_cpu(scores: torch.Tensor, k: int) -> torch.Tensor:
+    from moc_tpu_torch.ops.masking import threshold_topk_mask
+
+    return threshold_topk_mask(scores, k, axis=-2).contiguous()
+
+
+@topk_cols.register_fake
+def _topk_cols_fake(scores: torch.Tensor, k: int) -> torch.Tensor:
+    return torch.empty(scores.shape, dtype=torch.bool, device=scores.device)

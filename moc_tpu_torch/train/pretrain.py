@@ -25,8 +25,13 @@ from its master (round to nearest), so no bf16 drift accumulates.
 ``clip_contrastive_loss``. Every step runs with TF32 off for its own span
 (``models.layers.full_f32``), so f32 means f32 on the card.
 
-Not ported yet (ROADMAP queue 1, items 9 and 10): the mesh shardings and
-multi-GPU steps, checkpoint and resume, and the GPipe trainer.
+``run_pretrain(ckpt_dir=)`` checkpoints the model, the optimizer (a
+``MasterAdam``'s f32 masters included) and the step every ``ckpt_every``
+steps (``utils.checkpoint``), and a later call resumes from the newest
+step; ``data_fn(step)`` replays the same batches.
+
+Not ported yet (ROADMAP queue 1, item 9): the mesh shardings and
+multi-GPU steps, and the GPipe trainer.
 """
 
 from __future__ import annotations
@@ -126,6 +131,20 @@ class MasterAdam:
         for p, m in zip(self.params, self.masters):
             p.copy_(m)
 
+    def state_dict(self) -> dict:
+        """The f32 masters and Adam's state, for a checkpoint."""
+        return {"masters": [m.detach() for m in self.masters],
+                "adam": self.adam.state_dict()}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Restore ``state_dict``'s masters and Adam state; the storage
+        parameters are re-cast from the masters."""
+        for p, m, saved in zip(self.params, self.masters, state["masters"]):
+            m.copy_(saved)
+            p.copy_(m)
+        self.adam.load_state_dict(state["adam"])
+
     def master_state_dict(self, model: nn.Module) -> dict[str, torch.Tensor]:
         """The masters under ``model``'s parameter names."""
         ids = {id(p): m for p, m in zip(self.params, self.masters)}
@@ -224,17 +243,38 @@ def batch_to(device: torch.device, token_ids, mask_pos):
 
 
 def run_pretrain(cfg: PretrainConfig, data_fn, *, total_steps: int, seed: int = 0, log=None,
-                 device=None, state_dict=None):
-    """Train for ``total_steps`` steps; ``data_fn(step) -> (token_ids [B, L],
+                 device=None, state_dict=None, ckpt_dir: str | None = None,
+                 ckpt_every: int = 1000):
+    """Train up to step ``total_steps``; ``data_fn(step) -> (token_ids [B, L],
     mask_pos [B, L])`` is a deterministic function of the step index.
-    Returns ``(model, optimizer, losses)``, one float loss per step."""
+
+    With ``ckpt_dir`` the run is resumable: it starts from the newest step
+    saved there (the model and the optimizer as they were after that step),
+    and saves ``{model, optimizer}`` after every ``ckpt_every``-th step and
+    the last. Returns ``(model, optimizer, losses)``, one float loss per
+    step run in this call."""
+    from moc_tpu_torch.utils.checkpoint import (latest_step, restore_checkpoint,
+                                                save_checkpoint)
+
     model, optimizer = make_pretrain_state(cfg, seed, device, state_dict)
     device = next(model.parameters()).device
+    start = 0
+    last = latest_step(ckpt_dir) if ckpt_dir is not None else None
+    if last is not None:
+        tree = restore_checkpoint(ckpt_dir, step=last)
+        model.load_state_dict(tree["model"])
+        optimizer.load_state_dict(tree["optimizer"])
+        start = last
+        if log:
+            log(f"resumed from step {last}")
     step_fn = make_train_step(cfg, model, optimizer)
     losses = []
-    for i in range(total_steps):
+    for i in range(start, total_steps):
         loss, aux = step_fn(*batch_to(device, *data_fn(i)))
         losses.append(float(loss))
         if log:
             log(f"step {i}: loss={losses[-1]:.4f} aux={float(aux):.4f}")
+        if ckpt_dir is not None and ((i + 1) % ckpt_every == 0 or i + 1 == total_steps):
+            save_checkpoint(ckpt_dir, i + 1, {"model": model.state_dict(),
+                                              "optimizer": optimizer.state_dict()})
     return model, optimizer, losses

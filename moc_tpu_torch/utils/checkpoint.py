@@ -1,5 +1,5 @@
-"""Parameter files in flax's msgpack layout, in pure Python (PyTorch port of
-``save_params`` and ``load_params`` in ``moc_tpu/utils/checkpoint.py``).
+"""Parameter files in flax's msgpack layout, in pure Python, and training
+checkpoints (PyTorch port of ``moc_tpu/utils/checkpoint.py``).
 
 The JAX package writes its best SENets as ``best_model_*.msgpack`` through
 ``flax.serialization.to_bytes``; the GPU's host has neither flax nor
@@ -16,6 +16,15 @@ A file written here is byte-equal to ``to_bytes`` of the same tree. Other
 extension types (2, a complex; 3, a numpy scalar), chunked arrays (flax
 splits arrays past 2**30 bytes) and bfloat16 arrays raise, naming what
 they found.
+
+``save_checkpoint``, ``restore_checkpoint`` and ``latest_step`` keep a
+training run's state (model, optimizer, step) in a directory of steps, in
+the port's own layout (the card's host has no orbax, whose directories the
+JAX package writes): one subdirectory per step, ``<directory>/<step>/``,
+holding ``state.pt`` (``torch.save`` of the tree, tensors on the CPU). A
+step is written under a temporary name and renamed into place, so a run
+killed mid-write leaves no step that looks whole; beyond ``keep`` steps the
+oldest are removed.
 """
 
 from __future__ import annotations
@@ -244,3 +253,90 @@ def load_params(path: str) -> Any:
     """The tree of a file in flax's msgpack layout (``best_model_*.msgpack``)."""
     with open(path, "rb") as f:
         return from_bytes(f.read())
+
+
+# ----------------------------------------------------------- training checkpoints
+
+_STATE = "state.pt"
+
+
+def _to_cpu(tree: Any) -> Any:
+    if torch.is_tensor(tree):
+        return tree.detach().cpu()
+    if isinstance(tree, Mapping):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_cpu(v) for v in tree)
+    return tree
+
+
+def _steps(directory: str) -> list[int]:
+    if not os.path.isdir(directory):
+        return []
+    return sorted(int(d) for d in os.listdir(directory)
+                  if d.isdigit() and os.path.exists(os.path.join(directory, d, _STATE)))
+
+
+def latest_step(directory: str) -> int | None:
+    """The newest whole step under ``directory``, or None."""
+    steps = _steps(directory)
+    return steps[-1] if steps else None
+
+
+def save_checkpoint(directory: str, step: int, tree: Any, *, keep: int = 3) -> str:
+    """Write ``tree`` (dicts, lists, tensors, numbers) as step ``step`` of
+    ``directory`` and keep the newest ``keep`` steps; returns the step's
+    directory."""
+    import shutil
+    import tempfile
+
+    directory = os.path.abspath(directory)
+    os.makedirs(directory, exist_ok=True)
+    final = os.path.join(directory, str(int(step)))
+    tmp = tempfile.mkdtemp(prefix=f".{int(step)}.", dir=directory)
+    torch.save(_to_cpu(tree), os.path.join(tmp, _STATE))
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.rename(tmp, final)
+    for old in _steps(directory)[:-keep] if keep > 0 else []:
+        shutil.rmtree(os.path.join(directory, str(old)))
+    return final
+
+
+def _like(value: Any, template: Any, path: str) -> Any:
+    """``value`` on the devices and in the dtypes of ``template``'s leaves;
+    raises where the two trees differ in keys or shapes."""
+    if torch.is_tensor(template):
+        if not torch.is_tensor(value) or value.shape != template.shape:
+            raise ValueError(f"checkpoint leaf {path or '.'}: "
+                             f"{getattr(value, 'shape', type(value))} where the template has "
+                             f"{tuple(template.shape)}")
+        return value.to(device=template.device, dtype=template.dtype)
+    if isinstance(template, Mapping):
+        if not isinstance(value, Mapping) or set(value) != set(template):
+            raise ValueError(f"checkpoint node {path or '.'} has keys "
+                             f"{sorted(map(str, value)) if isinstance(value, Mapping) else value}"
+                             f" where the template has {sorted(map(str, template))}")
+        return {k: _like(value[k], template[k], f"{path}/{k}") for k in template}
+    if isinstance(template, (list, tuple)):
+        if len(value) != len(template):
+            raise ValueError(f"checkpoint node {path or '.'}: {len(value)} entries where the "
+                             f"template has {len(template)}")
+        return type(template)(_like(v, t, f"{path}/{i}")
+                              for i, (v, t) in enumerate(zip(value, template)))
+    return value
+
+
+def restore_checkpoint(directory: str, template: Any = None, step: int | None = None) -> Any:
+    """Step ``step`` (default: the newest) of ``directory``. With a
+    ``template`` tree the result has its structure, its leaves on the
+    template's devices and in its dtypes; without one, the tree as saved,
+    on the CPU."""
+    directory = os.path.abspath(directory)
+    if step is None:
+        step = latest_step(directory)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint under {directory}")
+    tree = torch.load(os.path.join(directory, str(int(step)), _STATE), map_location="cpu",
+                      weights_only=True)
+    return tree if template is None else _like(tree, template, "")

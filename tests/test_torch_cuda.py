@@ -1766,3 +1766,80 @@ def test_captioner_and_retnet_on_the_card_match_the_cpu(gen):
         par, rec, chunk = (ret(x.cuda(), mode=m, chunk_size=32)[0].cpu()
                            for m in ("parallel", "recurrent", "chunkwise"))
     assert _rel_max(par, want) <= 1e-5 and _rel_max(chunk, rec) <= 2e-3
+
+
+# --------------------------------------------- K1's registered operators, export
+
+@pytest.mark.parametrize("shape,k", [((40, 16384), 400), ((8, 5, 4096), 10), ((3, 777), 777)])
+def test_k1_row_operator_equals_wrapper_and_plain(gen, shape, k):
+    """``torch.ops.moc_tpu_torch.topk_rows`` on the card: one launch of the
+    row entry (counted), bit-equal to the ctypes wrapper and to the plain
+    version."""
+    x = torch.randn(shape, generator=gen, device="cuda")
+    x[..., ::3] = torch.round(x[..., ::3])  # ties
+    before = topk_kernel.topk_threshold_mask_cuda.launches
+    got = torch.ops.moc_tpu_torch.topk_rows(x, k)
+    torch.cuda.synchronize()
+    assert topk_kernel.topk_threshold_mask_cuda.launches == before + 1
+    wrapper = topk_kernel.topk_threshold_mask_cuda(x.reshape(-1, shape[-1]), k).view(shape)
+    assert torch.equal(got, wrapper)
+    assert torch.equal(got.cpu(), threshold_topk_mask(x.cpu(), k))
+
+
+@pytest.mark.parametrize("shape,k", [((8, 16384, 2), 10), ((5, 4096, 4), 400)])
+def test_k1_column_operator_equals_wrapper_and_plain(gen, shape, k):
+    x = torch.randn(shape, generator=gen, device="cuda")
+    for scores in (x, x.transpose(-1, -2).contiguous().transpose(-1, -2)):
+        before = topk_kernel.col_topk_threshold_mask_cuda.launches
+        got = torch.ops.moc_tpu_torch.topk_cols(scores, k)
+        torch.cuda.synchronize()
+        assert topk_kernel.col_topk_threshold_mask_cuda.launches == before + 1
+        assert torch.equal(got, topk_kernel.col_topk_threshold_mask_cuda(scores, k))
+        assert torch.equal(got.cpu(), threshold_topk_mask(scores.cpu(), k, axis=-2))
+
+
+def test_k1_operators_pass_opcheck_on_the_card(gen):
+    torch.library.opcheck(topk_kernel.topk_rows,
+                          (torch.randn(4, 3000, generator=gen, device="cuda"), 17))
+    torch.library.opcheck(topk_kernel.topk_cols,
+                          (torch.randn(2, 3000, 3, generator=gen, device="cuda"), 17))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8])
+def test_exported_program_round_trip_launches_k1(gen, tmp_path, dtype):
+    """The exact (and int8) MOC tier exported on the card at batch 4, n >=
+    1024, reloaded and run at two buckets: the live forward's logits, bit for
+    bit, and the program's K1 launches counted by the wrappers."""
+    from moc_tpu_torch.data.bags import Bag
+    from moc_tpu_torch.data.batching import pack_bags
+    from moc_tpu_torch.models.senet import SENet
+    from moc_tpu_torch.moc import MOCConfig, eval_batch
+    from moc_tpu_torch.utils.export import load_serving_program, save_serving_program
+
+    d, c, ce = 512, 2, 6
+    cfg = MOCConfig(n_classes=c, n_ext_classes=ce, topj=400, topk=10, feature_dim=d)
+    senet = SENet(d, generator=torch.Generator().manual_seed(0)).cuda()
+    w = torch.nn.functional.normalize(torch.randn(d, c, generator=gen, device="cuda"), dim=0)
+    w_ext = torch.nn.functional.normalize(torch.randn(d, ce, generator=gen, device="cuda"),
+                                          dim=0)
+
+    def live(batch):
+        return eval_batch(senet, batch, w, w_ext, cfg)
+
+    path = str(tmp_path / "p.pt2")
+    save_serving_program(path, live, batch_size=4, feature_dim=d, min_pad=1024, dtype=dtype,
+                         device="cuda", meta={"n_classes": c})
+    program = load_serving_program(path)
+    rng = np.random.default_rng(0)
+    for n_pad in (4096, 16384):
+        bags = [Bag(slide_id=f"s{i}", features=rng.standard_normal(
+            (int(n_pad * f), d)).astype(np.float32)) for i, f in enumerate((1.0, 0.6, 0.9, 0.55))]
+        batch = pack_bags(bags, n_pad=n_pad, device=torch.device("cuda"), dtype=dtype)
+        before = (topk_kernel.topk_threshold_mask_cuda.launches,
+                  topk_kernel.col_topk_threshold_mask_cuda.launches)
+        got = program.batch_logits(batch)
+        torch.cuda.synchronize()
+        assert (topk_kernel.topk_threshold_mask_cuda.launches,
+                topk_kernel.col_topk_threshold_mask_cuda.launches) == (before[0] + 1,
+                                                                       before[1] + 1)
+        assert torch.equal(got, live(batch)), n_pad

@@ -16,6 +16,7 @@ largest |value|, gradients within 1e-5 of the largest |grad|, selections
 """
 
 import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -556,9 +557,20 @@ def test_cli_real_bags_pad_and_split_as_jax(tmp_path):
 
 
 def test_cli_refusals(tmp_path):
-    for flags in (["--xprof", "t"], ["--platform", "cpu"]):
-        with pytest.raises(NotImplementedError, match=flags[0]):
-            cli.main([*SMALL, *flags, "--device", "cpu", "--result_dir", str(tmp_path)])
+    # --xprof is ported: the run is traced and writes the same results
+    from moc_tpu_torch.cli import common
+
+    for sub, flags in (("plain", []), ("traced", ["--xprof", str(tmp_path / "t")])):
+        assert cli.main([*SMALL, *flags, "--device", "cpu", "--result_dir",
+                         str(tmp_path / sub)]) == 0
+    common.stop_trace()
+    assert [f for f in os.listdir(tmp_path / "t") if f.endswith(".pt.trace.json")]
+    for name in os.listdir(tmp_path / "plain"):
+        assert ((tmp_path / "traced" / name).read_bytes()
+                == (tmp_path / "plain" / name).read_bytes()), name
+    with pytest.raises(NotImplementedError, match="--platform"):
+        cli.main([*SMALL, "--platform", "cpu", "--device", "cpu", "--result_dir",
+                  str(tmp_path)])
     with pytest.raises(SystemExit, match="--h5_dir"):
         cli.main([*SMALL, "--synthetic", "false", "--device", "cpu", "--result_dir",
                   str(tmp_path)])

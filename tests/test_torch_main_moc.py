@@ -132,7 +132,20 @@ def test_summary_csv_matches_jax(tmp_path, layout):
     (["--platform", "cpu"], SystemExit, "JAX package"),
     (["--xprof", "trace"], SystemExit, "JAX package"),
 ])
-def test_refuses_unported_and_jax_only_flags(runs, argv, err, match):
+def test_refuses_unported_and_jax_only_flags(runs, tmp_path, argv, err, match):
+    if argv[0] == "--xprof":  # ported: the run is traced and its results unchanged
+        from moc_tpu_torch.cli import common
+
+        out = str(tmp_path / "r")
+        assert main_moc.main([*SMALL, "--num_epochs", "2", "--device", "cpu",
+                              "--result_dir", out, "--xprof", str(tmp_path / "t")]) == 0
+        common.stop_trace()
+        assert [f for f in os.listdir(tmp_path / "t") if f.endswith(".pt.trace.json")]
+        name = "best_results_shot_2_fold_0.json"
+        got, want = _json(os.path.join(out, name)), _json(os.path.join(runs[0], name))
+        assert {k: v for k, v in got.items() if k != "best_model_path"} == \
+            {k: v for k, v in want.items() if k != "best_model_path"}
+        return
     with pytest.raises(err, match=match):
         main_moc.main([*SMALL, "--device", "cpu", "--result_dir", runs[0], *argv])
 

@@ -223,9 +223,20 @@ def test_train_mil_runs_vila_and_its_flags(tmp_path):
 
 
 def test_refusals_by_name(bags, tmp_path):
-    for flags, match in ((["--xprof", "t"], "--xprof"), (["--platform", "cpu"], "--platform")):
-        with pytest.raises(NotImplementedError, match=match):
-            train_mil.main([*_argv(tmp_path, "clam_sb"), *flags, "--device", "cpu"])
+    # --xprof is ported: the run is traced and writes the same results
+    from moc_tpu_torch.cli import common
+
+    for sub, flags in (("plain", []), ("traced", ["--xprof", str(tmp_path / "t")])):
+        assert train_mil.main([*_argv(tmp_path / sub, "clam_sb"), *flags, "--device",
+                               "cpu"]) == 0
+    common.stop_trace()
+    assert [f for f in os.listdir(tmp_path / "t") if f.endswith(".pt.trace.json")]
+    for name in os.listdir(tmp_path / "plain"):
+        if os.path.isfile(tmp_path / "plain" / name):
+            assert ((tmp_path / "traced" / name).read_bytes()
+                    == (tmp_path / "plain" / name).read_bytes()), name
+    with pytest.raises(NotImplementedError, match="--platform"):
+        train_mil.main([*_argv(tmp_path, "clam_sb"), "--platform", "cpu", "--device", "cpu"])
     with pytest.raises(SystemExit, match="batch_size 1"):
         train_mil.main([*_argv(tmp_path, "clam_sb"), "--fused", "--batch_size", "2",
                         "--device", "cpu"])

@@ -133,10 +133,46 @@ def test_labelled_csv_bytes_match_jax_writer(study, tmp_path):
     (["--approx_topk"], "TPU's approximate top-k"),
 ])
 def test_refuses_unported_flags_by_name(study, tmp_path, extra, match):
+    if extra[0] in LIFTED:
+        _run_lifted_flag(study, tmp_path, extra[0])
+        return
     with pytest.raises(SystemExit, match=match):
         predict.main([*_argv(study, "labelled.csv", tmp_path / "p.csv", extra), "--device",
                       "cpu"])
     assert not (tmp_path / "p.csv").exists()
+
+
+# ported since these cases were written: each now runs its flag (the
+# serving program round trip and the trace; ``test_torch_export`` and
+# ``test_torch_tooling`` hold them further)
+LIFTED = ("--export_program", "--from_program", "--xprof")
+
+
+def _run_lifted_flag(study, tmp_path, flag):
+    """The flag's run writes the rows of a run without it, byte for byte;
+    ``--export_program`` writes a program and no rows, which
+    ``--from_program`` then scores."""
+    from moc_tpu_torch.cli import common
+
+    live, out = tmp_path / "live.csv", tmp_path / "p.csv"
+    assert predict.main([*_argv(study, "labelled.csv", live), "--device", "cpu"]) == 0
+    if flag == "--xprof":
+        trace = tmp_path / "trace"
+        assert predict.main([*_argv(study, "labelled.csv", out, ["--xprof", str(trace)]),
+                             "--device", "cpu"]) == 0
+        common.stop_trace()
+        assert [f for f in os.listdir(trace) if f.endswith(".pt.trace.json")]
+    else:
+        prog = tmp_path / "p.bin"
+        assert predict.main([*_argv(study, "labelled.csv", out, [
+            "--export_program", str(prog), "--export_min_pad", "256"]), "--device", "cpu"]) == 0
+        assert prog.exists() and not out.exists()
+        if flag == "--export_program":
+            return
+        argv = _argv(study, "labelled.csv", out, ["--from_program", str(prog)])
+        argv[argv.index("--model") + 1] = str(tmp_path / "absent.msgpack")  # not read
+        assert predict.main([*argv, "--device", "cpu"]) == 0
+    assert out.read_bytes() == live.read_bytes()
 
 
 @pytest.mark.parametrize("extra,match", [
@@ -144,13 +180,34 @@ def test_refuses_unported_flags_by_name(study, tmp_path, extra, match):
     (["--from_program", "p.bin"], "--from_program"),
     (["--approx_topk"], "TPU's approximate top-k"),
 ])
-def test_serve_refuses_the_same_flags(study, extra, match):
+def test_serve_refuses_the_same_flags(study, tmp_path, extra, match):
+    if extra[0] == "--from_program":  # ported: the server scores from a program
+        _serve_from_program(study, tmp_path)
+        return
     args = serve.get_args(["--dataset", "nsclc", "--model",
                            str(study / "best_model_shot_1_fold_0.msgpack"), "--weights_npz",
                            str(study / "w.npz"), "--weights_ext_npz", str(study / "we.npz"),
                            "--device", "cpu", "--watch_dir", "x", *extra])
     with pytest.raises(SystemExit, match=match):
         serve.Server(args)
+
+
+def _serve_from_program(study, tmp_path):
+    """``--from_program``'s server scores a slide as the live server does,
+    with the program's batch size."""
+    from moc_tpu_torch.data.bags import read_bag_pt
+
+    base = ["--dataset", "nsclc", "--model", str(study / "best_model_shot_1_fold_0.msgpack"),
+            "--weights_npz", str(study / "w.npz"), "--weights_ext_npz", str(study / "we.npz"),
+            "--topj", "32", "--device", "cpu", "--watch_dir", "x"]
+    prog = tmp_path / "p.bin"
+    assert predict.main([*_argv(study, "labelled.csv", tmp_path / "p.csv", [
+        "--export_program", str(prog), "--export_min_pad", "256"]), "--device", "cpu"]) == 0
+    live = serve.Server(serve.get_args(base))
+    server = serve.Server(serve.get_args([*base, "--from_program", str(prog)]))
+    assert server.args.batch_size == 4
+    bag = read_bag_pt(str(study / "features" / "pt_files" / "slide_003.pt"))
+    assert server.score([bag]) == live.score([bag], batch_size=4)
 
 
 def test_empty_table_and_missing_bags_exit_with_jax_messages(study, tmp_path):

@@ -12,6 +12,7 @@ interpret mode at the lane-aligned lengths, as its own tests do."""
 
 import argparse
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -188,8 +189,20 @@ CLI_PORTED = (["--moe_experts", "4"], ["--param_dtype", "bfloat16"])
 
 @pytest.mark.parametrize("flags", [*CLI_PORTED, ["--ckpt_dir", "ckpt"], ["--mesh", "data=2"],
                                    ["--mesh", "data=1,pipe=2"], ["--mesh", "data=-1,tensor=2"]])
-def test_cli_refuses_what_is_not_ported(flags, capsys):
+def test_cli_refuses_what_is_not_ported(flags, capsys, tmp_path, monkeypatch):
     argv = ["--device", "cpu", "--steps", "1", *flags]
+    if flags[0] == "--ckpt_dir":  # ported: a run saves its step, a rerun resumes
+        monkeypatch.chdir(tmp_path)
+        narrow = ["--batch", "2", "--seq_len", "32", "--layers", "2", "--embed_dim", "64",
+                  "--ffn_dim", "128", "--heads", "2", "--vocab", "128"]
+        assert tcli.main([*argv, *narrow]) == 0
+        assert sorted(os.listdir(tmp_path / "ckpt")) == ["1"]
+        assert tcli.main([*argv, *narrow]) == 0
+        assert "nothing to do" in capsys.readouterr().out
+        assert tcli.main(["--device", "cpu", "--steps", "2", *flags, *narrow]) == 0
+        assert sorted(os.listdir(tmp_path / "ckpt")) == ["1", "2"]
+        assert "over 1 steps" in capsys.readouterr().out
+        return
     if flags in CLI_PORTED:
         assert tcli.main([*argv, "--batch", "2", "--seq_len", "64", "--layers", "2",
                           "--embed_dim", "64", "--ffn_dim", "128", "--heads", "2",

@@ -201,7 +201,20 @@ def test_auto_mode_streams_past_the_memory_budget(runs, tmp_path, capsys):
     (["--platform", "cpu"], SystemExit, "JAX package"),
     (["--xprof", "trace"], SystemExit, "JAX package"),
 ])
-def test_refuses_unported_and_jax_only_flags(runs, argv, err, match):
+def test_refuses_unported_and_jax_only_flags(runs, tmp_path, argv, err, match):
+    if argv[0] == "--xprof":  # ported: the sweep is traced and its results unchanged
+        from moc_tpu_torch.cli import common
+
+        out = str(tmp_path / "r")
+        assert sweep.main([*SMALL, "--mode", "fused", "--device", "cpu", "--result_dir", out,
+                           "--xprof", str(tmp_path / "t")]) == 0
+        common.stop_trace()
+        assert [f for f in os.listdir(tmp_path / "t") if f.endswith(".pt.trace.json")]
+        for fold in FOLDS:
+            got, want = _results(out, fold), _results(runs["fused"], fold)
+            assert {k: v for k, v in got.items() if k != "best_model_path"} == \
+                {k: v for k, v in want.items() if k != "best_model_path"}
+        return
     with pytest.raises(err, match=match):
         sweep.main([*SMALL, "--device", "cpu", "--result_dir", runs["fused"], *argv])
 
