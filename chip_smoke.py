@@ -242,8 +242,10 @@ Phases, each of which makes the script exit non-zero when it fails:
 27. encoder options (``[encoder_options]``): 2-layer encoders of BEiT-3-base
    width with xPos, the relative bias, remat and MoE, card against CPU, MoE
    routing on the same gate logits bit for bit;
-28. K2-K4 at this slice's shapes (``[times]``, ``SLICE_SHAPES``) against
-   their plain versions, bounds and ``scaled_dot_product_attention``;
+28. K2-K4 at the encoder stack's and the ring's shapes (``[times]``,
+   ``SLICE_SHAPES``: the 2- and 4-rank ring's blocks and its whole-sequence
+   reference among them) against their plain versions, bounds and
+   ``scaled_dot_product_attention``;
 29. the caption decoder and RetNet (``[decoder]``, after 14, on its CONCH
    checkpoint): ``generate_caption`` greedy and beam 4 at CONCH's width over
    the vision tower's caption tokens, 2 layers against the CPU, RetNet's
@@ -275,7 +277,28 @@ Phases, each of which makes the script exit non-zero when it fails:
 34. ``[ckpt]``: ``cli.pretrain --ckpt_dir`` at the BEiT-3-base width, batch
    32 x 512, f32: 3 steps, then a fresh process resumes for 3 more; the six
    losses within 1e-5 of an uninterrupted 6-step run (bit equality
-   reported), K2-K4 12 a step (``launches_pretrain_resume``).
+   reported), K2-K4 12 a step (``launches_pretrain_resume``);
+35. ``[dist]``, the multi-rank half: NCCL in a world of one on the card
+   (each collective once on device tensors, not staged; K2-K4 at the
+   ring's block shapes are held against their plain versions in 28); ring
+   attention at [2, 12, 8192, 64] over
+   2 gloo ranks on cuda:0 (their exchanges staged through host memory, the
+   transport named) in f32 and bf16, causal and not, forward and backward,
+   and over 4 ranks in f32: gathered outputs and gradients against one
+   rank's whole-sequence flash attention (f32 within rtol = atol = 5e-4 and
+   1e-5 of the largest |value|; bf16 within 2e-2 of it, mean 1%), K2, K3
+   and K4 launched r+1 times on rank r under ``causal`` and ``world`` times
+   without (``launches_ring``); a dilated branch whose 8192-token segment
+   spans both ranks, allgather and ring modes, the same way; two steps of
+   ``cli.pretrain.main`` at the BEiT-3-base width (12 x 768, 12 heads,
+   batch 8 x 512, f32) over 2 ranks on each of ``seq=2`` (ring attention),
+   ``data=2``, ``tensor=2``, ``expert=2`` (4 experts) and ``pipe=2``: losses
+   within 1e-4 of one process's, the saved parameters within 1e-4 but for
+   at most 1e-4 of them (rounding gradients, which Adam turns into steps of
+   up to lr), all within 2 x 2 x lr; and ``sweep``, ``train_mil --fused``,
+   ``predict``, ``serve --once``, ``create_patches`` and ``extract_features
+   --data_parallel`` over 2 ranks giving one process's files (K1 launches
+   by rank on the sweep and the serving paths).
 
 The last lines are the card's name and power limit, one JSON object of
 kernel records, and ``{"ok": true, "device": {...}}``. No phase falls back
@@ -4019,9 +4042,14 @@ RETNET_LEN = 2048
 # RetNet's forms agree up to the per-head norm's eps: the JAX package's own limit
 # between them (rtol 2e-3, tests/test_encoder_retnet.py), of the largest |out|
 RETNET_FORMS_REL = 2e-3
-# K2-K4 at this slice's shapes: a dilated branch, MoE pretraining and MUSK's vision tower
+# K2-K4 at the shapes of the encoder stack's paths (a dilated branch, MoE pretraining
+# and MUSK's vision tower) and of ``[dist]``'s ring: the block a rank of the 2- and
+# the 4-rank ring attends over 8192 tokens, and the whole sequence it is held against
 SLICE_SHAPES = {"dilated_branch": (4, 12, 2048, 64), "moe_pretrain": (8, 12, 1024, 64),
-                "musk_contrastive_vision": (CONTRAST_BATCH, MUSK_HEADS, MUSK_TOKENS, HEAD_DIM)}
+                "musk_contrastive_vision": (CONTRAST_BATCH, MUSK_HEADS, MUSK_TOKENS, HEAD_DIM),
+                "ring_block": (2, HEADS, 4096, HEAD_DIM),
+                "ring_block_4ranks": (2, HEADS, 2048, HEAD_DIM),
+                "ring_whole": (2, HEADS, 8192, HEAD_DIM)}
 
 
 def _launches() -> dict:
@@ -5046,6 +5074,577 @@ def phase_ckpt(root: str) -> dict:
             "checkpoint_bytes": size}
 
 
+# --------------------------------------------------------------------- [dist]
+# The multi-rank half of the port on the one card: NCCL in a world of one, then
+# worlds of gloo ranks that share cuda:0 (NCCL refuses two ranks on one GPU),
+# their exchanges staged through host memory (``parallel.collectives``).
+RING_SHAPE = (2, HEADS, 8192, HEAD_DIM)  # BEiT-3-base's heads over an 8192-token sequence
+# the sharded pretraining steps: BEiT-3-base width, 2 steps of 8 x 512 tokens
+DIST_PRETRAIN_ARGV = ["--batch", "8", "--seq_len", "512", "--layers", "12", "--embed_dim",
+                      "768", "--ffn_dim", "3072", "--heads", "12", "--vocab", "1024",
+                      "--mask_prob", "0.15", "--lr", "1e-3", "--steps", "2", "--log_every", "1"]
+DIST_MESHES = {"seq": ["--mesh", "seq=2"], "data": ["--mesh", "data=2"],
+               "tensor": ["--mesh", "tensor=2"],
+               "expert": ["--mesh", "expert=2", "--moe_experts", "4"],
+               "pipe": ["--mesh", "pipe=2", "--microbatches", "2"]}
+# f32 sharded steps against one process on the card: losses within 1e-4; a
+# parameter within 1e-4, but where its step-1 gradient is rounding, which Adam
+# turns into steps of up to lr either way (2 steps, lr 1e-3)
+DIST_LOSS_TOL, DIST_PARAM_TOL, DIST_ADAM_BOUND = 1e-4, 1e-4, 2 * 2 * 1e-3
+DIST_GLOO = ["--dist_backend", "gloo", "--device", "cuda:0"]
+
+
+def _rank_json(root: str, name: str, value) -> None:
+    from moc_tpu_torch.parallel import runtime
+
+    with open(os.path.join(root, f"{name}.rank{runtime.process_index()}.json"), "w") as f:
+        json.dump(value, f)
+
+
+def _load_ranks(root: str, name: str, world: int) -> list:
+    out = []
+    for r in range(world):
+        with open(os.path.join(root, f"{name}.rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def _grad_close(got, want, dtype, what: str) -> dict:
+    """f32: within rtol = atol = 5e-4 and 1e-5 of the largest |grad| (or |O|);
+    bf16: within 2e-2 of the largest and a mean of 1% of the mean |value|."""
+    err = float((got.float() - want.float()).abs().max())
+    top = float(want.float().abs().max())
+    if dtype == torch.float32:
+        check(torch.allclose(got, want, rtol=BWD_TOL[dtype], atol=BWD_TOL[dtype]),
+              f"{what}: max |diff| {err:.3e} over rtol = atol = {BWD_TOL[dtype]}")
+        check(err <= F32_BWD_MAX_REL * top, f"{what}: max |diff| {err:.3e} is "
+                                            f"{err / top:.3e} of the largest |value|")
+        return {"max_abs_err": err, "max_rel": err / top}
+    mean = _mean_rel(got, want, dtype, what)
+    check(err <= BWD_TOL[dtype] * top, f"{what}: max |diff| {err:.3e} over "
+                                       f"{BWD_TOL[dtype]} of the largest |value| {top:.3e}")
+    return {"max_abs_err": err, "max_rel": err / top, "mean_rel": mean}
+
+
+def dist_ring_rank(root: str, dtypes: list, dilated: bool) -> None:
+    """A rank of the ring world: ring attention over the ``seq`` axis at
+    ``RING_SHAPE`` (each rank draws the same global q, k, v, dO), forward and
+    backward, causal and not, its K2/K3/K4 launches counted, and (``dilated``)
+    a dilated attention branch whose 8192-token segment spans both ranks, in
+    the allgather and the ring modes; rank 0 holds the gathered outputs and
+    gradients against one rank's whole-sequence run on the card."""
+    from moc_tpu_torch.ops.flash_attention import flash_attention
+    from moc_tpu_torch.parallel import collectives, runtime
+    from moc_tpu_torch.parallel.dilated import DilatedConfig, dilated_attention
+    from moc_tpu_torch.parallel.mesh import make_mesh
+    from moc_tpu_torch.parallel.ring import ring_attention
+
+    ax = make_mesh({"seq": -1}).axis("seq")
+    me, world = ax.index, ax.size
+    out = {"rank": me, "world": world, "transport": runtime.transport(), "cases": {}}
+
+    def run(name, fn, full_fn, arrays, do, dim):
+        n = arrays[0].shape[dim] // world
+        local = [a.narrow(dim, me * n, n).detach().clone().requires_grad_(True) for a in arrays]
+        _zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o = fn(*local)
+        o.backward(do.narrow(dim, me * n, n))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        rec = {"launches": _launches(), "fwd_bwd_wall_ms": wall}
+        gathered = [collectives.all_gather_nograd(t.detach().contiguous(), ax, dim=dim,
+                                                  tiled=True)
+                    for t in (o, *(x.grad for x in local))]
+        if me == 0:
+            full = [a.detach().clone().requires_grad_(True) for a in arrays]
+            want = full_fn(*full)
+            want.backward(do)
+            dtype = arrays[0].dtype
+            rec["errors"] = {part: _grad_close(g, w, dtype, f"{name} {part}")
+                             for part, g, w in zip(("out", "dq", "dk", "dv"), gathered,
+                                                   (want, *(x.grad for x in full)))}
+        out["cases"][name] = rec
+        del local, gathered
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for dtype in (getattr(torch, d) for d in dtypes):
+        q, k, v, do = (torch.randn(RING_SHAPE, generator=gen, device="cuda").to(dtype)
+                       for _ in range(4))
+        for causal in (False, True):
+            name = f"ring_{str(dtype)[6:]}_{'causal' if causal else 'full'}"
+            run(name, lambda q_, k_, v_: ring_attention(q_, k_, v_, ax, causal=causal),
+                lambda q_, k_, v_: flash_attention(q_, k_, v_, causal=causal),
+                (q, k, v), do, 2)
+        del q, k, v, do
+    if dilated:
+        b, length, h, d = RING_SHAPE[0], RING_SHAPE[2], RING_SHAPE[1], RING_SHAPE[3]
+        q, k, v = (torch.randn((b, length, h, d), generator=gen, device="cuda")
+                   for _ in range(3))
+        do = torch.randn((b, length, h * d), generator=gen, device="cuda")
+        for mode, causal in (("allgather", False), ("ring", True)):
+            cfg = DilatedConfig((2048, 8192), (1, 2), gather_mode=mode)
+            run(f"dilated_{mode}_{'causal' if causal else 'full'}",
+                lambda q_, k_, v_: dilated_attention(q_, k_, v_, cfg, causal=causal,
+                                                     axis_name=ax),
+                lambda q_, k_, v_: dilated_attention(q_, k_, v_, cfg, causal=causal),
+                (q, k, v), do, 1)
+    torch.cuda.synchronize()
+    _rank_json(root, f"ring{world}", out)
+
+
+def _record_pretrain():
+    """Patch ``run_pretrain`` and ``run_pipe_pretrain`` to keep their losses."""
+    from moc_tpu_torch.train import pretrain as tp
+    from moc_tpu_torch.train import pretrain_pipe as tpp
+
+    got = []
+
+    def wrap(fn):
+        def record(*a, **k):
+            out = fn(*a, **k)
+            got.extend(out[2])
+            return out
+        return record
+
+    saved = (tp.run_pretrain, tpp.run_pipe_pretrain)
+    tp.run_pretrain, tpp.run_pipe_pretrain = wrap(saved[0]), wrap(saved[1])
+
+    def restore():
+        tp.run_pretrain, tpp.run_pipe_pretrain = saved
+
+    return got, restore
+
+
+def dist_pretrain_rank(root: str) -> None:
+    """A rank of the pretraining world: ``cli.pretrain.main`` as a user runs it,
+    once a mesh of ``DIST_MESHES``, each saving its last step under
+    ``root/<mesh>``; the losses and each run's launches to ``root``."""
+    from moc_tpu_torch.cli import pretrain
+
+    out = {}
+    for name, mesh in DIST_MESHES.items():
+        losses, restore = _record_pretrain()
+        _zero_launches()
+        t0 = time.perf_counter()
+        try:
+            check(pretrain.main([*DIST_PRETRAIN_ARGV, *mesh, *DIST_GLOO, "--ckpt_dir",
+                                 os.path.join(root, name)]) == 0, f"pretrain {name} failed")
+        finally:
+            restore()
+        torch.cuda.synchronize()
+        out[name] = {"losses": losses, "launches": _launches(),
+                     "wall_s": time.perf_counter() - t0}
+    _rank_json(root, "pretrain", out)
+
+
+def _cli_argvs(root: str, corpus: dict | None) -> dict:
+    """The command lines of the two-process CLI check, by CLI, under ``root``."""
+    synth = ["--dataset", "synthetic", "--synthetic_min_patches", "60",
+             "--synthetic_max_patches", "480"]
+    argvs = {
+        "sweep": [*synth, "--shots", "2", "--folds", "0", "1", "--topj", "24",
+                  "--num_epochs", "3", "--result_dir", os.path.join(root, "sweep")],
+        "train_mil": [*synth[:3], "60", "--synthetic_max_patches", "200", "--model_type",
+                      "abmil", "--shot", "2", "--folds", "0", "1", "--max_epochs", "2",
+                      "--fused", "--result_dir", os.path.join(root, "mil")],
+        "create_patches": ["--wsi_dir", os.path.join(root, "..", "wsi"), "--out_dir",
+                           os.path.join(root, "patched"), "--patch_size", "32",
+                           "--step_size", "32", "--a_t", "0.1", "--a_h", "0.005"],
+        "extract_features": ["--patch_dir", os.path.join(root, "..", "one", "patched",
+                                                         "patches"),
+                             "--out_dir", os.path.join(root, "features"), "--backbone",
+                             "debug", "--wsi_dir", os.path.join(root, "..", "wsi"),
+                             "--wsi_ext", ".png", "--patch_size", "32", "--image_size", "32",
+                             "--batch_size", "8", "--out_format", "pt", "--data_parallel"]}
+    if corpus is not None:
+        base = ["--dataset", "nsclc", "--model", corpus["model"], "--weights_npz", corpus["w"],
+                "--weights_ext_npz", corpus["we"], "--topj", "24", "--batch_size", "4"]
+        argvs["predict"] = [*base, "--feature_dir", corpus["data_dir"], "--csv",
+                            corpus["csv"], "--out", os.path.join(root, "pred.csv")]
+        argvs["serve"] = [*base, "--watch_dir", corpus["watch"], "--once", "--out",
+                          os.path.join(root, "served.csv")]
+    return argvs
+
+
+def _run_clis(root: str, corpus: dict | None, device: list, names=None) -> dict:
+    """The CLIs ``names`` (default: all) of ``_cli_argvs`` in this process (one
+    process, or a rank), in that order, with their K1 launches."""
+    from moc_tpu_torch.cli import (create_patches, extract_features, predict, serve, sweep,
+                                   train_mil)
+
+    mains = {"sweep": sweep.main, "train_mil": train_mil.main,
+             "create_patches": create_patches.main, "extract_features": extract_features.main,
+             "predict": predict.main, "serve": serve.main}
+    out = {}
+    argvs = _cli_argvs(root, corpus)
+    for name in names or list(argvs):
+        argv = argvs[name]
+        full = argv if name == "create_patches" else [*argv, *device]  # host work
+        for fn in _k1_wrappers().values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        check(mains[name](full) == 0, f"{name} {full} failed")
+        torch.cuda.synchronize()
+        out[name] = {"wall_s": time.perf_counter() - t0,
+                     "launches": {k: fn.launches for k, fn in _k1_wrappers().items()}}
+    return out
+
+
+def dist_cli_rank(root: str, corpus: dict) -> None:
+    """A rank of the CLI world: every CLI of ``_cli_argvs`` in turn."""
+    _rank_json(root, "clis", _run_clis(os.path.join(root, "two"), corpus, DIST_GLOO))
+
+
+def _nccl_world_of_one(root: str) -> dict:
+    """NCCL in a world of one on the card: each collective of
+    ``parallel.collectives`` once on device tensors, through the group."""
+    import torch.distributed as dist
+
+    from moc_tpu_torch.parallel import collectives, runtime
+    from moc_tpu_torch.parallel.mesh import Axis
+
+    check(runtime.initialize_runtime(f"file://{os.path.join(root, 'nccl1')}", 1, 0,
+                                      backend="nccl", device="cuda:0"),
+          "the NCCL world of one did not start")
+    try:
+        transport = runtime.transport()
+        check(transport == "nccl: device tensors, not staged", f"transport {transport}")
+        ax = Axis(("data",), 1, 0, (0,), dist.group.WORLD)
+        x = torch.arange(8, dtype=torch.float32, device="cuda").reshape(4, 2)
+        results = {"all_gather": collectives._all_gather0(x, ax),
+                   "reduce_scatter": collectives._reduce_scatter0(x, ax),
+                   "all_reduce": collectives._all_reduce(x, ax),
+                   "all_to_all": collectives._all_to_all0(x, ax),
+                   "ppermute": collectives.ppermute(x, ax, [(0, 0)])}
+        torch.cuda.synchronize()
+        for name, y in results.items():
+            check(y.is_cuda and torch.equal(y, x), f"NCCL {name} in a world of one gave {y}")
+        log(f"[dist] NCCL world of one: {runtime.describe()}; all_gather, reduce_scatter, "
+            f"all_reduce and all_to_all through the group on device tensors, ppermute to "
+            f"itself, each its input back")
+        return {"transport": transport, "collectives": sorted(results)}
+    finally:
+        runtime.shutdown_runtime()
+
+
+def _dist_corpus(root: str) -> dict:
+    """The one-process runs of the CLI check and the inputs of its predict
+    and serve runs: the sweep's corpus, model and oracle weights."""
+    from PIL import Image
+
+    from moc_tpu_torch.cli import sweep
+    from moc_tpu_torch.cli.main_moc import _synthetic_setup
+
+    wsi = os.path.join(root, "wsi")
+    os.makedirs(wsi)
+    rng = np.random.default_rng(3)
+    for i in range(5):  # white glass and one tissue blob of 300 x 200 px
+        img = np.full((480, 640, 3), 255, np.uint8)
+        x0, y0 = 100 + int(rng.integers(0, 100)), 75 + int(rng.integers(0, 75))
+        color = np.array((186, 85, 211) if i % 2 else (85, 186, 120), np.int16)
+        img[y0:y0 + 200, x0:x0 + 300] = np.clip(
+            color[None, None] + rng.integers(-25, 25, (200, 300, 3)), 0, 255).astype(np.uint8)
+        Image.fromarray(img).save(os.path.join(wsi, f"s{i}.png"))
+    one = os.path.join(root, "one")
+    runs = _run_clis(one, None, ["--device", "cuda"])
+    setup = _synthetic_setup(sweep.get_args([
+        "--dataset", "synthetic", "--synthetic_min_patches", "60", "--synthetic_max_patches",
+        "480", "--result_dir", os.path.join(one, "sweep")]))
+    np.savez(os.path.join(root, "w.npz"), weights=setup["weights"])
+    np.savez(os.path.join(root, "we.npz"), weights=setup["weights_ext"])
+    with open(setup["csv_path"], newline="") as f:
+        ids = [r["slide_id"] for r in csv.DictReader(f)][:11]
+    with open(os.path.join(root, "slides.csv"), "w", newline="") as f:
+        csv.writer(f, lineterminator="\n").writerows([["slide_id"], *[[s] for s in ids]])
+    watch = os.path.join(root, "watch", "pt_files")
+    os.makedirs(watch)
+    for sid in ids:
+        os.link(os.path.join(setup["data_dir"], "pt_files", sid + ".pt"),
+                os.path.join(watch, sid + ".pt"))
+    corpus = {"model": os.path.join(one, "sweep", "2_shot", "best_model_shot_2_fold_0.msgpack"),
+              "w": os.path.join(root, "w.npz"), "we": os.path.join(root, "we.npz"),
+              "data_dir": setup["data_dir"], "csv": os.path.join(root, "slides.csv"),
+              "watch": os.path.join(root, "watch"), "ids": ids}
+    runs.update(_run_clis(one, corpus, ["--device", "cuda"], ["predict", "serve"]))
+    return {"corpus": corpus, "one": runs}
+
+
+def _same_files(a: str, b: str, skip=()) -> list:
+    """The files of directories ``a`` and ``b`` (not their subdirectories)
+    hold the same: ``.npz`` and ``.pt`` the same arrays (their zip headers
+    carry write times), the rest the same bytes; ``skip`` names left out."""
+    def files(d):
+        return sorted(f for f in os.listdir(d) if os.path.isfile(os.path.join(d, f)))
+
+    names = files(a)
+    check(names == files(b), f"{a} and {b} hold other files")
+    for n in (n for n in names if not any(s in n for s in skip)):
+        pa, pb = os.path.join(a, n), os.path.join(b, n)
+        if n.endswith(".npz"):
+            za, zb = np.load(pa), np.load(pb)
+            same = sorted(za.files) == sorted(zb.files) and all(
+                np.array_equal(za[k], zb[k]) for k in za.files)
+        elif n.endswith(".pt"):
+            same = torch.equal(torch.load(pa), torch.load(pb))
+        else:
+            with open(pa, "rb") as fa, open(pb, "rb") as fb:
+                same = fa.read() == fb.read()
+        check(same, f"{n} differs between one and two processes")
+    return names
+
+
+def _flat_params(path: str) -> dict:
+    from moc_tpu_torch.utils.checkpoint import load_params
+
+    flat = {}
+
+    def walk(t, prefix=""):
+        for k, v in t.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}/{k}")
+            else:
+                flat[f"{prefix}/{k}"] = np.asarray(v)
+
+    walk(load_params(path))
+    return flat
+
+
+def _params_close(a: str, b: str, noisy: str, what: str) -> float:
+    """Two ``.msgpack`` parameter files within 1e-5, but the leaf named
+    ``noisy`` (its gradient is rounding, which Adam turns into steps of up to
+    lr either way) within 2e-3; returns the largest difference of the rest."""
+    pa, pb = _flat_params(a), _flat_params(b)
+    check(sorted(pa) == sorted(pb), f"{what}: other parameters")
+    diffs = {k: float(np.abs(v - pb[k]).max()) for k, v in pa.items()}
+    log(f"[dist] {what}: max |one - two| by leaf {json.dumps(diffs)}")
+    for k, e in diffs.items():
+        check(e <= (2e-3 if k.endswith(noisy) else 1e-5), f"{what} {k}: {e}")
+    return max([e for k, e in diffs.items() if not k.endswith(noisy)] or [0.0])
+
+
+def _json_close(a, b, what: str, tol: float = 1e-6) -> None:
+    """Two result trees equal, floats within ``tol``, the path a file names
+    left out."""
+    if isinstance(a, dict):
+        check(isinstance(b, dict) and sorted(a) == sorted(b), f"{what}: keys {a} {b}")
+        for k in a:
+            if k != "best_model_path":
+                _json_close(a[k], b[k], f"{what}.{k}", tol)
+    elif isinstance(a, float) or isinstance(b, float):
+        check(abs(a - b) <= tol, f"{what}: {a} against {b}")
+    else:
+        check(a == b, f"{what}: {a} against {b}")
+
+
+def _check_clis(root: str, corpus: dict) -> dict:
+    """The two-process CLI outputs against the one-process run's: the sweep's
+    and train_mil's summaries equal, their result JSONs within 1e-6 (but the
+    path the sweep names) and parameters within 1e-5 (a batched product over
+    two episodes sums in another order than over one); the patch grids,
+    process lists and ``predict``'s rows equal; the extracted features and
+    ``serve``'s probabilities within 1e-6 (another batch composition)."""
+    one, two = os.path.join(root, "one"), os.path.join(root, "two")
+    errs = {"sweep_params": 0.0, "mil_params": 0.0, "features": 0.0, "served_probs": 0.0}
+    for sub, shot_dir, noisy in (("sweep", "2_shot", None), ("mil", "", "score/bias")):
+        a, b = os.path.join(one, sub, shot_dir), os.path.join(two, sub, shot_dir)
+        names = _same_files(a, b, skip=(".msgpack", ".json"))
+        for n in (n for n in names if n.endswith(".json")):
+            _json_close(*(json.load(open(os.path.join(d, n))) for d in (a, b)), f"{sub} {n}")
+        for n in (n for n in names if n.endswith(".msgpack")):
+            key = "sweep_params" if sub == "sweep" else "mil_params"
+            errs[key] = max(errs[key], _params_close(os.path.join(a, n), os.path.join(b, n),
+                                                     noisy or "\0", f"{sub} {n}"))
+    _same_files(os.path.join(one, "sweep"), os.path.join(two, "sweep"))
+    _same_files(os.path.join(one, "patched", "patches"),
+                os.path.join(two, "patched", "patches"))
+    rows = []
+    for r in (0, 1):
+        with open(os.path.join(two, "patched", f"process_list.proc{r}.csv"), newline="") as f:
+            rows += list(csv.DictReader(f))
+    with open(os.path.join(one, "patched", "process_list.csv"), newline="") as f:
+        want_rows = list(csv.DictReader(f))
+    check(sorted(rows, key=lambda r: r["slide_id"]) == want_rows, "process lists differ")
+    check(all(int(r["n_patches"]) >= 20 for r in want_rows), f"patches {want_rows}")
+    fa, fb = (os.path.join(d, "features", "pt_files") for d in (one, two))
+    check(sorted(os.listdir(fa)) == sorted(os.listdir(fb)), "other bags")
+    for n in os.listdir(fa):
+        a, b = torch.load(os.path.join(fa, n)), torch.load(os.path.join(fb, n))
+        check(a.shape == b.shape and a.shape[0] >= 20, f"bag {n}: {a.shape} {b.shape}")
+        errs["features"] = max(errs["features"], float((a - b).abs().max()))
+    check(errs["features"] <= 1e-6, f"features differ by {errs['features']}")
+    with open(os.path.join(one, "pred.csv"), newline="") as f:
+        want = {r["slide_id"]: r for r in csv.DictReader(f)}
+    for stem in ("pred", "served"):
+        got = []
+        for r in (0, 1):
+            with open(os.path.join(two, f"{stem}.proc{r}.csv"), newline="") as f:
+                got += list(csv.DictReader(f))
+        check(sorted(g["slide_id"] for g in got) == sorted(corpus["ids"]),
+              f"{stem}: the shards' slides are not the cohort's")
+        for g in got:
+            w = want[g["slide_id"]]
+            if stem == "pred":
+                check(g == w, f"predict: row {g} against {w}")
+                continue
+            check(g["pred"] == w["pred"], f"serve: row {g} against {w}")
+            for c in (0, 1):
+                errs["served_probs"] = max(errs["served_probs"],
+                                           abs(float(g[f"prob_{c}"]) - float(w[f"prob_{c}"])))
+    check(errs["served_probs"] <= 1e-6, f"served probabilities differ by {errs}")
+    return errs
+
+
+def _compare_pretrain(root: str, ref: dict, ranks: list) -> dict:
+    """Every mesh's losses and saved parameters against one process's."""
+    from moc_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    out = {}
+    for name in DIST_MESHES:
+        key = "moe" if name == "expert" else "dense"
+        want_l = ref[key]["losses"]
+        got_l = ranks[0][name]["losses"]
+        check(all(r[name]["losses"] == got_l for r in ranks), f"{name}: ranks' losses differ")
+        loss_err = max(abs(a - b) for a, b in zip(got_l, want_l))
+        check(len(got_l) == len(want_l) == 2 and loss_err <= DIST_LOSS_TOL,
+              f"{name}: losses {got_l} against {want_l}")
+        got = restore_checkpoint(os.path.join(root, name))["model"]
+        want = restore_checkpoint(ref[key]["ckpt"])["model"]
+        check(set(got) == set(want), f"{name}: parameters {sorted(set(got) ^ set(want))}")
+        worst, noisy = 0.0, 0
+        for k, w in want.items():
+            diff = (got[k].float() - w.float()).abs()
+            big = diff > DIST_PARAM_TOL
+            noisy += int(big.sum())
+            check(float(diff.max()) <= DIST_ADAM_BOUND, f"{name} {k}: {float(diff.max())}")
+            if not k.endswith("k_proj.bias"):
+                worst = max(worst, float(diff[~big].max()) if (~big).any() else 0.0)
+        total = sum(w.numel() for w in want.values())
+        # elements past 1e-4 are those whose gradient is rounding: at most 1e-4 of them
+        check(noisy <= 1e-4 * total, f"{name}: {noisy} of {total} parameters differ by more "
+                                     f"than {DIST_PARAM_TOL}")
+        out[name] = {"losses": got_l, "loss_err": loss_err, "param_err_within": worst,
+                     "params_past_tol": noisy, "launches": [r[name]["launches"] for r in ranks],
+                     "wall_s": ranks[0][name]["wall_s"]}
+        log(f"[dist] pretrain --mesh {DIST_MESHES[name][1]} over 2 gloo ranks on cuda:0: "
+            f"losses {got_l} against one process's {want_l} (max |diff| {loss_err:.3e}); "
+            f"{noisy} of {total} parameters past {DIST_PARAM_TOL} (all within "
+            f"{DIST_ADAM_BOUND}); launches by rank {out[name]['launches']}; "
+            f"{out[name]['wall_s']:.1f}s")
+    return out
+
+
+def _dist_rings(root: str) -> dict:
+    """Ring attention (and dilated cross-shard segments) over 2 and 4 gloo
+    ranks on cuda:0, launches against the causal schedule."""
+    from moc_tpu_torch.parallel.launch import spawn
+
+    rings = {}
+    for world, dtypes, dilated in ((2, ["float32", "bfloat16"], True), (4, ["float32"], False)):
+        spawn(f"{os.path.abspath(__file__)}:dist_ring_rank", world, backend="gloo",
+              device="cuda:0", kwargs={"root": root, "dtypes": dtypes, "dilated": dilated},
+              timeout=300)
+        ranks = _load_ranks(root, f"ring{world}", world)
+        for r, rec in enumerate(ranks):
+            check(rec["transport"] == "gloo: CUDA tensors staged through host memory",
+                  f"rank {r}: transport {rec['transport']}")
+            for name, case in rec["cases"].items():
+                if not name.startswith("ring"):
+                    continue
+                n = r + 1 if name.endswith("causal") else world
+                check(case["launches"] == {"K2": n, "K3": n, "K4": n},
+                      f"{name} over {world} ranks: rank {r} launched {case['launches']}, "
+                      f"the schedule wants {n} each")
+        rings[world] = ranks
+        for name, case in ranks[0]["cases"].items():
+            log(f"[dist] {name} over {world} gloo ranks on cuda:0 "
+                f"({ranks[0]['transport']}): launches by rank "
+                f"{[rk['cases'][name]['launches'] for rk in ranks]}; against one rank's "
+                f"whole-sequence run {json.dumps(case['errors'])}; rank 0 fwd+bwd "
+                f"{case['fwd_bwd_wall_ms']:.1f} ms host wall")
+    return rings
+
+
+def _dist_pretrain(root: str) -> dict:
+    """The five 2-rank pretraining meshes against one process's runs."""
+    from moc_tpu_torch.cli import pretrain
+    from moc_tpu_torch.parallel.launch import spawn
+
+    ref = {}
+    for key, extra in (("dense", []), ("moe", ["--moe_experts", "4"])):
+        ckpt = os.path.join(root, f"ref_{key}")
+        losses, restore = _record_pretrain()
+        try:
+            check(pretrain.main([*DIST_PRETRAIN_ARGV, "--mesh", "data=1", *extra, "--device",
+                                 "cuda", "--ckpt_dir", ckpt]) == 0,
+                  f"one-process pretrain {key} failed")
+        finally:
+            restore()
+        ref[key] = {"losses": losses, "ckpt": ckpt}
+    torch.cuda.empty_cache()
+    spawn(f"{os.path.abspath(__file__)}:dist_pretrain_rank", 2, backend="gloo",
+          device="cuda:0", kwargs={"root": root}, timeout=600)
+    return _compare_pretrain(root, ref, _load_ranks(root, "pretrain", 2))
+
+
+def _dist_clis(root: str) -> tuple[dict, dict]:
+    """The two-process CLIs against one process: ``(K1 launches by CLI and
+    rank, one process's)``."""
+    from moc_tpu_torch.parallel.launch import spawn
+
+    clis_root = os.path.join(root, "clis")
+    made = _dist_corpus(clis_root)
+    spawn(f"{os.path.abspath(__file__)}:dist_cli_rank", 2, backend="gloo", device="cuda:0",
+          kwargs={"root": clis_root, "corpus": made["corpus"]}, timeout=600)
+    cli_ranks = _load_ranks(clis_root, "clis", 2)
+    errs = _check_clis(clis_root, made["corpus"])
+    k1 = {name: [r[name]["launches"] for r in cli_ranks] for name in cli_ranks[0]}
+    one = {n: r["launches"] for n, r in made["one"].items()}
+    log(f"[dist] two-process CLIs on cuda:0 over gloo: sweep, train_mil --fused, predict, "
+        f"serve --once, create_patches and extract_features --data_parallel give one "
+        f"process's files ({json.dumps(errs)}); K1 launches by rank {json.dumps(k1)}, one "
+        f"process {json.dumps(one)}")
+    return k1, one
+
+
+def phase_dist(root: str) -> dict:
+    """The ``[dist]`` phase: NCCL in a world of one, ring attention and dilated cross-shard segments over 2 gloo ranks and ring
+    attention over 4, the five 2-rank pretraining meshes and the two-process
+    CLIs against one process."""
+    t0 = time.perf_counter()
+    nccl = _nccl_world_of_one(root)
+    rings = _dist_rings(root)
+    t_ring = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    pre = _dist_pretrain(root)
+    t_pre = time.perf_counter() - t1
+    t2 = time.perf_counter()
+    k1, one = _dist_clis(root)
+    t_cli = time.perf_counter() - t2
+    log(f"[dist] phase wall {time.perf_counter() - t0:.1f}s (NCCL and rings "
+        f"{t_ring:.1f}s, pretraining {t_pre:.1f}s, CLIs {t_cli:.1f}s)")
+    return {"nccl": nccl, "rings": rings, "pretrain": pre, "clis": k1,
+            "clis_one": one, "wall_s": time.perf_counter() - t0}
+
+
+def _dist_cells(tier: str, kid: str, dist: dict) -> dict:
+    """The ``[dist]`` fields of a K2/K3/K4 record: launches by rank on each
+    ring and cross-shard case of the tier, and on the ring's pretraining
+    mesh (the times at the ring's shapes come from ``_slice_cells``)."""
+    dtype = {"f32": "float32", "bf16": "bfloat16"}[tier]
+    cells = {}
+    for world, ranks in dist["rings"].items():
+        for name in ranks[0]["cases"]:
+            if dtype in name or (name.startswith("dilated") and tier == "f32"):
+                cells[f"launches_{name}_{world}ranks"] = [
+                    r["cases"][name]["launches"][kid] for r in ranks]
+    if tier == "f32":
+        cells["launches_dist_pretrain_seq"] = [r[kid] for r in
+                                              dist["pretrain"]["seq"]["launches"]]
+    return cells
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py runs on a GPU only", file=sys.stderr)
@@ -5108,6 +5707,8 @@ def main() -> int:
         exported = phase_export(root)
         xprof = phase_xprof(root)
         resumed = phase_ckpt(root)
+    with tempfile.TemporaryDirectory() as root:
+        dist = phase_dist(root)
     smi =subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip().splitlines()[0]
@@ -5141,6 +5742,9 @@ def main() -> int:
                         "launches_vila": vila["launches"][entry],
                         "launches_visualize": visualized["launches"][entry],
                         "launches_export": exported["launches"][entry],
+                        "launches_sweep_ranks": [r[entry] for r in dist["clis"]["sweep"]],
+                        "launches_serve_ranks": [r[entry] for r in dist["clis"]["serve"]],
+                        "launches_predict_ranks": [r[entry] for r in dist["clis"]["predict"]],
                         **({"launches_mizero": mizero["launches"], "shapes_mizero": mizero["k1"],
                             "launches_adapters": adapters["launches"],
                             "shape_adapters": adapters["k1"]}
@@ -5179,6 +5783,7 @@ def main() -> int:
                            if tier == "f32" else {}),
                         **_slice_cells(tier, "K2", moe, dilated, contrastive, options,
                                        slice_times),
+                        **_dist_cells(tier, "K2", dist),
                         **musk_cells})
     for entry, kid, replaces in (("dq", "K3", K3_REPLACES), ("dkv", "K4", K4_REPLACES)):
         for tier, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
@@ -5198,7 +5803,8 @@ def main() -> int:
                             **({"launches_pretrain_resume": resumed["launches"][kid]}
                                if tier == "f32" else {}),
                             **_slice_cells(tier, kid, moe, dilated, contrastive, options,
-                                           slice_times)})
+                                           slice_times),
+                            **_dist_cells(tier, kid, dist)})
     log("[tiers] summary " + json.dumps({k: {f: v for f, v in r.items() if f != "launches"}
                                          for k, r in tiers.items()}))
     log("[train] summary " + json.dumps({
@@ -5242,6 +5848,11 @@ def main() -> int:
         "create_patches": chain, "visualize": {k: v for k, v in visualized.items()
                                                if k != "files"},
         "export": exported, "xprof": xprof, "ckpt": resumed}))
+    log("[dist] summary " + json.dumps({
+        "nccl": dist["nccl"], "pretrain": dist["pretrain"], "wall_s": dist["wall_s"],
+        "rings": {w: [{n: {k: v for k, v in c.items()} for n, c in r["cases"].items()}
+                      for r in ranks] for w, ranks in dist["rings"].items()},
+        "clis_k1_by_rank": dist["clis"], "clis_k1_one_process": dist["clis_one"]}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -5249,5 +5860,28 @@ def main() -> int:
     return 0
 
 
+def _log_phase_walls() -> None:
+    """Every ``phase_*`` of this module logs ``[wall] <phase> <s> (at <s>)``
+    when it returns, the second time since the first phase began: where a
+    run's time goes, so a slice knows which path's depth to cut."""
+    start = []
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            start.append(start[0] if start else t0)
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                now = time.perf_counter()
+                log(f"[wall] {name} {now - t0:.1f}s (at {now - start[0]:.1f}s)")
+        return run
+
+    for name, fn in list(globals().items()):
+        if name.startswith("phase_") and callable(fn):
+            globals()[name] = timed(name, fn)
+
+
 if __name__ == "__main__":
+    _log_phase_walls()
     sys.exit(main())

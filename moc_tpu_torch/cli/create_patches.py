@@ -23,10 +23,11 @@ Output layout (CLAM's):
 Slides open through ``data.patches.open_slide``: OpenSlide where it
 imports, PIL otherwise (plain images). The defaults are CLAM's
 (``sthresh=8``, ``mthresh=7``, ``close=4``, ``a_t=100``, ``a_h=16`` in
-512 x 512-patch area units). The port runs as one process: the JAX CLI's
-split of slides over processes waits for the multi-process runtime
-(ROADMAP queue 1, item 9). ``--platform`` belongs to the JAX package and is
-refused by name.
+512 x 512-patch area units). In a multi-process run (the ``MOC_TPU_*`` or
+``torchrun`` variables) rank ``pid`` of ``n`` takes the slides
+``files[pid::n]`` and writes ``process_list.proc<pid>.csv``; the ranks
+join over gloo on the host, since the CLI touches no card. ``--platform``
+belongs to the JAX package and is refused by name.
 """
 
 from __future__ import annotations
@@ -243,6 +244,12 @@ def main(argv=None) -> int:
     if not files:
         raise SystemExit(f"no slides found under {args.wsi_dir!r} "
                          f"(extensions: {', '.join(SLIDE_EXTS)})")
+    from moc_tpu_torch.parallel import runtime
+
+    if runtime.initialize_runtime(backend="gloo", device="cpu"):
+        pid, n = runtime.process_index(), runtime.process_count()
+        files = files[pid::n]
+        print(f"process {pid}/{n}: {len(files)} slides", file=sys.stderr)
     patch_dir = os.path.join(args.out_dir, "patches")
     os.makedirs(patch_dir, exist_ok=True)
     ext = coords_ext()
@@ -265,6 +272,9 @@ def main(argv=None) -> int:
               f"regions ({time.perf_counter() - t0:.1f}s)")
     if rows:
         csv_path = os.path.join(args.out_dir, "process_list.csv")
+        if runtime.process_count() > 1:
+            root, ext = os.path.splitext(csv_path)
+            csv_path = f"{root}.proc{runtime.process_index()}{ext}"
         write_process_list(csv_path, rows)
         print(f"{len(rows)} slides -> {csv_path}")
     return 0

@@ -19,8 +19,12 @@ the JAX CLI writes) streams ``h5_files/<slide>.h5`` with ``features`` and
 ``coords``; ``pt`` writes ``pt_files/<slide>.pt`` (features only) and needs
 no h5py. Tail batches are zero-padded to ``--batch_size`` and trimmed, so
 every call sees one shape. Runs on ``--device cuda`` (the default) and
-raises without a GPU unless ``--device cpu`` is given. Data parallelism and
-multi-process shards wait for a later slice (ROADMAP queue 1, item 9).
+raises without a GPU unless ``--device cpu`` is given. ``--data_parallel``
+splits each batch over the visible cards, an encoder resident on each
+(``--batch_size`` rounded up to their count). In a multi-process run (the
+``MOC_TPU_*`` or ``torchrun`` variables, ``--dist_backend``) rank ``pid``
+of ``n`` extracts the slides ``[pid::n]``, each bag file written whole as
+one process writes it.
 """
 
 from __future__ import annotations
@@ -34,12 +38,14 @@ import time
 import numpy as np
 import torch
 
-from moc_tpu_torch.cli.common import add_xprof_flag, setup_runtime
+from moc_tpu_torch.cli.common import (add_dist_flag, add_xprof_flag, round_up_to_devices,
+                                      serving_devices, setup_runtime, split_encode)
 from moc_tpu_torch.data.bags import append_hdf5, write_bag_h5, write_bag_pt
 from moc_tpu_torch.data.patches import (CoordPatchReader, PatchBagReader, bag_path,
                                         list_bags)
 from moc_tpu_torch.device import resolve_device
 from moc_tpu_torch.models.layers import l2norm
+from moc_tpu_torch.parallel import runtime
 
 BACKBONES = ("conch", "musk", "resnet50", "debug")
 DEBUG_FEATURES = 512
@@ -59,7 +65,7 @@ def get_args(argv=None):
                    help="CONCH / MUSK release checkpoint, or a torchvision resnet50 .pth")
     p.add_argument("--batch_size", type=int, default=64)
     p.add_argument("--data_parallel", action="store_true",
-                   help="not ported yet: one card a call (ROADMAP queue 1, item 9)")
+                   help="split each batch over the visible cards")
     p.add_argument("--image_size", type=int, default=None,
                    help="default: 448 (conch) / 384 (musk) / 256 (resnet50) / 64 (debug)")
     p.add_argument("--normalize_embeddings", type=lambda s: s.lower() != "false",
@@ -87,6 +93,7 @@ def get_args(argv=None):
                         "pt: pt_files/<slide>.pt")
     p.add_argument("--device", default="cuda",
                    help="torch device to encode on (cuda, cuda:1, or cpu)")
+    add_dist_flag(p)
     add_xprof_flag(p)
     return p.parse_args(argv)
 
@@ -234,19 +241,8 @@ def extract_slide(reader, encode, out_path: str, batch_size: int,
     return total
 
 
-def _refuse_unported(args) -> None:
-    if args.data_parallel:
-        raise NotImplementedError("--data_parallel is not ported yet (ROADMAP queue 1, "
-                                  "item 9): extraction runs on one card a call")
-    for var in ("MOC_TPU_NUM_PROCESSES", "WORLD_SIZE"):
-        if int(os.environ.get(var, "1")) > 1:
-            raise NotImplementedError(f"multi-process shards ({var}={os.environ[var]}) are "
-                                      "not ported yet (ROADMAP queue 1, item 9)")
-
-
 def main(argv=None) -> int:
     args = get_args(argv)
-    _refuse_unported(args)
     setup_runtime(args)
     if args.out_format == "h5":
         try:
@@ -254,13 +250,25 @@ def main(argv=None) -> int:
         except ImportError as e:
             raise ImportError("--out_format h5 needs h5py; pass --out_format pt on "
                               "this host") from e
-    bags = {s: bag_path(args.patch_dir, s) for s in list_bags(args.patch_dir, args.csv)}
+    slides = list_bags(args.patch_dir, args.csv)
+    if runtime.process_count() > 1:
+        # extraction is parallel by slide: a disjoint strided slice a rank
+        pid, n = runtime.process_index(), runtime.process_count()
+        slides = slides[pid::n]
+        print(f"process {pid}/{n}: extracting {len(slides)} slides", file=sys.stderr)
+    bags = {s: bag_path(args.patch_dir, s) for s in slides}
     image_size = args.image_size or default_image_size(args.backbone)
     transform = {"musk": "musk", "resnet50": "imagenet"}.get(args.backbone, "clip")
     if args.normalize_embeddings is None:
         args.normalize_embeddings = args.backbone != "resnet50"
-    encode = build_encoder(args.backbone, args.checkpoint, image_size,
-                           args.normalize_embeddings, args.bf16, args.flash, args.device)
+    device = runtime.device() or resolve_device(args.device)
+    devices = serving_devices(device) if args.data_parallel else [device]
+    encoders = [build_encoder(args.backbone, args.checkpoint, image_size,
+                              args.normalize_embeddings, args.bf16, args.flash, d)
+                for d in devices]
+    encode = split_encode(encoders)
+    if len(encoders) > 1:
+        args.batch_size = round_up_to_devices(args.batch_size, len(encoders))
     sub, ext = ("pt_files", ".pt") if args.out_format == "pt" else ("h5_files", ".h5")
     out_dir = os.path.join(args.out_dir, sub)
     os.makedirs(out_dir, exist_ok=True)

@@ -39,9 +39,13 @@ and temperature come from the artifact; buckets below its floor are padded
 up to it). ``--xprof DIR`` writes a ``torch.profiler`` trace of the run.
 
 Runs on ``--device cuda`` (the default) and raises without a GPU unless
-``--device cpu`` is given. Data parallelism (``--data_parallel``) waits for
-the multi-device runtime; ``--platform`` is JAX's own. Each is refused by
-name.
+``--device cpu`` is given. ``--data_parallel`` splits each batch over the
+visible cards, the model resident on each (``batch_size`` rounded up to
+their count). In a multi-process run (the ``MOC_TPU_*`` or ``torchrun``
+variables, ``--dist_backend``) rank ``pid`` of ``n`` scores the slides
+``ids[pid::n]`` into ``<out>.proc<pid>.csv`` (an empty shard writes the
+header alone), so the concatenated CSVs are the one-process CSV's rows.
+``--platform`` is JAX's own and refused by name.
 """
 
 from __future__ import annotations
@@ -56,8 +60,10 @@ import sys
 import numpy as np
 import torch
 
-from moc_tpu_torch.cli.common import (add_perf_flags, add_xprof_flag, perf_cfg_kwargs,
-                                      setup_runtime)
+from moc_tpu_torch.cli.common import (add_dist_flag, add_perf_flags, add_xprof_flag,
+                                      perf_cfg_kwargs, round_up_to_devices, serving_devices,
+                                      setup_runtime, split_batch_logits)
+from moc_tpu_torch.parallel import runtime
 from moc_tpu_torch.config import PRESETS
 from moc_tpu_torch.convert import (senet_from_jax, senet_from_state_dict,
                                    senet_state_dict_from_npz)
@@ -107,9 +113,11 @@ def get_args(argv=None):
                    help="the exported program's floor on the padded patch count")
     p.add_argument("--from_program", default=None, metavar="PATH",
                    help="score with an exported program instead of --model")
+    p.add_argument("--data_parallel", action="store_true",
+                   help="split each batch over the visible cards")
+    add_dist_flag(p)
     add_xprof_flag(p)
     refused = p.add_argument_group("not in the GPU port (refused here)")
-    refused.add_argument("--data_parallel", action="store_true")
     refused.add_argument("--platform", default=None)
     add_perf_flags(p)
     return p.parse_args(argv)
@@ -117,8 +125,6 @@ def get_args(argv=None):
 
 # flag → why the port refuses it, for the flags of the JAX command lines
 _REFUSED = {
-    "data_parallel": "--data_parallel shards batches over devices, which waits for the "
-                     "multi-device runtime (ROADMAP queue 1 item 9)",
     "platform": "--platform picks a JAX backend and belongs to the JAX package (use --device)",
 }
 
@@ -342,10 +348,13 @@ def main(argv=None) -> int:
     from moc_tpu_torch.metrics import roc_auc_host
 
     preset = PRESETS[args.dataset]
-    device = resolve_device(args.device)
+    device = runtime.device() or resolve_device(args.device)
     table, labelled = read_slide_table(args.csv or preset.csv_path("/nonexistent"),
                                        preset.label_dict)
     min_pad = 0
+    if args.data_parallel and (args.from_program or args.export_program):
+        raise SystemExit("--from_program and --export_program are one-card programs; drop "
+                         "--data_parallel")
     if args.from_program:
         if args.export_program:
             raise SystemExit("--export_program needs the live model, not --from_program")
@@ -359,12 +368,36 @@ def main(argv=None) -> int:
         dtype = _storage_dtype(args)  # check the tier before building anything
         batch_logits, cfg = build_predictor(args, preset, device)
         batch_size, temperature = args.batch_size, cfg.temperature
+        if args.data_parallel:
+            devices = serving_devices(device)
+            batch_logits = split_batch_logits(
+                [(batch_logits, device)]
+                + [(build_predictor(args, preset, d)[0], d) for d in devices[1:]])
+            batch_size = round_up_to_devices(batch_size, len(devices))
     if not len(table):
         raise SystemExit("the slide CSV parsed to zero rows — check its "
                          "slide_id/label columns and the label dict")
+    shard_ids = None
+    if runtime.process_count() > 1:
+        # a disjoint slide shard a rank, one CSV each (merge = concatenate)
+        pid, n = runtime.process_index(), runtime.process_count()
+        if args.export_program:
+            raise SystemExit("--export_program writes one artifact; run it single-process")
+        shard_ids = list(table.slide_ids_)[pid::n]
+        root, ext = os.path.splitext(args.out)
+        args.out = f"{root}.proc{pid}{ext}"
+        print(f"process {pid}/{n}: scoring {len(shard_ids)} slides → {args.out}",
+              file=sys.stderr)
+        if not shard_ids:  # more ranks than slides: the header alone, same schema
+            cols = ["slide_id", "pred", *(["label"] if labelled else []),
+                    *(f"prob_{c}" for c in range(preset.n_classes))]
+            os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+            with open(args.out, "w", newline="") as f:
+                csv.writer(f, lineterminator="\n").writerow(cols)
+            return 0
     use_h5 = not os.path.isdir(os.path.join(args.feature_dir, "pt_files"))
     try:
-        bags = BagLoader(table, args.feature_dir, use_h5=use_h5).read_all()
+        bags = BagLoader(table, args.feature_dir, use_h5=use_h5).read_all(shard_ids)
     except (FileNotFoundError, OSError) as e:
         raise SystemExit(
             f"could not read feature bags under {args.feature_dir!r}: {e} — "

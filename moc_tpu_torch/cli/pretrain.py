@@ -31,20 +31,32 @@ bit-identical to the JAX CLI's), or windows of a real token corpus via
 with the same ``D`` resumes from the newest step and trains on to
 ``--steps``. ``--xprof DIR`` writes a ``torch.profiler`` trace of the run.
 
-Not ported yet, and refused: meshes over more than one device and
-``pipe=`` stages and multi-process runs (ROADMAP queue 1, item 9: its
-multi-device half). The JAX-only ``--platform`` has no counterpart.
+Over several ranks, one process each (the ``MOC_TPU_*`` or ``torchrun``
+variables; ``cli.common.setup_runtime`` joins them, NCCL by default,
+``--dist_backend gloo`` for ranks on the CPU or sharing one card),
+``--mesh`` lays the ranks out (``parallel.mesh.make_mesh``; ``-1`` absorbs
+the rest) and ``train.pretrain``'s sharded step trains: batch rows over
+``data``, the sequence over ``seq`` (ring attention), heads and FFN width
+over ``tensor``, MoE experts over ``expert``. ``--mesh data=D,pipe=S`` runs
+the GPipe trainer (``train.pretrain_pipe``) with ``--microbatches``
+microbatches a data shard. Every rank draws the same global batch and
+trains on its block; the numbers are the one-process run's:
+
+  MOC_TPU_COORDINATOR=host:29500 MOC_TPU_NUM_PROCESSES=4 MOC_TPU_PROCESS_ID=$i \
+      python -m moc_tpu_torch.cli.pretrain --mesh data=2,tensor=2 ...
+  torchrun --nproc_per_node 4 -m moc_tpu_torch.cli.pretrain --mesh data=2,pipe=2 ...
+
+The JAX-only ``--platform`` has no counterpart.
 """
 
 from __future__ import annotations
 
 import argparse
-import os
 import sys
 
 import numpy as np
 
-from moc_tpu_torch.cli.common import add_xprof_flag, setup_runtime
+from moc_tpu_torch.cli.common import add_dist_flag, add_xprof_flag, setup_runtime
 
 MESH_AXES = ("data", "seq", "tensor", "expert", "pipe")
 
@@ -72,10 +84,12 @@ def get_args(argv=None):
     p.add_argument("--moe_freq", type=int, default=2)
     p.add_argument("--lr", type=float, default=1e-3)
     p.add_argument("--mesh", default="data=-1",
-                   help="mesh axis sizes; one device only for now: 'data=1' "
-                        "or 'data=-1'")
+                   help="mesh axis sizes over the ranks, e.g. 'data=4,tensor=2', "
+                        "'data=2,expert=4', 'seq=2' or 'data=2,pipe=4' (GPipe pipeline "
+                        "stages); -1 absorbs the remaining ranks")
     p.add_argument("--microbatches", type=int, default=4,
-                   help="GPipe microbatches (pipe meshes, not ported yet)")
+                   help="GPipe microbatches per step (pipe meshes only); must divide the "
+                        "per-data-shard batch")
     p.add_argument("--param_dtype", default=None, choices=[None, "bfloat16"],
                    help="parameter storage dtype: bfloat16 stores 2-D and wider parameters "
                         "in bf16 beside f32 masters (Adam in f32)")
@@ -89,7 +103,9 @@ def get_args(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--log_every", type=int, default=10)
     p.add_argument("--device", default="cuda",
-                   help="torch device; 'cuda' (default) raises without a GPU")
+                   help="torch device; 'cuda' (default: cuda:LOCAL_RANK in a multi-process "
+                        "run) raises without a GPU")
+    add_dist_flag(p)
     add_xprof_flag(p)
     return p.parse_args(argv)
 
@@ -106,29 +122,6 @@ def parse_mesh_arg(spec: str) -> dict[str, int]:
             raise ValueError(f"mesh axis {part!r} needs NAME=SIZE")
         out[name.strip()] = int(size)
     return out
-
-
-def check_single_device(mesh: dict[str, int]) -> None:
-    """Refuse a mesh that is not one device: ``data=1`` or ``data=-1`` (and
-    other axes of size 1) run on the one card."""
-    unknown = sorted(set(mesh) - set(MESH_AXES))
-    if unknown:
-        raise ValueError(f"unknown mesh axes {unknown}; valid: {list(MESH_AXES)}")
-    if mesh.get("pipe", 1) not in (1, -1):
-        raise NotImplementedError("--mesh pipe=N (the GPipe trainer) is not ported yet "
-                                  "(ROADMAP queue 1, item 9)")
-    wide = {a: n for a, n in mesh.items() if n != 1 and not (a == "data" and n == -1)}
-    if wide:
-        raise NotImplementedError(f"--mesh {wide}: meshes over more than one device are not "
-                                  "ported yet (ROADMAP queue 1, item 9); use --mesh data=1")
-
-
-def check_ported_flags(args) -> None:
-    check_single_device(parse_mesh_arg(args.mesh))
-    for var in ("MOC_TPU_NUM_PROCESSES", "WORLD_SIZE"):
-        if int(os.environ.get(var, "1")) > 1:
-            raise NotImplementedError(f"multi-process runs ({var}={os.environ[var]}) are not "
-                                      "ported yet (ROADMAP queue 1, item 9)")
 
 
 def make_data_fn(args):
@@ -192,17 +185,32 @@ def build_config(args):
 
 def main(argv=None) -> int:
     args = get_args(argv)
-    check_ported_flags(args)
     setup_runtime(args)
     from moc_tpu_torch.device import resolve_device
-    from moc_tpu_torch.train.pretrain import run_pretrain
+    from moc_tpu_torch.parallel import runtime
+    from moc_tpu_torch.parallel.mesh import make_mesh
 
-    device = resolve_device(args.device)
+    mesh = make_mesh(parse_mesh_arg(args.mesh))
+    device = runtime.device() or resolve_device(args.device)
     cfg = build_config(args)
-    print(f"device {device} · one process", file=sys.stderr)
-    _, _, losses = run_pretrain(cfg, make_data_fn(args), total_steps=args.steps,
-                                seed=args.seed, log=log_factory(args), device=device,
-                                ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every)
+    common = dict(total_steps=args.steps, seed=args.seed, log=log_factory(args), device=device,
+                  ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every)
+    if mesh.shape.get("pipe", 1) > 1:
+        from moc_tpu_torch.train.pretrain_pipe import run_pipe_pretrain
+
+        if args.param_dtype:
+            raise SystemExit("--param_dtype is not plumbed through the pipeline trainer; "
+                             "drop one of the flags")
+        print(f"mesh {mesh.shape} · GPipe x{mesh.shape['pipe']} · {args.microbatches} "
+              f"microbatches · device {device}", file=sys.stderr)
+        _, _, losses = run_pipe_pretrain(cfg, mesh, make_data_fn(args),
+                                         num_microbatches=args.microbatches, **common)
+    else:
+        from moc_tpu_torch.train.pretrain import run_pretrain
+
+        print(f"mesh {mesh.shape} · {runtime.process_count()} process(es) · device {device}",
+              file=sys.stderr)
+        _, _, losses = run_pretrain(cfg, make_data_fn(args), mesh=mesh, **common)
     if losses:
         print(f"final loss {losses[-1]:.4f} over {len(losses)} steps")
     else:

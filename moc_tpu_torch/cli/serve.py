@@ -23,9 +23,11 @@ the ``--weights_npz`` pair, ``--conch_checkpoint`` (and optionally
 banks, cached in ``classifier_weights/`` beside ``--out``. The tiers are
 ``cli.predict``'s: ``--storage_dtype`` float32|bfloat16|int8 for the bags
 on the card (``--warmup`` packs its zero bags at it), ``--dense`` and
-``--score_dtype`` for the forward. A multi-process pod's hash-disjoint
-shards (``_shard_owns``, ``watch_once(shard=)``) are ported; the processes'
-discovery waits for the multi-device runtime, so ``main`` runs one shard.
+``--score_dtype`` for the forward. In a multi-process run (the
+``MOC_TPU_*`` or ``torchrun`` variables, ``--dist_backend``) each daemon
+owns a hash-disjoint subset of the slide ids (``_shard_owns``) and appends
+to its own ``<out>.proc<rank>.csv``; concatenated, they are one daemon's
+CSV.
 
 ``--model_kind mil`` serves a MIL baseline head from ``cli.train_mil``
 (``--model`` its ``.msgpack``; ``--model_type``/``--model_size`` or the
@@ -57,7 +59,9 @@ import time
 
 import numpy as np
 
-from moc_tpu_torch.cli.common import add_perf_flags, add_xprof_flag, setup_runtime
+from moc_tpu_torch.cli.common import (add_dist_flag, add_perf_flags, add_xprof_flag,
+                                      setup_runtime)
+from moc_tpu_torch.parallel import runtime
 from moc_tpu_torch.cli.predict import (_storage_dtype, build_predictor, load_program,
                                        refuse_unported, score_bags)
 from moc_tpu_torch.config import PRESETS
@@ -114,6 +118,7 @@ def get_args(argv=None):
     p.add_argument("--from_program", default=None, metavar="PATH",
                    help="serve a program written by cli.predict --export_program instead "
                         "of --model")
+    add_dist_flag(p)
     add_xprof_flag(p)
     refused = p.add_argument_group("not in the GPU port (refused here)")
     refused.add_argument("--platform", default=None)
@@ -150,7 +155,7 @@ class Server:
         refuse_unported(args)
         self.args = args
         self.preset = PRESETS[args.dataset]
-        self.device = resolve_device(args.device)
+        self.device = runtime.device() or resolve_device(args.device)
         self.min_pad = 0
         if args.from_program:
             program, self.dtype = load_program(args, self.preset, self.device)
@@ -316,12 +321,20 @@ def main(argv=None) -> int:
         for result in serve_stream(server, sys.stdin, args.feature_dir):
             print(json.dumps(result), flush=True)
         return 0
+    shard = None
+    if runtime.process_count() > 1:
+        # each daemon owns a hash-disjoint id subset and appends to its own CSV
+        pid, n = runtime.process_index(), runtime.process_count()
+        shard = (pid, n)
+        root, ext = os.path.splitext(args.out)
+        args.out = f"{root}.proc{pid}{ext}"
+        print(f"process {pid}/{n}: watching shard → {args.out}", file=sys.stderr)
     seen = _seen_from_csv(args.out)
     if seen:
         print(f"resuming: {len(seen)} slides already in {args.out}", file=sys.stderr)
     failures: dict[str, int] = {}
     while True:
-        n = watch_once(server, args.watch_dir, args.out, seen, failures=failures)
+        n = watch_once(server, args.watch_dir, args.out, seen, shard, failures=failures)
         if n:
             print(f"scored {n} new slides -> {args.out}", file=sys.stderr)
         if args.once:

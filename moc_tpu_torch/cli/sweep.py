@@ -16,8 +16,12 @@ and ``summary_{shot}.csv``, and train each fold alike.
       --synthetic_min_patches 1500 --synthetic_max_patches 4000 --result_dir R
 
 Runs on ``--device cuda`` (the default) and raises without a GPU unless
-``--device cpu`` is given. Episodes share one card: the JAX package's
-sharding of episodes over devices is not ported (ROADMAP queue 1 item 9).
+``--device cpu`` is given. In a multi-process run (the ``MOC_TPU_*`` or
+``torchrun`` variables, ``--dist_backend``) a fused shot's episodes are
+split over the ranks, the largest count of them that divides the episodes
+(``moc.run_sweep_pooled(mesh=...)``, as the JAX CLI's ``_episode_mesh``
+splits them over devices); a streamed shot runs on every rank. Rank 0
+makes the synthetic corpus and writes every result file.
 """
 
 from __future__ import annotations
@@ -29,8 +33,9 @@ import time
 
 import torch
 
-from moc_tpu_torch.cli.common import (add_perf_flags, add_xprof_flag, perf_cfg_kwargs,
-                                      setup_runtime)
+from moc_tpu_torch.cli.common import (add_dist_flag, add_perf_flags, add_xprof_flag,
+                                      perf_cfg_kwargs, setup_runtime)
+from moc_tpu_torch.parallel import runtime
 from moc_tpu_torch.cli.main_moc import _build_weights, _synthetic_setup, refuse_jax_only
 from moc_tpu_torch.config import DEFAULT_PROMPT_ROOT, PRESETS
 
@@ -74,6 +79,7 @@ def get_args(argv=None):
     add_perf_flags(p)
     jax_only = p.add_argument_group("JAX package only (refused here)")
     jax_only.add_argument("--platform", default=None)
+    add_dist_flag(p)
     add_xprof_flag(p)
     return p.parse_args(argv)
 
@@ -161,14 +167,19 @@ def run_fused_shot(args, shot, folds, *, splits, pool_ctx, w, w_ext, cfg, n_clas
 
     feats_dev, mask_dev, t_put = pool_ctx.device()
     pooled = PooledEpisodes(feats_dev, mask_dev, index)
+    mesh = _episode_mesh(len(folds))
     t0 = time.perf_counter()
+    if mesh is not None and mesh.coords is None:
+        return True  # a rank the split of this shot leaves out
     # every fold trains from the same seed, as the reference runs each fold
     # as its own process with one seed, and as cli.main_moc does
     result = run_sweep_pooled(pooled, w, w_ext, cfg, repeat_num=shot * n_classes,
                               seeds=[args.seed] * len(folds), with_zs=args.check_zeroshot,
-                              device=feats_dev.device)
+                              device=feats_dev.device, mesh=mesh)
     ep_results = sweep_episode_results(result)  # waits for the device
     t_run = time.perf_counter() - t0
+    if runtime.process_index() != 0:
+        return result
 
     t0 = time.perf_counter()
     for fold, ep_result in zip(folds, ep_results):
@@ -186,12 +197,28 @@ def run_fused_shot(args, shot, folds, *, splits, pool_ctx, w, w_ext, cfg, n_clas
     return result
 
 
+def _episode_mesh(n_episodes: int):
+    """The first ``d`` ranks as a ``data`` mesh, ``d`` the largest rank
+    count that divides ``n_episodes``; None in a one-process run."""
+    n = runtime.process_count()
+    if n == 1:
+        return None
+    from moc_tpu_torch.parallel.mesh import make_mesh
+
+    d = max(k for k in range(1, n + 1) if n_episodes % k == 0)
+    return make_mesh({"data": d})
+
+
 def _dataset(args, device):
     """``(csv_path, data_dir, label_dict, w, w_ext, split_path(shot, fold),
     n_classes, n_ext)`` of ``--dataset``; a real dataset's zero-shot weights
     are built (or read from the cache) as ``main_moc`` builds them."""
     if args.dataset == "synthetic":
-        corpus = _synthetic_setup(args)
+        if runtime.process_index() == 0:  # rank 0 writes the corpus, the rest read it
+            corpus = _synthetic_setup(args)
+        runtime.barrier()
+        if runtime.process_index() != 0:
+            corpus = _synthetic_setup(args)
         label_dict = corpus["label_dict"]
         return (corpus["csv_path"], corpus["data_dir"], label_dict, corpus["weights"],
                 corpus["weights_ext"], lambda s, f: corpus["split_paths"][(s, f)],
@@ -217,7 +244,8 @@ def main(argv=None) -> int:
     from moc_tpu_torch.moc.results import (episode_result_path, save_best_model, summarize,
                                            write_episode_result, write_zeroshot_result)
 
-    device = resolve_device(args.device)
+    device = runtime.device() or resolve_device(args.device)
+    writer = runtime.process_index() == 0
     os.makedirs(args.result_dir, exist_ok=True)
     csv_path, data_dir, label_dict, w, w_ext, split_path, n_classes, n_ext = _dataset(args, device)
     table = SlideTable.from_csv(csv_path, label_dict)
@@ -280,6 +308,8 @@ def main(argv=None) -> int:
                                        repeat_num=shot * n_classes, device=device)
             result = run_episode(episode, w, w_ext, cfg, seed=args.seed,
                                  check_zeroshot=args.check_zeroshot)
+            if not writer:
+                continue
             if args.check_zeroshot:
                 write_zeroshot_result(shot_dir, shot, fold, result.zero_shot_train,
                                       result.zero_shot_val, result.zero_shot_test)
@@ -288,7 +318,9 @@ def main(argv=None) -> int:
             print(f"shot {shot} fold {fold}: best_val={result.best_val:.4f} "
                   f"test={result.test_at_best_val:.4f}")
     print(f"sweep wallclock: {time.perf_counter() - t0:.1f}s ({n_run} episodes)")
-    summarize(args.result_dir, shots=tuple(args.shots), folds=tuple(args.folds))
+    runtime.barrier()
+    if writer:
+        summarize(args.result_dir, shots=tuple(args.shots), folds=tuple(args.folds))
     return 0
 
 

@@ -33,7 +33,11 @@ config and a numpy-seeded table stand in. It writes
 folds one by one, as JAX does.
 
 Runs on ``--device cuda`` (the default) and raises without a GPU unless
-``--device cpu`` is given. ``--xprof DIR`` writes a ``torch.profiler``
+``--device cpu`` is given. In a multi-process run (the ``MOC_TPU_*`` or
+``torchrun`` variables, ``--dist_backend``) ``--fused`` splits a shot's
+folds over the ranks, the largest count of them that divides the folds
+(``train.mil_fused``'s ``mesh``); rank 0 makes the synthetic corpus, trains
+the unfused folds and writes every file. ``--xprof DIR`` writes a ``torch.profiler``
 trace of the run (``cli.common.setup_runtime``); ``--platform`` belongs to
 the JAX package and raises NotImplementedError by name.
 """
@@ -50,7 +54,7 @@ import sys
 import numpy as np
 import torch
 
-from moc_tpu_torch.cli.common import add_xprof_flag, setup_runtime
+from moc_tpu_torch.cli.common import add_dist_flag, add_xprof_flag, setup_runtime
 
 
 def get_args(argv=None):
@@ -103,6 +107,7 @@ def get_args(argv=None):
                         "table and the text encoder (random table when omitted)")
     refused = p.add_argument_group("not in the GPU port (refused here)")
     refused.add_argument("--platform", default=None)
+    add_dist_flag(p)
     add_xprof_flag(p)
     return p.parse_args(argv)
 
@@ -143,7 +148,9 @@ def main(argv=None) -> int:
     setup_runtime(args)
     from moc_tpu_torch.device import resolve_device
 
-    device = resolve_device(args.device)
+    from moc_tpu_torch.parallel import runtime
+
+    device = runtime.device() or resolve_device(args.device)
     os.makedirs(args.result_dir, exist_ok=True)
     shots = args.shots or [args.shot]
     folds = args.folds or [args.fold]
@@ -152,13 +159,18 @@ def main(argv=None) -> int:
         # train another trajectory than the streaming path
         raise SystemExit("--fused trains per-slide (batch_size 1); "
                          "drop --batch_size or drop --fused")
+    writer = runtime.process_index() == 0
+    if args.dataset == "synthetic" and runtime.process_count() > 1:
+        if writer:  # rank 0 writes the corpus, the rest read it
+            _resolve_dataset(args, shots[0], folds[0])
+        runtime.barrier()
     for shot in shots:
         if args.fused and args.model_type != "vila":
             rows = _run_fused_grid(args, shot, folds, device)
-        else:
+        elif writer:
             rows = [_run_single(argparse.Namespace(**{**vars(args), "shot": shot, "fold": fold}),
                                 device) for fold in folds]
-        if len(folds) > 1:
+        if writer and len(folds) > 1:
             out = os.path.join(args.result_dir, f"{args.model_type}_summary_{shot}.csv")
             write_summary(out, folds, rows)
             print(f"summary → {out}")
@@ -227,8 +239,10 @@ def _use_h5(data_dir: str) -> bool:
 def _run_fused_grid(args, shot: int, folds, device: torch.device) -> list[dict]:
     """All folds of one shot as one batched program
     (``train.mil_fused.run_mil_folds_fused_pooled``)."""
+    from moc_tpu_torch.cli.sweep import _episode_mesh
     from moc_tpu_torch.data import BagLoader
     from moc_tpu_torch.moc.sweep import pool_episode_bags, unique_split_ids
+    from moc_tpu_torch.parallel import runtime
     from moc_tpu_torch.train.mil_fused import run_mil_folds_fused_pooled
 
     splits, loader, n_classes = [], None, None
@@ -242,7 +256,13 @@ def _run_fused_grid(args, shot: int, folds, device: torch.device) -> list[dict]:
     ids = unique_split_ids(splits)
     pooled = pool_episode_bags(loader.read_all(ids), ids, splits)
     cfg = _train_config(args, n_classes, int(np.shape(pooled.index.train_idx)[1]))
-    result = run_mil_folds_fused_pooled(pooled, cfg, seeds=list(folds), device=device)
+    mesh = _episode_mesh(len(folds))
+    if mesh is not None and mesh.coords is None:
+        return []  # a rank the split of this shot leaves out
+    result = run_mil_folds_fused_pooled(pooled, cfg, seeds=list(folds), device=device,
+                                        mesh=mesh)
+    if runtime.process_index() != 0:
+        return []
     metrics = {k: getattr(result, k).cpu().numpy() for k in
                ("val_auc", "val_acc", "test_auc", "test_acc", "test_bacc", "stop_epoch")}
     params = {k: v.detach().cpu() for k, v in result.best_params.items()}

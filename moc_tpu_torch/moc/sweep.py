@@ -20,8 +20,11 @@ episodes are a leading axis written out:
   device, and the best val epoch picked on the device.
 
 Nothing waits for the device between the first step and the end of the
-evaluation. Episodes live on one device: the JAX package's sharding of
-episodes over a mesh is not ported (ROADMAP queue 1 item 9).
+evaluation. With a ``mesh`` (``run_sweep(mesh=...)``,
+``run_sweep_pooled(mesh=...)``) the episodes are split over its ``data``
+axis, one block a rank, as the JAX package shards them over devices; the
+episodes are independent, so each rank trains its block as one device
+would, and every result is gathered back to every rank.
 
 Memory: a sweep holds every bag of every episode on the device, which fits
 few-shot workloads; ``moc.episode.run_episode`` streams large eval splits.
@@ -37,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from moc_tpu_torch.convert import senet_stack_from_states
+from moc_tpu_torch.parallel import collectives
 from moc_tpu_torch.data.batching import DEFAULT_BUCKETS, bucket_size, pack_bags
 from moc_tpu_torch.device import resolve_device
 from moc_tpu_torch.metrics import auc_from_probs, softmax_probs
@@ -254,18 +258,45 @@ def _sweep_args(w, w_ext, seeds, e: int, device):
     return dev, w, w_ext, seeds
 
 
+def _run(cfg: MOCConfig, repeat_num: int, with_zs: bool, ep: StackedEpisode, w, w_ext, seeds,
+         keep_fn, init_states, mesh) -> SweepResult:
+    """The sweep of ``ep``, or, over ``mesh``, of this rank's block of its
+    episodes along ``data``, every result gathered back in episode order."""
+    run = make_sweep_fn(cfg, repeat_num, with_zs)
+    if mesh is None or mesh.shape.get("data", 1) == 1:
+        return run(ep, w, w_ext, seeds, keep_fn=keep_fn, init_states=init_states)
+    ax = mesh.axis("data")
+    e = ep.train_feats.shape[0]
+    if e % ax.size:
+        raise ValueError(f"{e} episodes do not split over {ax.size} ranks of 'data'")
+    n = e // ax.size
+    lo = ax.index * n
+    part = StackedEpisode(**{f: getattr(ep, f)[lo : lo + n] for f in _FIELDS})
+    res = run(part, w, w_ext, seeds[lo : lo + n],
+              keep_fn=None if keep_fn is None else (lambda i, *a: keep_fn(lo + i, *a)),
+              init_states=None if init_states is None else init_states[lo : lo + n])
+
+    def gather(t):
+        return None if t is None else collectives.all_gather_nograd(t, ax, tiled=True)
+
+    return SweepResult(**{f.name: gather(getattr(res, f.name))
+                          for f in dataclasses.fields(SweepResult) if f.name != "best_params"},
+                       best_params={k: gather(v) for k, v in res.best_params.items()})
+
+
 def run_sweep(episodes: StackedEpisode, w, w_ext, cfg: MOCConfig, repeat_num: int, seeds=None,
               with_zs: bool = False, *, device: str | torch.device | None = None,
               keep_fn: SweepKeepFn | None = None,
-              init_states: Sequence[Mapping[str, torch.Tensor]] | None = None) -> SweepResult:
+              init_states: Sequence[Mapping[str, torch.Tensor]] | None = None,
+              mesh=None) -> SweepResult:
     """Train ``E`` stacked episodes (leading axis; host numpy or tensors) as
     one batched program on ``device`` (default ``cuda``; it raises without
-    a GPU). ``seeds`` default to ``0..E-1``; see ``make_sweep_fn``."""
+    a GPU), or split over ``mesh``'s ``data`` axis. ``seeds`` default to
+    ``0..E-1``; see ``make_sweep_fn``."""
     e = episodes.train_feats.shape[0]
     dev, w, w_ext, seeds = _sweep_args(w, w_ext, seeds, e, device)
     ep = StackedEpisode(**{f: _tensor(getattr(episodes, f), dev) for f in _FIELDS})
-    return make_sweep_fn(cfg, repeat_num, with_zs)(ep, w, w_ext, seeds, keep_fn=keep_fn,
-                                                   init_states=init_states)
+    return _run(cfg, repeat_num, with_zs, ep, w, w_ext, seeds, keep_fn, init_states, mesh)
 
 
 def episode_from_bags(train_batch, val_batches, test_batches) -> StackedEpisode:
@@ -508,8 +539,8 @@ def run_sweep_pooled(pooled: PooledEpisodes, w, w_ext, cfg: MOCConfig, repeat_nu
                      seeds=None, with_zs: bool = False, *,
                      device: str | torch.device | None = None,
                      keep_fn: SweepKeepFn | None = None,
-                     init_states: Sequence[Mapping[str, torch.Tensor]] | None = None
-                     ) -> SweepResult:
+                     init_states: Sequence[Mapping[str, torch.Tensor]] | None = None,
+                     mesh=None) -> SweepResult:
     """``run_sweep`` over a pool: the pool goes to ``device`` (default
     ``cuda``) unless it is there already (the command line commits it once,
     ``utils.device_cache``), and the episodes are gathered from it there."""
@@ -517,8 +548,7 @@ def run_sweep_pooled(pooled: PooledEpisodes, w, w_ext, cfg: MOCConfig, repeat_nu
     dev, w, w_ext, seeds = _sweep_args(w, w_ext, seeds, e, device)
     ep = assemble_episode(_tensor(pooled.pool_feats, dev), _tensor(pooled.pool_mask, dev),
                           pooled.index)
-    return make_sweep_fn(cfg, repeat_num, with_zs)(ep, w, w_ext, seeds, keep_fn=keep_fn,
-                                                   init_states=init_states)
+    return _run(cfg, repeat_num, with_zs, ep, w, w_ext, seeds, keep_fn, init_states, mesh)
 
 
 def sweep_episode_results(result: SweepResult,

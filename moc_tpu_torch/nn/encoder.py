@@ -30,9 +30,21 @@ relative position bias (a dense masked softmax, as JAX adds the bias to
 dense scores), and per-layer activation checkpointing (``remat``) run as in
 the JAX package. With bf16 parameters and ``compute_dtype=None`` a
 projection promotes as flax's ``promote_dtype`` does: an f32 input meets a
-bf16 kernel in an f32 product. The mesh axes (``ring_axis``, ``seq_axis``,
-``expert_axis``) wait for the multi-device half of ROADMAP queue 1, item 9,
-and are refused with ``NotImplementedError`` rather than ignored.
+bf16 kernel in an f32 product.
+
+The mesh axes name axes of the mesh that is active when the encoder is
+built (``with mesh:``), as JAX's name axes inside ``shard_map``:
+``ring_axis`` runs ring attention over a sequence sharded on it
+(``parallel.ring``; padding, a relative bias and xPos are refused, as in
+JAX), ``seq_axis`` runs dilated attention's cross-shard segments over it,
+and ``expert_axis`` splits the MoE experts over it. Two axes are the port's
+explicit form of what GSPMD partitions for the JAX package's sharded
+pretraining step: ``tensor_axis`` splits the heads and the FFN and expert
+hidden widths (column-split q/k/v and fc1, row-split out_proj and fc2
+summed by a ``psum``, their inner LayerNorms taking statistics over the
+whole width),
+and ``token_axes`` (``data`` and ``seq``) makes the MoE route the token
+batch split over them as one batch (``parallel.moe.TokenRoute``).
 """
 
 from __future__ import annotations
@@ -48,10 +60,11 @@ from torch import nn
 
 from moc_tpu_torch.nn.transformer import gelu_exact
 from moc_tpu_torch.ops.flash_attention import flash_attention
+from moc_tpu_torch.parallel import collectives
 from moc_tpu_torch.parallel.dilated import DilatedConfig, dilated_attention
-from moc_tpu_torch.parallel.moe import MoEConfig, MoELayer
-
-_LATER = "is not ported yet (ROADMAP queue 1, item 9: its multi-device half)"
+from moc_tpu_torch.parallel.mesh import Axis, current_mesh, resolve_axis
+from moc_tpu_torch.parallel.moe import MoEConfig, MoELayer, TokenRoute
+from moc_tpu_torch.parallel.ring import ring_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,10 +87,12 @@ class EncoderConfig:
     moe_freq: int = 0
     moe: MoEConfig = MoEConfig()
     dilated: Optional[DilatedConfig] = None
-    # mesh axes, refused until the multi-device half is ported (check_ported)
-    seq_axis: Optional[str] = None
-    ring_axis: Optional[str] = None
-    expert_axis: Optional[str] = None
+    # mesh axes of the mesh active at construction (see the module docstring)
+    seq_axis: Optional[str] = None  # dilated attention's cross-shard segments
+    ring_axis: Optional[str] = None  # ring attention over a sharded sequence
+    expert_axis: Optional[str] = None  # MoE experts split over it
+    tensor_axis: Optional[str] = None  # heads and FFN/expert hidden widths split over it
+    token_axes: tuple[str, ...] = ()  # axes the token batch is split over (MoE routing)
     remat: bool = False
     layernorm_eps: float = 1e-5
     # the dtype projections compute in (parameters stay f32); None = f32
@@ -89,14 +104,8 @@ class EncoderConfig:
             object.__setattr__(self, "subln", False)
 
 
-def check_ported(cfg: EncoderConfig) -> None:
-    """Raise ``NotImplementedError`` for a configuration this port cannot run."""
-    refused = {"ring attention (ring_axis)": cfg.ring_axis is not None,
-               "dilated context parallelism (seq_axis)": cfg.seq_axis is not None,
-               "expert parallelism (expert_axis)": cfg.expert_axis is not None}
-    for what, on in refused.items():
-        if on:
-            raise NotImplementedError(f"EncoderConfig: {what} {_LATER}")
+def _axis(name: str | None) -> Axis | None:
+    return None if name is None else resolve_axis(name)
 
 
 def _dtype(name: str | None) -> torch.dtype | None:
@@ -129,6 +138,22 @@ class Dense(nn.Linear):
         return F.linear(x.to(cd), self.weight.to(cd), self.bias.to(cd))
 
 
+class RowDense(Dense):
+    """A row-split projection: this rank's ``in_features`` columns of the
+    input against its rows of the weight, summed over ``axis`` by a
+    ``psum``, and the (replicated) bias added once."""
+
+    def __init__(self, in_features: int, out_features: int, compute_dtype: str | None,
+                 axis: Axis):
+        super().__init__(in_features, out_features, compute_dtype)
+        self.axis = axis
+
+    def forward(self, x):
+        cd = self.compute_dtype or promote(x, self.weight, self.bias)
+        part = F.linear(x.to(cd), self.weight.to(cd))
+        return collectives.psum(part, self.axis) + self.bias.to(cd)
+
+
 class LayerNorm(nn.LayerNorm):
     """LayerNorm with its statistics in f32 whatever the input type, as
     flax's ``nn.LayerNorm`` computes them. The output is f32 with f32
@@ -139,6 +164,28 @@ class LayerNorm(nn.LayerNorm):
     def forward(self, x):
         return F.layer_norm(x.to(self.weight.dtype), self.normalized_shape, self.weight,
                             self.bias, self.eps)
+
+
+class ShardedLayerNorm(nn.Module):
+    """A LayerNorm over a width split across ``axis``: each rank holds its
+    slice of the input and of ``weight``/``bias``; the mean and variance are
+    taken over the whole width (``psum`` of the slices' sums), in f32."""
+
+    def __init__(self, local_dim: int, axis: Axis, eps: float = 1e-5):
+        super().__init__()
+        self.axis, self.eps = axis, eps
+        self.width = local_dim * axis.size
+        self.weight = nn.Parameter(torch.ones(local_dim))
+        self.bias = nn.Parameter(torch.zeros(local_dim))
+
+    def forward(self, x):
+        dt = self.weight.dtype
+        xf = x.float()
+        mean = collectives.psum(xf.sum(-1, keepdim=True), self.axis) / self.width
+        xc = xf - mean
+        var = collectives.psum((xc * xc).sum(-1, keepdim=True), self.axis) / self.width
+        y = xc * torch.rsqrt(var + self.eps)
+        return (y * self.weight.float() + self.bias.float()).to(dt)
 
 
 def xpos_apply(x: torch.Tensor, pos: torch.Tensor, center, scale_base: int,
@@ -287,14 +334,22 @@ def MultiwayLayerNorm(dim: int, eps: float = 1e-5, branch_b: bool = True) -> Mul
 
 
 class FeedForward(nn.Module):
-    """fc1 → exact GELU → optional inner LayerNorm (``subln``) → fc2."""
+    """fc1 → exact GELU → optional inner LayerNorm (``subln``) → fc2. With
+    ``tensor`` the hidden width is split over its ranks: fc1 column-split,
+    the inner LayerNorm over the whole width, fc2 row-split and summed."""
 
     def __init__(self, dim: int, ffn_dim: int, subln: bool = True, eps: float = 1e-5,
-                 compute_dtype: str | None = None):
+                 compute_dtype: str | None = None, tensor: Axis | None = None):
         super().__init__()
-        self.fc1 = Dense(dim, ffn_dim, compute_dtype)
-        self.ffn_layernorm = LayerNorm(ffn_dim, eps=eps) if subln else None
-        self.fc2 = Dense(ffn_dim, dim, compute_dtype)
+        if tensor is None:
+            self.fc1 = Dense(dim, ffn_dim, compute_dtype)
+            self.ffn_layernorm = LayerNorm(ffn_dim, eps=eps) if subln else None
+            self.fc2 = Dense(ffn_dim, dim, compute_dtype)
+            return
+        local = _split(ffn_dim, tensor, "ffn_dim")
+        self.fc1 = Dense(dim, local, compute_dtype)
+        self.ffn_layernorm = ShardedLayerNorm(local, tensor, eps) if subln else None
+        self.fc2 = RowDense(local, dim, compute_dtype, tensor)
 
     def forward(self, x):
         h = gelu_exact(self.fc1(x))
@@ -304,8 +359,16 @@ class FeedForward(nn.Module):
 
 
 def MultiwayFeedForward(dim: int, ffn_dim: int, subln: bool = True, eps: float = 1e-5,
-                        compute_dtype: str | None = None, branch_b: bool = True) -> Multiway:
-    return Multiway(lambda: FeedForward(dim, ffn_dim, subln, eps, compute_dtype), branch_b)
+                        compute_dtype: str | None = None, branch_b: bool = True,
+                        tensor: Axis | None = None) -> Multiway:
+    return Multiway(lambda: FeedForward(dim, ffn_dim, subln, eps, compute_dtype, tensor),
+                    branch_b)
+
+
+def _split(n: int, axis: Axis, what: str) -> int:
+    if n % axis.size:
+        raise ValueError(f"{what} {n} does not split over {axis.size} ranks of {axis.names}")
+    return n // axis.size
 
 
 class SelfAttention(nn.Module):
@@ -318,18 +381,27 @@ class SelfAttention(nn.Module):
 
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
-        check_ported(cfg)
-        d, cd = cfg.embed_dim, cfg.compute_dtype
+        d, cd, eps = cfg.embed_dim, cfg.compute_dtype, cfg.layernorm_eps
         self.cfg = cfg
-        self.heads = cfg.heads
-        proj = (lambda: MultiwayDense(d, d, cd)) if cfg.multiway else (lambda: Dense(d, d, cd))
+        self.ring = _axis(cfg.ring_axis)
+        self.seq = _axis(cfg.seq_axis)
+        self.tensor = tensor = _axis(cfg.tensor_axis)
+        # with a tensor axis this rank holds heads / T of the heads, whole
+        self.heads = cfg.heads if tensor is None else _split(cfg.heads, tensor, "heads")
+        width = d // cfg.heads * self.heads
+
+        def wrap(make):
+            return (lambda: Multiway(make)) if cfg.multiway else make
+
+        proj = wrap(lambda: Dense(d, width, cd))
+        out = wrap(lambda: Dense(d, d, cd) if tensor is None
+                   else RowDense(width, d, cd, tensor))
+        norm = wrap(lambda: LayerNorm(d, eps=eps) if tensor is None
+                    else ShardedLayerNorm(width, tensor, eps))
         self.multiway = cfg.multiway
         self.q_proj, self.k_proj, self.v_proj = proj(), proj(), proj()
-        self.inner_attn_ln = None
-        if cfg.subln:
-            self.inner_attn_ln = (MultiwayLayerNorm(d, cfg.layernorm_eps) if cfg.multiway
-                                  else LayerNorm(d, eps=cfg.layernorm_eps))
-        self.out_proj = proj()
+        self.inner_attn_ln = norm() if cfg.subln else None
+        self.out_proj = out()
 
     def _call(self, module, x, split):
         return module(x, split) if self.multiway else module(x)
@@ -337,10 +409,10 @@ class SelfAttention(nn.Module):
     def forward(self, x, padding_mask=None, rel_pos=None, split: int | None = None):
         cfg = self.cfg
         b, l, d = x.shape
-        h = self.heads
+        h, dh = self.heads, d // cfg.heads
 
-        def heads(t):  # [B, L, D] -> [B, H, L, Dh]
-            return t.reshape(b, l, h, d // h).transpose(1, 2)
+        def heads(t):  # [B, L, H·Dh] -> [B, H, L, Dh]
+            return t.reshape(b, l, h, dh).transpose(1, 2)
 
         q, k, v = (heads(self._call(m, x, split)) for m in (self.q_proj, self.k_proj,
                                                              self.v_proj))
@@ -356,20 +428,28 @@ class SelfAttention(nn.Module):
                     "sequences (got padding_mask/rel_pos); pad to a "
                     "segment-aligned length without a mask instead")
             attn = dilated_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                                     cfg.dilated, causal=False, axis_name=cfg.seq_axis)
+                                     cfg.dilated, causal=False, axis_name=self.seq)
+        elif self.ring is not None:
+            if padding_mask is not None or rel_pos is not None or cfg.xpos:
+                raise ValueError(
+                    "ring_axis supports unpadded, bias-free, xpos-free attention only (global "
+                    "positions are not plumbed through the ring rotation)")
+            attn = ring_attention(q, k, v, self.ring).transpose(1, 2).reshape(b, l, h * dh)
         elif rel_pos is not None:
-            scores = torch.einsum("bhqd,bhkd->bhqk", q * (d // h) ** -0.5, k)
+            if self.tensor is not None:  # this rank's heads of the shared bias
+                rel_pos = rel_pos[self.tensor.index * h : (self.tensor.index + 1) * h]
+            scores = torch.einsum("bhqd,bhkd->bhqk", q * dh ** -0.5, k)
             scores = scores + rel_pos[None]
             if padding_mask is not None:
                 scores = torch.where(padding_mask[:, None, None, :], -1e30, scores)
             w = torch.softmax(scores, dim=-1)
             dt = promote(w, v)
             attn = torch.einsum("bhqk,bhkd->bhqd", w.to(dt), v.to(dt))
-            attn = attn.transpose(1, 2).reshape(b, l, d)
+            attn = attn.transpose(1, 2).reshape(b, l, h * dh)
         else:
             seg = None if padding_mask is None else (~padding_mask).to(torch.int32)
             attn = flash_attention(q, k, v, q_segment_ids=seg, kv_segment_ids=seg)
-            attn = attn.transpose(1, 2).reshape(b, l, d)
+            attn = attn.transpose(1, 2).reshape(b, l, h * dh)
         if self.inner_attn_ln is not None:
             attn = self._call(self.inner_attn_ln, attn, split)
         return self._call(self.out_proj, attn, split)
@@ -395,7 +475,6 @@ class EncoderLayer(nn.Module):
 
     def __init__(self, cfg: EncoderConfig, is_moe: bool = False):
         super().__init__()
-        check_ported(cfg)
         self.normalize_before = cfg.normalize_before
         self.alpha = math.pow(2.0 * cfg.layers, 0.25) if cfg.deepnorm else 1.0
         b = cfg.multiway
@@ -405,10 +484,17 @@ class EncoderLayer(nn.Module):
         self.is_moe = is_moe
         if is_moe:
             self.moe_layer = MoELayer(cfg.embed_dim, cfg.ffn_dim, expert_config(cfg),
-                                      axis_name=cfg.expert_axis)
+                                      axis_name=cfg.expert_axis, tensor_axis=cfg.tensor_axis)
+            self.route_axes = None
+            if cfg.token_axes:
+                mesh = current_mesh()
+                self.route_axes = tuple(mesh.axis(a if a in cfg.token_axes else ())
+                                        for a in ("data", "seq"))
+                self.route_axes += (mesh.axis(cfg.token_axes),)
         else:
             self.ffn = MultiwayFeedForward(cfg.embed_dim, cfg.ffn_dim, cfg.subln,
-                                           cfg.layernorm_eps, cfg.compute_dtype, b)
+                                           cfg.layernorm_eps, cfg.compute_dtype, b,
+                                           _axis(cfg.tensor_axis))
 
     def forward(self, x, padding_mask=None, rel_pos=None, split: int | None = None):
         aux = x.new_zeros((), dtype=torch.float32)
@@ -423,8 +509,10 @@ class EncoderLayer(nn.Module):
             x = self.final_layer_norm(x, split)
         if self.is_moe:
             b, l, d = x.shape
+            route = None if self.route_axes is None else TokenRoute(*self.route_axes, b, l)
             y, aux = self.moe_layer(x.reshape(b * l, d),
-                                    None if padding_mask is None else padding_mask.reshape(b * l))
+                                    None if padding_mask is None else padding_mask.reshape(b * l),
+                                    route)
             y = y.reshape(b, l, d)
         else:
             y = self.ffn(x, split)
@@ -443,7 +531,6 @@ class Encoder(nn.Module):
 
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
-        check_ported(cfg)
         self.cfg = cfg
         self.relative_position = None
         if cfg.rel_pos_buckets > 0 and cfg.max_rel_pos > 0:

@@ -1,14 +1,24 @@
-"""moc_tpu_torch.parallel — the single-device half of ``moc_tpu.parallel``:
-LongNet dilated attention with lse branch recombination (``dilated``) and
-GShard-style MoE with top-1/top-2 gating, static capacity and the aux
-load-balancing loss (``moe``). The mesh helpers, ring attention, the GPipe
-schedule, the multi-process runtime and the cross-device branches of
-dilated attention and MoE wait for the multi-device half of ROADMAP queue
-1, item 9."""
+"""moc_tpu_torch.parallel — PyTorch port of ``moc_tpu.parallel``, on
+``torch.distributed``: one process a rank (``runtime``), meshes of ranks
+with a process group per axis (``mesh``), the ``lax`` collectives with
+their transposes as backwards (``collectives``), ring attention over K2–K4
+(``ring``), LongNet dilated attention with its cross-shard segments
+(``dilated``), GShard MoE with expert parallelism (``moe``) and the GPipe
+schedule (``pipeline``). ``launch`` starts a world of ranks as processes.
+"""
 
 from moc_tpu_torch.parallel.dilated import DilatedConfig, dilated_attention
+from moc_tpu_torch.parallel.mesh import (AXIS_DATA, AXIS_EXPERT, AXIS_PIPE, AXIS_SEQ,
+                                         AXIS_TENSOR, make_hybrid_mesh, make_mesh, shard_spec)
 from moc_tpu_torch.parallel.moe import (MoEConfig, MoELayer, capacity_for, moe_dispatch_combine,
                                         top1_gate, top2_gate)
+from moc_tpu_torch.parallel.pipeline import pipeline_apply
+from moc_tpu_torch.parallel.ring import ring_attention
+from moc_tpu_torch.parallel.runtime import (barrier, broadcast_from_leader, host_local_to_global,
+                                            initialize_runtime)
 
-__all__ = ["DilatedConfig", "MoEConfig", "MoELayer", "capacity_for", "dilated_attention",
-           "moe_dispatch_combine", "top1_gate", "top2_gate"]
+__all__ = ["AXIS_DATA", "AXIS_EXPERT", "AXIS_PIPE", "AXIS_SEQ", "AXIS_TENSOR", "DilatedConfig",
+           "MoEConfig", "MoELayer", "barrier", "broadcast_from_leader", "capacity_for",
+           "dilated_attention", "host_local_to_global", "initialize_runtime",
+           "make_hybrid_mesh", "make_mesh", "moe_dispatch_combine", "pipeline_apply",
+           "ring_attention", "shard_spec", "top1_gate", "top2_gate"]

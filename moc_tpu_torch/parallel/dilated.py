@@ -16,9 +16,19 @@ denominator, which ``_pad_correction`` removes from the output and the lse.
 Only then does the lse feed the output, so only then does the branch take
 the dense backward of ``flash_attention_with_lse(lse_grad=True)``.
 
-The cross-shard forms (a segment longer than the local sequence under a
-mesh axis, ``gather_mode``, the causal gathered and ring segments) wait for
-the multi-device half of ROADMAP queue 1, item 9, and are refused by name.
+Across shards (``axis_name`` names a sequence-sharded mesh axis and a
+segment is longer than the local sequence) a segment spans ``rps = min(sl
+// L_local, world)`` ranks. ``gather_mode="allgather"`` gathers the group's
+sparse K/V blocks (``collectives.all_gather``, whose backward is a
+reduce-scatter) and attends them on each rank: without ``causal`` as one
+block, under ``causal`` block by block (``_causal_gathered``: earlier
+blocks whole, the own block locally causal, later blocks left out), merged
+by lse. ``gather_mode="ring"`` rotates the blocks around the group instead
+(``ring.ring_segment``), one block resident at a time. Both run K2 per
+block forward and K3/K4 per block backward (``ring.blockwise_attention``
+and ``ring.ring_segment``), with every block's zero pad keys taken out;
+with ``use_flash`` False both take the plain route (``mha_reference`` per
+block under autograd), as JAX's ``_causal_gathered`` and ``_ring_segment`` do.
 """
 
 from __future__ import annotations
@@ -30,6 +40,9 @@ import torch
 import torch.nn.functional as F
 
 from moc_tpu_torch.ops.flash_attention import flash_attention_with_lse, mha_reference
+from moc_tpu_torch.parallel import collectives
+from moc_tpu_torch.parallel.mesh import resolve_axis
+from moc_tpu_torch.parallel.ring import _pad_correction, blockwise_attention, ring_segment
 
 NEG_LSE = -1e8
 
@@ -38,8 +51,11 @@ NEG_LSE = -1e8
 class DilatedConfig:
     segment_lengths: tuple[int, ...] = (2048, 4096, 8192, 16384, 32768)
     dilated_ratios: tuple[int, ...] = (1, 2, 4, 6, 12)
-    use_flash: bool = True  # False = mha_reference (the plain route)
-    # cross-shard K/V movement ("allgather" or "ring"): multi-device only
+    # False = mha_reference (the plain route) for segments within a shard;
+    # cross-shard segments run the blockwise path (K2-K4 on the GPU)
+    use_flash: bool = True
+    # cross-shard K/V movement: "allgather" (the group's blocks at once) or
+    # "ring" (one block resident, rotated by ppermute); the same numbers
     gather_mode: str = "allgather"
 
 
@@ -105,21 +121,41 @@ def _pad_key_counts(sl_local: int, dr: int, seq_pad: int, n_seg: int, h: int) ->
     return counts
 
 
-def _pad_correction(out, lse, n_pad):
-    """Take ``n_pad`` zero-key terms out of ``(out, lse)``: with ``S =
-    exp(lse)``, ``S_real = S·frac`` for ``frac = 1 - n_pad·exp(-lse)``."""
-    frac = torch.clamp(1.0 - n_pad * torch.exp(-lse), min=1e-20)
-    return out / frac[..., None], lse + torch.log(frac)
+def _cross_shard(qf, kf, vf, sl, l, causal, axis_name, gather_mode, n_pad_blk, use_flash):
+    """A segment over ``rps`` ranks of ``axis_name``: ``qf, kf, vf [B·n, H,
+    ls, D]`` are this rank's sparse blocks; returns ``(out, lse)`` for its
+    queries against the whole segment (K2–K4, or the plain route when not
+    ``use_flash``)."""
+    ax = resolve_axis(axis_name)
+    world = ax.size
+    rps = min(sl // l, world)
+    if world % rps:
+        raise ValueError(
+            f"dilated CP needs the axis size ({world}) divisible by ranks_per_segment ({rps} "
+            f"= min({sl}//{l}, world)); pick segment lengths that tile the axis")
+    p = ax.index % rps
+    if gather_mode == "ring":
+        return ring_segment(qf, kf, vf, ax, rps, causal=causal, n_pad=n_pad_blk,
+                            use_flash=use_flash)
+    if gather_mode != "allgather":
+        raise ValueError(f"unknown gather_mode {gather_mode!r}")
+    start = (ax.index // rps) * rps
+    # K and V in one gather, so one backward exchange whatever each rank's schedule
+    kvg = collectives.all_gather(torch.stack((kf, vf)), ax)[start : start + rps]
+    kg, vg = kvg[:, 0], kvg[:, 1]  # [rps, B·n, H, ls, D]
+    if causal:
+        schedule = [(p, True)] + [(r, False) for r in range(p)]
+        return blockwise_attention(qf, kg, vg, schedule, n_pad=n_pad_blk, use_flash=use_flash)
+    # the whole group as one block: [B·n, H, rps·ls, D]
+    kcat = kg.permute(1, 2, 0, 3, 4).flatten(2, 3)[None]
+    vcat = vg.permute(1, 2, 0, 3, 4).flatten(2, 3)[None]
+    n_pad = None if n_pad_blk is None else rps * n_pad_blk
+    return blockwise_attention(qf, kcat, vcat, [(0, False)], n_pad=n_pad, use_flash=use_flash)
 
 
 def _branch(q, k, v, sl, dr, causal, use_flash, axis_name, gather_mode="allgather"):
     """One (segment length, ratio) branch → ``(out [B, H, L, D], lse [B, H, L])``."""
     b, l, h, d = q.shape
-    if axis_name is not None and sl > l:
-        raise NotImplementedError(
-            f"dilated attention across shards (axis_name={axis_name!r}, segment {sl} > local "
-            f"length {l}, gather_mode={gather_mode!r}) is not ported yet (ROADMAP queue 1, "
-            "item 9: its multi-device half)")
     sl_local = min(sl, l)
     qp, pad = _pad_to(q, 1, sl_local)
     kp, _ = _pad_to(k, 1, sl_local)
@@ -136,7 +172,12 @@ def _branch(q, k, v, sl, dr, causal, use_flash, axis_name, gather_mode="allgathe
         n_pad_blk = torch.as_tensor(np.tile(counts, (b, 1)), dtype=torch.float32,
                                     device=q.device)[:, :, None]
     correct = n_pad_blk is not None and not causal
-    if use_flash:
+    if axis_name is not None and sl > l:
+        # pad keys are taken out block by block inside
+        out, lse = _cross_shard(qf, kf, vf, sl, l, causal, axis_name, gather_mode, n_pad_blk,
+                                use_flash)
+        correct = False
+    elif use_flash:
         # the lse feeds the output only through a pad correction; elsewhere it
         # reaches the stop-gradient branch weights alone, and K3/K4 serve
         out, lse = flash_attention_with_lse(qf, kf, vf, causal=causal, lse_grad=correct)

@@ -15,8 +15,17 @@ layouts; the gate is a bias-free ``Linear`` named ``gate``. Their products
 are batched GEMMs (``torch.einsum``), as the JAX package computes them with
 XLA einsums outside any Pallas kernel.
 
-Expert parallelism over a mesh axis (``axis_name``) waits for the
-multi-device half of ROADMAP queue 1, item 9, and is refused by name.
+Expert parallelism (``axis_name``, a mesh axis of W ranks) follows the
+JAX package's ``shard_map`` form: each rank routes its own tokens (capacity
+from the local token count), the ``[E, C, D]`` expert batch rides
+``collectives.all_to_all`` so that expert block w lands on rank w, the rank
+runs its ``E / W`` local experts on ``[E / W, W·C, D]`` and a second
+``all_to_all`` brings the outputs home; ``MoELayer(axis_name=...)`` holds
+only its local experts (``local_expert_state`` cuts them from a full state
+dict). A ``TokenRoute`` routes a token batch split over the ``data`` and
+``seq`` axes as the one batch it is (capacity, queue positions and the aux
+loss over all of its tokens), which is what the JAX package's sharded
+pretraining step computes, with the experts' partitioning left to GSPMD.
 """
 
 from __future__ import annotations
@@ -29,7 +38,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-_MULTI_DEVICE = "is not ported yet (ROADMAP queue 1, item 9: its multi-device half)"
+from moc_tpu_torch.parallel import collectives
+from moc_tpu_torch.parallel.mesh import Axis, resolve_axis
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,6 +91,43 @@ def _positions(mask: torch.Tensor) -> torch.Tensor:
     return torch.cumsum(mask.T.contiguous(), dim=1).T - mask
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class TokenRoute:
+    """A token batch ``[B, L]`` held as ``[rows, cols]`` blocks, batch rows
+    split over ``data`` and positions over ``seq`` (``group`` is the two
+    together), routed as one batch whose token order is ``b·L + l``."""
+
+    data: Axis
+    seq: Axis
+    group: Axis
+    rows: int
+    cols: int
+
+    def n_global(self) -> int:
+        return self.rows * self.cols * self.group.size
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """``[rows·cols, ...]`` on every rank → ``[B·L, ...]`` in global order
+        (no gradient: routing masks)."""
+        g = collectives.all_gather_nograd(t, self.group)  # [data·seq, rows·cols, ...]
+        g = g.reshape((self.data.size, self.seq.size, self.rows, self.cols) + t.shape[1:])
+        return g.transpose(1, 2).reshape((-1,) + t.shape[1:])
+
+    def local(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a ``[B·L, ...]`` tensor in global order."""
+        t = t.reshape((self.data.size, self.rows, self.seq.size, self.cols) + t.shape[1:])
+        return t[self.data.index, :, self.seq.index].reshape((-1,) + t.shape[4:])
+
+
+def _positions_and_total(mask: torch.Tensor, route: TokenRoute | None):
+    """Each token's queue position and the per-expert count ``[1, E]``, over
+    the route's whole batch when there is one."""
+    if route is None:
+        return _positions(mask), torch.sum(mask, dim=0, keepdim=True)
+    g = route.gather(mask)
+    return route.local(_positions(g)), torch.sum(g, dim=0, keepdim=True)
+
+
 def _combine_sec(gate_s, mask, locations, capacity):
     """``[S, E]`` capped mask and per-token location → combine ``[S, E, C]``."""
     loc_s = torch.sum(locations * mask, dim=1).to(torch.long)
@@ -96,17 +143,24 @@ def _compact_choice(gate_s, mask_capped, locations, expert_idx):
     return expert_idx.to(torch.int32), slot, keep, gate_s
 
 
-def _aux(gates, mask1, e):
-    me = torch.mean(gates, dim=0)
-    ce = torch.mean(mask1, dim=0)
+def _aux(gates, mask1, e, route: TokenRoute | None = None):
+    if route is None:
+        me = torch.mean(gates, dim=0)
+        ce = torch.mean(mask1, dim=0)
+    else:
+        n = route.n_global()
+        me = collectives.psum(torch.sum(gates, dim=0), route.group) / n
+        ce = torch.sum(route.gather(mask1), dim=0) / n
     return torch.mean(me * ce) * e * e
 
 
 def top1_gate(logits: torch.Tensor, capacity: int, input_mask: torch.Tensor | None = None, *,
-              compact: bool = False):
+              compact: bool = False, route: TokenRoute | None = None):
     """Switch-style top-1 gate. ``input_mask [S]`` (True = padding) takes
-    tokens out of routing. Returns ``(combine [S, E, C], dispatch bool [S, E,
-    C], aux)``, or with ``compact`` ``((record,), aux)``."""
+    tokens out of routing; ``route`` queues the tokens behind those of the
+    ranks before this one in the batch's order. Returns ``(combine [S, E,
+    C], dispatch bool [S, E, C], aux)``, or with ``compact`` ``((record,),
+    aux)``."""
     s, e = logits.shape
     gates = softmax(logits, dim=-1)
     idx1 = torch.argmax(gates, dim=-1)
@@ -114,8 +168,8 @@ def top1_gate(logits: torch.Tensor, capacity: int, input_mask: torch.Tensor | No
     if input_mask is not None:
         mask1 = mask1 * (~input_mask)[:, None].to(gates.dtype)
     gate1_s = torch.sum(gates * mask1, dim=1)
-    locations1 = _positions(mask1)
-    aux = _aux(gates, mask1, e)
+    locations1, _ = _positions_and_total(mask1, route)
+    aux = _aux(gates, mask1, e, route)
     mask1 = mask1 * (locations1 < capacity)
     if compact:
         return (_compact_choice(gate1_s, mask1, locations1, idx1),), aux
@@ -124,7 +178,8 @@ def top1_gate(logits: torch.Tensor, capacity: int, input_mask: torch.Tensor | No
 
 
 def top2_gate(logits: torch.Tensor, capacity: int, input_mask: torch.Tensor | None = None,
-              normalize_before_drop: bool = False, *, compact: bool = False):
+              normalize_before_drop: bool = False, *, compact: bool = False,
+              route: TokenRoute | None = None):
     """GShard top-2 gate: the second choice is the argmax of the logits with
     the first masked to -inf; its queue position is offset by the count of
     all first choices of its expert, capped or not."""
@@ -145,9 +200,9 @@ def top2_gate(logits: torch.Tensor, capacity: int, input_mask: torch.Tensor | No
         nonpad = (~input_mask)[:, None].to(gates.dtype)
         mask1 = mask1 * nonpad
         mask2 = mask2 * nonpad
-    locations1 = _positions(mask1)
-    locations2 = _positions(mask2) + torch.sum(mask1, dim=0, keepdim=True)
-    aux = _aux(gates, mask1, e)
+    locations1, total1 = _positions_and_total(mask1, route)
+    locations2 = _positions_and_total(mask2, route)[0] + total1
+    aux = _aux(gates, mask1, e, route)
     mask1 = mask1 * (locations1 < capacity)
     mask2 = mask2 * (locations2 < capacity)
     if not normalize_before_drop:
@@ -163,29 +218,32 @@ def top2_gate(logits: torch.Tensor, capacity: int, input_mask: torch.Tensor | No
     return combine, combine.to(torch.bool), aux
 
 
-def _gate(cfg: MoEConfig, gate_logits, capacity, input_mask, compact):
+def _gate(cfg: MoEConfig, gate_logits, capacity, input_mask, compact, route):
     if cfg.gate_type == "top1":
-        return top1_gate(gate_logits, capacity, input_mask=input_mask, compact=compact)
+        return top1_gate(gate_logits, capacity, input_mask=input_mask, compact=compact,
+                         route=route)
     return top2_gate(gate_logits, capacity, input_mask=input_mask,
-                     normalize_before_drop=cfg.normalize_before_drop, compact=compact)
+                     normalize_before_drop=cfg.normalize_before_drop, compact=compact,
+                     route=route)
 
 
 def moe_dispatch_combine(x: torch.Tensor, gate_logits: torch.Tensor,
                          expert_fn: Callable[[torch.Tensor], torch.Tensor], cfg: MoEConfig, *,
-                         axis_name: str | None = None, capacity: int | None = None,
-                         input_mask: torch.Tensor | None = None):
-    """``x [S, D]``, ``gate_logits [S, E]``; ``expert_fn`` maps ``[E, C, D]``
-    to ``[E, C, D]``. Returns ``(y [S, D], aux)``. ``input_mask [S]`` (True
-    = padding) keeps pad tokens out of every expert's capacity."""
-    if axis_name is not None:
-        raise NotImplementedError(f"expert parallelism (axis_name={axis_name!r}) {_MULTI_DEVICE}")
+                         axis_name: str | Axis | None = None, capacity: int | None = None,
+                         input_mask: torch.Tensor | None = None,
+                         route: TokenRoute | None = None):
+    """``x [S, D]``, ``gate_logits [S, E]``; ``expert_fn`` maps ``[E_local,
+    T, D]`` to ``[E_local, T, D]`` (all E experts without ``axis_name``).
+    Returns ``(y [S, D], aux)``. ``input_mask [S]`` (True = padding) keeps
+    pad tokens out of every expert's capacity."""
     s, d = x.shape
     e = gate_logits.shape[-1]
     if capacity is None:
-        capacity = capacity_for(s, e, cfg.gate_type, cfg.capacity_factor,
+        n = s if route is None else route.n_global()
+        capacity = capacity_for(n, e, cfg.gate_type, cfg.capacity_factor,
                                 cfg.eval_capacity_fraction, is_eval=cfg.is_eval)
     if cfg.dispatch_impl == "gather":
-        choices, aux = _gate(cfg, gate_logits, capacity, input_mask, True)
+        choices, aux = _gate(cfg, gate_logits, capacity, input_mask, True, route)
         ec = e * capacity
         # kept choices write their token id into their own slot (unique per
         # expert); dropped ones all write the sentinel slot ec, which is cut
@@ -200,12 +258,18 @@ def moe_dispatch_combine(x: torch.Tensor, gate_logits: torch.Tensor,
         # indexing's sorts the indices (4.4 ms a call at the MoE point)
         expert_in = torch.index_select(x_z, 0, src[:ec]).reshape(e, capacity, d)
     elif cfg.dispatch_impl in ("einsum", "einsum_bf16"):
-        combine, dispatch, aux = _gate(cfg, gate_logits, capacity, input_mask, False)
+        combine, dispatch, aux = _gate(cfg, gate_logits, capacity, input_mask, False, route)
         ddt = torch.bfloat16 if cfg.dispatch_impl == "einsum_bf16" else x.dtype
         expert_in = torch.einsum("sd,sec->ecd", x.to(ddt), dispatch.to(ddt)).to(x.dtype)
     else:
         raise ValueError(f"unknown dispatch_impl {cfg.dispatch_impl!r}")
-    expert_out = expert_fn(expert_in)
+    if axis_name is not None:
+        # [E, C, D] -> [E/W, W·C, D]: expert block w of every rank lands on rank w
+        ax = resolve_axis(axis_name)
+        expert_in = collectives.all_to_all(expert_in, ax, split_dim=0, concat_dim=1)
+        expert_out = collectives.all_to_all(expert_fn(expert_in), ax, split_dim=1, concat_dim=0)
+    else:
+        expert_out = expert_fn(expert_in)
     if cfg.dispatch_impl == "gather":
         flat_out = expert_out.reshape(e * capacity, d)
         y = x.new_zeros((s, d))
@@ -226,16 +290,33 @@ def _mm(a: torch.Tensor, b: torch.Tensor, spec: str, cd: torch.dtype | None) -> 
 
 class MoELayer(nn.Module):
     """Gate, stacked experts and dispatch/combine: ``x [S, D]`` (``input_mask
-    [S]`` True = padding) → ``(y [S, D], aux)``."""
+    [S]`` True = padding) → ``(y [S, D], aux)``. With ``axis_name`` (an axis
+    of the active mesh, or an ``Axis``) the layer holds the ``E / W`` experts
+    of its rank and exchanges tokens over the axis; with ``tensor_axis`` its
+    share of every expert's hidden width."""
 
     def __init__(self, dim: int, hidden_dim: int, cfg: MoEConfig = MoEConfig(),
-                 axis_name: str | None = None):
+                 axis_name: str | Axis | None = None, tensor_axis: str | Axis | None = None):
         super().__init__()
-        if axis_name is not None:
-            raise NotImplementedError(f"MoELayer(axis_name={axis_name!r}) {_MULTI_DEVICE}")
         e = cfg.n_experts
+        self.axis = None
+        if axis_name is not None:
+            self.axis = resolve_axis(axis_name)
+            if e % self.axis.size:
+                raise ValueError(f"{e} experts do not split over {self.axis.size} ranks")
+            e //= self.axis.size
+        # the experts' hidden width split over ``tensor_axis`` (the sharded
+        # pretraining step's layout): fc1 column-split, fc2 row-split and summed
+        self.tensor = None
+        if tensor_axis is not None:
+            self.tensor = resolve_axis(tensor_axis)
+            if hidden_dim % self.tensor.size:
+                raise ValueError(f"hidden width {hidden_dim} does not split over "
+                                 f"{self.tensor.size} ranks")
+            self.hidden_width = hidden_dim
+            hidden_dim //= self.tensor.size
         self.cfg = cfg
-        self.gate = nn.Linear(dim, e, bias=False)
+        self.gate = nn.Linear(dim, cfg.n_experts, bias=False)
         self.experts_w1 = nn.Parameter(torch.zeros(e, dim, hidden_dim))
         self.experts_b1 = nn.Parameter(torch.zeros(e, hidden_dim))
         self.experts_w2 = nn.Parameter(torch.zeros(e, hidden_dim, dim))
@@ -264,17 +345,43 @@ class MoELayer(nn.Module):
         h = F.gelu(_mm(tokens, self.experts_w1, "etd,edh->eth", cd) + self.experts_b1[:, None],
                    approximate="none")
         if self.cfg.expert_subln:
-            mu = h.mean(dim=-1, keepdim=True)
-            var = h.var(dim=-1, keepdim=True, unbiased=False)
+            if self.tensor is None:
+                mu = h.mean(dim=-1, keepdim=True)
+                var = h.var(dim=-1, keepdim=True, unbiased=False)
+            else:  # statistics over the whole hidden width
+                mu = collectives.psum(h.sum(-1, keepdim=True), self.tensor) / self.hidden_width
+                var = collectives.psum(((h - mu) ** 2).sum(-1, keepdim=True),
+                                       self.tensor) / self.hidden_width
             h = (h - mu) * torch.rsqrt(var + self.cfg.layernorm_eps)
             h = h * self.experts_ln_scale[:, None] + self.experts_ln_bias[:, None]
-        return _mm(h, self.experts_w2, "eth,ehd->etd", cd) + self.experts_b2[:, None]
+        out = _mm(h, self.experts_w2, "eth,ehd->etd", cd)
+        if self.tensor is not None:
+            out = collectives.psum(out, self.tensor)
+        return out + self.experts_b2[:, None]
 
     def gate_logits(self, x: torch.Tensor) -> torch.Tensor:
         """The gate's logits, in the promoted type of ``x`` and its kernel."""
         dt = torch.promote_types(x.dtype, self.gate.weight.dtype)
         return F.linear(x.to(dt), self.gate.weight.to(dt))
 
-    def forward(self, x, input_mask: torch.Tensor | None = None):
+    def forward(self, x, input_mask: torch.Tensor | None = None,
+                route: TokenRoute | None = None):
         return moe_dispatch_combine(x, self.gate_logits(x), self.expert_fn, self.cfg,
-                                    input_mask=input_mask)
+                                    axis_name=self.axis, input_mask=input_mask, route=route)
+
+
+EXPERT_PARAMS = ("experts_w1", "experts_b1", "experts_w2", "experts_b2", "experts_ln_scale",
+                 "experts_ln_bias")
+
+
+def local_expert_state(state: dict, axis: str | Axis) -> dict:
+    """A state dict with every stacked expert parameter (``...experts_*``) cut
+    to this rank's block of experts along ``axis``; the rest as it is."""
+    ax = resolve_axis(axis)
+    out = {}
+    for name, t in state.items():
+        if name.rsplit(".", 1)[-1] in EXPERT_PARAMS:
+            n = t.shape[0] // ax.size
+            t = t[ax.index * n : (ax.index + 1) * n]
+        out[name] = t
+    return out

@@ -20,8 +20,12 @@ The slide order is the stacked order (``arange``) or, with
 ``orders`` injects any order (JAX draws its own from ``jax.random``, which
 the port cannot reproduce). Validation AUC, the best-epoch choice and the
 stopping rule stay on the device: nothing waits for it from the first step
-to the end. Evaluation runs one fold at a time. Sharding the folds over
-several GPUs waits for the multi-device runtime (ROADMAP queue 1 item 9).
+to the end. Evaluation runs one fold at a time. With a ``mesh`` the folds
+are split over its ``data`` axis, a block of them a rank, and every result
+gathered back: the folds train independently, so the numbers are the
+one-device run's, with the slide orders drawn for all folds on every rank;
+dropout draws (``drop_out`` above 0, TransMIL's attention) come from each
+rank's own generator and so depend on the split.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from moc_tpu_torch.device import resolve_device
 from moc_tpu_torch.metrics import auc_binary, auc_ovr_macro, balanced_accuracy
 from moc_tpu_torch.models.layers import full_f32, softmax
 from moc_tpu_torch.moc.sweep import StackedEpisode, _tensor, assemble_episode
+from moc_tpu_torch.parallel import collectives
 from moc_tpu_torch.train.mil import (MilTrainConfig, build_model, cosine_epoch_factor,
                                      slide_losses)
 
@@ -141,14 +146,13 @@ def run_mil_folds_fused(episodes: StackedEpisode, cfg: MilTrainConfig,
     train rows each fold visits (default: ``arange``, or with
     ``weighted_sample`` a seeded class-balanced resample). ``dropout=False``
     turns dropout off (TransMIL's attention dropout too)."""
-    if mesh is not None:
-        raise NotImplementedError("sharding folds over a device mesh waits for the "
-                                  "multi-device runtime (ROADMAP queue 1 item 9)")
     dev = resolve_device(device)
     ep = StackedEpisode(*(_tensor(getattr(episodes, f.name), dev)
                           for f in dataclasses.fields(StackedEpisode)))
     n_folds, b = ep.train_labels.shape[:2]
     seeds = list(range(n_folds)) if seeds is None else [int(s) for s in seeds]
+    if mesh is not None and mesh.shape.get("data", 1) > 1:
+        return _split_folds(ep, cfg, seeds, dev, init_states, orders, dropout, mesh)
     model, forward, init_fn = build_model(cfg, in_dim=ep.train_feats.shape[-1])
     model.to(dev)
     if init_states is None:
@@ -227,6 +231,44 @@ def run_mil_folds_fused(episodes: StackedEpisode, cfg: MilTrainConfig,
                            torch.zeros(n_folds, 0, b, device=dev))
 
 
+def _split_folds(ep: StackedEpisode, cfg: MilTrainConfig, seeds, dev, init_states, orders,
+                 dropout: bool, mesh) -> FusedFoldResult:
+    """``run_mil_folds_fused`` of this rank's block of folds along ``mesh``'s
+    ``data`` axis, the slide orders drawn for every fold as one device draws
+    them, every result gathered back in fold order."""
+    ax = mesh.axis("data")
+    n_folds, b = ep.train_labels.shape[:2]
+    if n_folds % ax.size:
+        raise ValueError(f"{n_folds} folds do not split over {ax.size} ranks of 'data'")
+    n = n_folds // ax.size
+    lo = ax.index * n
+    host_labels = ep.train_labels.cpu().numpy()
+    order_gen = torch.Generator().manual_seed(cfg.seed + 7)
+
+    def full_order(epoch: int) -> torch.Tensor:
+        if orders is not None:
+            return torch.as_tensor(np.asarray(orders(epoch) if callable(orders)
+                                              else orders[epoch])).long()
+        if cfg.weighted_sample:
+            return _weighted_orders(host_labels, cfg.n_classes, order_gen)
+        return torch.arange(b).expand(n_folds, b)
+
+    part = StackedEpisode(*(getattr(ep, f.name)[lo : lo + n]
+                            for f in dataclasses.fields(StackedEpisode)))
+    res = run_mil_folds_fused(
+        part, cfg, seeds[lo : lo + n], device=dev,
+        init_states=None if init_states is None else init_states[lo : lo + n],
+        orders=lambda epoch: full_order(epoch)[lo : lo + n], dropout=dropout)
+
+    def gather(t):
+        return collectives.all_gather_nograd(t, ax, tiled=True)
+
+    return FusedFoldResult(**{f.name: gather(getattr(res, f.name))
+                              for f in dataclasses.fields(FusedFoldResult)
+                              if f.name != "best_params"},
+                           best_params={k: gather(v) for k, v in res.best_params.items()})
+
+
 def run_mil_folds_fused_pooled(pooled, cfg: MilTrainConfig, seeds: Sequence[int] | None = None,
                                *, device: str | torch.device | None = None, mesh=None,
                                **kwargs) -> FusedFoldResult:
@@ -235,10 +277,7 @@ def run_mil_folds_fused_pooled(pooled, cfg: MilTrainConfig, seeds: Sequence[int]
     ``device`` once (unless it is there) and each fold's bags are gathered
     from it there (``moc.sweep.assemble_episode``), with the stacked path's
     results."""
-    if mesh is not None:
-        raise NotImplementedError("sharding folds over a device mesh waits for the "
-                                  "multi-device runtime (ROADMAP queue 1 item 9)")
     dev = resolve_device(device)
     ep = assemble_episode(_tensor(pooled.pool_feats, dev), _tensor(pooled.pool_mask, dev),
                           pooled.index)
-    return run_mil_folds_fused(ep, cfg, seeds, device=dev, **kwargs)
+    return run_mil_folds_fused(ep, cfg, seeds, device=dev, mesh=mesh, **kwargs)

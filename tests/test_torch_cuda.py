@@ -1843,3 +1843,33 @@ def test_exported_program_round_trip_launches_k1(gen, tmp_path, dtype):
                 topk_kernel.col_topk_threshold_mask_cuda.launches) == (before[0] + 1,
                                                                        before[1] + 1)
         assert torch.equal(got, live(batch)), n_pad
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_ring_attention_over_one_rank_runs_the_kernels(gen, dtype, causal):
+    """Ring attention over a mesh of one rank (no process group) is K2 once
+    forward and K3/K4 once backward, against the merged (o, lse), and gives
+    ``flash_attention``'s output and gradients (``chip_smoke.py``'s ``[dist]``
+    phase runs it over 2 and 4 ranks)."""
+    from moc_tpu_torch.parallel.mesh import make_mesh
+    from moc_tpu_torch.parallel.ring import ring_attention
+
+    shape = (2, 4, 384, 64)
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                   for _ in range(4))
+    leaves = [[t.clone().requires_grad_(True) for t in (q, k, v)] for _ in range(2)]
+    with make_mesh({"seq": 1}):
+        before = [fn.launches for fn in (flash_fwd_cuda, flash_bwd_dq_cuda, flash_bwd_dkv_cuda)]
+        out = ring_attention(*leaves[0], "seq", causal=causal)
+        out.backward(do)
+        after = [fn.launches for fn in (flash_fwd_cuda, flash_bwd_dq_cuda, flash_bwd_dkv_cuda)]
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+    want = flash_attention(*leaves[1], causal=causal)
+    want.backward(do)
+    tol = BWD_TOL[dtype]
+    for got, ref in zip([out, *(t.grad for t in leaves[0])],
+                        [want, *(t.grad for t in leaves[1])]):
+        assert got.dtype == dtype
+        err = float((got.float() - ref.float()).abs().max())
+        assert err <= tol * float(ref.float().abs().max()), err

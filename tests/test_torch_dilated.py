@@ -132,7 +132,17 @@ def test_bf16_matches_f32_reference():
 
 
 def test_cross_shard_segments_are_refused():
-    q = torch.zeros(1, 32, H, DH)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 9"):
-        dilated.dilated_attention(q, q, q, dilated.DilatedConfig((16, 64), (1, 2)),
-                                  axis_name="seq")
+    """A cross-shard segment names an axis of the active mesh (the 4-rank runs
+    are ``test_torch_dist_layers``'s): without one it is refused; over a mesh
+    of one rank a segment longer than the sequence is the sequence itself."""
+    from moc_tpu_torch.parallel.mesh import make_mesh
+
+    q, k, v = (torch.randn(1, 32, H, DH, generator=torch.Generator().manual_seed(i))
+               for i in range(3))
+    cfg = dilated.DilatedConfig((16, 64), (1, 2))
+    with pytest.raises(RuntimeError, match="no active mesh"):
+        dilated.dilated_attention(q, q, q, cfg, axis_name="seq")
+    want = dilated.dilated_attention(q, k, v, cfg)
+    with make_mesh({"seq": 1}):
+        got = dilated.dilated_attention(q, k, v, cfg, axis_name="seq")
+    assert torch.allclose(got, want, rtol=0, atol=1e-6)

@@ -205,6 +205,22 @@ def test_dilated_refuses_masks_and_bias():
 
 @pytest.mark.parametrize("field", ["ring_axis", "seq_axis", "expert_axis"])
 def test_mesh_axes_are_refused(field):
-    cfg = dataclasses.replace(tenc.EncoderConfig(**SMALL), **{field: "x"})
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 9"):
+    """A mesh axis names an axis of the active mesh (the multi-rank runs are
+    ``test_torch_dist_layers``'s): without a mesh it is refused; over a mesh
+    of one rank the encoder computes what the plain one does."""
+    from moc_tpu_torch.parallel.mesh import make_mesh
+
+    axis = {"ring_axis": "seq", "seq_axis": "seq", "expert_axis": "expert"}[field]
+    extra = {"seq_axis": dict(dilated=tenc.DilatedConfig((32, 64), (1, 2))),
+             "expert_axis": dict(moe_freq=2)}.get(field, {})
+    plain_cfg = dataclasses.replace(tenc.EncoderConfig(**SMALL), **extra)
+    cfg = dataclasses.replace(plain_cfg, **{field: axis})
+    with pytest.raises(RuntimeError, match="no active mesh"):
         tenc.Encoder(cfg)
+    plain = tenc.init_like_flax(tenc.Encoder(plain_cfg), torch.Generator().manual_seed(0))
+    with make_mesh({axis: 1}):
+        model = tenc.Encoder(cfg)
+    model.load_state_dict(plain.state_dict())
+    x = torch.randn(2, 64, SMALL["embed_dim"], generator=torch.Generator().manual_seed(1))
+    (want, want_aux), (got, got_aux) = plain(x), model(x)
+    assert torch.allclose(got, want, rtol=0, atol=1e-6) and float(got_aux) == float(want_aux)

@@ -20,6 +20,7 @@ from moc_tpu.data import patches as jpatches
 from moc_tpu.models import musk as jmusk
 from moc_tpu.nn import encoder as jenc
 from moc_tpu.zeroshot import convert_musk as jconvert_musk
+from moc_tpu_torch.cli import common
 from moc_tpu_torch.cli import extract_features as ef
 from moc_tpu_torch.data import bags, patches
 from moc_tpu_torch.models.convert_resnet import random_resnet50_state_dict
@@ -223,9 +224,39 @@ def test_cli_refuses_a_backbone_without_checkpoint(cohort, backbone):
         _port(cohort[0], "none", backbone)
 
 
+@pytest.mark.parametrize("n_encoders", [2, 3])
+def test_split_encode_over_cpu_encoders_matches_one(cohort, n_encoders):
+    """``--data_parallel``'s split with more than one encoder: MUSK encoders
+    built by ``build_encoder`` from the fabricated checkpoint, each on its
+    own (CPU) device, encode 5 images, which no encoder count here divides;
+    the features equal one encoder's on the whole batch (within 1e-5 of the
+    largest |value|, for the products' blocking by row count)."""
+    root = cohort[0]
+    images = np.random.default_rng(3).uniform(-1, 1, (5, 32, 32, 3)).astype(np.float32)
+    args = ("musk", str(root / "musk.pth"), 32, True, False, False, "cpu")
+    one = ef.build_encoder(*args)
+    seen = []
+    encoders = [(lambda x, e=ef.build_encoder(*args): seen.append(len(x)) or e(x))
+                for _ in range(n_encoders)]
+    got = common.split_encode(encoders)(images)
+    want = one(images)
+    assert seen == ([3, 2] if n_encoders == 2 else [2, 2, 1])
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * float(np.abs(want).max()))
+
+
 def test_cli_refuses_what_is_not_ported(cohort, monkeypatch):
-    with pytest.raises(NotImplementedError, match="--data_parallel"):
-        _port(cohort[0], "none", "debug", "--data_parallel")
+    # ported since: --data_parallel splits batches over the visible cards
+    # (the CPU alone here) and a multi-process run needs its coordinator
+    plain = _port(cohort[0], "plain", "debug")
+    split = _port(cohort[0], "split", "debug", "--data_parallel")
+    names = sorted(os.listdir(os.path.join(plain, "h5_files")))
+    assert names and names == sorted(os.listdir(os.path.join(split, "h5_files")))
+    for name in names:
+        a, b = (bags.read_bag_h5(os.path.join(d, "h5_files", name)) for d in (plain, split))
+        assert np.array_equal(a.features, b.features) and np.array_equal(a.coords, b.coords)
+    for var in ("MOC_TPU_COORDINATOR", "MASTER_ADDR"):
+        monkeypatch.delenv(var, raising=False)
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="multi-process"):
+    with pytest.raises(ValueError, match="multi-process run needs a coordinator"):
         _port(cohort[0], "none", "debug")

@@ -507,5 +507,11 @@ def test_fused_pooled_matches_stacked(corpus):
     b = pfused.run_mil_folds_fused_pooled(pooled, cfg, device="cpu")
     for key in ("val_auc", "test_auc", "stop_epoch"):
         np.testing.assert_allclose(getattr(b, key).numpy(), getattr(a, key).numpy(), atol=1e-6)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        pfused.run_mil_folds_fused_pooled(pooled, cfg, device="cpu", mesh=object())
+    # a mesh splits the folds over its data axis (``test_torch_dist_cli`` over
+    # two ranks); over one rank the run is the same
+    from moc_tpu_torch.parallel.mesh import make_mesh
+
+    c = pfused.run_mil_folds_fused_pooled(pooled, cfg, device="cpu",
+                                          mesh=make_mesh({"data": 1}))
+    for key in ("val_auc", "test_auc", "stop_epoch"):
+        np.testing.assert_array_equal(getattr(c, key).numpy(), getattr(b, key).numpy())

@@ -164,8 +164,23 @@ def test_dispatch_impls_agree():
 
 
 def test_expert_parallelism_is_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 9"):
+    """The expert axis names an axis of the active mesh (the 4-rank runs are
+    ``test_torch_dist_layers``'s): without one it is refused; over a mesh of
+    one rank the layer holds every expert and computes what the local one
+    does."""
+    from moc_tpu_torch.parallel.mesh import make_mesh
+
+    with pytest.raises(RuntimeError, match="no active mesh"):
         moe.MoELayer(D, HID, moe.MoEConfig(n_experts=E), axis_name="expert")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 9"):
+    with pytest.raises(RuntimeError, match="no active mesh"):
         moe.moe_dispatch_combine(torch.zeros(S, D), torch.zeros(S, E), lambda t: t,
                                  moe.MoEConfig(n_experts=E), axis_name="expert")
+    local = moe.MoELayer(D, HID, moe.MoEConfig(n_experts=E))
+    local.reset_flax_(torch.Generator().manual_seed(0))
+    with make_mesh({"expert": 1}) as mesh:
+        layer = moe.MoELayer(D, HID, moe.MoEConfig(n_experts=E), axis_name="expert")
+        layer.load_state_dict(moe.local_expert_state(local.state_dict(), "expert"))
+    x = torch.randn(S, D, generator=torch.Generator().manual_seed(1))
+    (y, aux), (want, want_aux) = layer(x), local(x)
+    assert mesh.shape == {"expert": 1}
+    assert torch.equal(y, want) and float(aux) == float(want_aux)

@@ -143,9 +143,9 @@ def test_refuses_unported_flags_by_name(study, tmp_path, extra, match):
 
 
 # ported since these cases were written: each now runs its flag (the
-# serving program round trip and the trace; ``test_torch_export`` and
+# serving program round trip, the trace and the batch split over the cards; ``test_torch_export`` and
 # ``test_torch_tooling`` hold them further)
-LIFTED = ("--export_program", "--from_program", "--xprof")
+LIFTED = ("--export_program", "--from_program", "--xprof", "--data_parallel")
 
 
 def _run_lifted_flag(study, tmp_path, flag):
@@ -156,7 +156,10 @@ def _run_lifted_flag(study, tmp_path, flag):
 
     live, out = tmp_path / "live.csv", tmp_path / "p.csv"
     assert predict.main([*_argv(study, "labelled.csv", live), "--device", "cpu"]) == 0
-    if flag == "--xprof":
+    if flag == "--data_parallel":  # the visible devices: the CPU alone here
+        assert predict.main([*_argv(study, "labelled.csv", out, [flag]), "--device",
+                             "cpu"]) == 0
+    elif flag == "--xprof":
         trace = tmp_path / "trace"
         assert predict.main([*_argv(study, "labelled.csv", out, ["--xprof", str(trace)]),
                              "--device", "cpu"]) == 0
@@ -228,6 +231,50 @@ def test_empty_table_and_missing_bags_exit_with_jax_messages(study, tmp_path):
             main(argv)
         msgs.append(str(exc.value))
     assert all("check --feature_dir matches the CSV's slide_id column" in m for m in msgs)
+
+
+@pytest.mark.parametrize("n_replicas", [2, 3])
+def test_split_batch_logits_over_cpu_replicas_matches_one(study, n_replicas):
+    """``--data_parallel``'s split with more than one replica: predictors
+    built by ``build_predictor``, each with its own weights on its own (CPU)
+    device, score a 5-slide batch that no replica count here divides; the
+    logits equal one replica's on the whole batch (rows are scored
+    independently; within 1e-6 of the largest |logit|, for the matmul's
+    blocking by row count)."""
+    import torch
+
+    from moc_tpu_torch.cli import common
+    from moc_tpu_torch.data.batching import pack_bags
+    from moc_tpu_torch.data.loader import BagLoader
+
+    args = predict.get_args([*_argv(study, "labelled.csv", "unused.csv"), "--device", "cpu"])
+    preset = predict.PRESETS[args.dataset]
+    table, _ = predict.read_slide_table(args.csv, preset.label_dict)
+    bags = BagLoader(table, args.feature_dir).read_all()[:5]
+    batch = pack_bags(bags, device="cpu")
+    cpu = torch.device("cpu")
+    one, _ = predict.build_predictor(args, preset, cpu)
+    replicas = [(predict.build_predictor(args, preset, cpu)[0], cpu) for _ in range(n_replicas)]
+    seen = []
+    counted = [(lambda b, fn=fn: seen.append(b.features.shape[0]) or fn(b), dev)
+               for fn, dev in replicas]
+    got = common.split_batch_logits(counted)(batch)
+    want = one(batch)
+    assert seen == ([3, 2] if n_replicas == 2 else [2, 2, 1])
+    assert got.shape == want.shape == (5, preset.n_classes)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6 * float(want.abs().max()))
+
+
+def test_serving_devices_put_the_chosen_card_first_once(monkeypatch):
+    import torch
+
+    from moc_tpu_torch.cli import common
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 3)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    assert common.serving_devices("cuda:1") == [torch.device("cuda", i) for i in (1, 0, 2)]
+    assert common.serving_devices("cuda") == [torch.device("cuda", i) for i in (0, 1, 2)]
+    assert common.serving_devices("cpu") == [torch.device("cpu")]
 
 
 def test_storage_dtype_resolves_to_torch_dtypes():

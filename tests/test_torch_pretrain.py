@@ -210,21 +210,26 @@ def test_cli_refuses_what_is_not_ported(flags, capsys, tmp_path, monkeypatch):
         last = capsys.readouterr().out.strip().splitlines()[-1]
         assert last.startswith("final loss ") and np.isfinite(float(last.split()[2]))
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+    # meshes over several ranks are ported since (``test_torch_dist_train``
+    # and ``test_torch_dist_cli`` run them): one process has one rank
+    with pytest.raises(ValueError, match=r"needs 2 ranks, have 1|does not divide 1 ranks"):
         tcli.main(argv)
 
 
 def test_cli_refuses_multi_process_and_unknown_axes(monkeypatch):
     with pytest.raises(ValueError, match="unknown mesh axes"):
         tcli.main(["--device", "cpu", "--mesh", "batch=1"])
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="multi-process"):
+    for var in ("MOC_TPU_COORDINATOR", "MASTER_ADDR"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setenv("WORLD_SIZE", "2")  # a multi-process run without its coordinator
+    with pytest.raises(ValueError, match="multi-process run needs a coordinator"):
         tcli.main(["--device", "cpu", "--steps", "1"])
 
 
-# every option but ring_axis is ported since the encoder's model half of
-# ROADMAP queue 1, item 9: those cases build and run a 2-layer encoder with it
-# (``test_torch_encoder_stack`` holds each against JAX); ring_axis is refused
+# every option is ported: those cases build and run a 2-layer encoder with it
+# (``test_torch_encoder_stack`` holds each against JAX); ring_axis names an
+# axis of the active mesh (``test_torch_dist_layers`` runs it over 4 ranks),
+# so without one it is refused
 @pytest.mark.parametrize("field,value", [("moe_freq", 2),
                                          ("dilated", DilatedConfig((32, 64), (1, 2))),
                                          ("ring_axis", "seq"), ("xpos", True),
@@ -233,7 +238,7 @@ def test_encoder_refuses_what_is_not_ported(field, value):
     extra = {"max_rel_pos": 64} if field == "rel_pos_buckets" else {}
     cfg = dataclasses.replace(tenc.EncoderConfig(**SMALL), **{field: value}, **extra)
     if field == "ring_axis":
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+        with pytest.raises(RuntimeError, match="no active mesh"):
             tenc.Encoder(cfg)
         return
     model = tenc.init_like_flax(tenc.Encoder(cfg), torch.Generator().manual_seed(0))

@@ -276,8 +276,14 @@ def test_clip_contrastive_loss_matches_jax():
     assert abs(float(got.detach()) - float(want)) <= 1e-6
     for t, g in zip((ti, tt, ts), jgrads):
         assert float(np.abs(t.grad.numpy() - np.asarray(g)).max()) <= 1e-6
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 9"):
+    # the negatives gathered over a data axis of the active mesh (4 ranks in
+    # ``test_torch_dist_layers``): refused without a mesh, the same over one rank
+    from moc_tpu_torch.parallel.mesh import make_mesh
+
+    with pytest.raises(RuntimeError, match="no active mesh"):
         tpre.clip_contrastive_loss(ti, tt, ts, axis_name="data")
+    with make_mesh({"data": 1}):
+        assert float(tpre.clip_contrastive_loss(ti, tt, ts, axis_name="data")) == float(got)
 
 
 MUSK_KW = dict(image_size=32, patch_size=16, vocab_size=120, max_text_len=100, embed_dim=128,
