@@ -8,9 +8,11 @@ Phases, each of which makes the script exit non-zero when it fails:
 
 1. build: compile every kernel under ``moc_tpu_torch/ops/csrc`` with nvcc,
    one process per source, all started together, print each kernel's
-   registers and spills from ``-Xptxas -v`` (a spill fails the run), and
+   registers and spills from ``-Xptxas -v`` (a spill fails the run),
    check that every tensor-core kernel (K2, K3 and K4, each in bf16 and in
-   f32, three TF32 passes) was built at D 32, 64 and 128;
+   f32, three TF32 passes) was built at D 32, 64 and 128, and that the SASS
+   of bf16 K2 (``cuobjdump -sass``) holds wgmma (HGMMA) and TMA loads
+   (UTMALDG) at each D;
 2. K1 parity: exact top-k membership bit-equal to its plain PyTorch version
    on the card, with exactly k True per row, row and column entries: 96
    base cases (random, tie-heavy, ±0.0 and NEG_INF-padded keys with k above
@@ -27,7 +29,11 @@ Phases, each of which makes the script exit non-zero when it fails:
    D 32/64/128,
    L 785 (ragged) and 1024, causal and not, segment ids with rows that match
    no key (non-causal) or packed sequences (causal), and the
-   ``flash_attention_padded`` ``padding_mask`` path;
+   ``flash_attention_padded`` ``padding_mask`` path; bf16 also on strided
+   views (the ``[B, H, L, D]`` views of ``[B, L, H, D]`` projections and of
+   the thirds of a fused ``[B, L, 3·H·D]`` one; O keeps q's layout) and on
+   causal rows that match no key, whose keys end at their 64-row tile's
+   diagonal inside a 128-key tile;
 4. serving: synthetic ``.pt`` bags at the reference operating point (D=512,
    C=2, C_ext=6, topj=400, topk=10, batch 8, the 16384 bucket) drained
    through ``cli.serve.watch_once`` by a ``Server`` on ``cuda``: every slide
@@ -56,7 +62,8 @@ Phases, each of which makes the script exit non-zero when it fails:
    lse, the tolerances of 3),
    then per launch against its bound, its plain version and
    ``scaled_dot_product_attention`` (timed only), kernel-only by the
-   profiler and queued behind a spin, the batch-64
+   profiler and queued behind a spin (bf16 also on ``[B, L, H, D]``
+   views), the batch-64
    ``encode_image`` forward in four tiers (f32/bf16, dense/flash), and a
    ``torch.profiler`` breakdown of the f32 flash forward;
 8. K3/K4 parity: the flash-attention backward (dq; dk and dv) against
@@ -245,7 +252,7 @@ Phases, each of which makes the script exit non-zero when it fails:
 28. K2-K4 at the encoder stack's and the ring's shapes (``[times]``,
    ``SLICE_SHAPES``: the 2- and 4-rank ring's blocks and its whole-sequence
    reference among them) against their plain versions, bounds and
-   ``scaled_dot_product_attention``;
+   ``scaled_dot_product_attention``, K2 also kernel-only and queued;
 29. the caption decoder and RetNet (``[decoder]``, after 14, on its CONCH
    checkpoint): ``generate_caption`` greedy and beam 4 at CONCH's width over
    the vision tower's caption tokens, 2 layers against the CPU, RetNet's
@@ -290,8 +297,8 @@ Phases, each of which makes the script exit non-zero when it fails:
    and K4 launched r+1 times on rank r under ``causal`` and ``world`` times
    without (``launches_ring``); a dilated branch whose 8192-token segment
    spans both ranks, allgather and ring modes, the same way; two steps of
-   ``cli.pretrain.main`` at the BEiT-3-base width (12 x 768, 12 heads,
-   batch 8 x 512, f32) over 2 ranks on each of ``seq=2`` (ring attention),
+   ``cli.pretrain.main`` at the BEiT-3-base width (2 layers of 768, 12
+   heads, batch 8 x 512, f32) over 2 ranks on each of ``seq=2`` (ring attention),
    ``data=2``, ``tensor=2``, ``expert=2`` (4 experts) and ``pipe=2``: losses
    within 1e-4 of one process's, the saved parameters within 1e-4 but for
    at most 1e-4 of them (rounding gradients, which Adam turns into steps of
@@ -314,6 +321,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -340,17 +348,20 @@ REPLACES = "moc_tpu/ops/topk_kernel.py:50"
 K2_SOURCE = "moc_tpu_torch/ops/csrc/flash_fwd.cu"
 K2_REPLACES = "moc_tpu/ops/flash_attention.py:68"
 K2_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # the JAX package's flash tolerances
-K2_KERNEL = {torch.float32: "flash_fwd_tf32_kernel", torch.bfloat16: "flash_fwd_mma_kernel"}
+K2_KERNEL = {torch.float32: "flash_fwd_tf32_kernel", torch.bfloat16: "flash_fwd_wgmma_kernel"}
 # f32 K2 beside that: max |O - plain| at most 1e-5 of the largest |O|. Three
 # TF32 passes keep each product within a few units in 2^-22 (an emulation on
 # the CPU: 3.2e-7 to 1.1e-6 of it); one pass misses 2e-5 itself.
 F32_FWD_MAX_REL = 1e-5
 BWD_SOURCE = "moc_tpu_torch/ops/csrc/flash_bwd.cu"
 # the tensor-core kernels of each source, each built at D = 32, 64 and 128: K2,
-# K3 and K4 in bf16 and in f32 (three TF32 passes)
-MMA_KERNELS = {"flash_fwd": ("flash_fwd_mma_kernel", "flash_fwd_tf32_kernel"),
+# K3 and K4 in bf16 and in f32 (three TF32 passes); bf16 K2 on wgmma and TMA
+MMA_KERNELS = {"flash_fwd": ("flash_fwd_wgmma_kernel", "flash_fwd_tf32_kernel"),
                "flash_bwd": ("flash_bwd_dq_mma_kernel", "flash_bwd_dkv_mma_kernel",
                              "flash_bwd_dq_tf32_kernel", "flash_bwd_dkv_tf32_kernel")}
+# the kernels built for Hopper alone, by source: their SASS must hold wgmma
+# (HGMMA) and TMA loads (UTMALDG) at every head dim
+SM90_KERNELS = {"flash_fwd": "flash_fwd_wgmma_kernel"}
 K3_REPLACES = "moc_tpu/ops/flash_attention.py:188"
 K4_REPLACES = "moc_tpu/ops/flash_attention.py:238"
 # K3/K4: the JAX package's flash backward tolerance in f32; in bf16, a share
@@ -492,6 +503,11 @@ def phase_build() -> dict:
                 spills = line.strip()
                 check(", 0 bytes spill stores, 0 bytes spill loads" in line,
                       f"{name}: {entry} spills registers: {spills}")
+                # the Hopper kernels keep every array in registers: a stack frame
+                # there is an array ptxas put in local memory
+                check(not (entry or "").startswith(SM90_KERNELS.get(name, "\0"))
+                      or spills.startswith("0 bytes stack frame"),
+                      f"{name}: {entry} keeps an array in local memory: {spills}")
             elif entry and (m := re.search(r"Used (\d+) registers", line)):
                 smem = re.search(r"(\d+) bytes smem", line)
                 log(f"[build] {name}: {entry}: {m.group(1)} registers, "
@@ -506,7 +522,40 @@ def phase_build() -> dict:
         for kernel in MMA_KERNELS.get(name, ()):
             for d in (32, 64, 128):
                 check(f"{kernel}<{d}>" in seen, f"{name}: {kernel}<{d}> is missing from the build")
+    for name, kernel in SM90_KERNELS.items():
+        counts = _sass_counts(built[name]["path"], kernel)
+        for d in (32, 64, 128):
+            c = counts.get(f"{kernel}<{d}>", {})
+            check(c.get("HGMMA", 0) > 0 and c.get("UTMALDG", 0) > 0,
+                  f"{name}: {kernel}<{d}> issues no wgmma or no TMA load: {c}")
+        log(f"[build] {name}: SASS instructions of {kernel} by head dim "
+            f"(wgmma HGMMA, TMA loads UTMALDG and stores UTMASTG, mbarrier waits SYNCS): "
+            f"{json.dumps(counts)}")
     return built
+
+
+SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG", "SYNCS", "LDGSTS", "HMMA")
+
+
+def _sass_counts(library: str, kernel: str) -> dict:
+    """Per ``kernel<D>`` in the built ``library``, how often its SASS (by
+    ``cuobjdump -sass``) names each opcode of ``SASS_OPS``."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", library], capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = _kernel_name(m.group(1))
+            name = name if name.startswith(kernel) else None
+            if name:
+                counts[name] = dict.fromkeys(SASS_OPS, 0)
+        elif name:
+            for op in SASS_OPS:
+                if re.search(rf"\b{op}\b", line):
+                    counts[name][op] += 1
+    return counts
 
 
 def _parity_keys(kind: str, rows: int, n: int, k: int, gen: torch.Generator) -> torch.Tensor:
@@ -639,9 +688,42 @@ def _flash_inputs(b, h, length, d, dtype, segments, causal, gen):
     return q, k, v, q_seg, kv_seg
 
 
+def _strided_views(b, h, length, d, gen, fused):
+    """bf16 q, k, v ``[B, H, L, D]`` as the encoders hand them to K2 without
+    a copy: the transposed ``[B, L, H, D]`` projections (``nn/encoder.py``),
+    or, ``fused``, heads of the three thirds of one ``[B, L, 3·H·D]``
+    projection (``nn/transformer.py``'s ``in_proj(x).chunk(3)``)."""
+    if fused:
+        x = torch.randn((b, length, 3 * h * d), generator=gen, device="cuda").to(torch.bfloat16)
+        return tuple(t.reshape(b, length, h, d).transpose(1, 2) for t in x.chunk(3, dim=-1))
+    return tuple(torch.randn((b, length, h, d), generator=gen, device="cuda")
+                 .to(torch.bfloat16).transpose(1, 2) for _ in range(3))
+
+
+def no_key_reference(v, q_seg, kv_seg, ro, rlse):
+    """``mha_reference``'s ``(o, lse)`` with the causal rows that match no
+    key replaced by K2's: such a row counts the keys of its 64-row query
+    tile, ``[0, min(Lkv, tile + 64))``, each at the mask value, so its O is
+    their mean of V and its lse the mask value (the plain version counts
+    every key)."""
+    lq, lkv = q_seg.shape[1], kv_seg.shape[1]
+    rows = torch.arange(lq, device=v.device)
+    sees = ((torch.arange(lkv, device=v.device)[None, None] <= rows[None, :, None])
+            & (q_seg[:, :, None] == kv_seg[:, None, :])).any(-1)  # [B, Lq]
+    ro, rlse = ro.clone(), rlse.clone()
+    for bi, i in (~sees).nonzero().tolist():
+        end = min(lkv, (i // 64) * 64 + 64)
+        ro[bi, :, i] = v[bi, :, :end].float().mean(1).to(ro.dtype)
+        rlse[bi, :, i] = float(torch.finfo(torch.float32).max) * -0.7
+    return ro, rlse, int((~sees).sum())
+
+
 def phase_flash_parity() -> dict:
     """K2 against its plain version on the card; returns, per dtype, the
-    largest |kernel - plain| over O and over lse."""
+    largest |kernel - plain| over O and over lse. bf16 also on strided
+    views (``_strided_views``), whose O keeps q's layout, and on causal
+    rows that match no key, whose keys end inside a 128-key tile at their
+    64-row tile's diagonal (``no_key_reference``)."""
     from moc_tpu_torch.ops.flash_attention import flash_attention_padded, mha_reference
     from moc_tpu_torch.ops.flash_kernel import flash_fwd_cuda
 
@@ -684,6 +766,35 @@ def phase_flash_parity() -> dict:
             ro, _ = mha_reference(q, k, v, q_segment_ids=seg, kv_segment_ids=seg)
             hold(dtype, o, None, ro, None, f"flash_attention_padded {dtype}")
             cases += 1
+        dtype = torch.bfloat16
+        for d in (32, 64, 128):
+            for fused in (False, True):
+                for causal in (False, True):
+                    q, k, v = _strided_views(2, 3, 785, d, gen, fused)
+                    before = flash_fwd_cuda.launches
+                    o, lse = flash_fwd_cuda(q, k, v, causal=causal)
+                    torch.cuda.synchronize()
+                    check(flash_fwd_cuda.launches == before + 1, "K2 launch not counted")
+                    check(fused or o.stride() == q.stride(),
+                          f"K2 O strides {o.stride()}, q's {q.stride()}")
+                    ro, rlse = mha_reference(q, k, v, causal=causal)
+                    hold(dtype, o, lse, ro, rlse, f"strided views D={d} fused={fused} "
+                         f"causal={causal}")
+                    cases += 1
+        # causal rows that no key matches, in each 64-row half of a 128-row CTA
+        # and in a 128-key tile that runs past the half's diagonal
+        q, k, v, _, _ = _flash_inputs(2, 3, 300, 64, dtype, False, False, gen)
+        kv_seg = torch.zeros((2, 300), dtype=torch.int32, device="cuda")
+        q_seg = kv_seg.clone()
+        for lo in (10, 70, 135, 200, 290):
+            q_seg[:, lo:lo + 6] = 5
+        o, lse = flash_fwd_cuda(q, k, v, q_seg, kv_seg, causal=True)
+        ro, rlse = mha_reference(q, k, v, q_segment_ids=q_seg, kv_segment_ids=kv_seg,
+                                 causal=True)
+        ro, rlse, n_rows = no_key_reference(v, q_seg, kv_seg, ro, rlse)
+        check(n_rows == 2 * 5 * 6, f"{n_rows} rows match no key")
+        hold(dtype, o, lse, ro, rlse, "causal rows that match no key")
+        cases += 1
     for dtype, e in err.items():
         log(f"[parity] K2 {dtype}: max |O - plain| {e['o']:.3e}, max |lse - plain| "
             f"{e['lse']:.3e} (tolerance {K2_TOL[dtype]}); max |O - plain| at most "
@@ -691,7 +802,9 @@ def phase_flash_parity() -> dict:
             f"{f' (limit {F32_FWD_MAX_REL})' if dtype == torch.float32 else ''}; mean "
             f"|O - plain| / mean |plain| at most {rel[dtype]['mean_rel']:.3e}")
     log(f"[parity] K2 matches its plain version on {cases} cases (f32/bf16, D 32/64/128, "
-        "L 785/1024, causal or not, segments with rows masked everywhere, padding_mask)")
+        "L 785/1024, causal or not, segments with rows masked everywhere, padding_mask; "
+        "bf16 strided views of [B, L, H, D] and fused projections, causal rows that match "
+        "no key)")
     return err
 
 
@@ -1467,12 +1580,14 @@ def musk_text_segments() -> torch.Tensor:
     return torch.from_numpy(~pad).int().cuda()
 
 
-def phase_flash_times() -> dict:
+def phase_flash_times(strided: bool = True) -> dict:
     """K2 at each shape of ``K2_SHAPES``: its O and lse held against its
     plain version on the same tensors, then its time per launch against its
     bound, its plain version and one library call
-    (``scaled_dot_product_attention`` with the same mask). Returns
-    ``records[tier][cell]``."""
+    (``scaled_dot_product_attention`` with the same mask); with ``strided``,
+    bf16 also on the ``[B, L, H, D]`` views the encoders pass (``strided``
+    is False only for a checkout whose K2 takes contiguous tensors alone,
+    ``scripts/flash_fwd_ab.py``). Returns ``records[tier][cell]``."""
     import torch.nn.functional as F
 
     from moc_tpu_torch.ops.flash_attention import mha_reference
@@ -1521,6 +1636,17 @@ def phase_flash_times() -> dict:
                            q, k, v, attn_mask=mask)),
                        "bound_ms": max(bytes_s, ops_s) * 1e3,
                        "bound_by": "bytes" if bytes_s >= ops_s else "operations"}
+                if strided and dtype == torch.bfloat16 and seg is None:
+                    # as the encoders give them: [B, L, H, D] projections' views, no copy
+                    sq, sk, sv = _strided_views(b, h, length, d, gen, False)
+                    rec["strided"] = {"ms": _time_ms(lambda: flash_fwd_cuda(sq, sk, sv)),
+                                      **_kernel_us(lambda: flash_fwd_cuda(sq, sk, sv),
+                                                   K2_KERNEL[dtype], flash_fwd_cuda)}
+                    log(f"[times] K2 {name} {list(shape)} on [B, L, H, D] views: "
+                        f"{rec['strided']['ms']:.4f} ms per call, "
+                        f"{_us(rec['strided']['kernel_us'])} kernel-only, "
+                        f"{_us(rec['strided']['device_us'])} queued")
+                    del sq, sk, sv
                 records[name][cell] = rec
                 log(f"[times] K2 {name} {list(shape)}: kernel {rec['ms']:.4f} ms "
                     f"({ops_s * peak / rec['ms'] / 1e9:.1f} TFLOP/s) per call, "
@@ -4553,7 +4679,8 @@ def phase_slice_kernel_times() -> dict:
     each held against its plain version on the same tensors (the limits of
     the parity phases), then timed per call by CUDA events (median) beside
     its bound, the plain version and ``scaled_dot_product_attention``
-    (forward; its backward for K3 + K4 together), timed only."""
+    (forward; its backward for K3 + K4 together), timed only; K2 also
+    kernel-only by the profiler and queued behind a spin (``_kernel_us``)."""
     import torch.nn.functional as F
 
     from moc_tpu_torch.ops.flash_attention import flash_bwd_reference, mha_reference
@@ -4596,13 +4723,16 @@ def phase_slice_kernel_times() -> dict:
                                 "max_abs_err": err}
                 rec["K2"]["library_ms"] = _time_ms(lambda: F.scaled_dot_product_attention(q, k, v),
                                                    iters=30, warmup=3)
+                rec["K2"].update(_kernel_us(lambda: flash_fwd_cuda(q, k, v), K2_KERNEL[dtype],
+                                            flash_fwd_cuda))
             leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
             out = F.scaled_dot_product_attention(*leaves)
             lib = _time_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
                            iters=20, warmup=3)
             rec["K3"]["library_ms"] = rec["K4"]["library_ms"] = lib
             records[f"{cell}_{tier}"] = rec
-            log(f"[times] {tier} {cell} {list(shape)}: " + "; ".join(
+            log(f"[times] {tier} {cell} {list(shape)}: K2 {_us(rec['K2']['kernel_us'])} "
+                f"kernel-only, {_us(rec['K2']['device_us'])} queued; " + "; ".join(
                 f"{kid} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} by {r['bound_by']}, plain "
                 f"{r['plain_ms']:.3f}, library {r['library_ms']:.4f}, max |err| "
                 f"{r['max_abs_err']:.2e})" for kid, r in rec.items() if kid != "shape"))
@@ -5079,8 +5209,10 @@ def phase_ckpt(root: str) -> dict:
 # worlds of gloo ranks that share cuda:0 (NCCL refuses two ranks on one GPU),
 # their exchanges staged through host memory (``parallel.collectives``).
 RING_SHAPE = (2, HEADS, 8192, HEAD_DIM)  # BEiT-3-base's heads over an 8192-token sequence
-# the sharded pretraining steps: BEiT-3-base width, 2 steps of 8 x 512 tokens
-DIST_PRETRAIN_ARGV = ["--batch", "8", "--seq_len", "512", "--layers", "12", "--embed_dim",
+# the sharded pretraining steps: BEiT-3-base width, 2 layers (its 12 cut to keep
+# the script inside its time limit; every mesh shards the same at any depth), 2
+# steps of 8 x 512 tokens
+DIST_PRETRAIN_ARGV = ["--batch", "8", "--seq_len", "512", "--layers", "2", "--embed_dim",
                       "768", "--ffn_dim", "3072", "--heads", "12", "--vocab", "1024",
                       "--mask_prob", "0.15", "--lr", "1e-3", "--steps", "2", "--log_every", "1"]
 DIST_MESHES = {"seq": ["--mesh", "seq=2"], "data": ["--mesh", "data=2"],
@@ -5784,6 +5916,8 @@ def main() -> int:
                         **_slice_cells(tier, "K2", moe, dilated, contrastive, options,
                                        slice_times),
                         **_dist_cells(tier, "K2", dist),
+                        **{f"strided_{cell}": rec["strided"]
+                           for cell, rec in k2_times[tier].items() if "strided" in rec},
                         **musk_cells})
     for entry, kid, replaces in (("dq", "K3", K3_REPLACES), ("dkv", "K4", K4_REPLACES)):
         for tier, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):

@@ -30,7 +30,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from moc_tpu_torch.ops.flash_kernel import (flash_bwd_dkv_cuda, flash_bwd_dq_cuda,
-                                            flash_fwd_cuda)
+                                            flash_fwd_cuda, tma_readable)
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
@@ -190,8 +190,17 @@ def _prepare(q, k, v, q_segment_ids, kv_segment_ids, sm_scale):
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     needs_grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
-    qkv = tuple(t.contiguous() for t in (q, k, v))
+    qkv = tuple(t if _keeps_view(t, needs_grad) else t.contiguous() for t in (q, k, v))
     return qkv, q_segment_ids, kv_segment_ids, float(sm_scale), needs_grad
+
+
+def _keeps_view(t, needs_grad):
+    """Whether ``_prepare`` hands ``t`` on as it lies: bf16 without a gradient
+    (extraction, the encoders' inference), where K2 reads its strides
+    (``tma_readable``), as the plain version does on the CPU. The grad path
+    copies: autograd saves these tensors for K3 and K4, which take contiguous
+    ones; f32 K2 takes contiguous tensors too."""
+    return not needs_grad and t.dtype == torch.bfloat16 and tma_readable(t)
 
 
 def flash_attention_with_lse(q, k, v, *, q_segment_ids=None, kv_segment_ids=None,

@@ -23,21 +23,25 @@ At the pretraining shape ``[32, 12, 512, 64]`` K3 does 6·B·H·L²·D = 38.7
 GFLOP and K4 8·B·H·L²·D = 51.5 GFLOP: 0.2345 and 0.312 ms in f32, against
 0.08-0.09 ms for their bytes.
 
-Design: one CTA per (b·h, 64-row tile): K2 and K3 own a query tile and loop
-over 64-key K/V tiles; K4 owns a key tile and loops over the query tiles, so
+Design: one CTA per (b·h, 64-row tile) (bf16 K2: 128 rows an item of a
+persistent CTA): K2 and K3 own a query tile and loop over 64-key K/V tiles
+(bf16 K2: 128 keys); K4 owns a key tile and loops over the query tiles, so
 no tile is reduced across CTAs and nothing needs atomics. Running sums are
 in f32 registers. In f32 all three run on the tensor cores in three TF32
 passes (hi·hi + hi·lo + lo·hi of operands split as hi = tf32(x), lo =
 tf32(x - hi), inside the kernel, with no process-global TF32 flag read or
 set): one pass would miss the JAX package's f32 tolerances, three hold them
 and stay within 1e-5 of the largest |O| (K2) or |grad| (K3, K4) of the plain
-version. In bf16 all three run on the tensor cores
-(``mma.sync`` on tiles streamed by ``cp.async``, ``csrc/flash_mma.cuh``):
-exact bf16 products summed in f32. On the tensor cores the kernels sum in
-another order than the plain version, so they match it within a tolerance
-rather than bit for bit. Any Lq and Lkv: the ragged edge is masked by bounds,
-so the vision trunk's 785 tokens need no padding to a lane multiple. Head
-dims 32, 64 and 128. A bf16 CUDA tensor reaches the bf16 tensor-core kernels
+version. In bf16 all three run on the tensor cores: exact bf16 products
+summed in f32, K3 and K4 on ``mma.sync`` over tiles streamed by ``cp.async``
+(``csrc/flash_mma.cuh``), and K2, rebuilt for Hopper, on ``wgmma`` over
+tiles that a producer warp loads by TMA into an mbarrier ring
+(``csrc/flash_sm90.cuh``) for two consumer warpgroups of 64 query rows
+each, reading q, k, v by their strides (``tma_geometry``). On the tensor
+cores the kernels sum in another order than the plain version, so they
+match it within a tolerance rather than bit for bit. Any Lq and Lkv: the
+ragged edge is masked by bounds, so the vision trunk's 785 tokens need no
+padding to a lane multiple. Head dims 32, 64 and 128. A bf16 CUDA tensor reaches the bf16 tensor-core kernels
 and nothing else, an f32 one the f32 kernels.
 
 The wrappers take CUDA tensors only and raise on anything else; callers
@@ -73,16 +77,74 @@ def _kernel(source: str, symbol: str, n_pointers: int):
     return fn
 
 
+# TMA reads a tensor by byte strides that are multiples of this
+TMA_STRIDE_BYTES = 16
+TMA_MAX_STRIDE = 2 ** 40
+# query rows a TMA box of K2's bf16 kernel holds for q and o (one consumer
+# warpgroup's tile), and keys for k and v (one K/V tile)
+Q_BOX_ROWS, KV_BOX_ROWS = 64, 128
+
+
+def tma_geometry(t: torch.Tensor, box_rows: int) -> dict:
+    """The tensor map K2's bf16 kernel encodes over ``t [B, H, L, D]``
+    (``moc_flash_fwd``, ``csrc/flash_sm90.cuh`` ``make_map``): ``dims`` (D,
+    L, H, B), innermost first; ``strides``, the byte strides of L, H and B;
+    ``box`` (columns, rows, 1, 1), at most 64 columns (128 bytes) wide, so D
+    = 128 takes two boxes; and ``swizzle``, the bytes of a box row (128, or
+    64 at D = 32). A dimension of size 0 or 1 is never stepped: its stride
+    is taken as the extent of the dimensions inside it. Raises ``ValueError``
+    where TMA cannot read ``t`` by its strides: a last dimension that is not
+    contiguous, or a stride that is not a positive multiple of 16 bytes below
+    2^40 (an empty tensor is never stepped at all). The kernel derives the
+    box and swizzle from D alone; the two must agree."""
+    b, h, length, d = t.shape
+    cols = min(d, 128 // t.element_size())
+    return {"dims": (d, length, h, b), "strides": _tma_strides(t), "box": (cols, box_rows, 1, 1),
+            "swizzle": cols * t.element_size()}
+
+
+def _tma_strides(t: torch.Tensor) -> tuple:
+    """``tma_geometry``'s byte strides of L, H and B (the wrapper's fast path)."""
+    b, h, length, d = t.shape
+    sb, sh, sl, sd = t.stride()
+    el = t.element_size()
+    if d > 1 and sd != 1:
+        raise ValueError(f"K2 reads bf16 tensors whose last dim is contiguous, got strides "
+                         f"{t.stride()}")
+    empty = t.numel() == 0
+    step_l = d * el if length <= 1 or empty else sl * el
+    step_h = step_l * max(length, 1) if h <= 1 or empty else sh * el
+    step_b = step_h * max(h, 1) if b <= 1 or empty else sb * el
+    for step in (step_l, step_h, step_b):
+        if step <= 0 or step % TMA_STRIDE_BYTES or step >= TMA_MAX_STRIDE:
+            raise ValueError(f"K2 reads bf16 tensors by strides that are multiples of "
+                             f"{TMA_STRIDE_BYTES} bytes, got strides {t.stride()} "
+                             f"(elements of {el} bytes)")
+    return step_l, step_h, step_b
+
+
+def tma_readable(t: torch.Tensor) -> bool:
+    """Whether K2's bf16 kernel can read ``t`` as it lies (``tma_geometry``)."""
+    try:
+        tma_geometry(t, Q_BOX_ROWS)
+    except ValueError:
+        return False
+    return True
+
+
 def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           others: tuple = ()) -> None:
+           others: tuple = (), strided: bool = False) -> None:
     """Device, type, shape, contiguity and alignment of q, k, v and of the
-    extra ``[B, H, Lq, D]`` tensors in ``others`` (the backward's ``do``)."""
+    extra ``[B, H, Lq, D]`` tensors in ``others`` (the backward's ``do``).
+    ``strided``: any strides are let through here (``tma_geometry`` holds
+    them to its contract)."""
+    device = q.get_device()  # -1 on the CPU
     for t in (q, k, v, *others):
-        if t.device.type != "cuda":
+        if not t.is_cuda:
             raise ValueError(f"{name} takes CUDA tensors, got one on {t.device}")
-        if t.device != q.device:
+        if t.get_device() != device:
             raise ValueError(f"{name} takes all its tensors on one device")
-        if not t.is_contiguous():
+        if not (strided or t.is_contiguous()):
             raise ValueError(f"{name} takes contiguous tensors")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{name} takes float32 or bfloat16, got {q.dtype}")
@@ -129,10 +191,15 @@ def _ptr(t: torch.Tensor | None):
 def _launch(fn, name: str, q: torch.Tensor, pointers: list, lkv: int, causal: bool,
             sm_scale: float) -> None:
     b, h, lq, d = q.shape
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*pointers, b * h, h, lq, lkv, d, int(q.dtype == torch.bfloat16), int(causal),
-                 float(sm_scale), stream)
+    args = (b * h, h, lq, lkv, d, int(q.dtype == torch.bfloat16), int(causal), float(sm_scale))
+    device = q.get_device()
+    # the current stream's raw handle (torch.cuda.current_stream() builds a
+    # Stream object a call, several microseconds on the launch path)
+    if device == torch.cuda.current_device():
+        err = fn(*pointers, *args, torch._C._cuda_getCurrentRawStream(device))
+    else:
+        with torch.cuda.device(device):
+            err = fn(*pointers, *args, torch._C._cuda_getCurrentRawStream(device))
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
@@ -141,10 +208,15 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    q_segment_ids: torch.Tensor | None = None,
                    kv_segment_ids: torch.Tensor | None = None, *, causal: bool = False,
                    sm_scale: float | None = None) -> tuple[torch.Tensor, torch.Tensor]:
-    """K2: ``(o, lse)`` for contiguous ``q [B, H, Lq, D]``, ``k, v [B, H, Lkv,
-    D]`` on the GPU (f32 or bf16, D 32, 64 or 128), with optional segment ids
-    ``[B, Lq]`` and ``[B, Lkv]`` (both or neither). One launch."""
-    _check("K2", q, k, v)
+    """K2: ``(o, lse)`` for ``q [B, H, Lq, D]``, ``k, v [B, H, Lkv, D]`` on
+    the GPU (f32 or bf16, D 32, 64 or 128), with optional segment ids ``[B,
+    Lq]`` and ``[B, Lkv]`` (both or neither). f32 tensors are contiguous;
+    bf16 ones are read by their strides (``tma_geometry``: the last dim
+    contiguous, the others multiples of 16 bytes), so the ``[B, H, L, D]``
+    view of a ``[B, L, H, D]`` projection needs no copy, and o takes q's
+    layout where q is dense. One launch."""
+    bf16 = q.dtype == torch.bfloat16
+    _check("K2", q, k, v, strided=bf16)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError("K2 is forward only: differentiate through "
                            "ops.flash_attention, whose backward runs K3 and K4, or call "
@@ -156,9 +228,14 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
-    _launch(_kernel("flash_fwd", "moc_flash_fwd", 7), "flash_fwd", q,
+    strides = None
+    if bf16:  # the byte strides of L, H and B of q, k, v and o, as the kernel's maps take them
+        strides = (ctypes.c_longlong * 12)(*_tma_strides(q), *_tma_strides(k),
+                                           *_tma_strides(v), *_tma_strides(out))
+    _launch(_kernel("flash_fwd", "moc_flash_fwd", 8), "flash_fwd", q,
             [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-             _ptr(q_seg), _ptr(kv_seg)], lkv, causal, d ** -0.5 if sm_scale is None else sm_scale)
+             _ptr(q_seg), _ptr(kv_seg), None if strides is None else ctypes.addressof(strides)],
+            lkv, causal, d ** -0.5 if sm_scale is None else sm_scale)
     flash_fwd_cuda.launches += 1
     return out, lse
 

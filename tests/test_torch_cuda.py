@@ -25,9 +25,9 @@ from moc_tpu_torch.ops import (FOREGROUND_POOLINGS, NEG_INF, POOLING_REGISTRY,
                                masked_col_topk_mask, masked_logits, masked_row_margin,
                                select_and_gather, threshold_topk_mask, topk_kernel,
                                topk_threshold_mask, union_selection, union_selection_threshold)
-from moc_tpu_torch.ops.flash_attention import (flash_attention, flash_attention_padded,
-                                               flash_attention_with_lse, flash_bwd_reference,
-                                               mha_reference)
+from moc_tpu_torch.ops.flash_attention import (DEFAULT_MASK_VALUE, flash_attention,
+                                               flash_attention_padded, flash_attention_with_lse,
+                                               flash_bwd_reference, mha_reference)
 from moc_tpu_torch.ops.flash_kernel import flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_fwd_cuda
 from moc_tpu_torch.ops.masking import softmax
 
@@ -304,6 +304,83 @@ def test_k2_wrapper_refuses(gen):
     g = q.clone().requires_grad_(True)
     with pytest.raises(RuntimeError, match="forward only"):
         flash_fwd_cuda(g, q, q)
+    assert flash_fwd_cuda.launches == before
+
+
+def _strided_qkv(gen, b, h, length, d, fused):
+    """bf16 ``[B, H, L, D]`` views as the encoders pass them: of ``[B, L, H,
+    D]`` projections, or (``fused``) of the thirds of one ``[B, L, 3·H·D]``."""
+    if fused:
+        x = torch.randn((b, length, 3 * h * d), generator=gen, device="cuda").to(torch.bfloat16)
+        return tuple(t.reshape(b, length, h, d).transpose(1, 2) for t in x.chunk(3, dim=-1))
+    return tuple(torch.randn((b, length, h, d), generator=gen, device="cuda")
+                 .to(torch.bfloat16).transpose(1, 2) for _ in range(3))
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("causal", [False, True])
+def test_k2_bf16_reads_strided_views(gen, d, fused, causal):
+    """bf16 K2 reads q, k, v by their strides (TMA maps over them), with no
+    copy; O takes q's layout where q is dense."""
+    q, k, v = _strided_qkv(gen, 2, 3, 785, d, fused)
+    assert not q.is_contiguous()
+    before = flash_fwd_cuda.launches
+    with torch.no_grad():
+        o, lse = flash_fwd_cuda(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_fwd_cuda.launches == before + 1
+    if not fused:
+        assert o.stride() == q.stride()
+    ro, rlse = mha_reference(q, k, v, causal=causal)
+    _assert_k2_close(o, lse, ro, rlse, torch.bfloat16)
+    # and the entry point hands the views to K2 as they are
+    torch.testing.assert_close(flash_attention(q, k, v, causal=causal), o, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_k2_bf16_at_8192_tokens(gen, causal):
+    """The ring's whole sequence: 64 key tiles of 128 a CTA."""
+    q, k, v = (torch.randn((1, 4, 8192, 64), generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    with torch.no_grad():
+        o, lse = flash_fwd_cuda(q, k, v, causal=causal)
+    ro, rlse = mha_reference(q, k, v, causal=causal)
+    _assert_k2_close(o, lse, ro, rlse, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_causal_rows_without_keys_count_their_64_row_tile(gen, dtype):
+    """A causal row that matches no key counts the keys of its 64-row query
+    tile, [0, min(Lkv, tile + 64)), at the mask value: O is their mean of V
+    and lse the mask value. bf16 K2 runs 128 query rows a CTA and 128 keys a
+    tile; past a 64-row half's diagonal inside a running key tile, keys count
+    for nothing, as past Lkv (rows 10-15 and 135-140 meet such a tile)."""
+    q, k, v = (torch.randn((2, 3, 300, 64), generator=gen, device="cuda").to(dtype)
+               for _ in range(3))
+    kv_seg = torch.zeros((2, 300), dtype=torch.int32, device="cuda")
+    q_seg = kv_seg.clone()
+    rows = [r for lo in (10, 70, 135, 200, 290) for r in range(lo, lo + 6)]
+    q_seg[:, rows] = 5
+    with torch.no_grad():
+        o, lse = flash_fwd_cuda(q, k, v, q_seg, kv_seg, causal=True)
+    ro, rlse = mha_reference(q, k, v, q_segment_ids=q_seg, kv_segment_ids=kv_seg, causal=True)
+    for i in rows:
+        end = min(300, (i // 64) * 64 + 64)
+        ro[:, :, i] = v[:, :, :end].float().mean(2).to(dtype)
+        rlse[:, :, i] = DEFAULT_MASK_VALUE
+    _assert_k2_close(o, lse, ro, rlse, dtype)
+
+
+def test_k2_bf16_wrapper_refuses_unreadable_strides(gen):
+    q = torch.randn((1, 2, 128, 64), generator=gen, device="cuda").to(torch.bfloat16)
+    odd = torch.randn((1, 2, 128, 68), generator=gen, device="cuda").to(torch.bfloat16)[..., :64]
+    before = flash_fwd_cuda.launches
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        flash_fwd_cuda(odd, q, q)
+    with pytest.raises(ValueError, match="last dim is contiguous"):
+        flash_fwd_cuda(q, q, torch.randn((1, 2, 128, 128), generator=gen,
+                                         device="cuda").to(torch.bfloat16)[..., ::2])
     assert flash_fwd_cuda.launches == before
 
 
