@@ -11,8 +11,9 @@ Phases, each of which makes the script exit non-zero when it fails:
    registers and spills from ``-Xptxas -v`` (a spill fails the run),
    check that every tensor-core kernel (K2, K3 and K4, each in bf16 and in
    f32, three TF32 passes) was built at D 32, 64 and 128, and that the SASS
-   of bf16 K2 (``cuobjdump -sass``) holds wgmma (HGMMA) and TMA loads
-   (UTMALDG) at each D;
+   of bf16 K2, K3 and K4 (``cuobjdump -sass``) holds wgmma (HGMMA) and TMA
+   loads (UTMALDG) at each D, with a 0-byte stack frame and no note from
+   ptxas that it serialised their wgmma products;
 2. K1 parity: exact top-k membership bit-equal to its plain PyTorch version
    on the card, with exactly k True per row, row and column entries: 96
    base cases (random, tie-heavy, ±0.0 and NEG_INF-padded keys with k above
@@ -70,7 +71,9 @@ Phases, each of which makes the script exit non-zero when it fails:
    ``flash_bwd_reference`` on the card over the grid of 3 (f32 within 5e-4
    and within 1e-5 of the largest |grad|, bf16 within 2e-2 of the largest
    |grad| and a mean error at most 1% of the mean |grad|), on K2's own o
-   and lse;
+   and lse; bf16 also on strided views with a strided dO (each gradient
+   bit-equal to the same call on contiguous copies), and on causal rows that
+   match no key, which count the keys of their 64-row tile and before;
 9. pretraining: ``cli.pretrain.main --device cuda`` at the BEiT-3-base
    width (12 layers of 768, FFN 3072, 12 heads of 64, sequence 512, batch
    32, vocab 1024, 5 steps) in f32 and with ``--compute_dtype bfloat16``:
@@ -252,7 +255,7 @@ Phases, each of which makes the script exit non-zero when it fails:
 28. K2-K4 at the encoder stack's and the ring's shapes (``[times]``,
    ``SLICE_SHAPES``: the 2- and 4-rank ring's blocks and its whole-sequence
    reference among them) against their plain versions, bounds and
-   ``scaled_dot_product_attention``, K2 also kernel-only and queued;
+   ``scaled_dot_product_attention``, each also kernel-only and queued;
 29. the caption decoder and RetNet (``[decoder]``, after 14, on its CONCH
    checkpoint): ``generate_caption`` greedy and beam 4 at CONCH's width over
    the vision tower's caption tokens, 2 layers against the CPU, RetNet's
@@ -355,13 +358,14 @@ K2_KERNEL = {torch.float32: "flash_fwd_tf32_kernel", torch.bfloat16: "flash_fwd_
 F32_FWD_MAX_REL = 1e-5
 BWD_SOURCE = "moc_tpu_torch/ops/csrc/flash_bwd.cu"
 # the tensor-core kernels of each source, each built at D = 32, 64 and 128: K2,
-# K3 and K4 in bf16 and in f32 (three TF32 passes); bf16 K2 on wgmma and TMA
+# K3 and K4 in bf16 (on wgmma and TMA) and in f32 (three TF32 passes)
 MMA_KERNELS = {"flash_fwd": ("flash_fwd_wgmma_kernel", "flash_fwd_tf32_kernel"),
-               "flash_bwd": ("flash_bwd_dq_mma_kernel", "flash_bwd_dkv_mma_kernel",
+               "flash_bwd": ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel",
                              "flash_bwd_dq_tf32_kernel", "flash_bwd_dkv_tf32_kernel")}
 # the kernels built for Hopper alone, by source: their SASS must hold wgmma
 # (HGMMA) and TMA loads (UTMALDG) at every head dim
-SM90_KERNELS = {"flash_fwd": "flash_fwd_wgmma_kernel"}
+SM90_KERNELS = {"flash_fwd": ("flash_fwd_wgmma_kernel",),
+                "flash_bwd": ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel")}
 K3_REPLACES = "moc_tpu/ops/flash_attention.py:188"
 K4_REPLACES = "moc_tpu/ops/flash_attention.py:238"
 # K3/K4: the JAX package's flash backward tolerance in f32; in bf16, a share
@@ -497,6 +501,11 @@ def phase_build() -> dict:
         entry, spills, seen = None, "", set()
         for line in rec["log"].splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", line)
+            # ptxas's note that it serialised a kernel's wgmma products (C7511):
+            # the build succeeds, and the kernel runs at a fraction of its rate
+            serial = re.search(r"wgmma\.mma_async instructions are serialized.*'(\S+)'", line)
+            check(not serial, f"{name}: ptxas serialised the wgmma products of "
+                  f"{_kernel_name(serial.group(1)) if serial else ''}: {line.strip()}")
             if m:
                 entry = _kernel_name(m.group(1))
             elif "spill" in line:
@@ -505,7 +514,7 @@ def phase_build() -> dict:
                       f"{name}: {entry} spills registers: {spills}")
                 # the Hopper kernels keep every array in registers: a stack frame
                 # there is an array ptxas put in local memory
-                check(not (entry or "").startswith(SM90_KERNELS.get(name, "\0"))
+                check(not (entry or "").startswith(SM90_KERNELS.get(name, ()))
                       or spills.startswith("0 bytes stack frame"),
                       f"{name}: {entry} keeps an array in local memory: {spills}")
             elif entry and (m := re.search(r"Used (\d+) registers", line)):
@@ -522,15 +531,16 @@ def phase_build() -> dict:
         for kernel in MMA_KERNELS.get(name, ()):
             for d in (32, 64, 128):
                 check(f"{kernel}<{d}>" in seen, f"{name}: {kernel}<{d}> is missing from the build")
-    for name, kernel in SM90_KERNELS.items():
-        counts = _sass_counts(built[name]["path"], kernel)
-        for d in (32, 64, 128):
-            c = counts.get(f"{kernel}<{d}>", {})
-            check(c.get("HGMMA", 0) > 0 and c.get("UTMALDG", 0) > 0,
-                  f"{name}: {kernel}<{d}> issues no wgmma or no TMA load: {c}")
-        log(f"[build] {name}: SASS instructions of {kernel} by head dim "
-            f"(wgmma HGMMA, TMA loads UTMALDG and stores UTMASTG, mbarrier waits SYNCS): "
-            f"{json.dumps(counts)}")
+    for name, kernels in SM90_KERNELS.items():
+        for kernel in kernels:
+            counts = _sass_counts(built[name]["path"], kernel)
+            for d in (32, 64, 128):
+                c = counts.get(f"{kernel}<{d}>", {})
+                check(c.get("HGMMA", 0) > 0 and c.get("UTMALDG", 0) > 0,
+                      f"{name}: {kernel}<{d}> issues no wgmma or no TMA load: {c}")
+            log(f"[build] {name}: SASS instructions of {kernel} by head dim "
+                f"(wgmma HGMMA, TMA loads UTMALDG and stores UTMASTG, mbarrier waits SYNCS): "
+                f"{json.dumps(counts)}")
     return built
 
 
@@ -1989,11 +1999,88 @@ def _bwd_inputs(q, k, v, qs, ks, causal, gen):
     return o, lse, do, (o.float() * do.float()).sum(-1)
 
 
+def bwd_reference_64_row_tiles(q, k, v, o, lse, do, q_seg, kv_seg):
+    """``flash_bwd_reference`` under causal masking with K3's and K4's rule
+    for rows that match no key: such a row (lse = the mask value) takes P = 1
+    for the keys of its 64-row tile and those before, ``[0, min(Lkv, tile +
+    64))``, not for every key. For every other row the rule changes nothing: a
+    key past its tile's end is after the row, so P is 0 there anyway."""
+    from moc_tpu_torch.ops.flash_attention import DEFAULT_MASK_VALUE
+
+    sm_scale = q.shape[-1] ** -0.5
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    rows = torch.arange(q.shape[2], device=q.device)
+    keys = torch.arange(k.shape[2], device=q.device)
+    mask = ((keys[None] <= rows[:, None])[None, None]
+            & (q_seg[:, None, :, None] == kv_seg[:, None, None, :]))
+    s = torch.where(mask, torch.einsum("bhqd,bhkd->bhqk", qf, kf) * sm_scale, DEFAULT_MASK_VALUE)
+    runs = keys[None] < torch.clamp(rows // 64 * 64 + 64, max=k.shape[2])[:, None]
+    p = torch.exp(s - lse[..., None]) * runs
+    delta = (o.float() * dof).sum(-1)
+    ds = (p * (torch.einsum("bhqd,bhkd->bhqk", dof, vf) - delta[..., None]) * sm_scale)
+    ds = ds.to(q.dtype).float()
+    return (torch.einsum("bhqk,bhkd->bhqd", ds, kf).to(q.dtype),
+            torch.einsum("bhqk,bhqd->bhkd", ds, qf).to(q.dtype),
+            torch.einsum("bhqk,bhqd->bhkd", p.to(q.dtype).float(), dof).to(q.dtype))
+
+
+def _strided_grads(d, fused, causal, gen) -> dict:
+    """bf16 ``flash_attention`` with gradients on the views of
+    ``_strided_views``' layouts and a dO of the output's ``[B, L, H, D]``
+    memory, as the encoders train: K3 and K4 must get q, k, v and dO as they
+    lie (no copy), once each, and every gradient must be bit-equal to the same
+    call on contiguous copies; returns ``_bwd_errors`` of the gradients
+    against ``flash_bwd_reference``."""
+    from moc_tpu_torch.ops import flash_attention as fa
+    from moc_tpu_torch.ops.flash_kernel import (flash_bwd_dkv_cuda, flash_bwd_dq_cuda,
+                                                flash_fwd_cuda)
+
+    b, h, length = 2, 3, 785
+    views = [t.requires_grad_(True) for t in _strided_views(b, h, length, d, gen, fused)]
+    do = torch.randn((b, length, h, d), generator=gen, device="cuda").transpose(1, 2)
+    seen = []
+
+    def recorder(kernel):
+        def run(q, k, v, dout, *args, **kwargs):
+            seen.append([(t.data_ptr(), t.stride()) for t in (q, k, v, dout)])
+            return kernel(q, k, v, dout, *args, **kwargs)
+        return run
+
+    before = (flash_bwd_dq_cuda.launches, flash_bwd_dkv_cuda.launches)
+    fa.flash_bwd_dq_cuda, fa.flash_bwd_dkv_cuda = (recorder(flash_bwd_dq_cuda),
+                                                   recorder(flash_bwd_dkv_cuda))
+    try:
+        out = fa.flash_attention(*views, causal=causal)
+        grads = torch.autograd.grad((out.float() * do).sum(), views)
+    finally:
+        fa.flash_bwd_dq_cuda, fa.flash_bwd_dkv_cuda = flash_bwd_dq_cuda, flash_bwd_dkv_cuda
+    torch.cuda.synchronize()
+    check((flash_bwd_dq_cuda.launches, flash_bwd_dkv_cuda.launches)
+          == (before[0] + 1, before[1] + 1), "strided views: K3/K4 launch not counted")
+    want_qkv = [(t.data_ptr(), t.stride()) for t in views]
+    check(len(seen) == 2 and all(call[:3] == want_qkv and call[3][1] == do.stride()
+                                 for call in seen),
+          f"K3/K4 were handed copies of the strided views: {seen}")
+    copies = [t.detach().contiguous().requires_grad_(True) for t in views]
+    out_c = fa.flash_attention(*copies, causal=causal)
+    grads_c = torch.autograd.grad((out_c.float() * do.contiguous()).sum(), copies)
+    check(torch.equal(out, out_c) and all(torch.equal(g, gc) for g, gc in zip(grads, grads_c)),
+          f"gradients of strided views differ from those of contiguous copies (D={d} "
+          f"fused={fused} causal={causal})")
+    with torch.no_grad():
+        q, k, v = (t.detach() for t in views)
+        o, lse = flash_fwd_cuda(q, k, v, causal=causal)
+        want = fa.flash_bwd_reference(q, k, v, o, lse, do.to(torch.bfloat16), causal=causal)
+    return _bwd_errors(grads, want, torch.bfloat16)
+
+
 def phase_flash_bwd_parity() -> dict:
     """K3 and K4 against ``flash_bwd_reference`` on the card over the grid of
-    K2's parity phase; returns, per dtype, the largest |kernel - plain|."""
+    K2's parity phase; bf16 also on strided views (``_strided_grads``) and on
+    causal rows that match no key (``bwd_reference_64_row_tiles``); returns,
+    per dtype, the largest |kernel - plain|."""
     from moc_tpu_torch.ops.flash_attention import flash_bwd_reference
-    from moc_tpu_torch.ops.flash_kernel import flash_bwd_dkv_cuda, flash_bwd_dq_cuda
+    from moc_tpu_torch.ops.flash_kernel import flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_fwd_cuda
 
     gen = torch.Generator(device="cuda").manual_seed(4)
     err = {dt: {"dq": 0.0, "dkv": 0.0, "max_rel": 0.0, "mean_rel": 0.0, "mean_rel_dq": 0.0}
@@ -2020,6 +2107,31 @@ def phase_flash_bwd_parity() -> dict:
                             e = _bwd_errors((dq, dk, dv), want, dtype)
                             err[dtype] = {kk: max(err[dtype][kk], e[kk]) for kk in e}
                             cases += 1
+    dtype = torch.bfloat16
+    for d in (32, 64, 128):
+        for fused in (False, True):
+            for causal in (False, True):
+                e = _strided_grads(d, fused, causal, gen)
+                err[dtype] = {kk: max(err[dtype][kk], e[kk]) for kk in e}
+                cases += 1
+    # causal rows that no key matches: in each 64-row half of a 128-row item,
+    # ending inside a running key tile (K3) or starting a warpgroup's keys (K4)
+    with torch.inference_mode():
+        for d in (64, 128):
+            q, k, v, do = (torch.randn((2, 3, 300, d), generator=gen, device="cuda").to(dtype)
+                           for _ in range(4))
+            kv_seg = torch.zeros((2, 300), dtype=torch.int32, device="cuda")
+            q_seg = kv_seg.clone()
+            for lo in (10, 70, 135, 200, 290):
+                q_seg[:, lo:lo + 6] = 5
+            o, lse = flash_fwd_cuda(q, k, v, q_seg, kv_seg, causal=True)
+            delta = (o.float() * do.float()).sum(-1)
+            dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, q_seg, kv_seg, causal=True)
+            dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, q_seg, kv_seg, causal=True)
+            want = bwd_reference_64_row_tiles(q, k, v, o, lse, do, q_seg, kv_seg)
+            e = _bwd_errors((dq, dk, dv), want, dtype)
+            err[dtype] = {kk: max(err[dtype][kk], e[kk]) for kk in e}
+            cases += 1
     for dtype, e in err.items():
         log(f"[parity] K3/K4 {dtype}: max |dq - plain| {e['dq']:.3e}, max |dk, dv - plain| "
             f"{e['dkv']:.3e} (tolerance {BWD_TOL[dtype]}"
@@ -2029,7 +2141,9 @@ def phase_flash_bwd_parity() -> dict:
             f"|grad - plain| / mean |plain| at most {e['mean_rel']:.3e} (dq alone "
             f"{e['mean_rel_dq']:.3e})")
     log(f"[parity] K3 and K4 match flash_bwd_reference on {cases} cases (f32/bf16, "
-        "D 32/64/128, L 785/1024, causal or not, segments with rows masked everywhere)")
+        "D 32/64/128, L 785/1024, causal or not, segments with rows masked everywhere; bf16 "
+        "strided views and dO of [B, L, H, D] and fused projections, their gradients "
+        "bit-equal to contiguous copies'; causal rows that match no key)")
     return err
 
 
@@ -4679,7 +4793,7 @@ def phase_slice_kernel_times() -> dict:
     each held against its plain version on the same tensors (the limits of
     the parity phases), then timed per call by CUDA events (median) beside
     its bound, the plain version and ``scaled_dot_product_attention``
-    (forward; its backward for K3 + K4 together), timed only; K2 also
+    (forward; its backward for K3 + K4 together), timed only; each also
     kernel-only by the profiler and queued behind a spin (``_kernel_us``)."""
     import torch.nn.functional as F
 
@@ -4725,16 +4839,20 @@ def phase_slice_kernel_times() -> dict:
                                                    iters=30, warmup=3)
                 rec["K2"].update(_kernel_us(lambda: flash_fwd_cuda(q, k, v), K2_KERNEL[dtype],
                                             flash_fwd_cuda))
+                rec["K3"].update(_kernel_us(lambda: flash_bwd_dq_cuda(q, k, v, do, lse, delta),
+                                            "flash_bwd_dq_", flash_bwd_dq_cuda))
+                rec["K4"].update(_kernel_us(lambda: flash_bwd_dkv_cuda(q, k, v, do, lse, delta),
+                                            "flash_bwd_dkv_", flash_bwd_dkv_cuda))
             leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
             out = F.scaled_dot_product_attention(*leaves)
             lib = _time_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
                            iters=20, warmup=3)
             rec["K3"]["library_ms"] = rec["K4"]["library_ms"] = lib
             records[f"{cell}_{tier}"] = rec
-            log(f"[times] {tier} {cell} {list(shape)}: K2 {_us(rec['K2']['kernel_us'])} "
-                f"kernel-only, {_us(rec['K2']['device_us'])} queued; " + "; ".join(
-                f"{kid} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} by {r['bound_by']}, plain "
-                f"{r['plain_ms']:.3f}, library {r['library_ms']:.4f}, max |err| "
+            log(f"[times] {tier} {cell} {list(shape)}: " + "; ".join(
+                f"{kid} {r['ms']:.4f} ms, {_us(r['kernel_us'])} kernel-only, "
+                f"{_us(r['device_us'])} queued (bound {r['bound_ms']:.4f} by {r['bound_by']}, "
+                f"plain {r['plain_ms']:.3f}, library {r['library_ms']:.4f}, max |err| "
                 f"{r['max_abs_err']:.2e})" for kid, r in rec.items() if kid != "shape"))
             del q, k, v, o, lse, do, delta, out, leaves
             torch.cuda.empty_cache()

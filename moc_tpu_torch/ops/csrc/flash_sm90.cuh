@@ -1,5 +1,6 @@
-// Hopper (sm_90a) building blocks of bf16 K2 (flash_fwd.cu), kept apart
-// from flash_mma.cuh (mma.sync, ldmatrix, cp.async), which K3 and K4 still use:
+// Hopper (sm_90a) building blocks of bf16 K2 (flash_fwd.cu) and of bf16 K3
+// and K4 (flash_bwd.cu), kept apart from flash_mma.cuh (mma.sync, ldmatrix,
+// cp.async), which the f32 tiers use:
 //
 // - TMA: tensor maps over a bf16 [B, H, L, D] tensor read by its strides
 //   (make_map, encoded on the host through the driver's
@@ -9,13 +10,13 @@
 //   a box is at most 64 columns (128 bytes) wide, laid out in shared memory
 //   with the 128-byte swizzle (64-byte at D = 32), and rows past the
 //   tensor's end are zero-filled on a load and dropped on a store;
-// - mbarriers: init, arrive, arrive with an expected byte count, and a
-//   parity wait;
+// - mbarriers: init, arrive, arrive with an expected byte count, an arrival
+//   once a thread's cp.async copies have landed, and a parity wait;
 // - wgmma: the descriptor of a swizzled shared-memory operand (smem_desc),
 //   fence / commit / wait, and m64nNk16 bf16 products with f32 accumulators,
-//   A from shared memory (wgmma_ss) or from registers (wgmma_rs, B
-//   transposed: MN-major), plus fence_regs, which pins registers in program
-//   order around the asynchronous products;
+//   A from shared memory (wgmma_ss, N = 32, 64 or 128) or from registers
+//   (wgmma_rs, N = 32, 64 or 128, B transposed: MN-major), plus fence_regs,
+//   which pins registers in program order around the asynchronous products;
 // - setmaxnreg (reg_alloc / reg_dealloc) and named barriers (wait, arrive).
 //
 // The accumulator of an m64nN product gives lane 4g + t of warp w of the
@@ -64,6 +65,12 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
 __device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
                : "memory");
+}
+
+// arrive on `bar` once every cp.async this thread issued before it has landed
+// (noinc: the barrier's expected count includes this arrival)
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
 }
 
 // wait until the barrier's phase of parity `parity` has completed
@@ -211,6 +218,37 @@ __device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t a, uint64
         "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
         "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t a, uint64_t b,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a, uint64_t b,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "r"(accumulate));
 }
 

@@ -103,7 +103,8 @@ def _forward(q, k, v, q_seg, kv_seg, causal, sm_scale):
 
 def _backward(q, k, v, o, lse, do, q_seg, kv_seg, causal, sm_scale):
     if q.device.type == "cuda":
-        do = do.contiguous()
+        if not _keeps_view(do):  # a layout copy: K3 and K4 run either way
+            do = do.contiguous()
         # rowsum(dO * O) in f32, outside the kernels as the TPU's _bwd takes it
         delta = (o.float() * do.float()).sum(-1)
         dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, q_seg, kv_seg, causal=causal,
@@ -190,17 +191,18 @@ def _prepare(q, k, v, q_segment_ids, kv_segment_ids, sm_scale):
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     needs_grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
-    qkv = tuple(t if _keeps_view(t, needs_grad) else t.contiguous() for t in (q, k, v))
+    qkv = tuple(t if _keeps_view(t) else t.contiguous() for t in (q, k, v))
     return qkv, q_segment_ids, kv_segment_ids, float(sm_scale), needs_grad
 
 
-def _keeps_view(t, needs_grad):
-    """Whether ``_prepare`` hands ``t`` on as it lies: bf16 without a gradient
-    (extraction, the encoders' inference), where K2 reads its strides
-    (``tma_readable``), as the plain version does on the CPU. The grad path
-    copies: autograd saves these tensors for K3 and K4, which take contiguous
-    ones; f32 K2 takes contiguous tensors too."""
-    return not needs_grad and t.dtype == torch.bfloat16 and tma_readable(t)
+def _keeps_view(t):
+    """Whether ``t`` goes to the kernels as it lies: bf16 whose strides TMA
+    can read (``tma_readable``), with or without a gradient, since K2, K3 and
+    K4 all read bf16 q, k, v and dO by their strides (the ``[B, H, L, D]``
+    views of the encoders' ``[B, L, H, D]`` projections), as the plain
+    versions do on the CPU. Anything else is copied to a contiguous tensor:
+    the f32 kernels take contiguous tensors."""
+    return t.dtype == torch.bfloat16 and tma_readable(t)
 
 
 def flash_attention_with_lse(q, k, v, *, q_segment_ids=None, kv_segment_ids=None,

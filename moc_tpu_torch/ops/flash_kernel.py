@@ -23,21 +23,22 @@ At the pretraining shape ``[32, 12, 512, 64]`` K3 does 6·B·H·L²·D = 38.7
 GFLOP and K4 8·B·H·L²·D = 51.5 GFLOP: 0.2345 and 0.312 ms in f32, against
 0.08-0.09 ms for their bytes.
 
-Design: one CTA per (b·h, 64-row tile) (bf16 K2: 128 rows an item of a
-persistent CTA): K2 and K3 own a query tile and loop over 64-key K/V tiles
-(bf16 K2: 128 keys); K4 owns a key tile and loops over the query tiles, so
-no tile is reduced across CTAs and nothing needs atomics. Running sums are
+Design: in f32 one CTA per (b·h, 64-row tile); in bf16 persistent CTAs
+over (b·h, 128-row) items, 64 rows for each of two consumer warpgroups. K2
+and K3 own query rows and loop over K/V tiles; K4 owns keys and loops over
+the query tiles, so no tile is reduced across CTAs and nothing needs
+atomics. Running sums are
 in f32 registers. In f32 all three run on the tensor cores in three TF32
 passes (hi·hi + hi·lo + lo·hi of operands split as hi = tf32(x), lo =
 tf32(x - hi), inside the kernel, with no process-global TF32 flag read or
 set): one pass would miss the JAX package's f32 tolerances, three hold them
 and stay within 1e-5 of the largest |O| (K2) or |grad| (K3, K4) of the plain
 version. In bf16 all three run on the tensor cores: exact bf16 products
-summed in f32, K3 and K4 on ``mma.sync`` over tiles streamed by ``cp.async``
-(``csrc/flash_mma.cuh``), and K2, rebuilt for Hopper, on ``wgmma`` over
-tiles that a producer warp loads by TMA into an mbarrier ring
-(``csrc/flash_sm90.cuh``) for two consumer warpgroups of 64 query rows
-each, reading q, k, v by their strides (``tma_geometry``). On the tensor
+summed in f32, built for Hopper on ``wgmma`` over tiles that a producer
+warp loads by TMA into an mbarrier ring (``csrc/flash_sm90.cuh``) for two
+consumer warpgroups of 64 rows each, reading q, k, v (and the backward's
+dO) by their strides and writing o, dq, dk and dv by theirs
+(``tma_geometry``). On the tensor
 cores the kernels sum in another order than the plain version, so they
 match it within a tolerance rather than bit for bit. Any Lq and Lkv: the
 ragged edge is masked by bounds, so the vision trunk's 785 tokens need no
@@ -103,13 +104,14 @@ def tma_geometry(t: torch.Tensor, box_rows: int) -> dict:
             "swizzle": cols * t.element_size()}
 
 
-def _tma_strides(t: torch.Tensor) -> tuple:
-    """``tma_geometry``'s byte strides of L, H and B (the wrapper's fast path)."""
+def _tma_strides(t: torch.Tensor, name: str = "K2") -> tuple:
+    """``tma_geometry``'s byte strides of L, H and B (the wrappers' fast
+    path); ``name`` is the kernel a refusal names."""
     b, h, length, d = t.shape
     sb, sh, sl, sd = t.stride()
     el = t.element_size()
     if d > 1 and sd != 1:
-        raise ValueError(f"K2 reads bf16 tensors whose last dim is contiguous, got strides "
+        raise ValueError(f"{name} reads bf16 tensors whose last dim is contiguous, got strides "
                          f"{t.stride()}")
     empty = t.numel() == 0
     step_l = d * el if length <= 1 or empty else sl * el
@@ -117,14 +119,15 @@ def _tma_strides(t: torch.Tensor) -> tuple:
     step_b = step_h * max(h, 1) if b <= 1 or empty else sb * el
     for step in (step_l, step_h, step_b):
         if step <= 0 or step % TMA_STRIDE_BYTES or step >= TMA_MAX_STRIDE:
-            raise ValueError(f"K2 reads bf16 tensors by strides that are multiples of "
+            raise ValueError(f"{name} reads bf16 tensors by strides that are multiples of "
                              f"{TMA_STRIDE_BYTES} bytes, got strides {t.stride()} "
                              f"(elements of {el} bytes)")
     return step_l, step_h, step_b
 
 
 def tma_readable(t: torch.Tensor) -> bool:
-    """Whether K2's bf16 kernel can read ``t`` as it lies (``tma_geometry``)."""
+    """Whether the bf16 kernels (K2, K3, K4) can read ``t`` as it lies
+    (``tma_geometry``)."""
     try:
         tma_geometry(t, Q_BOX_ROWS)
     except ValueError:
@@ -228,10 +231,7 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
-    strides = None
-    if bf16:  # the byte strides of L, H and B of q, k, v and o, as the kernel's maps take them
-        strides = (ctypes.c_longlong * 12)(*_tma_strides(q), *_tma_strides(k),
-                                           *_tma_strides(v), *_tma_strides(out))
+    strides = _strides("K2", (q, k, v, out)) if bf16 else None
     _launch(_kernel("flash_fwd", "moc_flash_fwd", 8), "flash_fwd", q,
             [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
              _ptr(q_seg), _ptr(kv_seg), None if strides is None else ctypes.addressof(strides)],
@@ -249,10 +249,22 @@ def _check_stats(name: str, q: torch.Tensor, lse: torch.Tensor, delta: torch.Ten
 
 
 def _backward_args(name, q, k, v, do, lse, delta, q_segment_ids, kv_segment_ids):
-    _check(name, q, k, v, (do,))
+    """The checks of K3 and K4: bf16 q, k, v and do are read by their
+    strides (held to ``tma_geometry``'s contract at the launch), f32 ones are
+    contiguous; lse and delta as ``_check_stats`` takes them. Returns the
+    segment ids as the kernels take them."""
+    _check(name, q, k, v, (do,), strided=q.dtype == torch.bfloat16)
     _check_stats(name, q, lse, delta)
     b, _, lq, _ = q.shape
     return _segments(q_segment_ids, kv_segment_ids, b, lq, k.shape[2], q.device)
+
+
+def _strides(name: str, tensors) -> ctypes.Array:
+    """The byte strides of L, H and B of each bf16 tensor in turn, as the
+    kernels' tensor maps take them; raises ``ValueError`` where TMA cannot
+    read or write one by its strides."""
+    values = [x for t in tensors for x in _tma_strides(t, name)]
+    return (ctypes.c_longlong * len(values))(*values)
 
 
 def flash_bwd_dq_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
@@ -261,16 +273,20 @@ def flash_bwd_dq_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: tor
                       kv_segment_ids: torch.Tensor | None = None, *, causal: bool = False,
                       sm_scale: float | None = None) -> torch.Tensor:
     """K3: ``dq [B, H, Lq, D]`` in the input type, from q, k, v and ``do``
-    (as ``flash_fwd_cuda`` takes them), the forward's ``lse`` and ``delta =
-    rowsum(do * o)``, both f32 ``[B, H, Lq]``. One launch."""
+    (as ``flash_fwd_cuda`` takes them: bf16 read by their strides, so the
+    views of ``[B, L, H, D]`` projections need no copy, and dq takes q's
+    layout where q is dense), the forward's ``lse`` and ``delta = rowsum(do *
+    o)``, both contiguous f32 ``[B, H, Lq]``. One launch."""
     q_seg, kv_seg = _backward_args("K3", q, k, v, do, lse, delta, q_segment_ids,
                                    kv_segment_ids)
     dq = torch.empty_like(q)
     if dq.numel() == 0:
         return dq
-    _launch(_kernel("flash_bwd", "moc_flash_bwd_dq", 9), "flash_bwd_dq", q,
+    strides = _strides("K3", (q, k, v, do, dq)) if q.dtype == torch.bfloat16 else None
+    _launch(_kernel("flash_bwd", "moc_flash_bwd_dq", 10), "flash_bwd_dq", q,
             [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-             delta.data_ptr(), dq.data_ptr(), _ptr(q_seg), _ptr(kv_seg)], k.shape[2], causal,
+             delta.data_ptr(), dq.data_ptr(), _ptr(q_seg), _ptr(kv_seg),
+             None if strides is None else ctypes.addressof(strides)], k.shape[2], causal,
             q.shape[3] ** -0.5 if sm_scale is None else sm_scale)
     flash_bwd_dq_cuda.launches += 1
     return dq
@@ -281,16 +297,19 @@ def flash_bwd_dkv_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: to
                        q_segment_ids: torch.Tensor | None = None,
                        kv_segment_ids: torch.Tensor | None = None, *, causal: bool = False,
                        sm_scale: float | None = None) -> tuple[torch.Tensor, torch.Tensor]:
-    """K4: ``(dk, dv) [B, H, Lkv, D]`` in the input type, from the inputs
-    ``flash_bwd_dq_cuda`` takes. One launch."""
+    """K4: ``(dk, dv) [B, H, Lkv, D]`` in the input type (in k's and v's
+    layouts where they are dense), from the inputs ``flash_bwd_dq_cuda``
+    takes. One launch."""
     q_seg, kv_seg = _backward_args("K4", q, k, v, do, lse, delta, q_segment_ids,
                                    kv_segment_ids)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if dk.numel() == 0:
         return dk, dv
-    _launch(_kernel("flash_bwd", "moc_flash_bwd_dkv", 10), "flash_bwd_dkv", q,
+    strides = _strides("K4", (q, k, v, do, dk, dv)) if q.dtype == torch.bfloat16 else None
+    _launch(_kernel("flash_bwd", "moc_flash_bwd_dkv", 11), "flash_bwd_dkv", q,
             [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-             delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(q_seg), _ptr(kv_seg)],
+             delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(q_seg), _ptr(kv_seg),
+             None if strides is None else ctypes.addressof(strides)],
             k.shape[2], causal, q.shape[3] ** -0.5 if sm_scale is None else sm_scale)
     flash_bwd_dkv_cuda.launches += 1
     return dk, dv

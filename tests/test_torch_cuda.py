@@ -438,11 +438,17 @@ def _k3_k4(q, k, v, o, lse, do, qs, ks, causal):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [32, 64, 128])
-@pytest.mark.parametrize("length", [1, 63, 512, 785, 1024])
+@pytest.mark.parametrize("length", [1, 63, 100, 512, 577, 785, 1024, 8192])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("segments", [False, True])
 def test_k3_k4_match_plain(gen, dtype, d, length, causal, segments):
-    q, k, v, o, lse, do, qs, ks = _bwd_case(gen, length, length, d, dtype, segments, causal)
+    """Lengths that end a 128-row item of the bf16 kernels inside either
+    warpgroup's half (100, 577, 785), whole items (512, 1024) and the ring's
+    whole sequence (8192); segments without causal masking hold 16 rows that
+    match no key."""
+    b, h = (1, 2) if length == 8192 else (2, 3)
+    q, k, v, o, lse, do, qs, ks = _bwd_case(gen, length, length, d, dtype, segments, causal,
+                                            b=b, h=h)
     got = _k3_k4(q, k, v, o, lse, do, qs, ks, causal)
     want = flash_bwd_reference(q, k, v, o, lse, do, qs, ks, causal)
     _assert_bwd_close(got, want, dtype, dq_mean=length > 1, f32_max_rel=True)
@@ -511,6 +517,137 @@ def test_k3_k4_f32_packed_causal_d128(gen):
         got = _k3_k4(q, k, v, o, lse, do, seg, seg, True)
     want = flash_bwd_reference(q, k, v, o, lse, do, seg, seg, True)
     _assert_bwd_close(got, want, torch.float32, f32_max_rel=True)
+
+
+def _bwd_reference_64_row_tiles(q, k, v, o, lse, do, qs, ks):
+    """``flash_bwd_reference`` under causal masking with the kernels' rule
+    for rows that match no key: such a row (lse = the mask value) takes P = 1
+    for the keys of the 64-row tiles that run, ``[0, min(Lkv, tile + 64))``,
+    not for every key. For every other row the rule changes nothing: a key
+    past its tile's end is after the row, so P is 0 there anyway."""
+    sm_scale = q.shape[-1] ** -0.5
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    lq, lkv = q.shape[2], k.shape[2]
+    rows, keys = torch.arange(lq, device=q.device), torch.arange(lkv, device=q.device)
+    mask = (keys[None] <= rows[:, None])[None, None] & (qs[:, None, :, None]
+                                                        == ks[:, None, None, :])
+    s = torch.where(mask, torch.einsum("bhqd,bhkd->bhqk", qf, kf) * sm_scale,
+                    DEFAULT_MASK_VALUE)
+    runs = keys[None] < torch.clamp(rows // 64 * 64 + 64, max=lkv)[:, None]
+    p = torch.exp(s - lse[..., None]) * runs
+    delta = (o.float() * dof).sum(-1)
+    ds = (p * (torch.einsum("bhqd,bhkd->bhqk", dof, vf) - delta[..., None]) * sm_scale)
+    ds = ds.to(q.dtype).float()
+    return (torch.einsum("bhqk,bhkd->bhqd", ds, kf).to(q.dtype),
+            torch.einsum("bhqk,bhqd->bhkd", ds, qf).to(q.dtype),
+            torch.einsum("bhqk,bhqd->bhkd", p.to(q.dtype).float(), dof).to(q.dtype))
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_k3_k4_bf16_causal_rows_without_keys_count_their_64_row_tile(gen, d):
+    """A causal row that matches no key has lse = the mask value, and K3 and
+    K4 take P = 1 for the keys of its 64-row tile and those before, not for
+    every key (``_bwd_reference_64_row_tiles``): rows 10-15 and 135-140 end
+    inside a running key tile (K3's per-warpgroup ``kv_end``), rows 70-75 and
+    200-205 start a warpgroup's keys (K4's per-warpgroup first query)."""
+    length = 300
+    q, k, v, do = (torch.randn((2, 3, length, d), generator=gen, device="cuda").bfloat16()
+                   for _ in range(4))
+    ks = torch.zeros((2, length), dtype=torch.int32, device="cuda")
+    qs = ks.clone()
+    for lo in (10, 70, 135, 200, 290):
+        qs[:, lo:lo + 6] = 5
+    with torch.no_grad():
+        o, lse = flash_fwd_cuda(q, k, v, qs, ks, causal=True)
+    assert int((lse == DEFAULT_MASK_VALUE).sum()) == 2 * 3 * 30
+    got = _k3_k4(q, k, v, o, lse, do, qs, ks, True)
+    want = _bwd_reference_64_row_tiles(q, k, v, o, lse, do, qs, ks)
+    _assert_bwd_close(got, want, torch.bfloat16, dq_mean=True)
+    # the plain version's rule (every key) differs on those rows
+    plain = flash_bwd_reference(q, k, v, o, lse, do, qs, ks, True)
+    assert not torch.equal(plain[2], want[2])
+
+
+def _strided_leaves(gen, b, h, length, d, fused):
+    """bf16 leaves of the layouts the encoders train with, and their ``[B, H,
+    L, D]`` q, k, v views: three ``[B, L, H, D]`` projections, or (``fused``)
+    one ``[B, L, 3·H·D]`` projection cut in thirds."""
+    if fused:
+        x = torch.randn((b, length, 3 * h * d), generator=gen, device="cuda").to(torch.bfloat16)
+        leaves = [x.requires_grad_(True)]
+        views = [t.reshape(b, length, h, d).transpose(1, 2) for t in x.chunk(3, dim=-1)]
+    else:
+        leaves = [torch.randn((b, length, h, d), generator=gen, device="cuda")
+                  .to(torch.bfloat16).requires_grad_(True) for _ in range(3)]
+        views = [t.transpose(1, 2) for t in leaves]
+    return leaves, views
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("causal", [False, True])
+def test_k3_k4_bf16_grads_of_strided_views_bit_equal_to_contiguous(gen, d, fused, causal,
+                                                                   monkeypatch):
+    """``flash_attention`` with gradients on bf16 views of ``[B, L, H, D]``
+    projections (or of the thirds of a fused one): K3 and K4 get q, k, v and
+    a strided dO as they lie (no copy), once each, and the output and every
+    gradient are bit-equal to the same call on contiguous copies."""
+    from moc_tpu_torch.ops import flash_attention as fa
+
+    b, h, length = 2, 3, 785
+    leaves, views = _strided_leaves(gen, b, h, length, d, fused)
+    # dO of the output's layout, [B, L, H, D] memory seen as [B, H, L, D]
+    do = torch.randn((b, length, h, d), generator=gen, device="cuda").transpose(1, 2)
+    seen = []
+
+    def recorder(kernel):
+        def run(q, k, v, do, *args, **kwargs):
+            seen.append([(t.data_ptr(), t.stride()) for t in (q, k, v, do)])
+            return kernel(q, k, v, do, *args, **kwargs)
+        return run
+
+    monkeypatch.setattr(fa, "flash_bwd_dq_cuda", recorder(flash_bwd_dq_cuda))
+    monkeypatch.setattr(fa, "flash_bwd_dkv_cuda", recorder(flash_bwd_dkv_cuda))
+    before = (flash_bwd_dq_cuda.launches, flash_bwd_dkv_cuda.launches)
+    out = flash_attention(*views, causal=causal)
+    grads = torch.autograd.grad((out.float() * do).sum(), leaves)
+    torch.cuda.synchronize()
+    assert (flash_bwd_dq_cuda.launches, flash_bwd_dkv_cuda.launches) == (before[0] + 1,
+                                                                       before[1] + 1)
+    assert all(not t.is_contiguous() for t in views)
+    want_qkv = [(t.data_ptr(), t.stride()) for t in views]
+    assert len(seen) == 2 and all(call[:3] == want_qkv for call in seen)
+    assert all(call[3][1] == do.stride() for call in seen), seen  # dO uncopied
+    copies = [t.detach().clone().requires_grad_(True) for t in leaves]
+    contiguous = ([t.reshape(b, length, h, d).transpose(1, 2).contiguous()
+                   for t in copies[0].chunk(3, dim=-1)] if fused
+                  else [t.transpose(1, 2).contiguous() for t in copies])
+    out_c = flash_attention(*contiguous, causal=causal)
+    grads_c = torch.autograd.grad((out_c.float() * do.contiguous()).sum(), copies)
+    assert torch.equal(out, out_c)
+    assert all(torch.equal(g, gc) for g, gc in zip(grads, grads_c))
+
+
+def test_k3_k4_bf16_wrappers_refuse_unreadable_strides(gen):
+    """bf16 K3 and K4 read their tensors by stride, and raise where TMA
+    cannot: a row stride that is not a multiple of 16 bytes, or a last dim
+    that is not contiguous; nothing is launched."""
+    q, k, v, o, lse, do, _, _ = _bwd_case(gen, 128, 128, 64, torch.bfloat16, False, False)
+    delta = (o.float() * do.float()).sum(-1)
+    odd = torch.randn((2, 3, 128, 68), generator=gen, device="cuda").to(torch.bfloat16)[..., :64]
+    gappy = torch.randn((2, 3, 128, 128), generator=gen,
+                        device="cuda").to(torch.bfloat16)[..., ::2]
+    before = (flash_bwd_dq_cuda.launches, flash_bwd_dkv_cuda.launches)
+    for fn, name in ((flash_bwd_dq_cuda, "K3"), (flash_bwd_dkv_cuda, "K4")):
+        with pytest.raises(ValueError, match=f"{name} reads bf16 tensors by strides that are "
+                                             "multiples of 16 bytes"):
+            fn(odd, k, v, do, lse, delta)
+        with pytest.raises(ValueError, match="multiples of 16 bytes"):
+            fn(q, k, v, odd, lse, delta)
+        with pytest.raises(ValueError, match=f"{name} reads bf16 tensors whose last dim is "
+                                             "contiguous"):
+            fn(q, gappy, v, do, lse, delta)
+    assert (flash_bwd_dq_cuda.launches, flash_bwd_dkv_cuda.launches) == before
 
 
 def test_backward_leaves_tf32_flags_alone(gen):
@@ -1574,11 +1711,13 @@ def test_lora_step_on_the_card_matches_the_cpu(gen, experts):
         assert all(bool((torch.argmax(g, -1) == 0).all()) for g in gates)
 
 
-def test_vila_on_the_card_matches_the_cpu(gen):
+@pytest.mark.parametrize("seed", range(32))
+def test_vila_on_the_card_matches_the_cpu(gen, seed):
     """ViLa's first-step loss and gradients on the card against the CPU (a
-    narrow text tower, dual-scale bags with padding): in float64 within 1e-9
-    of the largest |grad|; in float32 no farther from the float64 reference
-    than 4x the CPU's float32, or within 1e-5."""
+    narrow text tower, dual-scale bags with padding, drawn from a generator
+    seeded ``seed``): in float64 within 1e-9 of the largest |grad|; in
+    float32 no farther from the float64 reference than 4x the CPU's float32,
+    or within 1e-5."""
     from moc_tpu_torch.models.layers import full_f32
     from moc_tpu_torch.models.vila import PromptConstants, PromptTensors, ViLaMIL, VilaConfig
     from moc_tpu_torch.train.vila import vila_loss
@@ -1591,8 +1730,10 @@ def test_vila_on_the_card_matches_the_cpu(gen):
     prompts = PromptConstants(rng.normal(size=(4, 1, 128)).astype(np.float32) * 0.02,
                               rng.normal(size=(4, 111, 128)).astype(np.float32) * 0.02,
                               np.array([20, 25, 21, 30]))
-    bag = DualScaleBag(torch.randn(512, 64), torch.arange(512) < 400, torch.randn(256, 64),
-                       torch.arange(256) < 256, torch.tensor(1))
+    draw = torch.Generator().manual_seed(seed)
+    bag = DualScaleBag(torch.randn(512, 64, generator=draw), torch.arange(512) < 400,
+                       torch.randn(256, 64, generator=draw), torch.arange(256) < 256,
+                       torch.tensor(1))
     base = ViLaMIL(cfg, torch.Generator().manual_seed(0))
     out = {}
     for dtype in (torch.float64, torch.float32):

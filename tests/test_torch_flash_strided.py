@@ -1,10 +1,12 @@
 """bf16 q, k, v read by their strides, on the CPU: the ``[B, H, L, D]`` views
 of ``[B, L, H, D]`` projections through ``flash_attention`` and
 ``flash_attention_with_lse`` against the JAX package on the same numbers,
-the tensor-map geometry K2's bf16 kernel encodes (``tma_geometry``), and
-``_prepare``'s rule of which tensors it copies. The kernel itself runs only
-on a GPU (``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
+forward and (with gradients) backward, the tensor-map geometry the bf16
+kernels encode (``tma_geometry``, and the strides K3 and K4 pass), and
+``_prepare``'s rule of which tensors it copies. The kernels themselves run
+only on a GPU (``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,7 +14,7 @@ import torch
 
 from moc_tpu.ops import flash_attention as jfa
 from moc_tpu_torch.ops import flash_attention as tfa
-from moc_tpu_torch.ops.flash_kernel import (KV_BOX_ROWS, Q_BOX_ROWS, tma_geometry,
+from moc_tpu_torch.ops.flash_kernel import (KV_BOX_ROWS, Q_BOX_ROWS, _strides, tma_geometry,
                                             tma_readable)
 
 # the tolerance of the JAX package's own bf16 flash tests
@@ -106,19 +108,92 @@ def test_prepare_keeps_bf16_views_without_grad_and_copies_otherwise():
     (q, k, v), *_ = tfa._prepare(view, view, view, None, None, None)
     assert all(t.data_ptr() == view.data_ptr() and t.stride() == view.stride()
                for t in (q, k, v))
-    # a gradient: copied (K3/K4 take contiguous tensors, autograd saves these)
+    # with a gradient too: autograd saves the views, and K3 and K4 read them
+    # (and dO) by their strides as K2 does
     leaf = view.detach().requires_grad_(True)
-    (q, _, _), _, _, _, needs_grad = tfa._prepare(leaf, view, view, None, None, None)
-    assert needs_grad and q.is_contiguous() and q.data_ptr() != view.data_ptr()
-    # the same view under no_grad is not copied
+    (q, k, _), _, _, _, needs_grad = tfa._prepare(leaf, view, view, None, None, None)
+    assert needs_grad and q.stride() == view.stride() and q.data_ptr() == view.data_ptr()
+    assert k.data_ptr() == view.data_ptr() and not q.is_contiguous()
+    # the same view under no_grad is not copied either
     with torch.no_grad():
         (q, _, _), *_ = tfa._prepare(leaf, view, view, None, None, None)
     assert q.data_ptr() == view.data_ptr()
-    # f32: copied (f32 K2 takes contiguous tensors)
+    # f32: copied (the f32 kernels take contiguous tensors), with a gradient too
     f32 = x.float().transpose(1, 2)
     (q, _, _), *_ = tfa._prepare(f32, f32, f32, None, None, None)
     assert q.is_contiguous()
-    # bf16 whose strides K2 cannot read: copied
+    (q, _, _), _, _, _, needs_grad = tfa._prepare(f32.detach().requires_grad_(True), f32, f32,
+                                                  None, None, None)
+    assert needs_grad and q.is_contiguous()
+    # bf16 whose strides the kernels cannot read: copied, with or without a gradient
     odd = torch.zeros((1, 2, 10, 68), dtype=torch.bfloat16)[..., :64]
     (q, _, _), *_ = tfa._prepare(odd, odd, odd, None, None, None)
     assert q.is_contiguous()
+    (q, _, _), *_ = tfa._prepare(odd.requires_grad_(True), odd, odd, None, None, None)
+    assert q.is_contiguous()
+
+
+def test_k3_k4_strides_in_the_kernels_order_and_refusals_name_the_kernel():
+    """The byte strides K3 and K4 hand their tensor maps: L, H and B of each
+    tensor in turn (q, k, v, do, then the gradients), as ``tma_geometry``
+    gives them; a stride TMA cannot take raises, naming the kernel."""
+    x = torch.zeros((2, 40, 3, 64), dtype=torch.bfloat16)
+    view, dense = x.transpose(1, 2), torch.zeros((2, 3, 40, 64), dtype=torch.bfloat16)
+    got = list(_strides("K3", (view, dense, dense, view, dense)))
+    want = [s for t in (view, dense, dense, view, dense)
+            for s in tma_geometry(t, Q_BOX_ROWS)["strides"]]
+    assert len(got) == 15 and got == want
+    assert got[:3] == [3 * 64 * 2, 64 * 2, 40 * 3 * 64 * 2]
+    assert len(_strides("K4", (view,) * 6)) == 18
+    odd = torch.zeros((1, 2, 10, 68), dtype=torch.bfloat16)[..., :64]
+    for name in ("K3", "K4"):
+        with pytest.raises(ValueError, match=f"{name} reads bf16 tensors by strides"):
+            _strides(name, (dense, odd))
+
+
+def _grad_views(seed, b, length, h, d):
+    """bf16 ``[B, L, H, D]`` leaves that need a gradient, their ``[B, H, L,
+    D]`` views for the port, and the same numbers and a dO for JAX, from
+    numpy."""
+    rng = np.random.default_rng(seed)
+    arrays = [rng.normal(size=(b, length, h, d)).astype(np.float32) for _ in range(4)]
+    leaves = [torch.from_numpy(a).to(torch.bfloat16).requires_grad_(True) for a in arrays[:3]]
+    jax_in = [jnp.asarray(a.transpose(0, 2, 1, 3), dtype=jnp.bfloat16) for a in arrays[:3]]
+    do = arrays[3].transpose(0, 2, 1, 3)
+    return leaves, jax_in, do
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("entry", ["flash_attention", "flash_attention_with_lse"])
+def test_bf16_views_with_grad_match_jax(entry, causal):
+    """bf16 views of ``[B, L, H, D]`` projections that need a gradient, on
+    the CPU: ``flash_attention`` and ``flash_attention_with_lse(lse_grad=
+    False)`` (the Functions whose backward is K3 + K4 on the card, the plain
+    backward here) keep the views, and their gradients match the JAX
+    package's flash backward (its Pallas kernels in interpret mode) on the
+    same numbers: each within 2e-2 of its largest |grad|, with a mean error
+    of at most 1% of its mean |grad|."""
+    b, length, h, d = 2, 128, 2, 64
+    leaves, (jq, jk, jv), do = _grad_views(11 + causal, b, length, h, d)
+    views = [t.transpose(1, 2) for t in leaves]
+    if entry == "flash_attention":
+        def jfn(q, k, v):
+            return jfa.flash_attention(q, k, v, causal=causal)
+        out = tfa.flash_attention(*views, causal=causal)
+    else:
+        def jfn(q, k, v):
+            return jfa.flash_attention_with_lse(q, k, v, causal=causal, lse_grad=False)[0]
+        out, lse = tfa.flash_attention_with_lse(*views, causal=causal, lse_grad=False)
+        assert not lse.requires_grad
+    want = jax.grad(lambda q, k, v: jnp.sum(jfn(q, k, v).astype(jnp.float32)
+                                            * jnp.asarray(do)), argnums=(0, 1, 2))(jq, jk, jv)
+    saved = out.grad_fn.saved_tensors
+    assert all(t.data_ptr() == w.data_ptr() and t.stride() == w.stride()
+               for t, w in zip(saved[:3], views))
+    grads = torch.autograd.grad((out.float() * torch.from_numpy(do)).sum(), leaves)
+    for g, w in zip(grads, want):
+        assert g.dtype == torch.bfloat16 and g.shape == (b, length, h, d)
+        g = g.float().transpose(1, 2).numpy()
+        w = np.asarray(w.astype(jnp.float32))
+        assert np.abs(g - w).max() <= TOL * np.abs(w).max()
+        assert np.abs(g - w).mean() <= 1e-2 * np.abs(w).mean()
