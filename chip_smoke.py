@@ -11,9 +11,10 @@ Phases, each of which makes the script exit non-zero when it fails:
    registers and spills from ``-Xptxas -v`` (a spill fails the run),
    check that every tensor-core kernel (K2, K3 and K4, each in bf16 and in
    f32, three TF32 passes) was built at D 32, 64 and 128, and that the SASS
-   of bf16 K2, K3 and K4 (``cuobjdump -sass``) holds wgmma (HGMMA) and TMA
-   loads (UTMALDG) at each D, with a 0-byte stack frame and no note from
-   ptxas that it serialised their wgmma products;
+   of K2 (bf16 and f32) and of bf16 K3 and K4 (``cuobjdump -sass``) holds
+   wgmma (HGMMA) and TMA loads (UTMALDG) at each D, with a 0-byte stack
+   frame and no note from ptxas that it serialised their wgmma products;
+   K2's dynamic shared memory a CTA at each D;
 2. K1 parity: exact top-k membership bit-equal to its plain PyTorch version
    on the card, with exactly k True per row, row and column entries: 96
    base cases (random, tie-heavy, ±0.0 and NEG_INF-padded keys with k above
@@ -30,11 +31,12 @@ Phases, each of which makes the script exit non-zero when it fails:
    D 32/64/128,
    L 785 (ragged) and 1024, causal and not, segment ids with rows that match
    no key (non-causal) or packed sequences (causal), and the
-   ``flash_attention_padded`` ``padding_mask`` path; bf16 also on strided
-   views (the ``[B, H, L, D]`` views of ``[B, L, H, D]`` projections and of
-   the thirds of a fused ``[B, L, 3·H·D]`` one; O keeps q's layout) and on
-   causal rows that match no key, whose keys end at their 64-row tile's
-   diagonal inside a 128-key tile;
+   ``flash_attention_padded`` ``padding_mask`` path; f32 and bf16 also on
+   strided views (the ``[B, H, L, D]`` views of ``[B, L, H, D]``
+   projections and of the thirds of a fused ``[B, L, 3·H·D]`` one; O keeps
+   q's layout and is bit-equal to O of contiguous copies), on causal rows
+   that match no key, whose keys end at their 64-row tile's diagonal inside
+   a running key tile, and with no key (Lkv = 0: O = 0, lse = -inf);
 4. serving: synthetic ``.pt`` bags at the reference operating point (D=512,
    C=2, C_ext=6, topj=400, topk=10, batch 8, the 16384 bucket) drained
    through ``cli.serve.watch_once`` by a ``Server`` on ``cuda``: every slide
@@ -63,8 +65,8 @@ Phases, each of which makes the script exit non-zero when it fails:
    lse, the tolerances of 3),
    then per launch against its bound, its plain version and
    ``scaled_dot_product_attention`` (timed only), kernel-only by the
-   profiler and queued behind a spin (bf16 also on ``[B, L, H, D]``
-   views), the batch-64
+   profiler and queued behind a spin (both dtypes also on ``[B, L, H,
+   D]`` views), the batch-64
    ``encode_image`` forward in four tiers (f32/bf16, dense/flash), and a
    ``torch.profiler`` breakdown of the f32 flash forward;
 8. K3/K4 parity: the flash-attention backward (dq; dk and dv) against
@@ -351,20 +353,22 @@ REPLACES = "moc_tpu/ops/topk_kernel.py:50"
 K2_SOURCE = "moc_tpu_torch/ops/csrc/flash_fwd.cu"
 K2_REPLACES = "moc_tpu/ops/flash_attention.py:68"
 K2_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # the JAX package's flash tolerances
-K2_KERNEL = {torch.float32: "flash_fwd_tf32_kernel", torch.bfloat16: "flash_fwd_wgmma_kernel"}
+K2_KERNEL = {torch.float32: "flash_fwd_tf32_wgmma_kernel",
+             torch.bfloat16: "flash_fwd_wgmma_kernel"}
 # f32 K2 beside that: max |O - plain| at most 1e-5 of the largest |O|. Three
 # TF32 passes keep each product within a few units in 2^-22 (an emulation on
 # the CPU: 3.2e-7 to 1.1e-6 of it); one pass misses 2e-5 itself.
 F32_FWD_MAX_REL = 1e-5
 BWD_SOURCE = "moc_tpu_torch/ops/csrc/flash_bwd.cu"
 # the tensor-core kernels of each source, each built at D = 32, 64 and 128: K2,
-# K3 and K4 in bf16 (on wgmma and TMA) and in f32 (three TF32 passes)
-MMA_KERNELS = {"flash_fwd": ("flash_fwd_wgmma_kernel", "flash_fwd_tf32_kernel"),
+# K3 and K4 in bf16 (on wgmma and TMA) and in f32 (three TF32 passes; K2 on
+# wgmma and TMA, K3 and K4 on mma.sync)
+MMA_KERNELS = {"flash_fwd": ("flash_fwd_wgmma_kernel", "flash_fwd_tf32_wgmma_kernel"),
                "flash_bwd": ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel",
                              "flash_bwd_dq_tf32_kernel", "flash_bwd_dkv_tf32_kernel")}
 # the kernels built for Hopper alone, by source: their SASS must hold wgmma
 # (HGMMA) and TMA loads (UTMALDG) at every head dim
-SM90_KERNELS = {"flash_fwd": ("flash_fwd_wgmma_kernel",),
+SM90_KERNELS = {"flash_fwd": ("flash_fwd_wgmma_kernel", "flash_fwd_tf32_wgmma_kernel"),
                 "flash_bwd": ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel")}
 K3_REPLACES = "moc_tpu/ops/flash_attention.py:188"
 K4_REPLACES = "moc_tpu/ops/flash_attention.py:238"
@@ -541,6 +545,12 @@ def phase_build() -> dict:
             log(f"[build] {name}: SASS instructions of {kernel} by head dim "
                 f"(wgmma HGMMA, TMA loads UTMALDG and stores UTMASTG, mbarrier waits SYNCS): "
                 f"{json.dumps(counts)}")
+    from moc_tpu_torch.ops.flash_kernel import k2_smem_bytes
+
+    log("[build] flash_fwd: dynamic shared memory a CTA of K2 at D 32 / 64 / 128: "
+        + "; ".join(f"{tier} " + " / ".join(str(k2_smem_bytes(d, dtype)) for d in (32, 64, 128))
+                    for tier, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)))
+        + " bytes")
     return built
 
 
@@ -698,16 +708,17 @@ def _flash_inputs(b, h, length, d, dtype, segments, causal, gen):
     return q, k, v, q_seg, kv_seg
 
 
-def _strided_views(b, h, length, d, gen, fused):
-    """bf16 q, k, v ``[B, H, L, D]`` as the encoders hand them to K2 without
-    a copy: the transposed ``[B, L, H, D]`` projections (``nn/encoder.py``),
-    or, ``fused``, heads of the three thirds of one ``[B, L, 3·H·D]``
-    projection (``nn/transformer.py``'s ``in_proj(x).chunk(3)``)."""
+def _strided_views(b, h, length, d, gen, fused, dtype=torch.bfloat16):
+    """q, k, v ``[B, H, L, D]`` in ``dtype`` as the encoders hand them to K2
+    without a copy: the transposed ``[B, L, H, D]`` projections
+    (``nn/encoder.py``), or, ``fused``, heads of the three thirds of one
+    ``[B, L, 3·H·D]`` projection (``nn/transformer.py``'s
+    ``in_proj(x).chunk(3)``)."""
     if fused:
-        x = torch.randn((b, length, 3 * h * d), generator=gen, device="cuda").to(torch.bfloat16)
+        x = torch.randn((b, length, 3 * h * d), generator=gen, device="cuda").to(dtype)
         return tuple(t.reshape(b, length, h, d).transpose(1, 2) for t in x.chunk(3, dim=-1))
     return tuple(torch.randn((b, length, h, d), generator=gen, device="cuda")
-                 .to(torch.bfloat16).transpose(1, 2) for _ in range(3))
+                 .to(dtype).transpose(1, 2) for _ in range(3))
 
 
 def no_key_reference(v, q_seg, kv_seg, ro, rlse):
@@ -730,10 +741,11 @@ def no_key_reference(v, q_seg, kv_seg, ro, rlse):
 
 def phase_flash_parity() -> dict:
     """K2 against its plain version on the card; returns, per dtype, the
-    largest |kernel - plain| over O and over lse. bf16 also on strided
-    views (``_strided_views``), whose O keeps q's layout, and on causal
-    rows that match no key, whose keys end inside a 128-key tile at their
-    64-row tile's diagonal (``no_key_reference``)."""
+    largest |kernel - plain| over O and over lse. Both dtypes also on
+    strided views (``_strided_views``), whose O keeps q's layout and is
+    bit-equal to O of contiguous copies, on causal rows that match no key,
+    whose keys end inside a running key tile at their 64-row tile's
+    diagonal (``no_key_reference``), and with no key at all."""
     from moc_tpu_torch.ops.flash_attention import flash_attention_padded, mha_reference
     from moc_tpu_torch.ops.flash_kernel import flash_fwd_cuda
 
@@ -776,35 +788,45 @@ def phase_flash_parity() -> dict:
             ro, _ = mha_reference(q, k, v, q_segment_ids=seg, kv_segment_ids=seg)
             hold(dtype, o, None, ro, None, f"flash_attention_padded {dtype}")
             cases += 1
-        dtype = torch.bfloat16
-        for d in (32, 64, 128):
-            for fused in (False, True):
-                for causal in (False, True):
-                    q, k, v = _strided_views(2, 3, 785, d, gen, fused)
-                    before = flash_fwd_cuda.launches
-                    o, lse = flash_fwd_cuda(q, k, v, causal=causal)
-                    torch.cuda.synchronize()
-                    check(flash_fwd_cuda.launches == before + 1, "K2 launch not counted")
-                    check(fused or o.stride() == q.stride(),
-                          f"K2 O strides {o.stride()}, q's {q.stride()}")
-                    ro, rlse = mha_reference(q, k, v, causal=causal)
-                    hold(dtype, o, lse, ro, rlse, f"strided views D={d} fused={fused} "
-                         f"causal={causal}")
-                    cases += 1
-        # causal rows that no key matches, in each 64-row half of a 128-row CTA
-        # and in a 128-key tile that runs past the half's diagonal
-        q, k, v, _, _ = _flash_inputs(2, 3, 300, 64, dtype, False, False, gen)
-        kv_seg = torch.zeros((2, 300), dtype=torch.int32, device="cuda")
-        q_seg = kv_seg.clone()
-        for lo in (10, 70, 135, 200, 290):
-            q_seg[:, lo:lo + 6] = 5
-        o, lse = flash_fwd_cuda(q, k, v, q_seg, kv_seg, causal=True)
-        ro, rlse = mha_reference(q, k, v, q_segment_ids=q_seg, kv_segment_ids=kv_seg,
-                                 causal=True)
-        ro, rlse, n_rows = no_key_reference(v, q_seg, kv_seg, ro, rlse)
-        check(n_rows == 2 * 5 * 6, f"{n_rows} rows match no key")
-        hold(dtype, o, lse, ro, rlse, "causal rows that match no key")
-        cases += 1
+        for dtype in K2_TOL:
+            for d in (32, 64, 128):
+                for fused in (False, True):
+                    for causal in (False, True):
+                        q, k, v = _strided_views(2, 3, 785, d, gen, fused, dtype)
+                        before = flash_fwd_cuda.launches
+                        o, lse = flash_fwd_cuda(q, k, v, causal=causal)
+                        torch.cuda.synchronize()
+                        check(flash_fwd_cuda.launches == before + 1, "K2 launch not counted")
+                        check(fused or o.stride() == q.stride(),
+                              f"K2 O strides {o.stride()}, q's {q.stride()}")
+                        dense = flash_fwd_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
+                                               causal=causal)
+                        check(torch.equal(o, dense[0]) and torch.equal(lse, dense[1]),
+                              f"{dtype} K2 O or lse of strided views differs from that of "
+                              f"contiguous copies (D={d} fused={fused} causal={causal})")
+                        ro, rlse = mha_reference(q, k, v, causal=causal)
+                        hold(dtype, o, lse, ro, rlse, f"{dtype} strided views D={d} "
+                             f"fused={fused} causal={causal}")
+                        cases += 1
+            # causal rows that no key matches, in each 64-row half of a 128-row
+            # CTA and in a key tile that runs past the half's diagonal
+            q, k, v, _, _ = _flash_inputs(2, 3, 300, 64, dtype, False, False, gen)
+            kv_seg = torch.zeros((2, 300), dtype=torch.int32, device="cuda")
+            q_seg = kv_seg.clone()
+            for lo in (10, 70, 135, 200, 290):
+                q_seg[:, lo:lo + 6] = 5
+            o, lse = flash_fwd_cuda(q, k, v, q_seg, kv_seg, causal=True)
+            ro, rlse = mha_reference(q, k, v, q_segment_ids=q_seg, kv_segment_ids=kv_seg,
+                                     causal=True)
+            ro, rlse, n_rows = no_key_reference(v, q_seg, kv_seg, ro, rlse)
+            check(n_rows == 2 * 5 * 6, f"{n_rows} rows match no key")
+            hold(dtype, o, lse, ro, rlse, f"{dtype} causal rows that match no key")
+            # no key at all: O = 0 and lse = -inf
+            o, lse = flash_fwd_cuda(q, k[:, :, :0], v[:, :, :0])
+            torch.cuda.synchronize()
+            check(bool((o == 0).all()) and bool((lse == float("-inf")).all()),
+                  f"{dtype} K2 with Lkv = 0: O and lse are not 0 and -inf")
+            cases += 2
     for dtype, e in err.items():
         log(f"[parity] K2 {dtype}: max |O - plain| {e['o']:.3e}, max |lse - plain| "
             f"{e['lse']:.3e} (tolerance {K2_TOL[dtype]}); max |O - plain| at most "
@@ -813,8 +835,8 @@ def phase_flash_parity() -> dict:
             f"|O - plain| / mean |plain| at most {rel[dtype]['mean_rel']:.3e}")
     log(f"[parity] K2 matches its plain version on {cases} cases (f32/bf16, D 32/64/128, "
         "L 785/1024, causal or not, segments with rows masked everywhere, padding_mask; "
-        "bf16 strided views of [B, L, H, D] and fused projections, causal rows that match "
-        "no key)")
+        "strided views of [B, L, H, D] and fused projections bit-equal to contiguous copies, "
+        "causal rows that match no key, Lkv = 0)")
     return err
 
 
@@ -1590,13 +1612,13 @@ def musk_text_segments() -> torch.Tensor:
     return torch.from_numpy(~pad).int().cuda()
 
 
-def phase_flash_times(strided: bool = True) -> dict:
+def phase_flash_times(strided: tuple = (torch.float32, torch.bfloat16)) -> dict:
     """K2 at each shape of ``K2_SHAPES``: its O and lse held against its
     plain version on the same tensors, then its time per launch against its
     bound, its plain version and one library call
-    (``scaled_dot_product_attention`` with the same mask); with ``strided``,
-    bf16 also on the ``[B, L, H, D]`` views the encoders pass (``strided``
-    is False only for a checkout whose K2 takes contiguous tensors alone,
+    (``scaled_dot_product_attention`` with the same mask); for the dtypes in
+    ``strided``, also on the ``[B, L, H, D]`` views the encoders pass (a
+    checkout whose K2 takes contiguous tensors of a dtype leaves it out,
     ``scripts/flash_fwd_ab.py``). Returns ``records[tier][cell]``."""
     import torch.nn.functional as F
 
@@ -1646,9 +1668,9 @@ def phase_flash_times(strided: bool = True) -> dict:
                            q, k, v, attn_mask=mask)),
                        "bound_ms": max(bytes_s, ops_s) * 1e3,
                        "bound_by": "bytes" if bytes_s >= ops_s else "operations"}
-                if strided and dtype == torch.bfloat16 and seg is None:
+                if dtype in strided and seg is None:
                     # as the encoders give them: [B, L, H, D] projections' views, no copy
-                    sq, sk, sv = _strided_views(b, h, length, d, gen, False)
+                    sq, sk, sv = _strided_views(b, h, length, d, gen, False, dtype)
                     rec["strided"] = {"ms": _time_ms(lambda: flash_fwd_cuda(sq, sk, sv)),
                                       **_kernel_us(lambda: flash_fwd_cuda(sq, sk, sv),
                                                    K2_KERNEL[dtype], flash_fwd_cuda)}

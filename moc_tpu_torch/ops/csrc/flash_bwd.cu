@@ -1293,29 +1293,6 @@ struct Args {
   cudaStream_t stream;
 };
 
-// The SM count of the current device, with `kernel` opted in to `smem` bytes
-// of dynamic shared memory there: both asked of the runtime once a device
-// (`known` holds the count, 0 until asked) and kept
-constexpr int kDevices = 64;
-
-template <typename Kernel>
-cudaError_t persistent_sms(Kernel kernel, size_t smem, std::atomic<int> (&known)[kDevices],
-                           int* sms) {
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  if (device < 0 || device >= kDevices) return cudaErrorInvalidDevice;
-  int n = known[device].load(std::memory_order_acquire);
-  if (n == 0) {
-    err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device);
-    if (err == cudaSuccess) err = allow_smem(kernel, smem);
-    if (err != cudaSuccess) return err;
-    known[device].store(n, std::memory_order_release);
-  }
-  *sms = n;
-  return cudaSuccess;
-}
-
 // bf16 K3: tensor maps over q, do, k, v and dq by their byte strides, then one
 // launch of the persistent kernel (one CTA an SM over the (b*h, 128-row) items)
 template <int D>
@@ -1324,28 +1301,22 @@ int launch_dq_wgmma(const Args& a, void* dq) {
   const int b = a.bh / a.heads;
   const long long* st = a.strides;
   CUtensorMap maps[5] = {};  // q, k, v, do, dq
-  int err = sm90_host::make_map(&maps[0], a.q, D, a.lq, a.heads, b, st, C::kBoxCols, C::kRows,
-                                C::kSwizzle);
+  auto map = [&](int i, const void* p, int len, const long long* strides, int rows) {
+    return sm90_host::make_map(&maps[i], sm90_host::kBf16, p, D, len, a.heads, b, strides,
+                               C::kBoxCols, rows, C::kSwizzle);
+  };
+  int err = map(0, a.q, a.lq, st, C::kRows);
   if (!err && a.lkv > 0) {  // no key: no K or V tile is loaded
-    err = sm90_host::make_map(&maps[1], a.k, D, a.lkv, a.heads, b, st + 3, C::kBoxCols,
-                              C::kKeys, C::kSwizzle);
-    if (!err) {
-      err = sm90_host::make_map(&maps[2], a.v, D, a.lkv, a.heads, b, st + 6, C::kBoxCols,
-                                C::kKeys, C::kSwizzle);
-    }
+    err = map(1, a.k, a.lkv, st + 3, C::kKeys);
+    if (!err) err = map(2, a.v, a.lkv, st + 6, C::kKeys);
   }
-  if (!err) {
-    err = sm90_host::make_map(&maps[3], a.dout, D, a.lq, a.heads, b, st + 9, C::kBoxCols,
-                              C::kRows, C::kSwizzle);
-  }
-  if (!err) {
-    err = sm90_host::make_map(&maps[4], dq, D, a.lq, a.heads, b, st + 12, C::kBoxCols, C::kRows,
-                              C::kSwizzle);
-  }
+  if (!err) err = map(3, a.dout, a.lq, st + 9, C::kRows);
+  if (!err) err = map(4, dq, a.lq, st + 12, C::kRows);
   if (err) return err;
-  static std::atomic<int> known[kDevices];
+  static std::atomic<int> known[sm90_host::kDevices];
   int sms = 0;
-  const cudaError_t cerr = persistent_sms(flash_bwd_dq_wgmma_kernel<D>, C::kSmem, known, &sms);
+  const cudaError_t cerr =
+      sm90_host::persistent_sms(flash_bwd_dq_wgmma_kernel<D>, C::kSmem, known, &sms);
   if (cerr != cudaSuccess) return static_cast<int>(cerr);
   const int n_qtiles = (a.lq + C::kItem - 1) / C::kItem;
   const int n_items = a.bh * n_qtiles;
@@ -1363,32 +1334,23 @@ int launch_dkv_wgmma(const Args& a, void* dk, void* dv) {
   const int b = a.bh / a.heads;
   const long long* st = a.strides;
   CUtensorMap maps[6] = {};  // k, v, q, do, dk, dv
-  int err = sm90_host::make_map(&maps[0], a.k, D, a.lkv, a.heads, b, st + 3, C::kBoxCols,
-                                C::kRows, C::kSwizzle);
-  if (!err) {
-    err = sm90_host::make_map(&maps[1], a.v, D, a.lkv, a.heads, b, st + 6, C::kBoxCols, C::kRows,
-                              C::kSwizzle);
-  }
+  auto map = [&](int i, const void* p, int len, const long long* strides, int rows) {
+    return sm90_host::make_map(&maps[i], sm90_host::kBf16, p, D, len, a.heads, b, strides,
+                               C::kBoxCols, rows, C::kSwizzle);
+  };
+  int err = map(0, a.k, a.lkv, st + 3, C::kRows);
+  if (!err) err = map(1, a.v, a.lkv, st + 6, C::kRows);
   if (!err && a.lq > 0) {  // no query: no Q or dO tile is loaded
-    err = sm90_host::make_map(&maps[2], a.q, D, a.lq, a.heads, b, st, C::kBoxCols, C::kQ,
-                              C::kSwizzle);
-    if (!err) {
-      err = sm90_host::make_map(&maps[3], a.dout, D, a.lq, a.heads, b, st + 9, C::kBoxCols,
-                                C::kQ, C::kSwizzle);
-    }
+    err = map(2, a.q, a.lq, st, C::kQ);
+    if (!err) err = map(3, a.dout, a.lq, st + 9, C::kQ);
   }
-  if (!err) {
-    err = sm90_host::make_map(&maps[4], dk, D, a.lkv, a.heads, b, st + 12, C::kBoxCols, C::kRows,
-                              C::kSwizzle);
-  }
-  if (!err) {
-    err = sm90_host::make_map(&maps[5], dv, D, a.lkv, a.heads, b, st + 15, C::kBoxCols, C::kRows,
-                              C::kSwizzle);
-  }
+  if (!err) err = map(4, dk, a.lkv, st + 12, C::kRows);
+  if (!err) err = map(5, dv, a.lkv, st + 15, C::kRows);
   if (err) return err;
-  static std::atomic<int> known[kDevices];
+  static std::atomic<int> known[sm90_host::kDevices];
   int sms = 0;
-  const cudaError_t cerr = persistent_sms(flash_bwd_dkv_wgmma_kernel<D>, C::kSmem, known, &sms);
+  const cudaError_t cerr =
+      sm90_host::persistent_sms(flash_bwd_dkv_wgmma_kernel<D>, C::kSmem, known, &sms);
   if (cerr != cudaSuccess) return static_cast<int>(cerr);
   const int n_ktiles = (a.lkv + C::kItem - 1) / C::kItem;
   const int n_items = a.bh * n_ktiles;

@@ -2,8 +2,8 @@
 //
 // Replaces the Pallas TPU kernel moc_tpu/ops/flash_attention.py:68
 // (_fwd_kernel, launched by _fwd). For q [BH, Lq, D] and k, v [BH, Lkv, D]
-// (f32 row-major; bf16 read by its strides) it writes o [BH, Lq, D] in the
-// input type and lse [BH, Lq] in f32:
+// (f32 or bf16, read by their strides) it writes o [BH, Lq, D] in the input
+// type and lse [BH, Lq] in f32:
 //
 //   s = (q . k) * sm_scale, summed in f32;
 //   s = MASK (-0.7 * f32max) where the key is causally later than the query
@@ -19,90 +19,96 @@
 // In bf16 the products are exact in f32 and summed in f32, and P is rounded
 // to bf16 before the P.V product, as p.astype(v.dtype) does on the TPU under
 // preferred_element_type=f32 (2e-2). In f32 every product is taken in three
-// TF32 passes (flash_mma.cuh), within a few units in 2^-22 of f32: within
-// the JAX package's f32 forward tolerance (2e-5) and within 1e-5 of the
-// largest |O| of the plain version; one TF32 pass is about 5e-4 off.
+// TF32 passes, hi.hi + hi.lo + lo.hi of operands split in the kernel as hi =
+// tf32(x), lo = tf32(x - hi), both rounded as cvt.rna.tf32.f32 rounds (by
+// integer ops), with no process-global TF32 flag read or set: within the JAX
+// package's f32 forward tolerance (2e-5) and within 1e-5 of the largest |O|
+// of the plain version; one TF32 pass is about 5e-4 off.
 //
 // Bound: operations, 4 * BH * Lq * Lkv * D. At the extraction shape
 // ([64 * 12, 785, 64]) that is 121.2 GFLOP: in f32, three TF32 passes of it
 // at the H100's 495 TFLOP/s, 0.7343 ms (its bytes, q, k, v and o at 154 MB
 // each, take 0.18 ms at 3.35 TB/s); in bf16 0.1225 ms at 989 TFLOP/s. At the
 // pretraining shape ([32 * 12, 512, 64]) f32 takes 0.1562 ms by its
-// operations and bf16 0.0303 ms by its bytes. On an H100 mma.sync reaches
-// 222-239 TFLOP/s of TF32 in the pattern of three passes and an f32 add
-// (scripts/mma_tf32_rate.py), so about 1.6 ms at the extraction shape is the
-// floor of the f32 design.
+// operations and bf16 0.0303 ms by its bytes.
 //
-// f32 (flash_fwd_tf32_kernel): one CTA of four warps per (b*h, 64-row query
-// tile); a warp owns 16 query rows. The 64-row tiles are kept: with causal
-// masking and segments together, which rows match no key depends on the tile
-// size (as on the TPU, whose tiles are larger). 64-key K and V tiles stream
-// through a two-stage cp.async ring (zero-filled past Lkv), so the copy of
-// tile t + 1 overlaps the products of tile t; causal key tiles wholly above
-// the diagonal are skipped. S = Q.K^T lands in f32 accumulator fragments
-// that are scaled and masked in place; the online softmax reduces each row's
-// max over the quad of lanes that shares it (two shuffles) and keeps each
-// lane's partial sum until the end; P = exp2((S - m) * log2e) passes from
-// the score fragments to the A operand of P.V in registers, never through
-// shared memory. The f32 O accumulator is rescaled per pass and scaled by
-// 1/l at the end. f32 tiles have rows padded to D + 4 floats (87552 B of
-// shared memory at D = 64, two CTAs an SM). Q and K, the A and B operands of
-// S, are both untransposed and read by ldmatrix; V is read as scalar pairs on
-// 32 distinct banks (tf32_b_pair; there is no 32-bit ldmatrix.trans). Every
-// product is hi.hi + hi.lo + lo.hi on mma.sync m16n8k8 of operands split in
-// the kernel (rounded as cvt.rna rounds, by integer ops), with no
-// process-global TF32 flag read or set. The tensor core rounds its sums
-// toward zero, so two k-steps at a time go into a fresh accumulator that an
-// f32 add takes into the running sum. P is split in the score fragments and
-// passed with the k index of each 8-wide step in the order 0, 2, 4, 6, 1, 3,
-// 5, 7 on both operands (no shuffle). Keys are taken in passes of 64 at D =
-// 64 (32 at D = 32, 16 at D = 128, for the register budget), with no
-// register spills at D = 32, 64 or 128; a pass wholly past Lkv is skipped. O
-// is stored from the fragments as float2. Left: mma.sync reaches about half
-// of Hopper's TF32 rate, and every warp splits its B operands itself
-// (splitting them once a CTA, through a plane of lo parts in shared memory
-// and one more barrier a tile, was slower on an H100).
-//
-// bf16 (flash_fwd_wgmma_kernel), built for Hopper (flash_sm90.cuh): a
+// Both tiers are built for Hopper (flash_sm90.cuh) in one shape: a
 // persistent kernel, one CTA of three warpgroups an SM, each CTA taking work
 // items (b*h, 128-row query tile) in turn.
 // - Warpgroup 0 produces: its first warp issues every copy by TMA (4-D
-//   tensor maps over q, k, v and o, encoded on the host from their byte
+//   tensor maps over q, k and v, encoded on the host from their byte
 //   strides, so the [B, H, L, D] view of a [B, L, H, D] projection is read
-//   without a copy; rows past L are zero-filled on a load and dropped on a
-//   store). Q comes once an item into one of two buffers; K and V tiles of
-//   128 keys stream through a two-stage ring that runs on across items, each
-//   stage with full and empty mbarriers, K and V apart so that S can start
-//   while V is in flight; its lanes copy the key segment ids beside K. It
-//   also stores each item's O, which the consumers stage in that item's Q
-//   buffer, before the buffer takes another Q. It keeps 24 registers a thread
-//   (setmaxnreg) and gives the rest to the consumers.
+//   without a copy; rows past L are zero-filled). It keeps few registers a
+//   thread (setmaxnreg) and gives the rest to the consumers.
 // - Warpgroups 1 and 2 consume, 64 query rows of each item each. S = Q.K^T
-//   is wgmma m64n128k16 with Q and K both read from 128-byte-swizzled shared
-//   memory (64-byte at D = 32) through descriptors; O += P.V is wgmma
-//   m64nDk16 with P from registers (the score accumulator rounded to bf16, as
-//   p.astype(v.dtype) does on the TPU) and V read MN-major from shared
-//   memory, so nothing passes through ldmatrix or shared memory on the way.
-//   The accumulator layout is mma.sync's, so the mask and the online softmax
-//   are the f32 tier's, kept in base 2 (one FFMA and one ex2 a probability).
-//   Tile t + 1's S is issued with tile t's P.V, so the tensor cores run the
-//   one while the softmax of the other waits only for S; the two warpgroups
-//   take turns to issue (named barriers), so one's softmax runs while the
-//   other's products hold the tensor cores. A warpgroup none of whose rows
-//   is below Lq (the last tile's second half) computes nothing and only
-//   keeps the ring and the turns in step.
+//   is a wgmma with Q and K both read K-major from 128-byte-swizzled shared
+//   memory through descriptors; O += P.V is a wgmma with P from registers
+//   (the score accumulator, whose layout is mma.sync's, repacked in place)
+//   and V from shared memory. The online softmax is kept in base 2 (one FFMA
+//   and one ex2 a probability). Tile t + 1's S is issued with tile t's P.V,
+//   so the tensor cores run the one while the softmax of the other waits
+//   only for S; the two warpgroups take turns to issue (named barriers), so
+//   one's softmax runs while the other's products hold the tensor cores. A
+//   warpgroup none of whose rows is below Lq (the last tile's second half)
+//   computes nothing and only keeps the ring and the turns in step.
 // - Causal: an item's key tiles end at its last row's diagonal, and each
 //   warpgroup's keys at its own 64-row tile's (kv_end), so which keys a row
-//   that matches no key counts is what it was with 64-row tiles; past
-//   kv_end inside a running 128-key tile, keys count for nothing.
-// - Epilogue: O scaled by 1/l into the warpgroup's Q tile (swizzled as the
-//   O map's boxes), stored by the producer, one TMA store a box; lse from
-//   the lanes.
-// What bounds it (an H100 80GB HBM3, PERF.md): at D = 64 the exponentials
-// (64 x 128 a warpgroup a tile, 16 a clock an SM) take about as long as the
-// products, and neither pipe is full: the K/V loads are not the limit (the
-// kernel takes as long with them left out), the softmax of one warpgroup and
-// the products of the other overlap only in part.
+//   that matches no key counts is what it was with 64-row tiles (as on the
+//   TPU, whose tiles are larger, that depends on the tile); past kv_end
+//   inside a running key tile, keys count for nothing.
+//
+// bf16 (flash_fwd_wgmma_kernel): K and V tiles of 128 keys stream through a
+// two-stage ring that runs on across items, each stage with full and empty
+// mbarriers, K and V apart so that S can start while V is in flight; the
+// producer's lanes copy the key segment ids beside K. Q comes once an item
+// into one of two buffers; the producer also stores each item's O, which the
+// consumers stage in that item's Q buffer, before the buffer takes another
+// Q. S is m64n128k16 (64-byte swizzle at D = 32), P.V m64nDk16 with P
+// rounded to bf16 in registers and V read MN-major. What bounds it (an H100
+// 80GB HBM3, PERF.md): at D = 64 the exponentials (64 x 128 a warpgroup a
+// tile, 16 a clock an SM) take about as long as the products, and neither
+// pipe is full: the K/V loads are not the limit (the kernel takes as long
+// with them left out), the softmax of one warpgroup and the products of the
+// other overlap only in part.
+//
+// f32 (flash_fwd_tf32_wgmma_kernel): wgmma takes tf32 operands K-major only
+// (no transpose for 32-bit types), and each operand is needed split.
+// - Tiles: 64 keys (32 at D = 128), for the registers (S 32, P hi and lo 64,
+//   O and the tile's fresh P.V accumulator 32 each a thread at D = 64) and
+//   for shared memory: a 64 x 64 f32 tile is 16 KB and every operand is
+//   held twice, hi and lo. Two stages of K and of V^T (one at D = 128), two
+//   landing buffers for V and one Q buffer of 128 rows, hi and lo: 226 KB of
+//   the 227 at D = 64. An f32 TMA box is 32 columns (128 bytes): D / 32
+//   boxes a tile, all 128-byte swizzled.
+// - Splits, once a CTA: the consumers split their Q rows in place (hi over
+//   the landed tile, lo beside it) when an item's Q lands. Warps 1-3 of the
+//   producer warpgroup split each landed K tile in place the same way, a
+//   third each, and copy its key segment ids (into a ring of their own, so
+//   that K is released as soon as S is done), then transpose each landed V
+//   tile into V^T hi and lo (keys contiguous, 32 to a 128-byte swizzled
+//   row), since V's reduction index is the key: a 4 x 4 block of floats a
+//   step, in 16-byte reads and writes free of bank conflicts. Each 8 keys
+//   lie in the order 0, 2, 4, 6, 1, 3, 5, 7, the k index that P takes
+//   straight from the score accumulator (acc_to_a_tf32), so P needs no
+//   shuffle. The splitters' stores reach wgmma through an async-proxy fence
+//   and an mbarrier (k_ready, vt_ready). P is split in registers. Splitting
+//   in the kernel costs about a fifth of its time at D = 64 (the probes
+//   without it), the split of K the larger part.
+// - Products: S in three passes of D / 8 m64nKk8 steps (lo.hi, hi.lo, then
+//   hi.hi: the small terms first, which left a third of the error of taking
+//   each k-step's three passes in turn), into one accumulator; P.V likewise,
+//   of kKeys / 8 steps, into a fresh accumulator each tile that an FFMA
+//   folds into O (O = O * alpha + P.V). The tensor core rounds its sums
+//   toward zero: O summed in the accumulator over every key drifted to 1.1e-5
+//   of the largest |O| at 785 keys and 6.2e-5 at 8192, against 1.1e-6 with
+//   the fresh accumulator (scripts/flash_fwd_tf32_wgmma_variants.py).
+// - O is written from the registers to device memory by its strides (two
+//   floats a store), lse from the lanes.
+// What bounds it (an H100 80GB HBM3, PERF.md): at D = 64 it runs at about
+// twice the bound of its operations; the products, the splits and the
+// shared memory they all read and write share the SM, and none alone is the
+// limit (the probes without S, without P.V or without the splits each took
+// 0.78-0.82 of the time).
 
 #include <algorithm>
 #include <atomic>
@@ -113,184 +119,6 @@
 namespace {
 
 using namespace flash;
-
-template <int D>
-constexpr size_t tf32_smem_bytes() {
-  // Q; two stages of K and V (f32 rows padded to D + 4); two of the key segment ids
-  return sizeof(float) * 5 * Layout<D>::kTile + 2 * kBlock * sizeof(int);
-}
-
-// At least one CTA an SM, not the default: without it ptxas holds the
-// kernel to 168 registers at D = 64 (three CTAs' worth, where shared memory
-// allows two), and on an H100 it took a third longer there
-// (scripts/flash_fwd_variants.py).
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads, 1)
-flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
-                      const int* __restrict__ q_seg, const int* __restrict__ kv_seg, int heads,
-                      int lq, int lkv, int n_qtiles, int causal, float sm_scale) {
-  // keys per pass: the register budget
-  constexpr int kKeyChunk = D == 128 ? 16 : D == 64 ? 64 : 32;
-  constexpr int kKeyTiles = kKeyChunk / 8;       // n-tiles of S in a pass
-  constexpr int kTile = Layout<D>::kTile;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  float* qs = reinterpret_cast<float*>(smem_raw);
-  float* ks = qs + kTile;      // [2][64, kStride]
-  float* vs = ks + 2 * kTile;  // [2][64, kStride]
-  int* kv_segs = reinterpret_cast<int*>(vs + 2 * kTile);  // [2][64]
-
-  const int bh = blockIdx.x / n_qtiles;
-  const int q0 = (blockIdx.x % n_qtiles) * kBlock;
-  const int b = bh / heads;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int t4 = lane & 3;
-  const bool segments = q_seg != nullptr;
-  const size_t q_off = static_cast<size_t>(bh) * lq;
-  const float* kb = k + static_cast<size_t>(bh) * lkv * D;
-  const float* vb = v + static_cast<size_t>(bh) * lkv * D;
-  const int* kv_seg_b = segments ? kv_seg + static_cast<size_t>(b) * lkv : nullptr;
-
-  // this lane's two query rows: g and g + 8 of the warp's 16
-  const int wrow = 16 * warp;
-  const int row0 = q0 + wrow + (lane >> 2);
-  const int row1 = row0 + 8;
-  int seg0 = 0, seg1 = 0;
-  if (segments) {
-    if (row0 < lq) seg0 = q_seg[static_cast<size_t>(b) * lq + row0];
-    if (row1 < lq) seg1 = q_seg[static_cast<size_t>(b) * lq + row1];
-  }
-
-  // key tiles wholly above the diagonal contribute nothing: skip them
-  const int kv_end = causal ? min(lkv, q0 + kBlock) : lkv;
-  const int n_tiles = (kv_end + kBlock - 1) / kBlock;
-  auto load_kv = [&](int t) {
-    const int stage = t & 1;
-    load_tile_f32_async<D>(ks + stage * kTile, kb, t * kBlock, lkv, tid);
-    load_tile_f32_async<D>(vs + stage * kTile, vb, t * kBlock, lkv, tid);
-    if (segments) load_vec_async(kv_segs + stage * kBlock, kv_seg_b, t * kBlock, lkv, tid);
-  };
-  load_tile_f32_async<D>(qs, q + q_off * D, q0, lq, tid);
-  if (n_tiles > 0) load_kv(0);
-  cp_async_commit();
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // l: this lane's partial sums
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int kv0 = t * kBlock;
-    const int stage = t & 1;
-    cp_async_wait<0>();
-    __syncthreads();  // tile t has landed, and every warp is done with tile t - 1
-    if (t + 1 < n_tiles) load_kv(t + 1);  // into the stage tile t - 1 used
-    cp_async_commit();
-    const float* kt = ks + stage * kTile;
-    const float* vt = vs + stage * kTile;
-    const int* segs = kv_segs + stage * kBlock;
-
-#pragma unroll
-    for (int kc = 0; kc < kBlock; kc += kKeyChunk) {
-      // a pass wholly past Lkv counts for nothing; the first pass of a tile
-      // always holds a key below Lkv, so the running max is finite after it
-      if (kv0 + kc >= lkv) break;
-      float s[kKeyTiles][4];
-      tf32_scores<D>(s, qs, wrow, kt, kc, lane);
-
-      // scale and mask in place; the lane holds keys kv0 + kc + 8j + 2 * t4 + (e & 1)
-      const bool edge = kv0 + kc + kKeyChunk > lkv;
-      if (edge || causal || segments) {
-#pragma unroll
-        for (int j = 0; j < kKeyTiles; ++j) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int col = kc + 8 * j + 2 * t4 + (e & 1);
-            const int key = kv0 + col;
-            float x = s[j][e] * sm_scale;
-            if (key >= lkv) {
-              x = -INFINITY;
-            } else if (masked(causal, segments, e < 2 ? row0 : row1, key, e < 2 ? seg0 : seg1,
-                              segments ? segs[col] : 0)) {
-              x = kMaskValue;
-            }
-            s[j][e] = x;
-          }
-        }
-      } else {
-#pragma unroll
-        for (int j = 0; j < kKeyTiles; ++j) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[j][e] *= sm_scale;
-        }
-      }
-
-      // online softmax over the pass
-      float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < kKeyTiles; ++j) {
-        mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-        mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
-      }
-#pragma unroll
-      for (int off = 1; off < 4; off <<= 1) {
-        mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, off));
-        mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, off));
-      }
-      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-      // differences, not a fused x * log2e - m * log2e: MASK * log2e overflows
-      const float alpha0 = exp2f((m0 - mn0) * kLog2e), alpha1 = exp2f((m1 - mn1) * kLog2e);
-      m0 = mn0;
-      m1 = mn1;
-      float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-      for (int j = 0; j < kKeyTiles; ++j) {
-        s[j][0] = exp2f((s[j][0] - mn0) * kLog2e);
-        s[j][1] = exp2f((s[j][1] - mn0) * kLog2e);
-        s[j][2] = exp2f((s[j][2] - mn1) * kLog2e);
-        s[j][3] = exp2f((s[j][3] - mn1) * kLog2e);
-        rs0 += s[j][0] + s[j][1];
-        rs1 += s[j][2] + s[j][3];
-      }
-      l0 = alpha0 * l0 + rs0;
-      l1 = alpha1 * l1 + rs1;
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        acc[n][0] *= alpha0;
-        acc[n][1] *= alpha0;
-        acc[n][2] *= alpha1;
-        acc[n][3] *= alpha1;
-      }
-
-      // O += P . V, P straight from the score fragments, the 8 keys of a
-      // step as its k index in acc_to_a_tf32's order
-      tf32_grads<D>(acc, s, vt, kc, lane);
-    }
-  }
-
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l0 += __shfl_xor_sync(kFull, l0, off);
-    l1 += __shfl_xor_sync(kFull, l1, off);
-  }
-  const float inv0 = l0 == 0.f ? 1.f : 1.f / l0, inv1 = l1 == 0.f ? 1.f : 1.f / l1;
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    acc[n][0] *= inv0;
-    acc[n][1] *= inv0;
-    acc[n][2] *= inv1;
-    acc[n][3] *= inv1;
-  }
-  cp_async_wait<0>();  // no copy is left in flight (also when no key tile ran)
-  store_acc_f32<D>(o + q_off * D, acc, q0 + wrow, lq, lane);
-  if (t4 == 0) {
-    float* lse_b = lse + q_off;
-    if (row0 < lq) lse_b[row0] = l0 == 0.f ? -INFINITY : m0 + logf(fmaxf(l0, 1e-37f));
-    if (row1 < lq) lse_b[row1] = l1 == 0.f ? -INFINITY : m1 + logf(fmaxf(l1, 1e-37f));
-  }
-}
 
 // bf16 on Hopper (the design note at the top): the tiles, the shared-memory
 // plan and the register split of flash_fwd_wgmma_kernel.
@@ -378,22 +206,23 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// Scale and mask the scores of key tile `kv0` in place, fold them into the
-// running max and sums, and leave exp(S - max) in s; returns in alpha0/1 the
-// factors that rescale O. The lane holds keys kv0 + 8j + 2t + (e & 1).
+// Scale and mask the scores of the N-key tile at `kv0` in place, fold them
+// into the running max and sums, and leave exp(S - max) in s; returns in
+// alpha0/1 the factors that rescale O. The lane holds keys kv0 + 8j + 2t +
+// (e & 1).
 // The max is kept in base 2 of the scaled scores, x = s * scale * log2e, so
 // that a probability is one FFMA and one ex2. A masked key takes MASK itself
 // (MASK * log2e would overflow): beside any visible key 2^(MASK - m) is 0,
 // as exp(MASK - m) is, and a row whose keys are all masked has m = MASK and
 // 2^(MASK - MASK) = 1 for each, as exp gives; its lse is MASK (see the end).
-template <bool kMask>
-__device__ __forceinline__ void softmax_tile(float (&s)[64], RowState& st, int kv0, int kv_end,
+template <int N, bool kMask>
+__device__ __forceinline__ void softmax_tile(float (&s)[N / 2], RowState& st, int kv0, int kv_end,
                                              bool causal, bool segments, const int* segs, int t4,
                                              float scale_log2, float& alpha0, float& alpha1) {
   float mx0 = -INFINITY, mx1 = -INFINITY;
   if (kMask) {
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < N / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = 8 * j + 2 * t4 + (e & 1);
@@ -412,14 +241,16 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], RowState& st, int k
     }
   } else {  // the max of the raw scores, scaled once (the scale is positive)
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < N / 8; ++j) {
       mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
       mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
     }
     mx0 *= scale_log2;
     mx1 *= scale_log2;
   }
-  // every tile holds a key below kv_end for every row, so the tile max is finite
+  // a tile wholly past kv_end (a causal warpgroup's last tile where tiles
+  // are narrower than the item) leaves the max as it was: every row meets a
+  // key below kv_end in its first tile, so the running max is finite
 #pragma unroll
   for (int off = 1; off < 4; off <<= 1) {
     mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, off));
@@ -432,7 +263,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], RowState& st, int k
   st.m1 = mn1;
   float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < N / 8; ++j) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const float mn = e < 2 ? mn0 : mn1;
@@ -445,16 +276,17 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], RowState& st, int k
   st.l1 = alpha1 * st.l1 + rs1;
 }
 
-__device__ __forceinline__ void softmax(float (&s)[64], RowState& st, int kv0, int kv_end,
+template <int N>
+__device__ __forceinline__ void softmax(float (&s)[N / 2], RowState& st, int kv0, int kv_end,
                                         bool causal, bool segments, const int* segs, int t4,
                                         float scale_log2, float& alpha0, float& alpha1) {
   // the masked form also where a negative scale would turn the raw max into the min
-  if (kv0 + 128 > kv_end || causal || segments || scale_log2 < 0.f) {
-    softmax_tile<true>(s, st, kv0, kv_end, causal, segments, segs, t4, scale_log2, alpha0,
-                       alpha1);
+  if (kv0 + N > kv_end || causal || segments || scale_log2 < 0.f) {
+    softmax_tile<N, true>(s, st, kv0, kv_end, causal, segments, segs, t4, scale_log2, alpha0,
+                          alpha1);
   } else {
-    softmax_tile<false>(s, st, kv0, kv_end, causal, segments, segs, t4, scale_log2, alpha0,
-                        alpha1);
+    softmax_tile<N, false>(s, st, kv0, kv_end, causal, segments, segs, t4, scale_log2, alpha0,
+                           alpha1);
   }
 }
 
@@ -490,21 +322,23 @@ __device__ __forceinline__ void rescale(float (&o)[N], float alpha0, float alpha
 // A consumer warpgroup's part in an item none of whose rows it holds: every
 // K/V tile waited for and released, and the turns taken, as in the item's
 // products (n_tiles + 1 turns: S of the first tile, then S and P.V of each
-// next, then the last P.V), so that the ring and the turns stay in step.
+// next, then the last P.V), so that the ring of `Stages` stages and the
+// turns stay in step.
+template <int Stages>
 __device__ __forceinline__ void idle_item(int g, int n_tiles, uint32_t k_full, uint32_t k_empty,
                                           uint32_t v_full, uint32_t v_empty, int my_turn,
                                           int their_turn, bool signal) {
   for (int t = 0; t <= n_tiles && n_tiles > 0; ++t) {
     if (t < n_tiles) {
-      const int stage = (g + t) % kSm90Stages;
-      sm90::mbar_wait(k_full + 8 * stage, ((g + t) / kSm90Stages) & 1);
+      const int stage = (g + t) % Stages;
+      sm90::mbar_wait(k_full + 8 * stage, ((g + t) / Stages) & 1);
       if (signal) sm90::mbar_arrive(k_empty + 8 * stage);
     }
     sm90::named_barrier(my_turn, 256);
     sm90::named_arrive(their_turn, 256);
     if (t > 0) {
-      const int stage = (g + t - 1) % kSm90Stages;
-      sm90::mbar_wait(v_full + 8 * stage, ((g + t - 1) / kSm90Stages) & 1);
+      const int stage = (g + t - 1) % Stages;
+      sm90::mbar_wait(v_full + 8 * stage, ((g + t - 1) / Stages) & 1);
       if (signal) sm90::mbar_arrive(v_empty + 8 * stage);
     }
   }
@@ -690,7 +524,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       if (qw >= lq) {
         // no row of this warpgroup is real (the last query tile's second half):
         // keep the ring and the turns in step, and compute nothing
-        idle_item(g, n_tiles, k_full, k_empty, v_full, v_empty, my_turn, their_turn, signal);
+        idle_item<C::kStages>(g, n_tiles, k_full, k_empty, v_full, v_empty, my_turn, their_turn,
+                              signal);
         g += n_tiles;
         sm90::mbar_arrive(o_full + 8 * (j & 1));
         continue;
@@ -704,8 +539,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
         sm90::named_arrive(their_turn, 256);
         sm90::wgmma_wait<0>();
         sm90::fence_regs(s);
-        softmax(s, st, 0, kv_end, causal, segments, seg_smem + stage0 * C::kKeys, t4,
-                scale_log2, alpha0, alpha1);
+        softmax<C::kKeys>(s, st, 0, kv_end, causal, segments, seg_smem + stage0 * C::kKeys,
+                          t4, scale_log2, alpha0, alpha1);
         if (signal) sm90::mbar_arrive(k_empty + 8 * stage0);
         scores_to_p(p, s);
         // the steady state, free of branches so that ptxas can pipeline the
@@ -722,8 +557,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
           sm90::named_arrive(their_turn, 256);
           sm90::wgmma_wait<1>();  // S of tile t + 1 is done; P.V of tile t runs on
           sm90::fence_regs(s);
-          softmax(s, st, (t + 1) * C::kKeys, kv_end, causal, segments,
-                  seg_smem + stage1 * C::kKeys, t4, scale_log2, alpha0, alpha1);
+          softmax<C::kKeys>(s, st, (t + 1) * C::kKeys, kv_end, causal, segments,
+                            seg_smem + stage1 * C::kKeys, t4, scale_log2, alpha0, alpha1);
           if (signal) sm90::mbar_arrive(k_empty + 8 * stage1);
           sm90::wgmma_wait<0>();
           sm90::fence_regs(o);
@@ -780,23 +615,523 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-// The SM count of `device`, with the wgmma kernel of head dim D opted in to
-// its dynamic shared memory there: both asked of the runtime once a device
-// and a D, and kept
+// f32 on Hopper (the design note at the top): the tiles, the shared-memory
+// plan and the register split of flash_fwd_tf32_wgmma_kernel. Every tile is
+// laid out as TMA lands it: boxes of 32 f32 columns, a row of a box 128
+// bytes, 128-byte swizzled; V^T's rows are V's columns, its boxes 32 keys.
 template <int D>
-cudaError_t wgmma_device(int device, int* sms) {
-  constexpr int kDevices = 64;
-  static std::atomic<int> known[kDevices];  // 0: not asked yet, else the SM count
-  if (device < 0 || device >= kDevices) return cudaErrorInvalidDevice;
-  int n = known[device].load(std::memory_order_acquire);
-  if (n == 0) {
-    cudaError_t err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device);
-    if (err == cudaSuccess) err = allow_smem(flash_fwd_wgmma_kernel<D>, Sm90Fwd<D>::kSmem);
-    if (err != cudaSuccess) return err;
-    known[device].store(n, std::memory_order_release);
+struct Sm90Tf32Fwd {
+  static_assert(D == 32 || D == 64 || D == 128, "head dim 32, 64 or 128");
+  static constexpr int kConsumers = 2;
+  static constexpr int kRows = 64;                     // query rows a consumer warpgroup
+  static constexpr int kQTile = kRows * kConsumers;    // query rows a CTA
+  static constexpr int kKeys = D == 128 ? 32 : 64;     // keys a K/V tile
+  static constexpr int kStages = D == 128 ? 1 : 2;     // of the K and V^T ring
+  static constexpr int kThreads = 128 * (1 + kConsumers);
+  static constexpr int kSplitters = 96;  // warps 1-3: K split in place, V into V^T
+  static constexpr int kBoxCols = 32;                  // f32 columns of a TMA box
+  static constexpr int kRowBytes = 128;                // a row of a box
+  static constexpr int kQBytes = kRows * D * 4;        // a warpgroup's Q, hi or lo
+  static constexpr int kKVBytes = kKeys * D * 4;       // a K or V^T tile, hi or lo
+  static constexpr int kQLoOff = kConsumers * kQBytes;  // Q hi (landed, split in place) at 0
+  static constexpr int kKOff = 2 * kConsumers * kQBytes;    // K hi (landed, split in place)
+  static constexpr int kKLoOff = kKOff + kStages * kKVBytes;
+  static constexpr int kVtOff = kKLoOff + kStages * kKVBytes;
+  static constexpr int kVtLoOff = kVtOff + kStages * kKVBytes;
+  static constexpr int kLandings = 2;                  // V as it lands: two buffers
+  static constexpr int kVOff = kVtLoOff + kStages * kKVBytes;
+  // key segment ids a tile, in a ring of their own, twice the stages deep:
+  // K is released as soon as S is done, the ids once the softmax is
+  static constexpr int kSegSlots = 2 * kStages;
+  static constexpr int kSegOff = kVOff + kLandings * kKVBytes;
+  static constexpr int kBarOff = kSegOff + kSegSlots * kKeys * 4;
+  // q_full, q_empty; v_full, v_free a landing buffer; k_full, k_ready,
+  // k_empty, vt_ready, vt_empty a stage
+  static constexpr int kBars = 2 + 2 * kLandings + 5 * kStages;
+  static constexpr size_t kSmem = kBarOff + 8 * kBars + 1024;  // + alignment to 1024 bytes
+  static_assert(kSmem <= 232448, "more shared memory than a block may use");
+  // setmaxnreg as in Sm90Fwd; the splitters need more than the producer alone
+  static constexpr int kLaunchRegs = 65536 / kThreads / 8 * 8;
+  static constexpr int kProducerRegs = 56;
+  static constexpr int kConsumerRegs =
+      (kLaunchRegs * kThreads / 128 - kProducerRegs) / kConsumers / 8 * 8;
+  static_assert(128 * (kProducerRegs + kConsumers * kConsumerRegs) <= kLaunchRegs * kThreads,
+                "setmaxnreg asks for more registers than the CTA holds");
+};
+
+// P.V into a fresh accumulator each tile, folded into O by an FFMA: the
+// tensor core rounds its sums toward zero, so O kept in it over every key
+// would drift (scripts/flash_fwd_tf32_wgmma_variants.py)
+constexpr bool kTf32FreshPv = true;
+
+// x split as hi = tf32(x), lo = tf32(x - hi), for four values at once
+__device__ __forceinline__ void split4(const float4& x, uint4& hi, uint4& lo) {
+  split_tf32(x.x, hi.x, lo.x);
+  split_tf32(x.y, hi.y, lo.y);
+  split_tf32(x.z, hi.z, lo.z);
+  split_tf32(x.w, hi.w, lo.w);
+}
+
+// Chunk i0 + n * Threads of a tile, for n in [n0, n0 + N), split in place: hi
+// over x, lo at the same offset of `lo`; all N loads are issued first
+template <int N, int Threads>
+__device__ __forceinline__ void split_chunks(unsigned char* hi, unsigned char* lo, int i0,
+                                             int n0) {
+  float4 x[N];
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    x[n] = *reinterpret_cast<const float4*>(hi + 16 * (i0 + (n0 + n) * Threads));
   }
-  *sms = n;
-  return cudaSuccess;
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    const int i = i0 + (n0 + n) * Threads;
+    uint4 h, l;
+    split4(x[n], h, l);
+    *reinterpret_cast<uint4*>(hi + 16 * i) = h;
+    *reinterpret_cast<uint4*>(lo + 16 * i) = l;
+  }
+}
+
+// A tile of `Bytes` split in place, 16 bytes at a time by `Threads` threads
+// (this one the i0-th), four loads in flight; the layout (boxes, swizzle)
+// stays as it landed
+template <int Bytes, int Threads>
+__device__ __forceinline__ void split_tile(unsigned char* hi, unsigned char* lo, int i0) {
+  constexpr int kChunks = Bytes / 16, kFull = kChunks / Threads;  // chunks every thread has
+#pragma unroll 1
+  for (int n0 = 0; n0 + 4 <= kFull; n0 += 4) split_chunks<4, Threads>(hi, lo, i0, n0);
+  if constexpr (kFull % 4 != 0) split_chunks<kFull % 4, Threads>(hi, lo, i0, kFull / 4 * 4);
+  if constexpr (kChunks % Threads != 0) {
+    if (i0 < kChunks % Threads) split_chunks<1, Threads>(hi, lo, i0, kFull);
+  }
+}
+
+// The landed V tile ([kKeys keys, D], boxes of 32 columns) as V^T hi and lo:
+// D rows of kKeys keys, boxes of 32 keys, each 8 keys in the order 0, 2, 4,
+// 6, 1, 3, 5, 7 (acc_to_a_tf32's k index), so keys 8a + par + 2m (m = 0..3)
+// are the four floats of one 16-byte chunk of a V^T row. A task of a thread
+// is such a quad of keys times four columns 4 c4 .. 4 c4 + 3: four 16-byte
+// reads of V, a 4 x 4 transpose in registers, four 16-byte writes each of hi
+// and lo. Lane 8r + i of a warp takes c4 = i (mod 8), par = (i >> 2) ^ (r &
+// 1) and a = ((i >> 1) & 1) ^ (r >> 1) (mod 2), so that each 8-lane phase
+// reads and writes 8 distinct bank groups under the 128-byte swizzle; the
+// warps and their iterations take the rest of a (a / 2) and c4 (c4 / 8).
+template <int D>
+__device__ __forceinline__ void transpose_v_tile(const unsigned char* v, unsigned char* hi,
+                                                 unsigned char* lo, int i0) {
+  using C = Sm90Tf32Fwd<D>;
+  constexpr int kBoxes = D / 32, kPairs = C::kKeys / 16;  // of c4 / 8, of a / 2
+  constexpr int kWarps = C::kSplitters / 32;
+  const int lane = i0 & 31, r = lane >> 3, i = lane & 7;
+  const int par = (i >> 2) ^ (r & 1), a_lo = ((i >> 1) & 1) ^ (r >> 1);
+#pragma unroll 1
+  for (int combo = i0 >> 5; combo < kBoxes * kPairs; combo += kWarps) {
+    const int cb = combo % kBoxes, a = 2 * (combo / kBoxes) + a_lo;
+    const int c4 = 8 * cb + i;
+    float4 x[4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int key = 8 * a + par + 2 * m;
+      x[m] = *reinterpret_cast<const float4*>(
+          v + cb * C::kKeys * C::kRowBytes + sm90::swizzle<128>(key * C::kRowBytes + i * 16));
+    }
+    const float t[4][4] = {{x[0].x, x[1].x, x[2].x, x[3].x}, {x[0].y, x[1].y, x[2].y, x[3].y},
+                           {x[0].z, x[1].z, x[2].z, x[3].z}, {x[0].w, x[1].w, x[2].w, x[3].w}};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      uint4 h, l;
+      split4(make_float4(t[e][0], t[e][1], t[e][2], t[e][3]), h, l);
+      const uint32_t off =
+          (a / 4) * D * C::kRowBytes +
+          sm90::swizzle<128>((4 * c4 + e) * C::kRowBytes + (2 * (a % 4) + par) * 16);
+      *reinterpret_cast<uint4*>(hi + off) = h;
+      *reinterpret_cast<uint4*>(lo + off) = l;
+    }
+  }
+}
+
+// the descriptor of a K-major tf32 operand at `addr`, in a tile of
+// 128-byte-swizzled rows laid out as TMA lands it (8-row groups 1024 bytes
+// apart). The operand `off` bytes further in has the descriptor + off / 16:
+// the address field takes addresses below 2^18 and does not carry.
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
+  uint64_t d = sm90::smem_desc<128>(addr, 16, 1024);
+  // keep the compiler from hoisting what is computed from it out of the loop
+  // around the caller: every k-step's descriptor, in registers for the whole
+  // loop, would spill
+  asm volatile("" : "+l"(d));
+  return d;
+}
+
+// S = Q.K^T of a tile in three passes (lo.hi, hi.lo, hi.hi: the small terms
+// first), each D / 8 k-steps of m64nKk8, Q and K K-major; k-step ks reads 32
+// bytes further into a box row, past it the next box
+template <int D>
+__device__ __forceinline__ void issue_scores_tf32(float (&s)[Sm90Tf32Fwd<D>::kKeys / 2],
+                                                  uint32_t q_hi, uint32_t q_lo, uint32_t k_hi,
+                                                  uint32_t k_lo) {
+  using C = Sm90Tf32Fwd<D>;
+  const uint64_t qh = kmajor_desc(q_hi), ql = kmajor_desc(q_lo);
+  const uint64_t kh = kmajor_desc(k_hi), kl = kmajor_desc(k_lo);
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int pass = 0; pass < 3; ++pass) {
+#pragma unroll
+    for (int ks = 0; ks < D / 8; ++ks) {
+      const uint32_t box = (ks / 4) * C::kRowBytes, in_row = (ks % 4) * 32;
+      const uint64_t a = (pass == 0 ? ql : qh) + ((box * C::kRows + in_row) >> 4);
+      const uint64_t b = (pass == 1 ? kl : kh) + ((box * C::kKeys + in_row) >> 4);
+      sm90::wgmma_ss_tf32<C::kKeys>(s, a, b, pass > 0 || ks > 0);
+    }
+  }
+  sm90::wgmma_commit();
+}
+
+// O (+)= P.V of a tile in three passes, each kKeys / 8 k-steps of m64nDk8, P
+// from registers (hi and lo) and V^T K-major; `fresh` overwrites o first
+template <int D>
+__device__ __forceinline__ void issue_pv_tf32(float (&o)[D / 2],
+                                              const uint32_t (&p_hi)[Sm90Tf32Fwd<D>::kKeys / 8][4],
+                                              const uint32_t (&p_lo)[Sm90Tf32Fwd<D>::kKeys / 8][4],
+                                              uint32_t vt_hi, uint32_t vt_lo, bool fresh) {
+  using C = Sm90Tf32Fwd<D>;
+  const uint64_t vh = kmajor_desc(vt_hi), vl = kmajor_desc(vt_lo);
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int pass = 0; pass < 3; ++pass) {
+#pragma unroll
+    for (int kk = 0; kk < C::kKeys / 8; ++kk) {
+      const uint32_t at = (kk / 4) * D * C::kRowBytes + (kk % 4) * 32;
+      const uint64_t b = (pass == 1 ? vl : vh) + (at >> 4);
+      sm90::wgmma_rs_tf32<D>(o, pass == 0 ? p_lo[kk] : p_hi[kk], b,
+                             !(fresh && pass == 0 && kk == 0));
+    }
+  }
+  sm90::wgmma_commit();
+}
+
+// exp(S - max) split as the register A operand of P.V, k-step kk from the
+// accumulator's 8-key block kk as acc_to_a_tf32 packs it
+template <int N>
+__device__ __forceinline__ void scores_to_p_tf32(uint32_t (&hi)[N / 8][4], uint32_t (&lo)[N / 8][4],
+                                                 const float (&s)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 8; ++kk) {
+    acc_to_a_tf32(hi[kk], lo[kk], reinterpret_cast<const float(&)[4]>(s[4 * kk]));
+  }
+}
+
+// o = o * alpha + t, alpha0 for the lane's first row and alpha1 for its second
+template <int N>
+__device__ __forceinline__ void fold(float (&o)[N], const float (&t)[N], float alpha0,
+                                     float alpha1) {
+#pragma unroll
+  for (int i = 0; i < N; i += 4) {
+    o[i] = fmaf(o[i], alpha0, t[i]);
+    o[i + 1] = fmaf(o[i + 1], alpha0, t[i + 1]);
+    o[i + 2] = fmaf(o[i + 2], alpha1, t[i + 2]);
+    o[i + 3] = fmaf(o[i + 3], alpha1, t[i + 3]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(Sm90Tf32Fwd<D>::kThreads, 1)
+flash_fwd_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                            const __grid_constant__ CUtensorMap k_map,
+                            const __grid_constant__ CUtensorMap v_map, float* __restrict__ out,
+                            long long o_sl, long long o_sh, long long o_sb,
+                            float* __restrict__ lse, const int* __restrict__ q_seg,
+                            const int* __restrict__ kv_seg, int heads, int lq, int lkv,
+                            int n_qtiles, int n_items, int causal, float sm_scale) {
+  using C = Sm90Tf32Fwd<D>;
+  extern __shared__ unsigned char smem_raw[];
+  // swizzled tiles (and wgmma's descriptors) need 1024-byte aligned addresses
+  const uint32_t raw = sm90::smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  int* seg_smem = reinterpret_cast<int*>(smem + C::kSegOff);
+  const uint32_t bars = base + C::kBarOff;
+  const uint32_t q_full = bars, q_empty = bars + 8;     // the Q buffer
+  const uint32_t v_full = bars + 16;                    // [kLandings]: V landed
+  const uint32_t v_free = v_full + 8 * C::kLandings;    // V read
+  const uint32_t k_full = v_free + 8 * C::kLandings;    // [kStages]: K landed
+  const uint32_t k_ready = k_full + 8 * C::kStages;     // K split, segment ids copied
+  const uint32_t k_empty = k_ready + 8 * C::kStages;    // K hi and lo read
+  const uint32_t vt_ready = k_empty + 8 * C::kStages;   // V^T written
+  const uint32_t vt_empty = vt_ready + 8 * C::kStages;  // V^T read
+  auto k_at = [&](int s) { return C::kKOff + s * C::kKVBytes; };   // K hi; lo kStages tiles on
+  auto vt_at = [&](int s) { return C::kVtOff + s * C::kKVBytes; };  // V^T hi; lo likewise
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool segments = q_seg != nullptr;
+  // the work item (b*h, 128-row query tile) and its key tiles: those wholly
+  // above the diagonal of the item's last row contribute nothing
+  auto item_of = [&](int item, int& bh, int& q0, int& n_tiles) {
+    bh = item / n_qtiles;
+    q0 = (item % n_qtiles) * C::kQTile;
+    const int kv_stop = causal ? min(lkv, q0 + C::kQTile) : lkv;
+    n_tiles = (kv_stop + C::kKeys - 1) / C::kKeys;
+  };
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(q_full, 1);
+    sm90::mbar_init(q_empty, 4 * C::kConsumers);  // every consumer warp
+    for (int i = 0; i < C::kLandings; ++i) {
+      sm90::mbar_init(v_full + 8 * i, 1);
+      sm90::mbar_init(v_free + 8 * i, C::kSplitters);
+    }
+    for (int s = 0; s < C::kStages; ++s) {
+      sm90::mbar_init(k_full + 8 * s, 1);
+      sm90::mbar_init(k_ready + 8 * s, C::kSplitters);
+      sm90::mbar_init(k_empty + 8 * s, 4 * C::kConsumers);
+      sm90::mbar_init(vt_ready + 8 * s, C::kSplitters);
+      sm90::mbar_init(vt_empty + 8 * s, 4 * C::kConsumers);
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp < 4) {
+    sm90::reg_dealloc<C::kProducerRegs>();
+    if (warp == 0) {
+      // ---- producer: every load of every item of this CTA, in order ----
+      if (lane == 0) {
+        sm90::tma_prefetch(&q_map);
+        if (lkv > 0) {  // no key: no K or V map
+          sm90::tma_prefetch(&k_map);
+          sm90::tma_prefetch(&v_map);
+        }
+      }
+      int g = 0;  // K/V tiles loaded so far, over all items: the ring's position
+      for (int j = 0, item = blockIdx.x; item < n_items; ++j, item += gridDim.x) {
+        int bh, q0, n_tiles;
+        item_of(item, bh, q0, n_tiles);
+        const int b = bh / heads, h = bh % heads;
+        auto load_kv = [&](int t) {
+          const int s = g % C::kStages;
+          sm90::mbar_wait(k_empty + 8 * s, ((g / C::kStages) & 1) ^ 1);  // the first round passes
+          if (lane == 0) {
+            sm90::mbar_arrive_tx(k_full + 8 * s, C::kKVBytes);
+#pragma unroll
+            for (int box = 0; box < D / C::kBoxCols; ++box) {
+              sm90::tma_load(base + k_at(s) + box * C::kKeys * C::kRowBytes, &k_map,
+                             k_full + 8 * s, box * C::kBoxCols, t * C::kKeys, h, b);
+            }
+          }
+          const int l = g % C::kLandings;
+          sm90::mbar_wait(v_free + 8 * l, ((g / C::kLandings) & 1) ^ 1);
+          if (lane == 0) {
+            sm90::mbar_arrive_tx(v_full + 8 * l, C::kKVBytes);
+#pragma unroll
+            for (int box = 0; box < D / C::kBoxCols; ++box) {
+              sm90::tma_load(base + C::kVOff + l * C::kKVBytes + box * C::kKeys * C::kRowBytes,
+                             &v_map, v_full + 8 * l, box * C::kBoxCols, t * C::kKeys, h, b);
+            }
+          }
+          ++g;
+        };
+        // the item's first K/V tile, then its Q once the last item's products
+        // are done with the Q buffer, then the rest of its tiles
+        if (n_tiles > 0) load_kv(0);
+        sm90::mbar_wait(q_empty, (j & 1) ^ 1);
+        if (lane == 0) {
+          sm90::mbar_arrive_tx(q_full, C::kConsumers * C::kQBytes);
+          for (int w = 0; w < C::kConsumers; ++w) {
+#pragma unroll
+            for (int box = 0; box < D / C::kBoxCols; ++box) {
+              sm90::tma_load(base + w * C::kQBytes + box * C::kRows * C::kRowBytes, &q_map,
+                             q_full, box * C::kBoxCols, q0 + w * C::kRows, h, b);
+            }
+          }
+        }
+        for (int t = 1; t < n_tiles; ++t) load_kv(t);
+      }
+    } else {
+      // ---- splitters: each K tile split in place (its segment ids copied),
+      // then each V tile, as it lands, into V^T hi and lo ----
+      const int i0 = threadIdx.x - 32;
+      int g = 0;
+      for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+        int bh, q0, n_tiles;
+        item_of(item, bh, q0, n_tiles);
+        const int b = bh / heads;
+        for (int t = 0; t < n_tiles; ++t, ++g) {
+          const int s = g % C::kStages, l = g % C::kLandings;
+          sm90::mbar_wait(k_full + 8 * s, (g / C::kStages) & 1);
+          split_tile<C::kKVBytes, C::kSplitters>(smem + k_at(s),
+                                                 smem + k_at(s) + C::kStages * C::kKVBytes, i0);
+          if (segments) {  // keys past Lkv count for nothing (id unread)
+            for (int col = i0; col < C::kKeys; col += C::kSplitters) {
+              const int key = t * C::kKeys + col;
+              seg_smem[(g % C::kSegSlots) * C::kKeys + col] =
+                  key < lkv ? kv_seg[static_cast<size_t>(b) * lkv + key] : 0;
+            }
+          }
+          sm90::fence_async_smem();
+          sm90::mbar_arrive(k_ready + 8 * s);
+          sm90::mbar_wait(v_full + 8 * l, (g / C::kLandings) & 1);
+          sm90::mbar_wait(vt_empty + 8 * s, ((g / C::kStages) & 1) ^ 1);  // the first round passes
+          transpose_v_tile<D>(smem + C::kVOff + l * C::kKVBytes, smem + vt_at(s),
+                              smem + vt_at(s) + C::kStages * C::kKVBytes, i0);
+          sm90::fence_async_smem();
+          sm90::mbar_arrive(vt_ready + 8 * s);
+          sm90::mbar_arrive(v_free + 8 * l);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows of every item each ----
+    sm90::reg_alloc<C::kConsumerRegs>();
+    const int wg = warp / 4 - 1;
+    const int wt = threadIdx.x & 127;  // thread in the warpgroup
+    const int t4 = lane & 3;
+    const bool signal = lane == 0;  // one arrival a warp on the empty barriers
+    const float scale_log2 = sm_scale * kLog2e;
+    const uint32_t q_hi = base + wg * C::kQBytes, q_lo = base + C::kQLoOff + wg * C::kQBytes;
+    // turns at the tensor cores as in flash_fwd_wgmma_kernel
+    const int my_turn = kTurnBarrier + wg;
+    const int their_turn = kTurnBarrier + (wg + 1) % C::kConsumers;
+    if (wg == C::kConsumers - 1) sm90::named_arrive(kTurnBarrier, 256);
+
+    float o[D / 2], ot[D / 2];  // O, and a tile's P.V when it is taken fresh
+    float s[C::kKeys / 2];
+    uint32_t p_hi[C::kKeys / 8][4], p_lo[C::kKeys / 8][4];
+    float alpha0, alpha1, prev0 = 0.f, prev1 = 0.f;  // prev: the alphas of the P.V in flight
+    auto pv = [&](int stage) {
+      issue_pv_tf32<D>(kTf32FreshPv ? ot : o, p_hi, p_lo, base + vt_at(stage),
+                       base + vt_at(stage) + C::kStages * C::kKVBytes, kTf32FreshPv);
+    };
+    auto pv_done = [&](int stage) {  // after its wait: O updated, V^T released
+      sm90::fence_regs(o);
+      if (kTf32FreshPv) sm90::fence_regs(ot);
+      sm90::fence_regs(p_hi);
+      sm90::fence_regs(p_lo);
+      if (signal) sm90::mbar_arrive(vt_empty + 8 * stage);
+      if (kTf32FreshPv) fold(o, ot, prev0, prev1);
+    };
+    int g = 0;  // K/V tiles consumed so far, over all items
+    for (int j = 0, item = blockIdx.x; item < n_items; ++j, item += gridDim.x) {
+      int bh, q0, n_tiles;
+      item_of(item, bh, q0, n_tiles);
+      const int b = bh / heads, h = bh % heads;
+      const int qw = q0 + wg * C::kRows;  // the warpgroup's first query row
+      // a causal row's keys end at its 64-row tile's diagonal: past it, within
+      // a running tile, keys count for nothing, as past Lkv
+      const int kv_end = causal ? min(lkv, qw + C::kRows) : lkv;
+      RowState st;
+      st.row0 = qw + 16 * (wt >> 5) + (lane >> 2);
+      st.row1 = st.row0 + 8;
+      st.seg0 = st.seg1 = 0;
+      if (segments) {
+        if (st.row0 < lq) st.seg0 = q_seg[static_cast<size_t>(b) * lq + st.row0];
+        if (st.row1 < lq) st.seg1 = q_seg[static_cast<size_t>(b) * lq + st.row1];
+      }
+      st.m0 = st.m1 = -INFINITY;
+      st.l0 = st.l1 = 0.f;
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+
+      sm90::mbar_wait(q_full, j & 1);
+      if (qw >= lq || n_tiles == 0) {
+        // no row of this warpgroup is real (the last query tile's second
+        // half), or no key: keep the ring and the turns in step, compute nothing
+        if (signal) sm90::mbar_arrive(q_empty);
+        idle_item<C::kStages>(g, n_tiles, k_ready, k_empty, vt_ready, vt_empty, my_turn,
+                              their_turn, signal);
+        g += n_tiles;
+      } else {
+        // this warpgroup's Q split in place, then visible to its products
+        split_tile<C::kQBytes, 128>(smem + (q_hi - base), smem + (q_lo - base), wt);
+        sm90::fence_async_smem();
+        sm90::named_barrier(kEpilogueBarrier + wg, 128);
+        const int stage0 = g % C::kStages;
+        sm90::mbar_wait(k_ready + 8 * stage0, (g / C::kStages) & 1);
+        sm90::named_barrier(my_turn, 256);
+        issue_scores_tf32<D>(s, q_hi, q_lo, base + k_at(stage0),
+                             base + k_at(stage0) + C::kStages * C::kKVBytes);
+        sm90::named_arrive(their_turn, 256);
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(s);
+        if (signal) {
+          sm90::mbar_arrive(k_empty + 8 * stage0);
+          if (n_tiles == 1) sm90::mbar_arrive(q_empty);  // the item's last S is done
+        }
+        softmax<C::kKeys>(s, st, 0, kv_end, causal, segments,
+                          seg_smem + (g % C::kSegSlots) * C::kKeys, t4, scale_log2, alpha0,
+                          alpha1);
+        prev0 = alpha0;
+        prev1 = alpha1;
+        scores_to_p_tf32<C::kKeys>(p_hi, p_lo, s);
+        // the steady state: S of tile t + 1 runs beside P.V of tile t, whose
+        // softmax waits only for S
+        for (int t = 0; t + 1 < n_tiles; ++t) {
+          const int gt = g + t;
+          const int stage = gt % C::kStages, stage1 = (gt + 1) % C::kStages;
+          sm90::mbar_wait(k_ready + 8 * stage1, ((gt + 1) / C::kStages) & 1);
+          sm90::mbar_wait(vt_ready + 8 * stage, (gt / C::kStages) & 1);
+          sm90::named_barrier(my_turn, 256);
+          issue_scores_tf32<D>(s, q_hi, q_lo, base + k_at(stage1),
+                               base + k_at(stage1) + C::kStages * C::kKVBytes);
+          pv(stage);
+          sm90::named_arrive(their_turn, 256);
+          sm90::wgmma_wait<1>();  // S of tile t + 1 is done; P.V of tile t runs on
+          sm90::fence_regs(s);
+          if (signal) {
+            sm90::mbar_arrive(k_empty + 8 * stage1);
+            if (t + 2 == n_tiles) sm90::mbar_arrive(q_empty);
+          }
+          softmax<C::kKeys>(s, st, (t + 1) * C::kKeys, kv_end, causal, segments,
+                            seg_smem + ((gt + 1) % C::kSegSlots) * C::kKeys, t4, scale_log2,
+                            alpha0, alpha1);
+          sm90::wgmma_wait<0>();
+          pv_done(stage);
+          if (kTf32FreshPv) {
+            prev0 = alpha0;
+            prev1 = alpha1;
+          } else {
+            rescale(o, alpha0, alpha1);
+          }
+          scores_to_p_tf32<C::kKeys>(p_hi, p_lo, s);
+        }
+        const int last = g + n_tiles - 1, stage = last % C::kStages;
+        sm90::mbar_wait(vt_ready + 8 * stage, (last / C::kStages) & 1);
+        sm90::named_barrier(my_turn, 256);
+        pv(stage);
+        sm90::named_arrive(their_turn, 256);
+        sm90::wgmma_wait<0>();
+        pv_done(stage);
+        g += n_tiles;
+      }
+      if (qw >= lq) continue;
+
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        st.l0 += __shfl_xor_sync(kFull, st.l0, off);
+        st.l1 += __shfl_xor_sync(kFull, st.l1, off);
+      }
+      const float inv0 = st.l0 == 0.f ? 1.f : 1.f / st.l0;
+      const float inv1 = st.l1 == 0.f ? 1.f : 1.f / st.l1;
+      // O from the registers by its strides, two floats a store
+      float* ob = out + b * o_sb + h * o_sh;
+#pragma unroll
+      for (int jj = 0; jj < D / 8; ++jj) {
+        const int col = 8 * jj + 2 * t4;
+        if (st.row0 < lq) {
+          *reinterpret_cast<float2*>(ob + st.row0 * o_sl + col) =
+              make_float2(o[4 * jj] * inv0, o[4 * jj + 1] * inv0);
+        }
+        if (st.row1 < lq) {
+          *reinterpret_cast<float2*>(ob + st.row1 * o_sl + col) =
+              make_float2(o[4 * jj + 2] * inv1, o[4 * jj + 3] * inv1);
+        }
+      }
+      if (t4 == 0) {
+        float* lse_b = lse + static_cast<size_t>(bh) * lq;
+        if (st.row0 < lq) lse_b[st.row0] = row_lse(st.m0, st.l0);
+        if (st.row1 < lq) lse_b[st.row1] = row_lse(st.m1, st.l1);
+      }
+    }
+  }
 }
 
 // bf16: TMA maps over q, k, v and o by their byte strides (`strides`: L, H
@@ -807,25 +1142,22 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* ls
                  int lq, int lkv, int causal, float sm_scale, cudaStream_t stream) {
   using C = Sm90Fwd<D>;
   const int b = bh / heads;
-  CUtensorMap maps[4] = {};
-  int err = sm90_host::make_map(&maps[0], q, D, lq, heads, b, strides, C::kBoxCols, C::kRows,
-                                C::kSwizzle);
+  CUtensorMap maps[4] = {};  // q, k, v, o
+  auto map = [&](int i, const void* p, int len, const long long* st, int rows) {
+    return sm90_host::make_map(&maps[i], sm90_host::kBf16, p, D, len, heads, b, st,
+                               C::kBoxCols, rows, C::kSwizzle);
+  };
+  int err = map(0, q, lq, strides, C::kRows);
   if (!err && lkv > 0) {  // no key: no K or V tile is loaded
-    err = sm90_host::make_map(&maps[1], k, D, lkv, heads, b, strides + 3, C::kBoxCols, C::kKeys,
-                              C::kSwizzle);
-    if (!err) {
-      err = sm90_host::make_map(&maps[2], v, D, lkv, heads, b, strides + 6, C::kBoxCols,
-                                C::kKeys, C::kSwizzle);
-    }
+    err = map(1, k, lkv, strides + 3, C::kKeys);
+    if (!err) err = map(2, v, lkv, strides + 6, C::kKeys);
   }
-  if (!err) {
-    err = sm90_host::make_map(&maps[3], o, D, lq, heads, b, strides + 9, C::kBoxCols, C::kRows,
-                              C::kSwizzle);
-  }
+  if (!err) err = map(3, o, lq, strides + 9, C::kRows);
   if (err) return err;
-  int device = 0, sms = 0;
-  cudaError_t cerr = cudaGetDevice(&device);
-  if (cerr == cudaSuccess) cerr = wgmma_device<D>(device, &sms);
+  static std::atomic<int> known[sm90_host::kDevices];
+  int sms = 0;
+  const cudaError_t cerr =
+      sm90_host::persistent_sms(flash_fwd_wgmma_kernel<D>, C::kSmem, known, &sms);
   if (cerr != cudaSuccess) return static_cast<int>(cerr);
   // persistent: one CTA an SM, each taking work items (b*h, query tile) in
   // turn, so one item's loads overlap the last one's products and epilogue
@@ -837,17 +1169,37 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* ls
   return static_cast<int>(cudaGetLastError());
 }
 
+// f32: TMA maps over q, k and v by their byte strides, o written by its
+// element strides (from strides[9..11]), then one launch of the wgmma kernel
 template <int D>
-int launch_tf32(const void* q, const void* k, const void* v, void* o, float* lse,
-                const int* q_seg, const int* kv_seg, int bh, int heads, int lq, int lkv,
-                int causal, float sm_scale, cudaStream_t stream) {
-  const int n_qtiles = (lq + kBlock - 1) / kBlock;
-  constexpr size_t smem = tf32_smem_bytes<D>();
-  cudaError_t err = allow_smem(flash_fwd_tf32_kernel<D>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  flash_fwd_tf32_kernel<D><<<bh * n_qtiles, kMmaThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), lse, q_seg, kv_seg, heads, lq, lkv, n_qtiles, causal, sm_scale);
+int launch_tf32_wgmma(const void* q, const void* k, const void* v, void* o, float* lse,
+                      const int* q_seg, const int* kv_seg, const long long* strides, int bh,
+                      int heads, int lq, int lkv, int causal, float sm_scale,
+                      cudaStream_t stream) {
+  using C = Sm90Tf32Fwd<D>;
+  const int b = bh / heads;
+  CUtensorMap maps[3] = {};  // q, k, v
+  auto map = [&](int i, const void* p, int len, const long long* st, int rows) {
+    return sm90_host::make_map(&maps[i], sm90_host::kF32, p, D, len, heads, b, st, C::kBoxCols,
+                               rows, 128);
+  };
+  int err = map(0, q, lq, strides, C::kRows);
+  if (!err && lkv > 0) {  // no key: no K or V tile is loaded
+    err = map(1, k, lkv, strides + 3, C::kKeys);
+    if (!err) err = map(2, v, lkv, strides + 6, C::kKeys);
+  }
+  if (err) return err;
+  static std::atomic<int> known[sm90_host::kDevices];
+  int sms = 0;
+  const cudaError_t cerr =
+      sm90_host::persistent_sms(flash_fwd_tf32_wgmma_kernel<D>, C::kSmem, known, &sms);
+  if (cerr != cudaSuccess) return static_cast<int>(cerr);
+  const int n_qtiles = (lq + C::kQTile - 1) / C::kQTile;
+  const int n_items = bh * n_qtiles;
+  const long long* os = strides + 9;
+  flash_fwd_tf32_wgmma_kernel<D><<<std::min(n_items, sms), C::kThreads, C::kSmem, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<float*>(o), os[0] / 4, os[1] / 4, os[2] / 4, lse,
+      q_seg, kv_seg, heads, lq, lkv, n_qtiles, n_items, causal, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -859,8 +1211,8 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, con
     return launch_wgmma<D>(q, k, v, o, lse, q_seg, kv_seg, strides, bh, heads, lq, lkv, causal,
                            sm_scale, stream);
   }
-  return launch_tf32<D>(q, k, v, o, lse, q_seg, kv_seg, bh, heads, lq, lkv, causal, sm_scale,
-                        stream);
+  return launch_tf32_wgmma<D>(q, k, v, o, lse, q_seg, kv_seg, strides, bh, heads, lq, lkv,
+                              causal, sm_scale, stream);
 }
 
 }  // namespace
@@ -868,14 +1220,13 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, con
 // q [bh, lq, d], k and v [bh, lkv, d], o [bh, lq, d] (16-byte aligned, f32
 // when is_bf16 == 0 else bf16); lse [bh, lq] f32 (contiguous); q_seg
 // [bh/heads, lq] and kv_seg [bh/heads, lkv] int32 (contiguous), both null or
-// both set. f32 tensors are contiguous and `strides` is unread; bf16 ones are
-// read and written by their byte strides, `strides` holding those of L, H
-// and B for q, k, v and o in turn (12 values, each a multiple of 16; the last
-// dim is contiguous). d is 32, 64 or 128. Both tiers run on the tensor cores:
-// bf16 in one pass (wgmma), f32 in three TF32 passes (mma.sync). Launches on
-// `stream` without synchronising and returns the cudaGetLastError() code of
-// the launch, or of a refused shared-memory opt-in or tensor map (0 on
-// success).
+// both set. q, k, v and o are read and written by their byte strides,
+// `strides` holding those of L, H and B for q, k, v and o in turn (12
+// values, each a multiple of 16; the last dim is contiguous). d is 32, 64 or
+// 128. Both tiers run on Hopper's tensor cores (wgmma): bf16 in one pass, f32
+// in three TF32 passes. Launches on `stream` without synchronising and
+// returns the cudaGetLastError() code of the launch, or of a refused
+// shared-memory opt-in or tensor map (0 on success).
 extern "C" int moc_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
                              const int* q_seg, const int* kv_seg, const long long* strides,
                              int bh, int heads, int lq, int lkv, int d, int is_bf16, int causal,
@@ -893,5 +1244,20 @@ extern "C" int moc_flash_fwd(const void* q, const void* k, const void* v, void* 
                          causal, sm_scale, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The dynamic shared memory a CTA of K2 takes at head dim d (f32 when
+// is_bf16 == 0), or 0 for another d
+extern "C" long long moc_flash_fwd_smem_bytes(int d, int is_bf16) {
+  switch (d) {
+    case 32:
+      return static_cast<long long>(is_bf16 ? Sm90Fwd<32>::kSmem : Sm90Tf32Fwd<32>::kSmem);
+    case 64:
+      return static_cast<long long>(is_bf16 ? Sm90Fwd<64>::kSmem : Sm90Tf32Fwd<64>::kSmem);
+    case 128:
+      return static_cast<long long>(is_bf16 ? Sm90Fwd<128>::kSmem : Sm90Tf32Fwd<128>::kSmem);
+    default:
+      return 0;
   }
 }

@@ -1,6 +1,8 @@
-// Tensor-core pieces shared by the flash-attention kernels: K2's forward
-// (flash_fwd.cu), K3's dq and K4's dk/dv (flash_bwd.cu), each in bf16 and in
-// f32.
+// Tensor-core pieces of the flash-attention kernels on mma.sync: the f32
+// tier of K3's dq and K4's dk/dv (flash_bwd.cu) uses them, and K2
+// (flash_fwd.cu, on wgmma) takes split_tf32, acc_to_a_tf32 and pack_bf16
+// from here. Tile, ldsm_x4 of bf16, the bf16 A/B addresses,
+// mma_bf16, stage_rows and store_rows_16 have no caller left.
 //
 // - cp_async16 / cp_async4: global -> shared copies (cp.async), zero-filled
 //   for rows at or past the end of a slab (the ragged 785-token edge), with

@@ -101,10 +101,20 @@ def _forward(q, k, v, q_seg, kv_seg, causal, sm_scale):
                          sm_scale=sm_scale)
 
 
+def _kernel_bwd_inputs(q, k, v, do):
+    """q, k, v and dO as K3 and K4 take them. f32 K3 and K4 take contiguous
+    tensors: the views K2 read by their strides are copied here, for the
+    backward alone. bf16 ones go as they lie where TMA can read them
+    (``_keeps_view``; q, k and v were held to that in ``_prepare``), else dO
+    is copied: a layout copy, K3 and K4 run either way."""
+    if q.dtype == torch.float32:
+        return tuple(t.contiguous() for t in (q, k, v, do))
+    return q, k, v, (do if _keeps_view(do) else do.contiguous())
+
+
 def _backward(q, k, v, o, lse, do, q_seg, kv_seg, causal, sm_scale):
     if q.device.type == "cuda":
-        if not _keeps_view(do):  # a layout copy: K3 and K4 run either way
-            do = do.contiguous()
+        q, k, v, do = _kernel_bwd_inputs(q, k, v, do)
         # rowsum(dO * O) in f32, outside the kernels as the TPU's _bwd takes it
         delta = (o.float() * do.float()).sum(-1)
         dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, q_seg, kv_seg, causal=causal,
@@ -196,13 +206,14 @@ def _prepare(q, k, v, q_segment_ids, kv_segment_ids, sm_scale):
 
 
 def _keeps_view(t):
-    """Whether ``t`` goes to the kernels as it lies: bf16 whose strides TMA
-    can read (``tma_readable``), with or without a gradient, since K2, K3 and
-    K4 all read bf16 q, k, v and dO by their strides (the ``[B, H, L, D]``
+    """Whether ``t`` goes to the kernels as it lies: bf16 or f32 whose
+    strides TMA can read (``tma_readable``), with or without a gradient. K2
+    reads q, k and v by their strides in both types (the ``[B, H, L, D]``
     views of the encoders' ``[B, L, H, D]`` projections), as the plain
-    versions do on the CPU. Anything else is copied to a contiguous tensor:
-    the f32 kernels take contiguous tensors."""
-    return t.dtype == torch.bfloat16 and tma_readable(t)
+    versions do on the CPU, and bf16 K3 and K4 read q, k, v and dO so too;
+    f32 K3 and K4 take contiguous tensors, which ``_kernel_bwd_inputs``
+    copies for them. Anything else is copied to a contiguous tensor here."""
+    return t.dtype in (torch.bfloat16, torch.float32) and tma_readable(t)
 
 
 def flash_attention_with_lse(q, k, v, *, q_segment_ids=None, kv_segment_ids=None,

@@ -23,22 +23,22 @@ At the pretraining shape ``[32, 12, 512, 64]`` K3 does 6·B·H·L²·D = 38.7
 GFLOP and K4 8·B·H·L²·D = 51.5 GFLOP: 0.2345 and 0.312 ms in f32, against
 0.08-0.09 ms for their bytes.
 
-Design: in f32 one CTA per (b·h, 64-row tile); in bf16 persistent CTAs
-over (b·h, 128-row) items, 64 rows for each of two consumer warpgroups. K2
-and K3 own query rows and loop over K/V tiles; K4 owns keys and loops over
-the query tiles, so no tile is reduced across CTAs and nothing needs
-atomics. Running sums are
-in f32 registers. In f32 all three run on the tensor cores in three TF32
-passes (hi·hi + hi·lo + lo·hi of operands split as hi = tf32(x), lo =
-tf32(x - hi), inside the kernel, with no process-global TF32 flag read or
-set): one pass would miss the JAX package's f32 tolerances, three hold them
-and stay within 1e-5 of the largest |O| (K2) or |grad| (K3, K4) of the plain
-version. In bf16 all three run on the tensor cores: exact bf16 products
-summed in f32, built for Hopper on ``wgmma`` over tiles that a producer
-warp loads by TMA into an mbarrier ring (``csrc/flash_sm90.cuh``) for two
-consumer warpgroups of 64 rows each, reading q, k, v (and the backward's
-dO) by their strides and writing o, dq, dk and dv by theirs
-(``tma_geometry``). On the tensor
+Design: K2 in both types, and K3 and K4 in bf16, are persistent CTAs over
+(b·h, 128-row) items, 64 rows for each of two consumer warpgroups, built
+for Hopper on ``wgmma`` over tiles that a producer warp loads by TMA into
+an mbarrier ring (``csrc/flash_sm90.cuh``); f32 K3 and K4 run one CTA per
+(b·h, 64-row tile) on ``mma.sync``. K2 and K3 own query rows and loop over
+K/V tiles; K4 owns keys and loops over the query tiles, so no tile is
+reduced across CTAs and nothing needs atomics. Running sums are in f32
+registers. In f32 all three run on the tensor cores in three TF32 passes
+(hi·hi + hi·lo + lo·hi of operands split as hi = tf32(x), lo = tf32(x -
+hi), inside the kernel, with no process-global TF32 flag read or set): one
+pass would miss the JAX package's f32 tolerances, three hold them and stay
+within 1e-5 of the largest |O| (K2) or |grad| (K3, K4) of the plain
+version. In bf16 the products are exact and summed in f32. K2 reads q, k
+and v by their strides and writes o by its strides in both types; bf16 K3
+and K4 read q, k, v and dO and write dq, dk and dv by theirs
+(``tma_geometry``); f32 K3 and K4 take contiguous tensors. On the tensor
 cores the kernels sum in another order than the plain version, so they
 match it within a tolerance rather than bit for bit. Any Lq and Lkv: the
 ragged edge is masked by bounds, so the vision trunk's 785 tokens need no
@@ -84,15 +84,27 @@ TMA_MAX_STRIDE = 2 ** 40
 # query rows a TMA box of K2's bf16 kernel holds for q and o (one consumer
 # warpgroup's tile), and keys for k and v (one K/V tile)
 Q_BOX_ROWS, KV_BOX_ROWS = 64, 128
+# the names refusals give the dtypes the kernels read by strides
+_DTYPE_NAMES = {torch.bfloat16: "bf16", torch.float32: "f32"}
+
+
+def kv_box_rows(dtype: torch.dtype, d: int) -> int:
+    """Keys a TMA box of K2's k and v holds (one K/V tile): 128 in bf16; in
+    f32 64, or 32 at D = 128 (``Sm90Tf32Fwd``), whose tiles are held split
+    in hi and lo."""
+    if dtype == torch.bfloat16:
+        return KV_BOX_ROWS
+    return 32 if d == 128 else 64
 
 
 def tma_geometry(t: torch.Tensor, box_rows: int) -> dict:
-    """The tensor map K2's bf16 kernel encodes over ``t [B, H, L, D]``
-    (``moc_flash_fwd``, ``csrc/flash_sm90.cuh`` ``make_map``): ``dims`` (D,
-    L, H, B), innermost first; ``strides``, the byte strides of L, H and B;
-    ``box`` (columns, rows, 1, 1), at most 64 columns (128 bytes) wide, so D
-    = 128 takes two boxes; and ``swizzle``, the bytes of a box row (128, or
-    64 at D = 32). A dimension of size 0 or 1 is never stepped: its stride
+    """The tensor map K2 encodes over ``t [B, H, L, D]`` (``moc_flash_fwd``,
+    ``csrc/flash_sm90.cuh`` ``make_map``), bf16 or f32: ``dims`` (D, L, H,
+    B), innermost first; ``strides``, the byte strides of L, H and B;
+    ``box`` (columns, rows, 1, 1), at most 128 bytes wide (64 bf16 or 32 f32
+    columns), so D = 128 takes two bf16 boxes or four f32 ones; and
+    ``swizzle``, the bytes of a box row (128, or 64 for bf16 at D = 32). A
+    dimension of size 0 or 1 is never stepped: its stride
     is taken as the extent of the dimensions inside it. Raises ``ValueError``
     where TMA cannot read ``t`` by its strides: a last dimension that is not
     contiguous, or a stride that is not a positive multiple of 16 bytes below
@@ -106,28 +118,29 @@ def tma_geometry(t: torch.Tensor, box_rows: int) -> dict:
 
 def _tma_strides(t: torch.Tensor, name: str = "K2") -> tuple:
     """``tma_geometry``'s byte strides of L, H and B (the wrappers' fast
-    path); ``name`` is the kernel a refusal names."""
+    path); ``name`` is the kernel a refusal names, beside ``t``'s dtype."""
     b, h, length, d = t.shape
     sb, sh, sl, sd = t.stride()
     el = t.element_size()
+    dtype = _DTYPE_NAMES.get(t.dtype, str(t.dtype))
     if d > 1 and sd != 1:
-        raise ValueError(f"{name} reads bf16 tensors whose last dim is contiguous, got strides "
-                         f"{t.stride()}")
+        raise ValueError(f"{name} reads {dtype} tensors whose last dim is contiguous, got "
+                         f"strides {t.stride()}")
     empty = t.numel() == 0
     step_l = d * el if length <= 1 or empty else sl * el
     step_h = step_l * max(length, 1) if h <= 1 or empty else sh * el
     step_b = step_h * max(h, 1) if b <= 1 or empty else sb * el
     for step in (step_l, step_h, step_b):
         if step <= 0 or step % TMA_STRIDE_BYTES or step >= TMA_MAX_STRIDE:
-            raise ValueError(f"{name} reads bf16 tensors by strides that are multiples of "
+            raise ValueError(f"{name} reads {dtype} tensors by strides that are multiples of "
                              f"{TMA_STRIDE_BYTES} bytes, got strides {t.stride()} "
                              f"(elements of {el} bytes)")
     return step_l, step_h, step_b
 
 
 def tma_readable(t: torch.Tensor) -> bool:
-    """Whether the bf16 kernels (K2, K3, K4) can read ``t`` as it lies
-    (``tma_geometry``)."""
+    """Whether the kernels that read by strides (K2; K3 and K4 in bf16) can
+    read ``t`` as it lies (``tma_geometry``)."""
     try:
         tma_geometry(t, Q_BOX_ROWS)
     except ValueError:
@@ -213,13 +226,12 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    sm_scale: float | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """K2: ``(o, lse)`` for ``q [B, H, Lq, D]``, ``k, v [B, H, Lkv, D]`` on
     the GPU (f32 or bf16, D 32, 64 or 128), with optional segment ids ``[B,
-    Lq]`` and ``[B, Lkv]`` (both or neither). f32 tensors are contiguous;
-    bf16 ones are read by their strides (``tma_geometry``: the last dim
-    contiguous, the others multiples of 16 bytes), so the ``[B, H, L, D]``
-    view of a ``[B, L, H, D]`` projection needs no copy, and o takes q's
-    layout where q is dense. One launch."""
-    bf16 = q.dtype == torch.bfloat16
-    _check("K2", q, k, v, strided=bf16)
+    Lq]`` and ``[B, Lkv]`` (both or neither). q, k and v are read by their
+    strides in either type (``tma_geometry``: the last dim contiguous, the
+    others multiples of 16 bytes), so the ``[B, H, L, D]`` view of a ``[B,
+    L, H, D]`` projection needs no copy, and o takes q's layout where q is
+    dense. One launch."""
+    _check("K2", q, k, v, strided=True)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError("K2 is forward only: differentiate through "
                            "ops.flash_attention, whose backward runs K3 and K4, or call "
@@ -231,13 +243,23 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
-    strides = _strides("K2", (q, k, v, out)) if bf16 else None
+    strides = _strides("K2", (q, k, v, out))
     _launch(_kernel("flash_fwd", "moc_flash_fwd", 8), "flash_fwd", q,
             [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-             _ptr(q_seg), _ptr(kv_seg), None if strides is None else ctypes.addressof(strides)],
+             _ptr(q_seg), _ptr(kv_seg), ctypes.addressof(strides)],
             lkv, causal, d ** -0.5 if sm_scale is None else sm_scale)
     flash_fwd_cuda.launches += 1
     return out, lse
+
+
+def k2_smem_bytes(d: int, dtype: torch.dtype) -> int:
+    """The dynamic shared memory a CTA of K2 takes at head dim ``d`` in
+    ``dtype`` (``Sm90Fwd`` / ``Sm90Tf32Fwd`` ``kSmem``); builds K2 on first
+    use."""
+    fn = cuda_build.load("flash_fwd").moc_flash_fwd_smem_bytes
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_longlong
+    return fn(d, int(dtype == torch.bfloat16))
 
 
 def _check_stats(name: str, q: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor) -> None:
@@ -260,7 +282,7 @@ def _backward_args(name, q, k, v, do, lse, delta, q_segment_ids, kv_segment_ids)
 
 
 def _strides(name: str, tensors) -> ctypes.Array:
-    """The byte strides of L, H and B of each bf16 tensor in turn, as the
+    """The byte strides of L, H and B of each tensor in turn, as the
     kernels' tensor maps take them; raises ``ValueError`` where TMA cannot
     read or write one by its strides."""
     values = [x for t in tensors for x in _tma_strides(t, name)]

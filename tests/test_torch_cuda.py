@@ -299,22 +299,25 @@ def test_k2_wrapper_refuses(gen):
     q96 = torch.randn((1, 2, 128, 96), generator=gen, device="cuda")
     with pytest.raises(ValueError, match="head dim"):
         flash_fwd_cuda(q96, q96, q96)
-    with pytest.raises(ValueError, match="contiguous"):
-        flash_fwd_cuda(q.transpose(1, 2), q.transpose(1, 2), q.transpose(1, 2))
+    # f32, like bf16, is read by its strides: a last dim that is not
+    # contiguous is refused, naming the dtype
+    with pytest.raises(ValueError, match="f32 tensors whose last dim is contiguous"):
+        flash_fwd_cuda(q[..., ::2], q[..., ::2], q[..., ::2])
     g = q.clone().requires_grad_(True)
     with pytest.raises(RuntimeError, match="forward only"):
         flash_fwd_cuda(g, q, q)
     assert flash_fwd_cuda.launches == before
 
 
-def _strided_qkv(gen, b, h, length, d, fused):
-    """bf16 ``[B, H, L, D]`` views as the encoders pass them: of ``[B, L, H,
-    D]`` projections, or (``fused``) of the thirds of one ``[B, L, 3·H·D]``."""
+def _strided_qkv(gen, b, h, length, d, fused, dtype=torch.bfloat16):
+    """``[B, H, L, D]`` views in ``dtype`` as the encoders pass them: of
+    ``[B, L, H, D]`` projections, or (``fused``) of the thirds of one ``[B,
+    L, 3·H·D]``."""
     if fused:
-        x = torch.randn((b, length, 3 * h * d), generator=gen, device="cuda").to(torch.bfloat16)
+        x = torch.randn((b, length, 3 * h * d), generator=gen, device="cuda").to(dtype)
         return tuple(t.reshape(b, length, h, d).transpose(1, 2) for t in x.chunk(3, dim=-1))
     return tuple(torch.randn((b, length, h, d), generator=gen, device="cuda")
-                 .to(torch.bfloat16).transpose(1, 2) for _ in range(3))
+                 .to(dtype).transpose(1, 2) for _ in range(3))
 
 
 @pytest.mark.parametrize("d", [32, 64, 128])
@@ -338,6 +341,45 @@ def test_k2_bf16_reads_strided_views(gen, d, fused, causal):
     torch.testing.assert_close(flash_attention(q, k, v, causal=causal), o, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("causal", [False, True])
+def test_k2_f32_reads_strided_views_bit_equal_to_contiguous(gen, d, fused, causal):
+    """f32 K2 reads q, k, v by their strides as bf16 K2 does (TMA maps over
+    f32 boxes of 32 columns), with no copy: O takes q's layout where q is
+    dense, and O and lse are bit-equal to those of contiguous copies."""
+    q, k, v = _strided_qkv(gen, 2, 3, 785, d, fused, torch.float32)
+    assert not q.is_contiguous()
+    before = flash_fwd_cuda.launches
+    with torch.no_grad():
+        o, lse = flash_fwd_cuda(q, k, v, causal=causal)
+        oc, lsec = flash_fwd_cuda(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal)
+    torch.cuda.synchronize()
+    assert flash_fwd_cuda.launches == before + 2
+    if not fused:
+        assert o.stride() == q.stride()
+    assert torch.equal(o, oc) and torch.equal(lse, lsec)
+    ro, rlse = mha_reference(q, k, v, causal=causal)
+    _assert_k2_close(o, lse, ro, rlse, torch.float32)
+    # and the entry point hands the views to K2 as they are
+    torch.testing.assert_close(flash_attention(q, k, v, causal=causal), o, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_k2_without_keys_gives_zero_and_minus_inf(gen, dtype, d):
+    """Lkv = 0: no key tile is loaded (no K or V tensor map), O = 0 and lse =
+    -inf, as the plain version's empty softmax cannot say."""
+    q = torch.randn((2, 3, 200, d), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((2, 3, 0, d), generator=gen, device="cuda").to(dtype)
+    before = flash_fwd_cuda.launches
+    with torch.no_grad():
+        o, lse = flash_fwd_cuda(q, k, k)
+    torch.cuda.synchronize()
+    assert flash_fwd_cuda.launches == before + 1
+    assert o.dtype == dtype and (o == 0).all() and (lse == float("-inf")).all()
+
+
 @pytest.mark.parametrize("causal", [False, True])
 def test_k2_bf16_at_8192_tokens(gen, causal):
     """The ring's whole sequence: 64 key tiles of 128 a CTA."""
@@ -353,9 +395,11 @@ def test_k2_bf16_at_8192_tokens(gen, causal):
 def test_k2_causal_rows_without_keys_count_their_64_row_tile(gen, dtype):
     """A causal row that matches no key counts the keys of its 64-row query
     tile, [0, min(Lkv, tile + 64)), at the mask value: O is their mean of V
-    and lse the mask value. bf16 K2 runs 128 query rows a CTA and 128 keys a
-    tile; past a 64-row half's diagonal inside a running key tile, keys count
-    for nothing, as past Lkv (rows 10-15 and 135-140 meet such a tile)."""
+    and lse the mask value. K2 runs 128 query rows a CTA, with 128 keys a
+    tile in bf16 and 64 in f32; past a 64-row half's diagonal inside a
+    running key tile, keys count for nothing, as past Lkv (in bf16 rows
+    10-15 and 135-140 meet such a tile; in f32 the first half's last key
+    tile lies wholly past its diagonal)."""
     q, k, v = (torch.randn((2, 3, 300, 64), generator=gen, device="cuda").to(dtype)
                for _ in range(3))
     kv_seg = torch.zeros((2, 300), dtype=torch.int32, device="cuda")
@@ -568,17 +612,17 @@ def test_k3_k4_bf16_causal_rows_without_keys_count_their_64_row_tile(gen, d):
     assert not torch.equal(plain[2], want[2])
 
 
-def _strided_leaves(gen, b, h, length, d, fused):
-    """bf16 leaves of the layouts the encoders train with, and their ``[B, H,
-    L, D]`` q, k, v views: three ``[B, L, H, D]`` projections, or (``fused``)
-    one ``[B, L, 3·H·D]`` projection cut in thirds."""
+def _strided_leaves(gen, b, h, length, d, fused, dtype=torch.bfloat16):
+    """Leaves in ``dtype`` of the layouts the encoders train with, and their
+    ``[B, H, L, D]`` q, k, v views: three ``[B, L, H, D]`` projections, or
+    (``fused``) one ``[B, L, 3·H·D]`` projection cut in thirds."""
     if fused:
-        x = torch.randn((b, length, 3 * h * d), generator=gen, device="cuda").to(torch.bfloat16)
+        x = torch.randn((b, length, 3 * h * d), generator=gen, device="cuda").to(dtype)
         leaves = [x.requires_grad_(True)]
         views = [t.reshape(b, length, h, d).transpose(1, 2) for t in x.chunk(3, dim=-1)]
     else:
         leaves = [torch.randn((b, length, h, d), generator=gen, device="cuda")
-                  .to(torch.bfloat16).requires_grad_(True) for _ in range(3)]
+                  .to(dtype).requires_grad_(True) for _ in range(3)]
         views = [t.transpose(1, 2) for t in leaves]
     return leaves, views
 
@@ -624,6 +668,45 @@ def test_k3_k4_bf16_grads_of_strided_views_bit_equal_to_contiguous(gen, d, fused
                   else [t.transpose(1, 2).contiguous() for t in copies])
     out_c = flash_attention(*contiguous, causal=causal)
     grads_c = torch.autograd.grad((out_c.float() * do.contiguous()).sum(), copies)
+    assert torch.equal(out, out_c)
+    assert all(torch.equal(g, gc) for g, gc in zip(grads, grads_c))
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("fused", [False, True])
+def test_k3_k4_f32_grads_of_views_bit_equal_to_contiguous(gen, d, fused, monkeypatch):
+    """``flash_attention`` with gradients on f32 views: K2 reads them as they
+    lie, and K3 and K4, which take contiguous f32 tensors, get contiguous
+    copies made in the backward (``_kernel_bwd_inputs``), once each; the
+    output and every gradient are bit-equal to the same call on contiguous
+    copies."""
+    from moc_tpu_torch.ops import flash_attention as fa
+
+    b, h, length = 2, 3, 785
+    leaves, views = _strided_leaves(gen, b, h, length, d, fused, torch.float32)
+    do = torch.randn((b, length, h, d), generator=gen, device="cuda").transpose(1, 2)
+    seen = []
+
+    def recorder(kernel):
+        def run(q, k, v, do, *args, **kwargs):
+            seen.append([t.is_contiguous() for t in (q, k, v, do)])
+            return kernel(q, k, v, do, *args, **kwargs)
+        return run
+
+    monkeypatch.setattr(fa, "flash_bwd_dq_cuda", recorder(flash_bwd_dq_cuda))
+    monkeypatch.setattr(fa, "flash_bwd_dkv_cuda", recorder(flash_bwd_dkv_cuda))
+    out = flash_attention(*views, causal=True)
+    assert all(t.data_ptr() == w.data_ptr() and t.stride() == w.stride()
+               for t, w in zip(out.grad_fn.saved_tensors[:3], views))
+    grads = torch.autograd.grad((out * do).sum(), leaves)
+    torch.cuda.synchronize()
+    assert seen == [[True] * 4] * 2, seen
+    copies = [t.detach().clone().requires_grad_(True) for t in leaves]
+    contiguous = ([t.reshape(b, length, h, d).transpose(1, 2).contiguous()
+                   for t in copies[0].chunk(3, dim=-1)] if fused
+                  else [t.transpose(1, 2).contiguous() for t in copies])
+    out_c = flash_attention(*contiguous, causal=True)
+    grads_c = torch.autograd.grad((out_c * do.contiguous()).sum(), copies)
     assert torch.equal(out, out_c)
     assert all(torch.equal(g, gc) for g, gc in zip(grads, grads_c))
 

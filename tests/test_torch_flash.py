@@ -6,8 +6,11 @@ Pallas kernel in interpret mode for the lane-aligned lengths and its dense
 reference for the others, as its own tests do. The kernel itself runs only
 on a GPU (``tests/test_torch_cuda.py`` and ``chip_smoke.py``); here its
 wrapper must refuse CPU tensors. Its f32 tier's arithmetic, three TF32
-passes on the tensor cores, is emulated here in numpy and held to the JAX
-package's f32 tolerance."""
+passes on the tensor cores, is emulated here in numpy in two orders and held
+to the JAX package's f32 tolerance: the ``mma.sync`` order (64-row tiles, two
+k-steps a fresh accumulator), which f32 K3 and K4 take, and the order of
+K2's f32 kernel on Hopper (128-row items of two 64-row warpgroups, chained
+``wgmma`` k-steps, P.V fresh each key tile)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -228,12 +231,14 @@ def _tf32_product(a, b, passes, out):
 
 
 def _tf32_forward(q, k, v, q_seg, kv_seg, causal, scale, passes):
-    """K2's f32 tier on ``[H, L, D]`` f32 arrays of one batch row, as the
-    kernel runs it: 64-row query tiles over 64-key tiles (causal tiles
-    above the diagonal skipped), keys in passes of 64 at D = 64 (32 at
-    D = 32, 16 at D = 128), the online softmax per pass with P = exp2((S -
-    m) log2e), S and P.V by ``_tf32_product``; keys at or past Lkv at -inf,
-    masked keys at the mask value. Returns ``(o [H, Lq, D], lse [H, Lq])``."""
+    """A flash forward in three TF32 passes on ``[H, L, D]`` f32 arrays of
+    one batch row, in the order of the f32 tier's ``mma.sync`` kernels (K3
+    and K4 take their products so): 64-row query tiles over 64-key tiles
+    (causal tiles above the diagonal skipped), keys in passes of 64 at D =
+    64 (32 at D = 32, 16 at D = 128), the online softmax per pass with P =
+    exp2((S - m) log2e), S and P.V by ``_tf32_product``; keys at or past Lkv
+    at -inf, masked keys at the mask value. Returns ``(o [H, Lq, D], lse
+    [H, Lq])``."""
     h, lq, d = q.shape
     lkv = k.shape[1]
     chunk = {32: 32, 64: 64, 128: 16}[d]
@@ -272,10 +277,11 @@ def _tf32_forward(q, k, v, q_seg, kv_seg, causal, scale, passes):
 @pytest.mark.parametrize("d", [32, 64, 128])
 @pytest.mark.parametrize("mask", ["none", "causal", "segments"])
 def test_three_tf32_passes_hold_the_f32_tolerance(d, mask):
-    """K2's f32 tier in three TF32 passes, emulated on the CPU at B 2, H 2,
-    L 256: within the JAX package's 2e-5 of its Pallas forward (interpret
-    mode) on O and lse, and within ``F32_FWD_MAX_REL`` of the largest |O| of
-    the plain version, the limit the kernel is held to on the card. One pass
+    """A flash forward in three TF32 passes in the ``mma.sync`` order,
+    emulated on the CPU at B 2, H 2, L 256: within the JAX package's 2e-5 of
+    its Pallas forward (interpret mode) on O and lse, and within
+    ``F32_FWD_MAX_REL`` of the largest |O| of the plain version, the limit
+    the kernels are held to on the card. One pass
     (hi.hi, about three decimal digits) misses 2e-5. Masks: none; causal;
     segments with 8 rows of each batch row that match no key (mean(V),
     lse = MASK)."""
@@ -308,3 +314,145 @@ def test_three_tf32_passes_hold_the_f32_tolerance(d, mask):
                 assert (lse[:, :, :8] == MASK).all()
     assert errs[3][0] <= F32_FWD_MAX_REL, errs
     assert errs[1][1] > TOL["float32"], errs
+
+
+def _wgmma_product(a, b, passes, fresh=True, out=None):
+    """``a @ b`` for ``a [H, R, K]``, ``b [H, K, N]`` as K2's f32 kernel on
+    Hopper takes it: operands split as hi = tf32(x), lo = tf32(x - hi); the
+    passes lo.hi, hi.lo, then hi.hi (hi.hi alone for one pass), each over
+    every 8-wide k-step in turn, each step one m64nNk8 wgmma whose 8 products
+    are exact and whose sum with the accumulator is rounded toward zero (as
+    measured on an H100: ``scripts/flash_fwd_tf32_wgmma_variants.py``). A
+    fresh accumulator starts at zero, else at ``out``."""
+    ah, bh = _rna(a), _rna(b)
+    steps = ((ah, bh),) if passes == 1 else ((_rna(a - ah), bh), (ah, _rna(b - bh)), (ah, bh))
+    t = (np.zeros((a.shape[0], a.shape[1], b.shape[2])) if fresh
+         else out.astype(np.float64))
+    for x, y in steps:
+        for k0 in range(0, a.shape[-1], 8):
+            t = _rz(t + x[..., k0:k0 + 8].astype(np.float64)
+                    @ y[..., k0:k0 + 8, :].astype(np.float64))
+    return t.astype(np.float32)
+
+
+def _tf32_wgmma_forward(q, k, v, q_seg, kv_seg, causal, scale, passes, fresh_pv=True):
+    """K2's f32 kernel on Hopper (``flash_fwd_tf32_wgmma_kernel``) on ``[H,
+    L, D]`` f32 arrays of one batch row, in its order: 128-row items of two
+    64-row warpgroups over key tiles of 64 (32 at D = 128) that end at the
+    item's last row's diagonal when causal; each warpgroup's keys end at its
+    own 64-row tile's diagonal (``kv_end``), past which keys count for
+    nothing, as past Lkv. S and P.V by ``_wgmma_product``; P.V into a fresh
+    accumulator each tile, folded into O as O * alpha + P.V in one rounding
+    (``fresh_pv``), else summed in O itself. The online softmax in base 2: x
+    = s * (scale * log2e), a masked key at the mask value itself, P =
+    exp2(x - max), lse = max * ln 2 + log(l) (the mask value where the max
+    is). Returns ``(o [H, Lq, D], lse [H, Lq])``."""
+    h, lq, d = q.shape
+    lkv = k.shape[1]
+    tile = 32 if d == 128 else 64
+    scale_log2 = np.float32(scale) * LOG2E
+    pad = -lkv % tile
+    k, v = (np.pad(x, ((0, 0), (0, pad), (0, 0))) for x in (k, v))
+    o = np.zeros((h, lq, d), np.float32)
+    lse = np.zeros((h, lq), np.float32)
+    for q0 in range(0, lq, 128):
+        stop = min(lkv, q0 + 128) if causal else lkv
+        for qw in (q0, q0 + 64):
+            rows = np.arange(qw, min(qw + 64, lq))
+            if not len(rows):
+                continue
+            kv_end = min(lkv, qw + 64) if causal else lkv
+            acc = np.zeros((h, len(rows), d), np.float32)
+            m = np.full((h, len(rows)), -np.inf, np.float32)
+            l = np.zeros((h, len(rows)), np.float32)
+            for kt in range(0, stop, tile):
+                keys = np.arange(kt, kt + tile)
+                s = _wgmma_product(q[:, rows], k[:, keys].transpose(0, 2, 1), passes)
+                hidden = np.zeros((len(rows), tile), bool)
+                if causal:
+                    hidden |= keys[None] > rows[:, None]
+                if q_seg is not None:
+                    hidden |= kv_seg[np.minimum(keys, lkv - 1)][None] != q_seg[rows][:, None]
+                x = np.where(hidden, MASK, s * scale_log2)
+                x = np.where(keys >= kv_end, -np.inf, x).astype(np.float32)
+                mn = np.maximum(m, x.max(-1))
+                alpha = np.exp2(m - mn)
+                p = np.exp2(x - mn[..., None])
+                l = alpha * l + p.sum(-1, dtype=np.float32)
+                m = mn
+                if fresh_pv:
+                    t = _wgmma_product(p, v[:, keys], passes)
+                    acc = (acc.astype(np.float64) * alpha[..., None] + t).astype(np.float32)
+                else:
+                    acc = _wgmma_product(p, v[:, keys], passes, fresh=False,
+                                         out=acc * alpha[..., None])
+            o[:, rows] = acc * (np.float32(1) / l)[..., None]
+            with np.errstate(divide="ignore"):
+                lse[:, rows] = np.where(m == MASK, m, m * np.float32(np.log(2))) + np.log(l)
+    return o, lse
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("mask", ["none", "causal", "segments", "causal_no_key"])
+def test_wgmma_tf32_order_holds_the_f32_tolerance(d, mask):
+    """K2's f32 kernel on Hopper in its own order, emulated on the CPU at B 2,
+    H 2, L 300: 128-row items of two 64-row warpgroups with their own causal
+    ``kv_end``, its key tile, the passes of each product lo.hi, hi.lo, hi.hi
+    over chained wgmma k-steps whose sums round toward zero, and P.V taken
+    fresh each tile. Within the JAX package's 2e-5 of its Pallas forward
+    (interpret mode) on O and lse, and within ``F32_FWD_MAX_REL`` of the
+    largest |O| of the plain version; one pass misses 2e-5. Masks: none;
+    causal; segments with 8 rows of each batch row that match no key
+    (mean(V), lse = MASK); causal with segments, rows of each 64-row half of
+    an item matching no key, which count the keys up to their own half's
+    diagonal: there both references are replaced by the mean of V over
+    those keys (``tests/test_torch_cuda.py`` holds the kernel to that on the
+    card). A sum kept in O over every tile (the ``chained`` probe) drifts
+    toward zero further than the fresh accumulator: its mean signed error
+    is the more negative."""
+    length = 300
+    causal = mask.startswith("causal")
+    (jq, jk, jv), (q, k, v) = _inputs(60 + d + len(mask), b=2, lq=length, d=d)
+    jseg, tseg, segs = {}, {}, [(None, None)] * 2
+    if mask in ("segments", "causal_no_key"):
+        rng = np.random.default_rng(d)
+        kv_seg = (rng.integers(0, 3, size=(2, length)) if mask == "segments"
+                  else np.zeros((2, length), np.int64)).astype(np.int32)
+        q_seg = kv_seg.copy()
+        no_key = [slice(0, 8)] if mask == "segments" else [slice(lo, lo + 6)
+                                                           for lo in (10, 70, 135, 200, 290)]
+        for rows in no_key:
+            q_seg[:, rows] = 7  # no key is in segment 7
+        jseg = dict(q_segment_ids=jnp.asarray(q_seg), kv_segment_ids=jnp.asarray(kv_seg))
+        tseg = dict(q_segment_ids=torch.from_numpy(q_seg),
+                    kv_segment_ids=torch.from_numpy(kv_seg))
+        segs = list(zip(q_seg, kv_seg))
+    want, want_lse = (np.array(x) for x in
+                      jfa.flash_attention_with_lse(jq, jk, jv, causal=causal, **jseg))
+    plain, _ = tfa.mha_reference(q, k, v, causal=causal, **tseg)
+    plain = plain.numpy()
+    if mask == "causal_no_key":
+        # such a row counts the keys of its 64-row tile: mean(V) over them
+        for rows in no_key:
+            for i in range(rows.start, rows.stop):
+                end = min(length, (i // 64) * 64 + 64)
+                plain[:, :, i] = v.numpy()[:, :, :end].mean(2)
+                want[:, :, i] = v.numpy()[:, :, :end].mean(2)
+    largest = np.abs(plain).max()
+    errs = {}
+    for passes, fresh in ((3, True), (1, True), (3, False)):
+        got = [_tf32_wgmma_forward(*(x[b].numpy() for x in (q, k, v)), *segs[b], causal,
+                                   d ** -0.5, passes, fresh) for b in range(2)]
+        o, lse = (np.stack(x) for x in zip(*got))
+        errs[passes, fresh] = (np.abs(o - plain).max() / largest,
+                               max(np.abs(o - want).max(), np.abs(lse - want_lse).max()),
+                               ((o - plain) * np.sign(plain)).mean() / np.abs(plain).mean())
+        if (passes, fresh) == (3, True):
+            _close(o, want)
+            _close(lse, want_lse)
+            if mask != "none" and mask != "causal":
+                rows = np.concatenate([np.arange(r.start, r.stop) for r in no_key])
+                assert (lse[:, :, rows] == MASK).all()
+    assert errs[3, True][0] <= F32_FWD_MAX_REL, errs
+    assert errs[1, True][1] > TOL["float32"], errs
+    assert errs[3, False][2] < errs[3, True][2] < 0, errs
