@@ -73,7 +73,7 @@ Phases, each of which makes the script exit non-zero when it fails:
    ``flash_bwd_reference`` on the card over the grid of 3 (f32 within 5e-4
    and within 1e-5 of the largest |grad|, bf16 within 2e-2 of the largest
    |grad| and a mean error at most 1% of the mean |grad|), on K2's own o
-   and lse; bf16 also on strided views with a strided dO (each gradient
+   and lse; both also on strided views with a strided dO (each gradient
    bit-equal to the same call on contiguous copies), and on causal rows that
    match no key, which count the keys of their 64-row tile and before;
 9. pretraining: ``cli.pretrain.main --device cuda`` at the BEiT-3-base
@@ -361,15 +361,13 @@ K2_KERNEL = {torch.float32: "flash_fwd_tf32_wgmma_kernel",
 F32_FWD_MAX_REL = 1e-5
 BWD_SOURCE = "moc_tpu_torch/ops/csrc/flash_bwd.cu"
 # the tensor-core kernels of each source, each built at D = 32, 64 and 128: K2,
-# K3 and K4 in bf16 (on wgmma and TMA) and in f32 (three TF32 passes; K2 on
-# wgmma and TMA, K3 and K4 on mma.sync)
+# K3 and K4 in bf16 and in f32 (three TF32 passes), all on wgmma and TMA
 MMA_KERNELS = {"flash_fwd": ("flash_fwd_wgmma_kernel", "flash_fwd_tf32_wgmma_kernel"),
                "flash_bwd": ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel",
-                             "flash_bwd_dq_tf32_kernel", "flash_bwd_dkv_tf32_kernel")}
+                             "flash_bwd_dq_tf32_wgmma_kernel", "flash_bwd_dkv_tf32_wgmma_kernel")}
 # the kernels built for Hopper alone, by source: their SASS must hold wgmma
 # (HGMMA) and TMA loads (UTMALDG) at every head dim
-SM90_KERNELS = {"flash_fwd": ("flash_fwd_wgmma_kernel", "flash_fwd_tf32_wgmma_kernel"),
-                "flash_bwd": ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel")}
+SM90_KERNELS = MMA_KERNELS
 K3_REPLACES = "moc_tpu/ops/flash_attention.py:188"
 K4_REPLACES = "moc_tpu/ops/flash_attention.py:238"
 # K3/K4: the JAX package's flash backward tolerance in f32; in bf16, a share
@@ -545,12 +543,16 @@ def phase_build() -> dict:
             log(f"[build] {name}: SASS instructions of {kernel} by head dim "
                 f"(wgmma HGMMA, TMA loads UTMALDG and stores UTMASTG, mbarrier waits SYNCS): "
                 f"{json.dumps(counts)}")
-    from moc_tpu_torch.ops.flash_kernel import k2_smem_bytes
+    from moc_tpu_torch.ops.flash_kernel import k2_smem_bytes, k3_k4_smem_bytes
 
+    tiers = (("f32", torch.float32), ("bf16", torch.bfloat16))
     log("[build] flash_fwd: dynamic shared memory a CTA of K2 at D 32 / 64 / 128: "
         + "; ".join(f"{tier} " + " / ".join(str(k2_smem_bytes(d, dtype)) for d in (32, 64, 128))
-                    for tier, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)))
-        + " bytes")
+                    for tier, dtype in tiers) + " bytes")
+    log("[build] flash_bwd: dynamic shared memory a CTA of K3, K4 at D 32 / 64 / 128: "
+        + "; ".join(f"{kid} {tier} " + " / ".join(str(k3_k4_smem_bytes(d, dtype, kid))
+                                                  for d in (32, 64, 128))
+                    for kid in ("K3", "K4") for tier, dtype in tiers) + " bytes")
     return built
 
 
@@ -2046,8 +2048,8 @@ def bwd_reference_64_row_tiles(q, k, v, o, lse, do, q_seg, kv_seg):
             torch.einsum("bhqk,bhqd->bhkd", p.to(q.dtype).float(), dof).to(q.dtype))
 
 
-def _strided_grads(d, fused, causal, gen) -> dict:
-    """bf16 ``flash_attention`` with gradients on the views of
+def _strided_grads(d, fused, causal, dtype, gen) -> dict:
+    """``flash_attention`` in ``dtype`` with gradients on the views of
     ``_strided_views``' layouts and a dO of the output's ``[B, L, H, D]``
     memory, as the encoders train: K3 and K4 must get q, k, v and dO as they
     lie (no copy), once each, and every gradient must be bit-equal to the same
@@ -2058,7 +2060,7 @@ def _strided_grads(d, fused, causal, gen) -> dict:
                                                 flash_fwd_cuda)
 
     b, h, length = 2, 3, 785
-    views = [t.requires_grad_(True) for t in _strided_views(b, h, length, d, gen, fused)]
+    views = [t.requires_grad_(True) for t in _strided_views(b, h, length, d, gen, fused, dtype)]
     do = torch.randn((b, length, h, d), generator=gen, device="cuda").transpose(1, 2)
     seen = []
 
@@ -2087,18 +2089,18 @@ def _strided_grads(d, fused, causal, gen) -> dict:
     out_c = fa.flash_attention(*copies, causal=causal)
     grads_c = torch.autograd.grad((out_c.float() * do.contiguous()).sum(), copies)
     check(torch.equal(out, out_c) and all(torch.equal(g, gc) for g, gc in zip(grads, grads_c)),
-          f"gradients of strided views differ from those of contiguous copies (D={d} "
+          f"{dtype} gradients of strided views differ from those of contiguous copies (D={d} "
           f"fused={fused} causal={causal})")
     with torch.no_grad():
         q, k, v = (t.detach() for t in views)
         o, lse = flash_fwd_cuda(q, k, v, causal=causal)
-        want = fa.flash_bwd_reference(q, k, v, o, lse, do.to(torch.bfloat16), causal=causal)
-    return _bwd_errors(grads, want, torch.bfloat16)
+        want = fa.flash_bwd_reference(q, k, v, o, lse, do.to(dtype), causal=causal)
+    return _bwd_errors(grads, want, dtype)
 
 
 def phase_flash_bwd_parity() -> dict:
     """K3 and K4 against ``flash_bwd_reference`` on the card over the grid of
-    K2's parity phase; bf16 also on strided views (``_strided_grads``) and on
+    K2's parity phase; also on strided views (``_strided_grads``) and on
     causal rows that match no key (``bwd_reference_64_row_tiles``); returns,
     per dtype, the largest |kernel - plain|."""
     from moc_tpu_torch.ops.flash_attention import flash_bwd_reference
@@ -2129,17 +2131,17 @@ def phase_flash_bwd_parity() -> dict:
                             e = _bwd_errors((dq, dk, dv), want, dtype)
                             err[dtype] = {kk: max(err[dtype][kk], e[kk]) for kk in e}
                             cases += 1
-    dtype = torch.bfloat16
-    for d in (32, 64, 128):
-        for fused in (False, True):
-            for causal in (False, True):
-                e = _strided_grads(d, fused, causal, gen)
-                err[dtype] = {kk: max(err[dtype][kk], e[kk]) for kk in e}
-                cases += 1
+    for dtype in BWD_TOL:
+        for d in (32, 64, 128):
+            for fused in (False, True):
+                for causal in (False, True):
+                    e = _strided_grads(d, fused, causal, dtype, gen)
+                    err[dtype] = {kk: max(err[dtype][kk], e[kk]) for kk in e}
+                    cases += 1
     # causal rows that no key matches: in each 64-row half of a 128-row item,
     # ending inside a running key tile (K3) or starting a warpgroup's keys (K4)
     with torch.inference_mode():
-        for d in (64, 128):
+        for dtype, d in ((dt, d) for dt in BWD_TOL for d in (64, 128)):
             q, k, v, do = (torch.randn((2, 3, 300, d), generator=gen, device="cuda").to(dtype)
                            for _ in range(4))
             kv_seg = torch.zeros((2, 300), dtype=torch.int32, device="cuda")
@@ -2163,7 +2165,7 @@ def phase_flash_bwd_parity() -> dict:
             f"|grad - plain| / mean |plain| at most {e['mean_rel']:.3e} (dq alone "
             f"{e['mean_rel_dq']:.3e})")
     log(f"[parity] K3 and K4 match flash_bwd_reference on {cases} cases (f32/bf16, "
-        "D 32/64/128, L 785/1024, causal or not, segments with rows masked everywhere; bf16 "
+        "D 32/64/128, L 785/1024, causal or not, segments with rows masked everywhere; "
         "strided views and dO of [B, L, H, D] and fused projections, their gradients "
         "bit-equal to contiguous copies'; causal rows that match no key)")
     return err

@@ -115,6 +115,7 @@
 
 #include "flash_mma.cuh"
 #include "flash_sm90.cuh"
+#include "flash_tf32.cuh"
 
 namespace {
 
@@ -664,48 +665,6 @@ struct Sm90Tf32Fwd {
 // would drift (scripts/flash_fwd_tf32_wgmma_variants.py)
 constexpr bool kTf32FreshPv = true;
 
-// x split as hi = tf32(x), lo = tf32(x - hi), for four values at once
-__device__ __forceinline__ void split4(const float4& x, uint4& hi, uint4& lo) {
-  split_tf32(x.x, hi.x, lo.x);
-  split_tf32(x.y, hi.y, lo.y);
-  split_tf32(x.z, hi.z, lo.z);
-  split_tf32(x.w, hi.w, lo.w);
-}
-
-// Chunk i0 + n * Threads of a tile, for n in [n0, n0 + N), split in place: hi
-// over x, lo at the same offset of `lo`; all N loads are issued first
-template <int N, int Threads>
-__device__ __forceinline__ void split_chunks(unsigned char* hi, unsigned char* lo, int i0,
-                                             int n0) {
-  float4 x[N];
-#pragma unroll
-  for (int n = 0; n < N; ++n) {
-    x[n] = *reinterpret_cast<const float4*>(hi + 16 * (i0 + (n0 + n) * Threads));
-  }
-#pragma unroll
-  for (int n = 0; n < N; ++n) {
-    const int i = i0 + (n0 + n) * Threads;
-    uint4 h, l;
-    split4(x[n], h, l);
-    *reinterpret_cast<uint4*>(hi + 16 * i) = h;
-    *reinterpret_cast<uint4*>(lo + 16 * i) = l;
-  }
-}
-
-// A tile of `Bytes` split in place, 16 bytes at a time by `Threads` threads
-// (this one the i0-th), four loads in flight; the layout (boxes, swizzle)
-// stays as it landed
-template <int Bytes, int Threads>
-__device__ __forceinline__ void split_tile(unsigned char* hi, unsigned char* lo, int i0) {
-  constexpr int kChunks = Bytes / 16, kFull = kChunks / Threads;  // chunks every thread has
-#pragma unroll 1
-  for (int n0 = 0; n0 + 4 <= kFull; n0 += 4) split_chunks<4, Threads>(hi, lo, i0, n0);
-  if constexpr (kFull % 4 != 0) split_chunks<kFull % 4, Threads>(hi, lo, i0, kFull / 4 * 4);
-  if constexpr (kChunks % Threads != 0) {
-    if (i0 < kChunks % Threads) split_chunks<1, Threads>(hi, lo, i0, kFull);
-  }
-}
-
 // The landed V tile ([kKeys keys, D], boxes of 32 columns) as V^T hi and lo:
 // D rows of kKeys keys, boxes of 32 keys, each 8 keys in the order 0, 2, 4,
 // 6, 1, 3, 5, 7 (acc_to_a_tf32's k index), so keys 8a + par + 2m (m = 0..3)
@@ -748,19 +707,6 @@ __device__ __forceinline__ void transpose_v_tile(const unsigned char* v, unsigne
       *reinterpret_cast<uint4*>(lo + off) = l;
     }
   }
-}
-
-// the descriptor of a K-major tf32 operand at `addr`, in a tile of
-// 128-byte-swizzled rows laid out as TMA lands it (8-row groups 1024 bytes
-// apart). The operand `off` bytes further in has the descriptor + off / 16:
-// the address field takes addresses below 2^18 and does not carry.
-__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
-  uint64_t d = sm90::smem_desc<128>(addr, 16, 1024);
-  // keep the compiler from hoisting what is computed from it out of the loop
-  // around the caller: every k-step's descriptor, in registers for the whole
-  // loop, would spill
-  asm volatile("" : "+l"(d));
-  return d;
 }
 
 // S = Q.K^T of a tile in three passes (lo.hi, hi.lo, hi.hi: the small terms
@@ -808,17 +754,6 @@ __device__ __forceinline__ void issue_pv_tf32(float (&o)[D / 2],
     }
   }
   sm90::wgmma_commit();
-}
-
-// exp(S - max) split as the register A operand of P.V, k-step kk from the
-// accumulator's 8-key block kk as acc_to_a_tf32 packs it
-template <int N>
-__device__ __forceinline__ void scores_to_p_tf32(uint32_t (&hi)[N / 8][4], uint32_t (&lo)[N / 8][4],
-                                                 const float (&s)[N / 2]) {
-#pragma unroll
-  for (int kk = 0; kk < N / 8; ++kk) {
-    acc_to_a_tf32(hi[kk], lo[kk], reinterpret_cast<const float(&)[4]>(s[4 * kk]));
-  }
 }
 
 // o = o * alpha + t, alpha0 for the lane's first row and alpha1 for its second
@@ -1061,7 +996,7 @@ flash_fwd_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                           alpha1);
         prev0 = alpha0;
         prev1 = alpha1;
-        scores_to_p_tf32<C::kKeys>(p_hi, p_lo, s);
+        acc_to_a_tf32<C::kKeys>(p_hi, p_lo, s);
         // the steady state: S of tile t + 1 runs beside P.V of tile t, whose
         // softmax waits only for S
         for (int t = 0; t + 1 < n_tiles; ++t) {
@@ -1091,7 +1026,7 @@ flash_fwd_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
           } else {
             rescale(o, alpha0, alpha1);
           }
-          scores_to_p_tf32<C::kKeys>(p_hi, p_lo, s);
+          acc_to_a_tf32<C::kKeys>(p_hi, p_lo, s);
         }
         const int last = g + n_tiles - 1, stage = last % C::kStages;
         sm90::mbar_wait(vt_ready + 8 * stage, (last / C::kStages) & 1);

@@ -1,7 +1,6 @@
-// Hopper (sm_90a) building blocks of K2 (flash_fwd.cu: bf16, and f32 in
-// three tf32 passes) and of bf16 K3 and K4 (flash_bwd.cu), kept apart from
-// flash_mma.cuh (mma.sync, ldmatrix, cp.async), which the f32 tiers of K3
-// and K4 use:
+// Hopper (sm_90a) building blocks of K2 (flash_fwd.cu), K3 and K4
+// (flash_bwd.cu), in bf16 and in f32 (three tf32 passes, whose splits and
+// transposes are in flash_tf32.cuh):
 //
 // - TMA: tensor maps over a bf16 or f32 [B, H, L, D] tensor read by its
 //   strides (make_map, encoded on the host through the driver's
@@ -18,7 +17,7 @@
 //   fence / commit / wait, and products with f32 accumulators: m64nNk16 in
 //   bf16, A from shared memory (wgmma_ss, N = 32, 64 or 128) or from
 //   registers (wgmma_rs, N = 32, 64 or 128, B transposed: MN-major), and
-//   m64nNk8 in tf32, both operands K-major (wgmma_ss_tf32, N = 32 or 64;
+//   m64nNk8 in tf32, both operands K-major (wgmma_ss_tf32, N = 16, 32 or 64;
 //   wgmma_rs_tf32, N = 32, 64 or 128), plus fence_regs, which pins
 //   registers in program order around the asynchronous products;
 // - setmaxnreg (reg_alloc / reg_dealloc) and named barriers (wait, arrive).
@@ -194,6 +193,7 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[M][N]) {
 // The N / 2 f32 accumulator registers a thread of an m64nN product: their
 // places in the instruction (SM90_ACC_<N>) and their operands
 // (SM90_OUT_<N>), which the asm statements below number first.
+#define SM90_ACC_16 "{%0, %1, %2, %3, %4, %5, %6, %7}"
 #define SM90_ACC_32 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
 #define SM90_ACC_64                                                         \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
@@ -203,6 +203,8 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[M][N]) {
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "    \
   "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "    \
   "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+#define SM90_OUT_16(d)                                                                  \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
 #define SM90_OUT_32(d)                                                                        \
   "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),         \
       "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
@@ -266,7 +268,7 @@ SM90_WGMMA_RS(wgmma_rs, 128, "m64n128k16.f32.bf16.bf16", ", 1", 64, 65, 66, 67, 
 // tf32: m64nNk8 with f32 accumulators. PTX has no transpose for 32-bit
 // operands: B, and A from shared memory, are K-major (32 tf32 values to a
 // 128-byte swizzled row; a k-step 32 bytes further into it). wgmma_ss for N
-// = 32 or 64, wgmma_rs (A a thread's m16n8k8 fragment of its warp's 16 rows:
+// = 16, 32 or 64, wgmma_rs (A a thread's m16n8k8 fragment of its warp's 16 rows:
 // (row g, k t), (g + 8, t), (g, t + 4), (g + 8, t + 4)) for N = 32, 64 or
 // 128. The values are taken as tf32: a caller that wants f32 accuracy
 // splits them (x = hi + lo, each rounded to tf32) and sums three products.
@@ -276,6 +278,7 @@ __device__ __forceinline__ void wgmma_ss_tf32(float (&d)[N / 2], uint64_t a, uin
 template <int N>
 __device__ __forceinline__ void wgmma_rs_tf32(float (&d)[N / 2], const uint32_t (&a)[4],
                                               uint64_t b, int accumulate);
+SM90_WGMMA_SS(wgmma_ss_tf32, 16, "m64n16k8.f32.tf32.tf32", "", 8, 9, 10)
 SM90_WGMMA_SS(wgmma_ss_tf32, 32, "m64n32k8.f32.tf32.tf32", "", 16, 17, 18)
 SM90_WGMMA_SS(wgmma_ss_tf32, 64, "m64n64k8.f32.tf32.tf32", "", 32, 33, 34)
 SM90_WGMMA_RS(wgmma_rs_tf32, 32, "m64n32k8.f32.tf32.tf32", "", 16, 17, 18, 19, 20, 21)
@@ -284,9 +287,11 @@ SM90_WGMMA_RS(wgmma_rs_tf32, 128, "m64n128k8.f32.tf32.tf32", "", 64, 65, 66, 67,
 
 #undef SM90_WGMMA_SS
 #undef SM90_WGMMA_RS
+#undef SM90_ACC_16
 #undef SM90_ACC_32
 #undef SM90_ACC_64
 #undef SM90_ACC_128
+#undef SM90_OUT_16
 #undef SM90_OUT_32
 #undef SM90_OUT_64
 #undef SM90_OUT_128

@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -52,6 +53,30 @@ def library_path(name: str) -> str:
         with open(os.path.join(CSRC_DIR, f), "rb") as fh:
             digest.update(fh.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
+
+
+def inlined_source(name: str) -> str:
+    """``csrc/<name>.cu`` with each ``#include "x"`` of ``csrc/`` replaced by
+    the header itself, once (a header met again is left out): one file that
+    builds on its own, for scripts that build variants of a kernel by text
+    substitution."""
+    seen: set[str] = set()
+
+    def expand(path: str) -> str:
+        out = []
+        with open(path) as fh:
+            for line in fh:
+                m = re.match(r'#include "(\S+)"', line)
+                if line.startswith("#pragma once"):
+                    continue
+                if not m:
+                    out.append(line)
+                elif m.group(1) not in seen:
+                    seen.add(m.group(1))
+                    out.append(expand(os.path.join(CSRC_DIR, m.group(1))))
+        return "".join(out)
+
+    return expand(os.path.join(CSRC_DIR, f"{name}.cu"))
 
 
 def _start(name: str) -> tuple[subprocess.Popen, str, str]:

@@ -102,13 +102,10 @@ def _forward(q, k, v, q_seg, kv_seg, causal, sm_scale):
 
 
 def _kernel_bwd_inputs(q, k, v, do):
-    """q, k, v and dO as K3 and K4 take them. f32 K3 and K4 take contiguous
-    tensors: the views K2 read by their strides are copied here, for the
-    backward alone. bf16 ones go as they lie where TMA can read them
-    (``_keeps_view``; q, k and v were held to that in ``_prepare``), else dO
-    is copied: a layout copy, K3 and K4 run either way."""
-    if q.dtype == torch.float32:
-        return tuple(t.contiguous() for t in (q, k, v, do))
+    """q, k, v and dO as K3 and K4 take them, in either type: as they lie
+    where TMA can read them (``_keeps_view``; q, k and v were held to that
+    in ``_prepare``), else dO is copied: a layout copy, K3 and K4 run either
+    way."""
     return q, k, v, (do if _keeps_view(do) else do.contiguous())
 
 
@@ -210,9 +207,8 @@ def _keeps_view(t):
     strides TMA can read (``tma_readable``), with or without a gradient. K2
     reads q, k and v by their strides in both types (the ``[B, H, L, D]``
     views of the encoders' ``[B, L, H, D]`` projections), as the plain
-    versions do on the CPU, and bf16 K3 and K4 read q, k, v and dO so too;
-    f32 K3 and K4 take contiguous tensors, which ``_kernel_bwd_inputs``
-    copies for them. Anything else is copied to a contiguous tensor here."""
+    versions do on the CPU, and K3 and K4 read q, k, v and dO so too.
+    Anything else is copied to a contiguous tensor here."""
     return t.dtype in (torch.bfloat16, torch.float32) and tma_readable(t)
 
 

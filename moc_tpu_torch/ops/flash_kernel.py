@@ -23,24 +23,23 @@ At the pretraining shape ``[32, 12, 512, 64]`` K3 does 6·B·H·L²·D = 38.7
 GFLOP and K4 8·B·H·L²·D = 51.5 GFLOP: 0.2345 and 0.312 ms in f32, against
 0.08-0.09 ms for their bytes.
 
-Design: K2 in both types, and K3 and K4 in bf16, are persistent CTAs over
-(b·h, 128-row) items, 64 rows for each of two consumer warpgroups, built
-for Hopper on ``wgmma`` over tiles that a producer warp loads by TMA into
-an mbarrier ring (``csrc/flash_sm90.cuh``); f32 K3 and K4 run one CTA per
-(b·h, 64-row tile) on ``mma.sync``. K2 and K3 own query rows and loop over
-K/V tiles; K4 owns keys and loops over the query tiles, so no tile is
-reduced across CTAs and nothing needs atomics. Running sums are in f32
-registers. In f32 all three run on the tensor cores in three TF32 passes
-(hi·hi + hi·lo + lo·hi of operands split as hi = tf32(x), lo = tf32(x -
-hi), inside the kernel, with no process-global TF32 flag read or set): one
-pass would miss the JAX package's f32 tolerances, three hold them and stay
-within 1e-5 of the largest |O| (K2) or |grad| (K3, K4) of the plain
-version. In bf16 the products are exact and summed in f32. K2 reads q, k
-and v by their strides and writes o by its strides in both types; bf16 K3
-and K4 read q, k, v and dO and write dq, dk and dv by theirs
-(``tma_geometry``); f32 K3 and K4 take contiguous tensors. On the tensor
-cores the kernels sum in another order than the plain version, so they
-match it within a tolerance rather than bit for bit. Any Lq and Lkv: the
+Design: all three, in both types, are persistent CTAs built for Hopper on
+``wgmma`` over tiles that a producer warp loads by TMA into an mbarrier
+ring (``csrc/flash_sm90.cuh``), over (b·h, row tile) items, 64 rows for
+each consumer warpgroup. K2 and K3 own query rows and loop over K/V tiles;
+K4 owns keys and loops over the query tiles, so no tile is reduced across
+CTAs and nothing needs atomics. Running sums are in f32 registers. In f32
+all three run on the tensor cores in three TF32 passes (hi·hi + hi·lo +
+lo·hi of operands split inside the kernel, hi = tf32(x) or, in K3's and
+K4's tiles, x itself, whose low 13 bits the tensor core drops, and lo =
+tf32(x - hi), with no process-global TF32 flag read or set): one pass would
+miss the JAX package's f32 tolerances,
+three hold them and stay within 1e-5 of the largest |O| (K2) or |grad| (K3,
+K4) of the plain version. In bf16 the products are exact and summed in
+f32. All three read q, k, v (and dO) and write o (dq, dk, dv) by their
+strides in both types (``tma_geometry``). On the tensor cores the kernels
+sum in another order than the plain version, so they match it within a
+tolerance rather than bit for bit. Any Lq and Lkv: the
 ragged edge is masked by bounds, so the vision trunk's 785 tokens need no
 padding to a lane multiple. Head dims 32, 64 and 128. A bf16 CUDA tensor reaches the bf16 tensor-core kernels
 and nothing else, an f32 one the f32 kernels.
@@ -139,8 +138,8 @@ def _tma_strides(t: torch.Tensor, name: str = "K2") -> tuple:
 
 
 def tma_readable(t: torch.Tensor) -> bool:
-    """Whether the kernels that read by strides (K2; K3 and K4 in bf16) can
-    read ``t`` as it lies (``tma_geometry``)."""
+    """Whether the kernels, which read by strides (K2, K3 and K4), can read
+    ``t`` as it lies (``tma_geometry``)."""
     try:
         tma_geometry(t, Q_BOX_ROWS)
     except ValueError:
@@ -149,19 +148,16 @@ def tma_readable(t: torch.Tensor) -> bool:
 
 
 def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           others: tuple = (), strided: bool = False) -> None:
-    """Device, type, shape, contiguity and alignment of q, k, v and of the
-    extra ``[B, H, Lq, D]`` tensors in ``others`` (the backward's ``do``).
-    ``strided``: any strides are let through here (``tma_geometry`` holds
-    them to its contract)."""
+           others: tuple = ()) -> None:
+    """Device, type, shape and alignment of q, k, v and of the extra ``[B,
+    H, Lq, D]`` tensors in ``others`` (the backward's ``do``); their strides
+    are held to ``tma_geometry``'s contract at the launch."""
     device = q.get_device()  # -1 on the CPU
     for t in (q, k, v, *others):
         if not t.is_cuda:
             raise ValueError(f"{name} takes CUDA tensors, got one on {t.device}")
         if t.get_device() != device:
             raise ValueError(f"{name} takes all its tensors on one device")
-        if not (strided or t.is_contiguous()):
-            raise ValueError(f"{name} takes contiguous tensors")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{name} takes float32 or bfloat16, got {q.dtype}")
     if any(t.dtype != q.dtype for t in (k, v, *others)):
@@ -231,7 +227,7 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     others multiples of 16 bytes), so the ``[B, H, L, D]`` view of a ``[B,
     L, H, D]`` projection needs no copy, and o takes q's layout where q is
     dense. One launch."""
-    _check("K2", q, k, v, strided=True)
+    _check("K2", q, k, v)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError("K2 is forward only: differentiate through "
                            "ops.flash_attention, whose backward runs K3 and K4, or call "
@@ -262,6 +258,16 @@ def k2_smem_bytes(d: int, dtype: torch.dtype) -> int:
     return fn(d, int(dtype == torch.bfloat16))
 
 
+def k3_k4_smem_bytes(d: int, dtype: torch.dtype, kernel: str) -> int:
+    """The dynamic shared memory a CTA of K3 (``kernel="K3"``) or K4 takes
+    at head dim ``d`` in ``dtype`` (``Sm90Dq`` / ``Sm90Dkv`` /
+    ``Sm90Tf32Dq`` / ``Sm90Tf32Dkv`` ``kSmem``); builds them on first use."""
+    fn = cuda_build.load("flash_bwd").moc_flash_bwd_smem_bytes
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_longlong
+    return fn(d, int(dtype == torch.bfloat16), int(kernel == "K4"))
+
+
 def _check_stats(name: str, q: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor) -> None:
     for t, what in ((lse, "lse"), (delta, "delta")):
         if (t.dtype != torch.float32 or t.shape != q.shape[:3] or t.device != q.device
@@ -271,11 +277,11 @@ def _check_stats(name: str, q: torch.Tensor, lse: torch.Tensor, delta: torch.Ten
 
 
 def _backward_args(name, q, k, v, do, lse, delta, q_segment_ids, kv_segment_ids):
-    """The checks of K3 and K4: bf16 q, k, v and do are read by their
-    strides (held to ``tma_geometry``'s contract at the launch), f32 ones are
-    contiguous; lse and delta as ``_check_stats`` takes them. Returns the
-    segment ids as the kernels take them."""
-    _check(name, q, k, v, (do,), strided=q.dtype == torch.bfloat16)
+    """The checks of K3 and K4: q, k, v and do are read by their strides
+    (held to ``tma_geometry``'s contract at the launch); lse and delta as
+    ``_check_stats`` takes them. Returns the segment ids as the kernels take
+    them."""
+    _check(name, q, k, v, (do,))
     _check_stats(name, q, lse, delta)
     b, _, lq, _ = q.shape
     return _segments(q_segment_ids, kv_segment_ids, b, lq, k.shape[2], q.device)
@@ -295,20 +301,20 @@ def flash_bwd_dq_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: tor
                       kv_segment_ids: torch.Tensor | None = None, *, causal: bool = False,
                       sm_scale: float | None = None) -> torch.Tensor:
     """K3: ``dq [B, H, Lq, D]`` in the input type, from q, k, v and ``do``
-    (as ``flash_fwd_cuda`` takes them: bf16 read by their strides, so the
-    views of ``[B, L, H, D]`` projections need no copy, and dq takes q's
-    layout where q is dense), the forward's ``lse`` and ``delta = rowsum(do *
-    o)``, both contiguous f32 ``[B, H, Lq]``. One launch."""
+    (as ``flash_fwd_cuda`` takes them: read by their strides in either type,
+    so the views of ``[B, L, H, D]`` projections need no copy, and dq takes
+    q's layout where q is dense), the forward's ``lse`` and ``delta =
+    rowsum(do * o)``, both contiguous f32 ``[B, H, Lq]``. One launch."""
     q_seg, kv_seg = _backward_args("K3", q, k, v, do, lse, delta, q_segment_ids,
                                    kv_segment_ids)
     dq = torch.empty_like(q)
     if dq.numel() == 0:
         return dq
-    strides = _strides("K3", (q, k, v, do, dq)) if q.dtype == torch.bfloat16 else None
+    strides = _strides("K3", (q, k, v, do, dq))
     _launch(_kernel("flash_bwd", "moc_flash_bwd_dq", 10), "flash_bwd_dq", q,
             [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
              delta.data_ptr(), dq.data_ptr(), _ptr(q_seg), _ptr(kv_seg),
-             None if strides is None else ctypes.addressof(strides)], k.shape[2], causal,
+             ctypes.addressof(strides)], k.shape[2], causal,
             q.shape[3] ** -0.5 if sm_scale is None else sm_scale)
     flash_bwd_dq_cuda.launches += 1
     return dq
@@ -327,11 +333,11 @@ def flash_bwd_dkv_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: to
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if dk.numel() == 0:
         return dk, dv
-    strides = _strides("K4", (q, k, v, do, dk, dv)) if q.dtype == torch.bfloat16 else None
+    strides = _strides("K4", (q, k, v, do, dk, dv))
     _launch(_kernel("flash_bwd", "moc_flash_bwd_dkv", 11), "flash_bwd_dkv", q,
             [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
              delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(q_seg), _ptr(kv_seg),
-             None if strides is None else ctypes.addressof(strides)],
+             ctypes.addressof(strides)],
             k.shape[2], causal, q.shape[3] ** -0.5 if sm_scale is None else sm_scale)
     flash_bwd_dkv_cuda.launches += 1
     return dk, dv

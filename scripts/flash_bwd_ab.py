@@ -10,11 +10,12 @@ all at once. Then each argument in turn runs in a fresh process that imports
 that root's ``moc_tpu_torch`` and this checkout's ``chip_smoke.py``, and runs
 its ``phase_flash_bwd_times`` (K3 and K4 at [32, 12, 512, 64] in f32 and
 bf16, held against ``flash_bwd_reference``, per call, kernel-only and queued
-behind a spin, beside ``scaled_dot_product_attention``'s backward) and
+behind a spin, beside ``scaled_dot_product_attention``'s backward),
 ``phase_pretrain_step_times`` (the full-width step in f32 and bf16, with a
-profile). Two runs compare only within one call: interleave them (parent,
-change, change, parent). Prints one ``AB {json}`` line per run and a summary;
-exits non-zero if a run fails.
+profile) and ``slice_times`` (K3 and K4 queued behind a spin at every shape
+of ``chip_smoke.SLICE_SHAPES``, f32 and bf16). Two runs compare only within
+one call: interleave them (parent, change, change, parent). Prints one ``AB
+{json}`` line per run and a summary; exits non-zero if a run fails.
 """
 
 from __future__ import annotations
@@ -45,6 +46,33 @@ def _build(root: str) -> None:
     cuda_build.build(["flash_fwd", "flash_bwd"])
 
 
+def slice_times(smoke) -> dict:
+    """Per shape of ``SLICE_SHAPES`` and tier, K3's and K4's µs a call, 50
+    calls queued behind a spin (``_gated_us``; None where it could not hold
+    them)."""
+    import torch
+
+    from moc_tpu_torch.ops.flash_kernel import (flash_bwd_dkv_cuda, flash_bwd_dq_cuda,
+                                                flash_fwd_cuda)
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    out = {}
+    for cell, shape in smoke.SLICE_SHAPES.items():
+        for tier, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                           for _ in range(4))
+            with torch.no_grad():
+                o, lse = flash_fwd_cuda(q, k, v)
+            delta = (o.float() * do.float()).sum(-1)
+            rec = {}
+            for kid, fn in (("K3", lambda: flash_bwd_dq_cuda(q, k, v, do, lse, delta)),
+                            ("K4", lambda: flash_bwd_dkv_cuda(q, k, v, do, lse, delta))):
+                fn()
+                rec[kid] = smoke._gated_us(fn, 50)
+            out[f"{cell}_{tier}"] = rec
+    return out
+
+
 def _time(root: str) -> None:
     _import_root(root)
     spec = importlib.util.spec_from_file_location("chip_smoke",
@@ -52,7 +80,7 @@ def _time(root: str) -> None:
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     record = {"root": root, "bwd": smoke.phase_flash_bwd_times(),
-              "step": smoke.phase_pretrain_step_times()}
+              "step": smoke.phase_pretrain_step_times(), "slices": slice_times(smoke)}
     print("AB " + json.dumps(record), flush=True)
 
 
@@ -100,6 +128,9 @@ def main(argv: list[str]) -> int:
                 f"{bwd['dkv']['kernel_us']} us / {bwd['dkv']['device_us']} us, SDPA backward "
                 f"{bwd['dq']['library_ms']:.4f} ms, step {rec['step'][tier]['step_ms']:.3f} ms")
         print(f"[ab] {rec['root']}: " + "; ".join(parts), flush=True)
+        print(f"[ab] {rec['root']}: queued us, K3 / K4: " + "; ".join(
+            f"{cell} {times['K3']} / {times['K4']}" for cell, times in rec["slices"].items()),
+            flush=True)
     return 0
 
 

@@ -191,8 +191,7 @@ def _ptxas_lines(log: str) -> list[str]:
 
 def build(names: list[str]) -> dict:
     """Every named variant's library path, built at once."""
-    with open(os.path.join(cuda_build.CSRC_DIR, "flash_fwd.cu")) as fh:
-        source = fh.read()
+    source = cuda_build.inlined_source("flash_fwd")
     print(f"[variants] as built: {_layout(source)}", flush=True)
     os.makedirs(OUT, exist_ok=True)
     procs = {}
@@ -203,14 +202,13 @@ def build(names: list[str]) -> dict:
                 start = text.find(old[0])
                 end = text.find(old[1], start)
                 if start < 0 or end < 0:
-                    raise SystemExit(f"{name}: {old!r} is not in flash_fwd.cu")
+                    raise SystemExit(f"{name}: {old!r} is not in flash_fwd.cu or its headers")
                 text = text[:start] + new + text[end:]
                 continue
             if old not in text:
-                raise SystemExit(f"{name}: {old!r} is not in flash_fwd.cu")
+                raise SystemExit(f"{name}: {old!r} is not in flash_fwd.cu or its headers")
             text = text.replace(old, new)
-        # beside the sources, so that its includes resolve
-        path = os.path.join(cuda_build.CSRC_DIR, f"_variant_tf32_{name}.cu")
+        path = os.path.join(OUT, f"flash_fwd_{name}.cu")
         with open(path, "w") as fh:
             fh.write(text)
         lib = os.path.join(OUT, f"libflash_fwd_{name}.so")
@@ -220,7 +218,6 @@ def build(names: list[str]) -> dict:
     libs = {}
     for name, (proc, lib, path) in procs.items():
         log, _ = proc.communicate()
-        os.remove(path)
         if proc.returncode != 0:
             raise SystemExit(f"{name} failed to build:\n{log}")
         for line in _ptxas_lines(log):

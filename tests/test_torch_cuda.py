@@ -546,10 +546,10 @@ def test_k3_bf16_packed_causal_d128(gen):
 
 
 def test_k3_k4_f32_packed_causal_d128(gen):
-    """The f32 counterpart of the case above, for K3 and K4: D = 128 (keys
-    and queries taken in passes of 32 and 16), L 785, causal with packed
-    sequences cut inside tiles; within 5e-4 and within 1e-5 of the largest
-    |grad| of the plain version, one launch of each per call."""
+    """The f32 counterpart of the case above, for K3 and K4: D = 128 (key and
+    query tiles of 16), L 785, causal with packed sequences cut inside
+    tiles; within 5e-4 and within 1e-5 of the largest |grad| of the plain
+    version, one launch of each per call."""
     length, d = 785, 128
     q, k, v, do = (torch.randn((2, 3, length, d), generator=gen, device="cuda")
                    for _ in range(4))
@@ -587,15 +587,12 @@ def _bwd_reference_64_row_tiles(q, k, v, o, lse, do, qs, ks):
             torch.einsum("bhqk,bhqd->bhkd", p.to(q.dtype).float(), dof).to(q.dtype))
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
-def test_k3_k4_bf16_causal_rows_without_keys_count_their_64_row_tile(gen, d):
-    """A causal row that matches no key has lse = the mask value, and K3 and
-    K4 take P = 1 for the keys of its 64-row tile and those before, not for
-    every key (``_bwd_reference_64_row_tiles``): rows 10-15 and 135-140 end
-    inside a running key tile (K3's per-warpgroup ``kv_end``), rows 70-75 and
-    200-205 start a warpgroup's keys (K4's per-warpgroup first query)."""
+def _rows_without_keys_case(gen, d, dtype):
+    """K3/K4 of a causal case whose rows 10-15, 70-75, 135-140, 200-205 and
+    290-295 match no key, with ``_bwd_reference_64_row_tiles`` and
+    ``flash_bwd_reference`` of it."""
     length = 300
-    q, k, v, do = (torch.randn((2, 3, length, d), generator=gen, device="cuda").bfloat16()
+    q, k, v, do = (torch.randn((2, 3, length, d), generator=gen, device="cuda").to(dtype)
                    for _ in range(4))
     ks = torch.zeros((2, length), dtype=torch.int32, device="cuda")
     qs = ks.clone()
@@ -606,10 +603,46 @@ def test_k3_k4_bf16_causal_rows_without_keys_count_their_64_row_tile(gen, d):
     assert int((lse == DEFAULT_MASK_VALUE).sum()) == 2 * 3 * 30
     got = _k3_k4(q, k, v, o, lse, do, qs, ks, True)
     want = _bwd_reference_64_row_tiles(q, k, v, o, lse, do, qs, ks)
+    return got, want, flash_bwd_reference(q, k, v, o, lse, do, qs, ks, True)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_k3_k4_bf16_causal_rows_without_keys_count_their_64_row_tile(gen, d):
+    """A causal row that matches no key has lse = the mask value, and K3 and
+    K4 take P = 1 for the keys of its 64-row tile and those before, not for
+    every key (``_bwd_reference_64_row_tiles``): rows 10-15 and 135-140 end
+    inside a running key tile (K3's per-warpgroup ``kv_end``), rows 70-75 and
+    200-205 start a warpgroup's keys (K4's per-warpgroup first query)."""
+    got, want, plain = _rows_without_keys_case(gen, d, torch.bfloat16)
     _assert_bwd_close(got, want, torch.bfloat16, dq_mean=True)
     # the plain version's rule (every key) differs on those rows
-    plain = flash_bwd_reference(q, k, v, o, lse, do, qs, ks, True)
     assert not torch.equal(plain[2], want[2])
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_k3_k4_f32_causal_rows_without_keys_count_their_64_row_tile(gen, d):
+    """The f32 counterpart of the case above: f32 K3 owns 128 query rows an
+    item (64 at D = 128) in key tiles of 64, 32 or 16 keys, and f32 K4 owns
+    64 keys an item in query tiles of 32 or 16, and both take P = 1 on rows
+    that match no key for the keys of the row's 64-row tile and those before;
+    within 5e-4 and within 1e-5 of the largest |grad|."""
+    got, want, plain = _rows_without_keys_case(gen, d, torch.float32)
+    _assert_bwd_close(got, want, torch.float32, f32_max_rel=True)
+    assert not torch.equal(plain[2], want[2])
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_k3_k4_f32_match_plain_at_8192_keys(gen, causal):
+    """f32 K3 and K4 over 8192 keys and queries, twelve heads: each tile's
+    gradient product goes into a fresh accumulator that an f32 add takes in,
+    where a sum kept in the tensor core's accumulator over every tile would
+    drift (it rounds toward zero); within 5e-4 and within 1e-5 of the
+    largest |grad| of the plain version."""
+    q, k, v, o, lse, do, _, _ = _bwd_case(gen, 8192, 8192, 64, torch.float32, False, causal,
+                                          b=1, h=12)
+    got = _k3_k4(q, k, v, o, lse, do, None, None, causal)
+    want = flash_bwd_reference(q, k, v, o, lse, do, causal=causal)
+    _assert_bwd_close(got, want, torch.float32, f32_max_rel=True)
 
 
 def _strided_leaves(gen, b, h, length, d, fused, dtype=torch.bfloat16):
@@ -675,11 +708,11 @@ def test_k3_k4_bf16_grads_of_strided_views_bit_equal_to_contiguous(gen, d, fused
 @pytest.mark.parametrize("d", [32, 64, 128])
 @pytest.mark.parametrize("fused", [False, True])
 def test_k3_k4_f32_grads_of_views_bit_equal_to_contiguous(gen, d, fused, monkeypatch):
-    """``flash_attention`` with gradients on f32 views: K2 reads them as they
-    lie, and K3 and K4, which take contiguous f32 tensors, get contiguous
-    copies made in the backward (``_kernel_bwd_inputs``), once each; the
-    output and every gradient are bit-equal to the same call on contiguous
-    copies."""
+    """``flash_attention`` with gradients on f32 views of ``[B, L, H, D]``
+    projections (or of the thirds of a fused one): K2 reads them as they
+    lie, and K3 and K4 get q, k, v and a strided dO as they lie too (no
+    copy), once each; the output and every gradient are bit-equal to the
+    same call on contiguous copies."""
     from moc_tpu_torch.ops import flash_attention as fa
 
     b, h, length = 2, 3, 785
@@ -689,7 +722,7 @@ def test_k3_k4_f32_grads_of_views_bit_equal_to_contiguous(gen, d, fused, monkeyp
 
     def recorder(kernel):
         def run(q, k, v, do, *args, **kwargs):
-            seen.append([t.is_contiguous() for t in (q, k, v, do)])
+            seen.append([(t.data_ptr(), t.stride()) for t in (q, k, v, do)])
             return kernel(q, k, v, do, *args, **kwargs)
         return run
 
@@ -700,7 +733,10 @@ def test_k3_k4_f32_grads_of_views_bit_equal_to_contiguous(gen, d, fused, monkeyp
                for t, w in zip(out.grad_fn.saved_tensors[:3], views))
     grads = torch.autograd.grad((out * do).sum(), leaves)
     torch.cuda.synchronize()
-    assert seen == [[True] * 4] * 2, seen
+    assert all(not t.is_contiguous() for t in views)
+    want_qkv = [(t.data_ptr(), t.stride()) for t in views]
+    assert len(seen) == 2 and all(call[:3] == want_qkv for call in seen), seen
+    assert all(call[3][1] == do.stride() for call in seen), seen  # dO uncopied
     copies = [t.detach().clone().requires_grad_(True) for t in leaves]
     contiguous = ([t.reshape(b, length, h, d).transpose(1, 2).contiguous()
                    for t in copies[0].chunk(3, dim=-1)] if fused
@@ -728,6 +764,27 @@ def test_k3_k4_bf16_wrappers_refuse_unreadable_strides(gen):
         with pytest.raises(ValueError, match="multiples of 16 bytes"):
             fn(q, k, v, odd, lse, delta)
         with pytest.raises(ValueError, match=f"{name} reads bf16 tensors whose last dim is "
+                                             "contiguous"):
+            fn(q, gappy, v, do, lse, delta)
+    assert (flash_bwd_dq_cuda.launches, flash_bwd_dkv_cuda.launches) == before
+
+
+def test_k3_k4_f32_wrappers_refuse_unreadable_strides(gen):
+    """f32 K3 and K4 read their tensors by stride too, and raise where TMA
+    cannot: a row stride that is not a multiple of 16 bytes, or a last dim
+    that is not contiguous; nothing is launched."""
+    q, k, v, o, lse, do, _, _ = _bwd_case(gen, 128, 128, 64, torch.float32, False, False)
+    delta = (o * do).sum(-1)
+    odd = torch.randn((2, 3, 128, 66), generator=gen, device="cuda")[..., :64]
+    gappy = torch.randn((2, 3, 128, 128), generator=gen, device="cuda")[..., ::2]
+    before = (flash_bwd_dq_cuda.launches, flash_bwd_dkv_cuda.launches)
+    for fn, name in ((flash_bwd_dq_cuda, "K3"), (flash_bwd_dkv_cuda, "K4")):
+        with pytest.raises(ValueError, match=f"{name} reads f32 tensors by strides that are "
+                                             "multiples of 16 bytes"):
+            fn(odd, k, v, do, lse, delta)
+        with pytest.raises(ValueError, match="multiples of 16 bytes"):
+            fn(q, k, v, odd, lse, delta)
+        with pytest.raises(ValueError, match=f"{name} reads f32 tensors whose last dim is "
                                              "contiguous"):
             fn(q, gappy, v, do, lse, delta)
     assert (flash_bwd_dq_cuda.launches, flash_bwd_dkv_cuda.launches) == before

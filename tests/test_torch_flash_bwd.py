@@ -155,22 +155,32 @@ def _tf32(x):
     return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
 
 
-def _tf32_matmul(a, b, passes):
+def _dropped(x):
+    """x with its low 13 bits cleared: what the tensor core takes of an f32
+    operand that was not rounded to TF32."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _tf32_matmul(a, b, passes, raw_hi=False):
     """``a @ b`` as the f32 tier of K3 and K4 takes it on the tensor cores:
-    each operand split as hi = tf32(x), lo = tf32(x - hi), and hi.hi + hi.lo
-    + lo.hi summed in f32 (three passes), or hi.hi alone (one pass)."""
-    ah, bh = _tf32(a), _tf32(b)
+    hi.hi + hi.lo + lo.hi summed in f32 (three passes), or hi.hi alone (one
+    pass). Each operand is split as hi = tf32(x), lo = tf32(x - hi), or,
+    with ``raw_hi``, as the kernels split their tiles in shared memory: x
+    itself is hi, whose low 13 bits the tensor core drops, and lo =
+    tf32(x - hi)."""
+    ah, bh = (_dropped(a), _dropped(b)) if raw_hi else (_tf32(a), _tf32(b))
     if passes == 1:
         return ah @ bh
     al, bl = _tf32(a - ah), _tf32(b - bh)
     return al @ bh + ah @ bl + ah @ bh
 
 
-def _tf32_backward(q, k, v, o, lse, do, q_seg, kv_seg, causal, scale, passes):
+def _tf32_backward(q, k, v, o, lse, do, q_seg, kv_seg, causal, scale, passes,
+                   raw_hi=False):
     """``flash_bwd_reference`` in f32 with its five products (s, dp, dq, dk,
     dv) taken by ``_tf32_matmul``."""
     def mm(a, b):
-        return _tf32_matmul(a, b, passes)
+        return _tf32_matmul(a, b, passes, raw_hi)
 
     s = mm(q, k.transpose(-1, -2)) * scale
     mask = tfa._mask(q, k, q_seg, kv_seg, causal)
@@ -217,6 +227,41 @@ def test_three_tf32_passes_hold_the_f32_tolerance(d, mask):
             _close(got, want)
     assert errs[3] <= 1e-5, errs
     assert errs[1] > 1e-5, errs
+
+
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("mask", ["causal", "segments", "packed"])
+def test_three_tf32_passes_with_x_as_its_own_hi_hold_the_f32_tolerance(d, mask):
+    """The split the kernels take of a tile in shared memory: x itself is
+    hi (the tensor core drops its low 13 bits) and only lo = tf32(x - hi) is
+    written. Emulated as above, every operand so split: within the JAX
+    package's 5e-4 of its Pallas backward and within 1e-5 of the largest
+    |grad| of ``flash_bwd_reference``; had the tensor core rounded the
+    dropped bits instead, hi + lo would miss x by up to 2^-11 of it."""
+    length, causal = 130, mask != "segments"
+    q, k, v, do = _arrays(90 + d + len(mask), lq=length, d=d)
+    q_seg = kv_seg = None
+    if mask == "segments":
+        q_seg, kv_seg = _segments(d + 1, 2, length, length, unmatched=8)
+    elif mask == "packed":
+        q_seg = kv_seg = _packed(2, length)
+    scale = d ** -0.5
+    jx = [jnp.asarray(t) for t in (q, k, v, do)]
+    js = (None, None) if q_seg is None else (jnp.asarray(q_seg), jnp.asarray(kv_seg))
+    o, lse = jfa._fwd(*jx[:3], *js, scale, causal, length, length)
+    want = jfa._bwd(*jx[:3], *js, o, lse, jx[3], scale, causal, length, length)
+    tq, tk, tv, tdo = (torch.from_numpy(t) for t in (q, k, v, do))
+    ts = (None, None) if q_seg is None else (torch.from_numpy(q_seg), torch.from_numpy(kv_seg))
+    to, tlse = torch.from_numpy(np.array(o)), torch.from_numpy(np.array(lse))
+    plain = tfa.flash_bwd_reference(tq, tk, tv, to, tlse, tdo, *ts, causal, scale)
+    largest = max(g.abs().max().item() for g in plain)
+    got = _tf32_backward(tq, tk, tv, to, tlse, tdo, *ts, causal, scale, 3, raw_hi=True)
+    _close(got, want)
+    err = max((g - w).abs().max().item() for g, w in zip(got, plain)) / largest
+    assert err <= 1e-5, err
+    # x's dropped bits taken as rounded: hi + lo no longer x
+    rounded = [(_tf32(t) + _tf32(t - _dropped(t))) for t in (tq, tk)]
+    assert max((r - t).abs().max().item() for r, t in zip(rounded, (tq, tk))) > 2 ** -13
 
 
 @pytest.mark.parametrize("length", [128, 256])

@@ -174,8 +174,7 @@ def test_prepare_keeps_bf16_views_without_grad_and_copies_otherwise():
         (q, _, _), *_ = tfa._prepare(leaf, view, view, None, None, None)
     assert q.data_ptr() == view.data_ptr()
     # f32: handed on as it lies too (K2 reads its strides), with a gradient
-    # too; f32 K3 and K4 get contiguous copies in the backward
-    # (test_copy_policy_by_dtype)
+    # too, and K3 and K4 read it so in the backward (test_copy_policy_by_dtype)
     f32 = x.float().transpose(1, 2)
     (q, _, _), *_ = tfa._prepare(f32, f32, f32, None, None, None)
     assert q.data_ptr() == f32.data_ptr() and q.stride() == f32.stride()
@@ -258,12 +257,11 @@ def test_bf16_views_with_grad_match_jax(entry, causal):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_copy_policy_by_dtype(dtype):
-    """Which copies the forward and the backward make. The forward
-    (``_prepare``) hands readable views of either type to K2 as they lie
-    and copies unreadable ones; K3 and K4 (``_kernel_bwd_inputs``) take
-    bf16 q, k, v and dO as they lie and copy an unreadable dO, while f32 K3
-    and K4 take contiguous tensors: the f32 copies move from the forward to
-    the backward, and contiguous tensors are not copied again."""
+    """Which copies the forward and the backward make, the same in either
+    type. The forward (``_prepare``) hands readable views to K2 as they lie
+    and copies unreadable ones; K3 and K4 (``_kernel_bwd_inputs``) take q,
+    k, v and dO as they lie and copy an unreadable dO, and contiguous
+    tensors are not copied either."""
     x = torch.randn((2, 40, 3, 64)).to(dtype)
     view = x.transpose(1, 2)
     (q, k, v), *_ = tfa._prepare(view, view, view, None, None, None)
@@ -274,15 +272,12 @@ def test_copy_policy_by_dtype(dtype):
     assert q.is_contiguous()
     do_view = torch.randn((2, 40, 3, 64)).to(dtype).transpose(1, 2)
     got = tfa._kernel_bwd_inputs(view, view, view, do_view)
-    if dtype == torch.float32:
-        assert all(t.is_contiguous() and t.data_ptr() != view.data_ptr() for t in got[:3])
-        assert got[3].is_contiguous() and torch.equal(got[3], do_view)
-        dense = view.contiguous()
-        assert all(t is dense for t in tfa._kernel_bwd_inputs(dense, dense, dense, dense))
-    else:
-        assert all(t is view for t in got[:3]) and got[3] is do_view
-        odd_do = torch.zeros((2, 3, 40, 68), dtype=dtype)[..., :64]  # rows 136 bytes apart
-        assert tfa._kernel_bwd_inputs(view, view, view, odd_do)[3].is_contiguous()
+    assert all(t is view for t in got[:3]) and got[3] is do_view
+    # rows 136 (bf16) or 264 (f32) bytes apart, as _odd_rows
+    odd_do = torch.zeros((2, 3, 40, 68 if dtype == torch.bfloat16 else 66), dtype=dtype)[..., :64]
+    assert tfa._kernel_bwd_inputs(view, view, view, odd_do)[3].is_contiguous()
+    dense = view.contiguous()
+    assert all(t is dense for t in tfa._kernel_bwd_inputs(dense, dense, dense, dense))
     assert all(torch.equal(t, w) for t, w in zip(got, (view, view, view, do_view)))
 
 
@@ -291,10 +286,10 @@ def test_copy_policy_by_dtype(dtype):
 def test_f32_views_with_grad_match_jax(entry, causal):
     """f32 views of ``[B, L, H, D]`` projections that need a gradient, on
     the CPU: ``flash_attention`` and ``flash_attention_with_lse(lse_grad=
-    False)`` keep the views (K2 reads them by strides on the card; f32 K3
-    and K4 take the backward's contiguous copies), and their gradients match
-    the JAX package's flash backward (its Pallas kernels in interpret mode)
-    on the same numbers within its f32 backward tolerance."""
+    False)`` keep the views (K2, K3 and K4 read them by strides on the
+    card), and their gradients match the JAX package's flash backward (its
+    Pallas kernels in interpret mode) on the same numbers within its f32
+    backward tolerance."""
     b, length, h, d = 2, 128, 2, 64
     leaves, (jq, jk, jv), do = _grad_views(13 + causal, b, length, h, d, torch.float32)
     views = [t.transpose(1, 2) for t in leaves]
