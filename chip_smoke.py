@@ -5468,17 +5468,28 @@ def dist_ring_rank(root: str, dtypes: list, dilated: bool) -> None:
     _rank_json(root, f"ring{world}", out)
 
 
+def _table_bytes(model, optimizer) -> dict:
+    """This rank's token table: its shape, and the bytes it and its two Adam
+    moments hold (a count of the tensors' elements, not a measurement)."""
+    table = model.embed.weight
+    moments = [optimizer.state[table][k] for k in ("exp_avg", "exp_avg_sq")]
+    return {"shape": list(table.shape), "table": table.numel() * table.element_size(),
+            "moments": sum(m.numel() * m.element_size() for m in moments)}
+
+
 def _record_pretrain():
-    """Patch ``run_pretrain`` and ``run_pipe_pretrain`` to keep their losses."""
+    """Patch ``run_pretrain`` and ``run_pipe_pretrain`` to keep their losses
+    and each run's ``_table_bytes``."""
     from moc_tpu_torch.train import pretrain as tp
     from moc_tpu_torch.train import pretrain_pipe as tpp
 
-    got = []
+    got, tables = [], []
 
     def wrap(fn):
         def record(*a, **k):
             out = fn(*a, **k)
             got.extend(out[2])
+            tables.append(_table_bytes(out[0], out[1]))
             return out
         return record
 
@@ -5488,7 +5499,7 @@ def _record_pretrain():
     def restore():
         tp.run_pretrain, tpp.run_pipe_pretrain = saved
 
-    return got, restore
+    return got, tables, restore
 
 
 def dist_pretrain_rank(root: str) -> None:
@@ -5499,7 +5510,7 @@ def dist_pretrain_rank(root: str) -> None:
 
     out = {}
     for name, mesh in DIST_MESHES.items():
-        losses, restore = _record_pretrain()
+        losses, tables, restore = _record_pretrain()
         _zero_launches()
         t0 = time.perf_counter()
         try:
@@ -5509,7 +5520,7 @@ def dist_pretrain_rank(root: str) -> None:
             restore()
         torch.cuda.synchronize()
         out[name] = {"losses": losses, "launches": _launches(),
-                     "wall_s": time.perf_counter() - t0}
+                     "wall_s": time.perf_counter() - t0, "table": tables[-1]}
     _rank_json(root, "pretrain", out)
 
 
@@ -5806,7 +5817,31 @@ def _compare_pretrain(root: str, ref: dict, ranks: list) -> dict:
             f"{noisy} of {total} parameters past {DIST_PARAM_TOL} (all within "
             f"{DIST_ADAM_BOUND}); launches by rank {out[name]['launches']}; "
             f"{out[name]['wall_s']:.1f}s")
+    out["table_bytes"] = _check_table_split(ref["dense"]["table"], ranks)
     return out
+
+
+def _check_table_split(one: dict, ranks: list) -> dict:
+    """Each rank's token table and Adam moments: split in half under the
+    ``data`` mesh (``spec_for``'s rule at 1024 rows), whole under the others
+    as in one process; logs the bytes a rank of both layouts."""
+    vocab, width = one["shape"]
+    for name in DIST_MESHES:
+        want = [vocab // 2, width] if name == "data" else [vocab, width]
+        for r, rank in enumerate(ranks):
+            got = rank[name]["table"]
+            check(got["shape"] == want, f"{name}: rank {r} holds the table as {got['shape']}, "
+                                        f"not {want}")
+    split = [r["data"]["table"] for r in ranks]
+    check(all(2 * s["table"] == one["table"] and 2 * s["moments"] == one["moments"]
+              for s in split), f"data=2 table bytes {split} against one process's {one}")
+    whole, half = one["table"] + one["moments"], split[0]["table"] + split[0]["moments"]
+    log(f"[dist] token table a rank under --mesh data=2: embed.weight {split[0]['shape']} "
+        f"{split[0]['table']} B + Adam moments {split[0]['moments']} B = {half} B on each "
+        f"rank; replicated (one process and the other meshes) {one['shape']} {one['table']} "
+        f"B + {one['moments']} B = {whole} B; {whole - half} B less a rank (element counts, "
+        f"not measurements)")
+    return {"split": split, "replicated": one, "saved_per_rank": whole - half}
 
 
 def _dist_rings(root: str) -> dict:
@@ -5848,14 +5883,14 @@ def _dist_pretrain(root: str) -> dict:
     ref = {}
     for key, extra in (("dense", []), ("moe", ["--moe_experts", "4"])):
         ckpt = os.path.join(root, f"ref_{key}")
-        losses, restore = _record_pretrain()
+        losses, tables, restore = _record_pretrain()
         try:
             check(pretrain.main([*DIST_PRETRAIN_ARGV, "--mesh", "data=1", *extra, "--device",
                                  "cuda", "--ckpt_dir", ckpt]) == 0,
                   f"one-process pretrain {key} failed")
         finally:
             restore()
-        ref[key] = {"losses": losses, "ckpt": ckpt}
+        ref[key] = {"losses": losses, "ckpt": ckpt, "table": tables[-1]}
     torch.cuda.empty_cache()
     spawn(f"{os.path.abspath(__file__)}:dist_pretrain_rank", 2, backend="gloo",
           device="cuda:0", kwargs={"root": root}, timeout=600)

@@ -8,3 +8,10 @@ first use. Entry points run on ``cuda`` unless the caller passes
 """
 
 __version__ = "0.1.0"
+
+from moc_tpu_torch._lazy import lazy_exports
+
+# the subpackages ``import moc_tpu`` binds, here imported at first use: each
+# imports torch, which ``import moc_tpu_torch`` alone does not
+__all__ = ["data", "metrics", "moc", "models", "nn", "ops", "parallel", "zeroshot"]
+__getattr__ = lazy_exports(__name__, {name: f"{__name__}.{name}" for name in __all__})

@@ -167,3 +167,36 @@ EBRAINS12 = _ebrains_preset("ebrains12", _EBRAINS12_CLASSES)
 EBRAINS30 = _ebrains_preset("ebrains30", _EBRAINS30_CLASSES)
 
 PRESETS = {"nsclc": NSCLC, "rcc": RCC, "ebrains12": EBRAINS12, "ebrains30": EBRAINS30}
+
+# CONCH's logit scale (the reference's main_moc.py:175): slide logits are
+# multiplied by it before the softmax of the served probabilities
+CONCH_TEMPERATURE = 56.3477
+
+
+@dataclasses.dataclass(frozen=True)
+class MocRunConfig:
+    """One (dataset, fold, shot) MOC run: the reference CLI's options
+    (``main_moc.py:29-47``) and the paths it hard-codes, made explicit."""
+
+    dataset: str = "nsclc"
+    fold: int = 0
+    shot: int = 1
+    topj: int = 400
+    topk: int = 10
+    result_dir: str = "results/moc_train"
+    pretrain: str = "conch"
+    discard_classifiers: tuple[str, ...] = ()
+    load_weight: bool = True
+    check_zeroshot: bool = True
+    ablation_study: str = "none"  # none | avg | sum | max
+    num_epochs: int = 25
+    seed: int = 0
+    data_root: str = "data"
+    prompt_root: str = DEFAULT_PROMPT_ROOT
+    conch_checkpoint: str = "models/conch_checkpoint.bin"
+    tokenizer_file: str | None = None
+    weights_cache_dir: str = "models/classifier_weights"
+
+    @property
+    def preset(self) -> DatasetPreset:
+        return PRESETS[self.dataset]

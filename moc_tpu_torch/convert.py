@@ -27,8 +27,7 @@ import torch
 
 from moc_tpu_torch.models.musk import MUSK, MuskConfig
 from moc_tpu_torch.models.senet import STACK_KEYS, SENet, SENetStack
-from moc_tpu_torch.nn.resnet import STAGES as RESNET_STAGES
-from moc_tpu_torch.nn.resnet import ResNet50Trunk
+from moc_tpu_torch.nn.resnet import ResNet50Trunk, ResNetConfig
 from moc_tpu_torch.zeroshot.coca import CoCa, CoCaConfig
 from moc_tpu_torch.zeroshot.convert import HEAD_DIM
 from moc_tpu_torch.zeroshot.text_tower import TextConfig, TextTower
@@ -296,7 +295,7 @@ def resnet50_from_jax(variables: Mapping) -> ResNet50Trunk:
 
     conv(params["conv1"], "conv1")
     bn(params["bn1"], stats["bn1"], "bn1")
-    for stage, n_blocks in enumerate(RESNET_STAGES):
+    for stage, n_blocks in enumerate(ResNetConfig().stage_sizes):
         for block in range(n_blocks):
             src, dst = f"layer{stage + 1}_{block}", f"layer{stage + 1}.{block}"
             p, s = params[src], stats[src]

@@ -5,9 +5,7 @@ from __future__ import annotations
 
 import torch
 
-# CONCH contrastive logit scale: slide logits are multiplied by this
-# temperature before the softmax that produces the served probabilities.
-CONCH_TEMPERATURE = 56.3477
+from moc_tpu_torch.config import CONCH_TEMPERATURE
 
 
 def softmax_probs(logits: torch.Tensor, temperature: float = CONCH_TEMPERATURE) -> torch.Tensor:

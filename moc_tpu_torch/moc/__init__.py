@@ -9,7 +9,7 @@ from moc_tpu_torch.moc.core import (CLASSIFIER_NAMES, EvalPack, MOCConfig, Slide
                                     views_from_logits)
 from moc_tpu_torch.moc.episode import (EpisodeResult, EvalMetrics, ablation_evaluation,
                                        eval_batch, init_senet, make_optimizer, run_episode,
-                                       train_epoch, zs_pooled_logits)
+                                       train_epoch, zs_eval_batches, zs_pooled_logits)
 from moc_tpu_torch.moc.sweep import (EpisodeIndex, PooledEpisodes, StackedEpisode, SweepResult,
                                      assemble_episode, episode_from_bags, episode_index,
                                      make_sweep_fn, pack_slide_pool, pad_and_stack_episodes,
@@ -29,4 +29,4 @@ __all__ = ["CLASSIFIER_NAMES", "EpisodeIndex", "EpisodeResult", "EvalMetrics", "
            "run_sweep_pooled", "selection_capacity_for", "slide_process", "stack_episode_bags",
            "stack_episodes", "sweep_episode_results", "sweep_step", "train_epoch",
            "unique_split_ids",
-           "views_from_logits", "zs_pooled_logits"]
+           "views_from_logits", "zs_eval_batches", "zs_pooled_logits"]

@@ -86,6 +86,43 @@ def summarize(summary_dir: str, shots=(1, 2, 4, 8), folds=(0, 1, 2, 3, 4)) -> di
     return written
 
 
+def policy_json_to_csv(json_path: str, out_csv: str) -> list[list]:
+    """Reshape a policy-analysis JSON ``{method: {dataset: value}}`` into a
+    method × dataset CSV (the reference's ``utils/result2csv.py``), the file
+    the JAX package's pandas writes byte for byte: methods and datasets
+    sorted, a ``method`` index column, a missing or NaN value an empty field.
+    Where the JAX package returns the ``DataFrame``, this returns the rows:
+    the header, then each method with its values (None where missing)."""
+    with open(json_path) as f:
+        payload = json.load(f)
+    methods = sorted(payload)
+    datasets = sorted({d for m in payload.values() for d in m})
+    rows = [[payload[m].get(d) for d in datasets] for m in methods]
+    columns = [_csv_column([r[j] for r in rows]) for j in range(len(datasets))]
+    with open(out_csv, "w", newline="") as f:
+        out = csv.writer(f, lineterminator="\n")
+        out.writerow(["method", *datasets])
+        out.writerows([m, *(col[i] for col in columns)] for i, m in enumerate(methods))
+    return [["method", *datasets], *([m, *r] for m, r in zip(methods, rows))]
+
+
+def _missing(value) -> bool:
+    return value is None or (isinstance(value, float) and math.isnan(value))
+
+
+def _csv_column(values: list) -> list[str]:
+    """One column's fields as pandas writes them: a column of numbers with a
+    float or a gap among them is a float column (an integer written as
+    ``1.0``); any other column writes each value as ``str`` does. A gap is
+    an empty field."""
+    present = [v for v in values if not _missing(v)]
+    numbers = all(isinstance(v, (int, float)) and not isinstance(v, bool) for v in present)
+    if present and numbers and (len(present) < len(values)
+                                or any(isinstance(v, float) for v in present)):
+        return ["" if _missing(v) else repr(float(v)) for v in values]
+    return ["" if _missing(v) else str(v) for v in values]
+
+
 def _cell(value):
     """A summary value as pandas writes it: NaN as an empty field."""
     return "" if isinstance(value, float) and math.isnan(value) else value

@@ -17,7 +17,7 @@ import math
 import torch
 
 from moc_tpu_torch.device import resolve_device
-from moc_tpu_torch.nn.resnet import STAGES, WIDTHS, ResNet50Trunk
+from moc_tpu_torch.nn.resnet import ResNet50Trunk, ResNetConfig
 
 _TRUNK = ("conv1.", "bn1.", "layer1.", "layer2.", "layer3.")
 
@@ -73,7 +73,8 @@ def random_resnet50_state_dict(seed: int = 0) -> dict[str, torch.Tensor]:
     conv("conv1", 64, 3, 7)
     bn("bn1", 64)
     cin = 64
-    for stage, (n_blocks, width) in enumerate(zip(STAGES + (3,), WIDTHS + (512,))):
+    cfg = ResNetConfig()
+    for stage, (n_blocks, width) in enumerate(zip((*cfg.stage_sizes, 3), (*cfg.widths, 512))):
         for block in range(n_blocks):
             p = f"layer{stage + 1}.{block}"
             conv(f"{p}.conv1", width, cin, 1)

@@ -13,13 +13,19 @@ trunks of ``nn.vit.VisionTransformer`` (JAX :79-90).
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Sequence
+
 import torch
 from torch import nn
 
 from moc_tpu_torch.nn.vit import VisionTransformer
 
-STAGES = (3, 4, 6)  # blocks of each stage kept (the reference's truncation)
-WIDTHS = (64, 128, 256)
+
+@dataclasses.dataclass(frozen=True)
+class ResNetConfig:
+    stage_sizes: Sequence[int] = (3, 4, 6)  # blocks of stages 1-3 (the reference's truncation)
+    widths: Sequence[int] = (64, 128, 256)
 
 
 class BottleneckBlock(nn.Module):
@@ -50,16 +56,19 @@ class BottleneckBlock(nn.Module):
 
 class ResNet50Trunk(nn.Module):
     """ResNet-50 up to its third stage and a global average pool →
-    ``[B, 1024]`` (JAX :58-76, the reference's ``resnet50_baseline``)."""
+    ``[B, 1024]`` (JAX :58-76, the reference's ``resnet50_baseline``); a
+    ``cfg`` with other stages gives ``layer1`` to ``layer<n>`` and
+    ``4 × widths[-1]`` features."""
 
-    def __init__(self):
+    def __init__(self, cfg: ResNetConfig = ResNetConfig()):
         super().__init__()
+        self.cfg = cfg
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = nn.BatchNorm2d(64)
         self.relu = nn.ReLU()
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
         in_features = 64
-        for stage, (n_blocks, width) in enumerate(zip(STAGES, WIDTHS)):
+        for stage, (n_blocks, width) in enumerate(zip(cfg.stage_sizes, cfg.widths)):
             blocks = []
             for block in range(n_blocks):
                 blocks.append(BottleneckBlock(in_features, width,
@@ -70,7 +79,8 @@ class ResNet50Trunk(nn.Module):
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         """images ``[B, H, W, 3]`` (NHWC) → ``[B, 1024]``."""
         x = self.maxpool(self.relu(self.bn1(self.conv1(images.permute(0, 3, 1, 2)))))
-        x = self.layer3(self.layer2(self.layer1(x)))
+        for stage in range(len(self.cfg.stage_sizes)):
+            x = getattr(self, f"layer{stage + 1}")(x)
         return x.mean(dim=(2, 3))
 
 

@@ -2,6 +2,7 @@
 the bf16-parameter recipe) and MUSK's contrastive step, the MIL baselines (one fold at a time or all folds of a shot fused), ViLa-MIL,
 LoRA fine-tuning and chunked-bag attention pooling."""
 
+from moc_tpu_torch._lazy import lazy_exports
 from moc_tpu_torch.train.accum import chunk_bag, streaming_attention_pool
 from moc_tpu_torch.train.lora_finetune import (LoraFinetuneConfig, make_lora_train_step,
                                                run_lora_finetune, streamed_slide_logits,
@@ -10,6 +11,7 @@ from moc_tpu_torch.train.lora_finetune import (LoraFinetuneConfig, make_lora_tra
 from moc_tpu_torch.train.losses import bag_loss_fn, cross_entropy, smooth_top1_svm
 from moc_tpu_torch.train.mil import (AccuracyLogger, EarlyStopping, FoldResult, MilTrainConfig,
                                      build_model, evaluate_model, evaluate_patch_level,
+                                     half_precision_params, init_classifier_from_weights,
                                      make_optimizer, train_fold, weighted_order)
 from moc_tpu_torch.train.pretrain import (
     MaskedTokenModel,
@@ -17,8 +19,10 @@ from moc_tpu_torch.train.pretrain import (
     PretrainConfig,
     cast_params_for_storage,
     clip_contrastive_loss,
+    encoder_param_shardings,
     make_musk_contrastive_step,
     make_pretrain_state,
+    make_sharded_train_step,
     make_train_step,
     masked_token_loss,
     run_pretrain,
@@ -61,4 +65,15 @@ __all__ = [
     "smooth_top1_svm",
     "train_fold",
     "weighted_order",
+    "encoder_param_shardings",
+    "half_precision_params",
+    "init_classifier_from_weights",
+    "make_sharded_train_step",
+    "FusedFoldResult",
+    "run_mil_folds_fused",
+    "run_mil_folds_fused_pooled",
 ]
+
+# the fused MIL folds import the MOC core (its episode sweep)
+__getattr__ = lazy_exports(__name__, {name: "moc_tpu_torch.train.mil_fused" for name in (
+    "FusedFoldResult", "run_mil_folds_fused", "run_mil_folds_fused_pooled")})

@@ -13,7 +13,14 @@ from __future__ import annotations
 
 import torch
 
-from moc_tpu_torch.models.layers import softmax_cross_entropy as cross_entropy
+from moc_tpu_torch.models.layers import softmax_cross_entropy
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-example cross-entropy of ``logits [..., C]`` against integer
+    ``labels [...]``, unreduced: optax's
+    ``softmax_cross_entropy_with_integer_labels``."""
+    return softmax_cross_entropy(logits, labels)
 
 
 def _label_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

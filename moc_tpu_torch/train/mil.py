@@ -366,17 +366,39 @@ def _patient_results(probs, labels) -> dict:
 
 
 @torch.no_grad()
+def half_precision_params(params, dtype=None):
+    """``params`` with every float32 tensor cast to ``dtype`` (default
+    bfloat16) and every other tensor as it is, for inference: a state dict
+    (a new mapping, nested mappings walked) or a module (its parameters and
+    buffers cast in place, and the module returned). Train in f32; cast for
+    serving."""
+    dtype = torch.bfloat16 if dtype is None else dtype
+    if isinstance(params, torch.nn.Module):
+        for t in (*params.parameters(), *params.buffers()):
+            if t.dtype == torch.float32:
+                t.data = t.data.to(dtype)
+        return params
+    if isinstance(params, Mapping):
+        return {k: half_precision_params(v, dtype) for k, v in params.items()}
+    if isinstance(params, torch.Tensor) and params.dtype == torch.float32:
+        return params.to(dtype)
+    return params
+
+
+@torch.no_grad()
 def evaluate_model(cfg: MilTrainConfig, params, batches, compute_dtype=None,
                    device: str | torch.device | None = None) -> dict:
     """A trained head over a bag stream: probabilities, predictions and the
-    summary metrics. ``compute_dtype=torch.bfloat16`` casts parameters and
-    features for the forward; metrics stay f32 on the host. ``device``
-    defaults to ``cuda``."""
+    summary metrics. ``compute_dtype=torch.bfloat16`` casts parameters
+    (``half_precision_params``) and features for the forward; metrics stay
+    f32 on the host. ``device`` defaults to ``cuda``."""
     from moc_tpu_torch.device import resolve_device
 
     dev = resolve_device(device)
     model, forward = model_from_params(cfg, params)
-    model.to(dev, compute_dtype)
+    model.to(dev)
+    if compute_dtype is not None:
+        half_precision_params(model, compute_dtype)
     with full_f32():
         logits, labels = _collect(forward, None, batches, dev, compute_dtype)
     res = _summary(logits, labels, cfg.n_classes)

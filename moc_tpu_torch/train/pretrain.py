@@ -36,8 +36,11 @@ computes what one device computes, as the JAX package's GSPMD step does:
 the batch rows split over ``data`` and the positions over ``seq`` (ring
 attention, or dilated attention's cross-shard segments, across it), the
 heads and the FFN and expert hidden widths over ``tensor``, the MoE experts
-over ``expert`` (the token batch routed as one batch); ``spec_for`` is the
-parameter layout rule (``_spec_for``'s, in torch names),
+over ``expert`` (the token batch routed as one batch), and a token table of
+1024 rows or more over ``data`` (all-gathered before the lookup, its
+gradient reduce-scattered back, so Adam's moments are a rank's block too);
+``spec_for`` is the parameter layout rule (``_spec_for``'s, in torch names),
+``encoder_param_shardings`` walks it over a model's parameters,
 ``shard_state_dict`` cuts a rank's parameters from the full ones and
 ``gather_state_dict`` puts them back together. Each rank backpropagates its share of the loss (its masked
 tokens' cross-entropy over the global count, divided among the ranks that
@@ -64,6 +67,9 @@ from moc_tpu_torch.parallel import collectives, runtime
 from moc_tpu_torch.parallel.mesh import (AXIS_DATA, AXIS_EXPERT, AXIS_SEQ, AXIS_TENSOR, Mesh,
                                          local_block, resolve_axis)
 
+# the JAX package's rule: a token table of this many rows or more is split over ``data``
+VOCAB_SPLIT_ROWS = 1024
+
 
 @dataclasses.dataclass(frozen=True)
 class PretrainConfig:
@@ -76,6 +82,9 @@ class PretrainConfig:
     # "bfloat16": parameters of 2+ dimensions stored in bf16, an f32 master
     # of every parameter updated by Adam (see the module docstring)
     param_dtype: str | None = None
+    # the mesh axis the token table's rows are split over (set by
+    # ``sharded_config`` from ``spec_for``); the port's, as the encoder's axes are
+    vocab_axis: str | None = None
 
 
 class MaskedTokenModel(nn.Module):
@@ -84,11 +93,21 @@ class MaskedTokenModel(nn.Module):
 
     def __init__(self, cfg: PretrainConfig):
         super().__init__()
+        self.cfg = cfg
         d = cfg.encoder.embed_dim
         # a sequence sharded over a mesh axis: this rank's block of positions
         seq = cfg.encoder.ring_axis or cfg.encoder.seq_axis
         self.seq = None if seq is None else resolve_axis(seq)
-        self.embed = nn.Embedding(cfg.vocab_size, d)
+        # a table split over a mesh axis: this rank's block of rows
+        self.vocab = None if cfg.vocab_axis is None else resolve_axis(cfg.vocab_axis)
+        rows = cfg.vocab_size
+        if self.vocab is not None:
+            if rows % self.vocab.size:
+                # the JAX package refuses to place such a table (device_put)
+                raise ValueError(f"a vocabulary of {rows} does not split over the "
+                                 f"{self.vocab.size} ranks of {cfg.vocab_axis!r}")
+            rows //= self.vocab.size
+        self.embed = nn.Embedding(rows, d)
         self.pos = nn.Parameter(torch.zeros(cfg.max_len, d))
         self.encoder = Encoder(cfg.encoder)
         # computes in f32 whatever the encoder's compute dtype: the softmax
@@ -99,7 +118,12 @@ class MaskedTokenModel(nn.Module):
         # a bf16 table gives bf16 rows, as flax's Embed(dtype=None) does
         n = token_ids.shape[1]
         start = 0 if self.seq is None else self.seq.index * n
-        x = self.embed(token_ids) + self.pos[start : start + n]
+        table = self.embed.weight
+        if self.vocab is not None:
+            # the whole table for the lookup; the backward reduce-scatters its
+            # gradient, summed over the axis, to each rank's block
+            table = collectives.all_gather(table, self.vocab, tiled=True)
+        x = F.embedding(token_ids, table) + self.pos[start : start + n]
         x, aux = self.encoder(x, padding_mask)
         return self.lm_head(x).float(), aux
 
@@ -181,21 +205,24 @@ def _wide(mesh: Mesh, axis: str) -> bool:
     return mesh.shape.get(axis, 1) > 1
 
 
-def spec_for(name: str, mesh: Mesh) -> tuple:
-    """The layout of parameter ``name`` (torch names and layouts: a
-    ``Linear`` weight is ``[out, in]``) over ``mesh``: one axis or None per
-    dimension, axes the mesh lacks or holds at size 1 dropped. The JAX
-    package's ``_spec_for``: experts over ``expert`` and their hidden width
-    over ``tensor``, fc1 and q/k/v column-split and fc2 and out_proj
-    row-split over ``tensor`` with the FFN LayerNorm; the attention's inner
-    LayerNorm, which JAX replicates and GSPMD reshards, is split with the
-    heads it normalises. The rest (embeddings included, which JAX splits
-    over ``data`` to save memory alone) is replicated."""
+def spec_for(name: str, shape: tuple, mesh: Mesh) -> tuple:
+    """The layout of parameter ``name`` of full shape ``shape`` (torch names
+    and layouts: a ``Linear`` weight is ``[out, in]``) over ``mesh``: one
+    axis or None per dimension, axes the mesh lacks or holds at size 1
+    dropped. The JAX package's ``_spec_for``: experts over ``expert`` and
+    their hidden width over ``tensor``, fc1 and q/k/v column-split and fc2
+    and out_proj row-split over ``tensor`` with the FFN LayerNorm, and the
+    token table's rows over ``data`` from ``VOCAB_SPLIT_ROWS`` rows on (the
+    one rule that reads ``shape``); the attention's inner LayerNorm, which
+    JAX replicates and GSPMD reshards, is split with the heads it
+    normalises. The rest is replicated."""
     def p(*axes):
         return tuple(a if a is not None and _wide(mesh, a) else None for a in axes)
 
     parts = name.split(".")
     leaf = parts[-1]
+    if name == "embed.weight" and shape[0] >= VOCAB_SPLIT_ROWS:
+        return p(AXIS_DATA, None)
     experts = {"experts_w1": (AXIS_EXPERT, None, AXIS_TENSOR),
                "experts_b1": (AXIS_EXPERT, AXIS_TENSOR),
                "experts_w2": (AXIS_EXPERT, AXIS_TENSOR, None), "experts_b2": (AXIS_EXPERT,),
@@ -219,25 +246,48 @@ def spec_for(name: str, mesh: Mesh) -> tuple:
     return ()
 
 
+def _full_shapes(cfg: PretrainConfig) -> dict[str, tuple]:
+    """State-dict name → full shape of a ``MaskedTokenModel`` of ``cfg``,
+    whatever mesh its axes name (built on the meta device, unsharded)."""
+    enc = dataclasses.replace(cfg.encoder, seq_axis=None, ring_axis=None, expert_axis=None,
+                              tensor_axis=None, token_axes=())
+    with torch.device("meta"):
+        model = MaskedTokenModel(dataclasses.replace(cfg, encoder=enc, vocab_axis=None))
+    return {n: tuple(t.shape) for n, t in model.state_dict().items()}
+
+
+def encoder_param_shardings(params, mesh: Mesh) -> dict[str, tuple]:
+    """Parameter name → layout over ``mesh`` (JAX's ``encoder_param_shardings``,
+    with ``spec_for``'s layouts for ``NamedSharding``s): ``params`` is a state
+    dict of full tensors, or a ``MaskedTokenModel`` of any layout, whose full
+    shapes are its config's."""
+    if isinstance(params, MaskedTokenModel):
+        params = _full_shapes(params.cfg)
+    return {k: spec_for(k, tuple(getattr(v, "shape", v)), mesh) for k, v in params.items()}
+
+
 def _sharded_axes(spec: tuple) -> set:
     return {a for a in spec if a is not None}
 
 
 def shard_state_dict(state: dict, mesh: Mesh) -> dict:
     """This rank's block of every parameter of a full state dict."""
-    return {k: local_block(v, mesh, spec_for(k, mesh)).clone() for k, v in state.items()}
+    specs = encoder_param_shardings(state, mesh)
+    return {k: local_block(v, mesh, specs[k]).clone() for k, v in state.items()}
 
 
-def gather_state_dict(state: dict, mesh: Mesh) -> dict:
-    """The full parameters, on every rank, from each rank's blocks."""
-    return {k: runtime.host_local_to_global(v, mesh, spec_for(k, mesh))
-            for k, v in state.items()}
+def gather_state_dict(model: MaskedTokenModel, mesh: Mesh) -> dict:
+    """The full parameters of ``model``, on every rank, from each rank's blocks."""
+    specs = encoder_param_shardings(model, mesh)
+    return {k: runtime.host_local_to_global(v, mesh, specs[k])
+            for k, v in model.state_dict().items()}
 
 
 def sharded_config(cfg: PretrainConfig, mesh: Mesh) -> PretrainConfig:
     """``cfg`` with the encoder's mesh axes set for ``mesh``: ring attention
     (or dilated cross-shard segments) over ``seq``, the heads and FFN over
-    ``tensor``, experts over ``expert``, MoE routing over ``data`` × ``seq``."""
+    ``tensor``, experts over ``expert``, MoE routing over ``data`` × ``seq``,
+    and the token table over the axis ``spec_for`` splits it over."""
     enc = cfg.encoder
     seq = AXIS_SEQ if _wide(mesh, AXIS_SEQ) else None
     fields = {"tensor_axis": AXIS_TENSOR if _wide(mesh, AXIS_TENSOR) else None,
@@ -246,7 +296,9 @@ def sharded_config(cfg: PretrainConfig, mesh: Mesh) -> PretrainConfig:
     if enc.moe_freq:
         fields["expert_axis"] = AXIS_EXPERT if _wide(mesh, AXIS_EXPERT) else None
         fields["token_axes"] = tuple(a for a in (AXIS_DATA, AXIS_SEQ) if _wide(mesh, a))
-    return dataclasses.replace(cfg, encoder=dataclasses.replace(enc, **fields))
+    table = spec_for("embed.weight", (cfg.vocab_size, enc.embed_dim), mesh)
+    return dataclasses.replace(cfg, vocab_axis=table[0] if table else None,
+                               encoder=dataclasses.replace(enc, **fields))
 
 
 def make_pretrain_state(cfg: PretrainConfig, seed: int = 0, device=None, state_dict=None,
@@ -309,10 +361,12 @@ def make_train_step(cfg: PretrainConfig, model: MaskedTokenModel,
 
 def _grad_groups(model: nn.Module, mesh: Mesh):
     """``[(axis, params)]``: each parameter under the axes it is replicated
-    over (every wide mesh axis it is not split over)."""
+    over (every wide mesh axis it is not split over). A split parameter's
+    gradient comes summed over its axis from the collective's backward."""
+    specs = encoder_param_shardings(model, mesh)
     groups: dict[tuple, list] = {}
     for name, prm in model.named_parameters():
-        split = _sharded_axes(spec_for(name, mesh))
+        split = _sharded_axes(specs[name])
         over = tuple(a for a in mesh.axis_names if _wide(mesh, a) and a not in split)
         if over:
             groups.setdefault(over, []).append(prm)
@@ -393,10 +447,11 @@ def save_state(ckpt_dir: str, step: int, model, optimizer, mesh: Mesh | None = N
 
     model_state, opt_state = model.state_dict(), optimizer.state_dict()
     if _sharded(mesh):
-        model_state = gather_state_dict(model_state, mesh)
+        specs = encoder_param_shardings(model, mesh)
+        model_state = gather_state_dict(model, mesh)
         opt_state = _per_param_state(
             opt_state, [n for n, _ in model.named_parameters()],
-            lambda n, t: runtime.host_local_to_global(t, mesh, spec_for(n, mesh)))
+            lambda n, t: runtime.host_local_to_global(t, mesh, specs[n]))
     if runtime.process_index() == 0:
         save_checkpoint(ckpt_dir, step, {"model": model_state, "optimizer": opt_state})
     runtime.barrier()
@@ -407,9 +462,10 @@ def load_state(tree: dict, model, optimizer, mesh: Mesh | None = None) -> None:
     blocks over a mesh."""
     model_state, opt_state = tree["model"], tree["optimizer"]
     if _sharded(mesh):
+        specs = encoder_param_shardings(model, mesh)
         model_state = shard_state_dict(model_state, mesh)
         opt_state = _per_param_state(opt_state, [n for n, _ in model.named_parameters()],
-                                     lambda n, t: local_block(t, mesh, spec_for(n, mesh)))
+                                     lambda n, t: local_block(t, mesh, specs[n]))
     model.load_state_dict(model_state)
     optimizer.load_state_dict(opt_state)
 

@@ -12,13 +12,14 @@ from moc_tpu_torch.zeroshot.convert import (convert_text_tower, convert_vision_t
                                             load_conch, random_conch_state_dict)
 from moc_tpu_torch.zeroshot.eval import (classification_metrics, multi_topj_pooling,
                                          run_mizero, run_zeroshot, run_zeroshot_tiles)
+from moc_tpu_torch.zeroshot.musk_tokenizer import MuskTokenizer
 from moc_tpu_torch.zeroshot.prompts import PromptBank, load_prompt_bank
 from moc_tpu_torch.zeroshot.text_tower import TextConfig, TextTower
 from moc_tpu_torch.zeroshot.tokenizer import ConchTokenizer
 from moc_tpu_torch.zeroshot.vision_tower import VisionConfig, VisionTower
 
 __all__ = ["CONCH_VITB16", "CaptionerConfig", "CoCa", "CoCaCaptioner", "CoCaConfig",
-           "ConchTokenizer", "generate_caption", "PromptBank", "TextConfig",
+           "ConchTokenizer", "MuskTokenizer", "generate_caption", "PromptBank", "TextConfig",
            "TextTower", "VisionConfig", "VisionTower", "build_zero_shot_classifier",
            "cached_zero_shot_classifier", "classification_metrics", "convert_text_tower",
            "convert_vision_tower", "l2norm", "load_conch", "load_prompt_bank",

@@ -78,6 +78,12 @@ def preprocess_image(image, image_size: int = 448) -> np.ndarray:
     return _normalize(arr, OPENAI_DATASET_MEAN, OPENAI_DATASET_STD)
 
 
+def preprocess_batch(images, image_size: int = 448) -> np.ndarray:
+    """``preprocess_image`` of each image (PIL or uint8 ``[H, W, 3]``),
+    stacked: ``[N, H', W', 3]`` f32."""
+    return np.stack([preprocess_image(im, image_size) for im in images])
+
+
 def preprocess_image_musk(image, image_size: int = 384) -> np.ndarray:
     """MUSK preprocessing: bicubic short-side resize, center crop, inception
     statistics (mean = std = 0.5)."""

@@ -140,7 +140,7 @@ def train_world(root: str) -> None:
                                             device="cpu", state_dict=spec["states"][cfg_key],
                                             mesh=mesh)
             out[f"step/{name}"] = dict(losses=losses, state={
-                k: v.numpy() for k, v in gather_state_dict(model.state_dict(), mesh).items()})
+                k: v.numpy() for k, v in gather_state_dict(model, mesh).items()})
         runtime.barrier()
     pipe = make_mesh({"pipe": 4})
     if pipe.coords is not None:
@@ -187,3 +187,32 @@ def runtime_world(root: str) -> None:
     gathered = [None] * n
     torch.distributed.all_gather_object(gathered, result)
     _save(root, "runtime_out.pkl", gathered)
+
+
+def vocab_world(root: str) -> None:
+    """The token table split over ``data``: the sharded step of each case of
+    ``vocab_in.pkl`` (its losses, full parameters and each rank's table and
+    Adam moment shapes), a run that writes its checkpoint under ``data=2``
+    and one that resumes under ``data=2`` from a one-process checkpoint."""
+    from moc_tpu_torch.train.pretrain import gather_state_dict, run_pretrain
+
+    out = {}
+    for name, case in _load(root, "vocab_in.pkl").items():
+        mesh = make_mesh(case["mesh"])  # ranks past the mesh's size sit this case out
+        if mesh.coords is not None:
+            model, opt, losses = run_pretrain(
+                case["cfg"], case["batches"].__getitem__, total_steps=case["steps"],
+                device="cpu", state_dict=case["state"], mesh=mesh,
+                ckpt_dir=case.get("ckpt_dir"))
+            table = model.embed.weight
+            shapes = [tuple(table.shape)] + [tuple(opt.state[table][k].shape)
+                                             for k in ("exp_avg", "exp_avg_sq")]
+            ranks = [None] * mesh.size
+            torch.distributed.all_gather_object(ranks, shapes, group=mesh.axis(
+                tuple(mesh.axis_names)).group)
+            out[name] = dict(losses=losses, table_shapes=ranks, state={
+                k: v.numpy() for k, v in gather_state_dict(model, mesh).items()})
+        elif case.get("ckpt_dir"):
+            runtime.barrier()  # the world's barrier after the one save of the case
+        runtime.barrier()
+    _save(root, "vocab_out.pkl", out)

@@ -953,6 +953,50 @@ def test_pretrain_gpu_matches_cpu(gen):
                                    atol=3 * cfg.learning_rate, msg=name)
 
 
+
+def test_split_vocab_step_over_one_rank_equals_the_replicated_step(gen):
+    """The token table built split over a ``data`` axis of one rank (its
+    block the whole table, all-gathered and reduce-scattered over itself)
+    trains on the card as the replicated table does: two steps at a
+    1024-row vocabulary, losses and parameters within 1e-6, K2, K3 and K4
+    launched once per layer a step in both (``chip_smoke.py``'s ``[dist]``
+    phase splits it over 2 ranks)."""
+    import dataclasses
+
+    from moc_tpu_torch.cli import pretrain
+    from moc_tpu_torch.parallel.mesh import make_mesh
+    from moc_tpu_torch.train.pretrain import (MaskedTokenModel, batch_to, make_pretrain_state,
+                                              make_train_step)
+
+    args = pretrain.get_args(["--batch", "4", "--seq_len", "128", "--layers", "2",
+                              "--embed_dim", "256", "--ffn_dim", "1024", "--heads", "8",
+                              "--vocab", "1024"])
+    cfg = pretrain.build_config(args)
+    data_fn = pretrain.make_data_fn(args)
+    state = MaskedTokenModel(cfg).init_parameters(torch.Generator().manual_seed(0)).state_dict()
+    runs = {}
+    for split in (False, True):
+        if split:
+            with make_mesh({"data": 1}):
+                model = MaskedTokenModel(dataclasses.replace(cfg, vocab_axis="data"))
+            assert model.vocab is not None and model.vocab.size == 1
+            model.load_state_dict(state)
+            model = model.cuda()
+            opt = torch.optim.Adam(model.parameters(), lr=cfg.learning_rate)
+        else:
+            model, opt = make_pretrain_state(cfg, device="cuda", state_dict=state)
+        step = make_train_step(cfg, model, opt)
+        before = [fn.launches for fn in (flash_fwd_cuda, flash_bwd_dq_cuda, flash_bwd_dkv_cuda)]
+        losses = [float(step(*batch_to(torch.device("cuda"), *data_fn(i)))[0])
+                  for i in range(2)]
+        launched = [fn.launches - b for fn, b in zip(
+            (flash_fwd_cuda, flash_bwd_dq_cuda, flash_bwd_dkv_cuda), before)]
+        assert launched == [4, 4, 4]
+        runs[split] = losses, {k: v.cpu() for k, v in model.state_dict().items()}
+    np.testing.assert_allclose(runs[True][0], runs[False][0], rtol=0, atol=1e-6)
+    for name, t in runs[True][1].items():
+        torch.testing.assert_close(t, runs[False][1][name], rtol=0, atol=1e-6, msg=name)
+
 def _training_batch(device):
     """Four synthetic slides of 1500-4000 patches at D=512 (two a class),
     the oracle weights, and the full-width ``MOCConfig`` (topj 400, topk 10)."""
